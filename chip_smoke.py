@@ -1,0 +1,338 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's serving path once on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Run from the root of a checkout. Phases, each printing its result; any
+failure ends the run with a non-zero exit and no result line:
+
+  1. card    require torch.cuda; print nvidia-smi's name and power limit
+  2. build   compile the G2/G4 CUDA kernels from the checkout's sources
+  3. kernels each kernel against its plain PyTorch twin on seeded random
+             geometry with masked tails: float32 values and gradients
+             to 2e-5, float64 values to 1e-12
+  4. serve   load snap_Ni_sfa.npz with backend="pallas" into the port's
+             calculator on cuda in float32 and answer jittered fcc Ni
+             requests of 108, 864, 4000 and 32000 atoms; each must
+             launch both kernels, agree with the same calculator on the
+             twins, and have |sum F| ~ 0; the 108-atom request is also
+             held against the JAX-reference fixture (float32 and float64)
+  5. time    median time per request and its device E/F/S part,
+             kernels vs twins; each kernel vs its twin (CUDA events)
+
+The line before the last is a JSON object of per-kernel results; the
+last is {"ok": true, "device": {...}}.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+MODEL = ROOT / "artifacts" / "snap_ni_sfa" / "model" / "snap_Ni_sfa.npz"
+FIXTURE = ROOT / "tests" / "data" / "torch_port_ref_ni108.json"
+KERNEL_SOURCE = "tensoralloy_tpu_torch/csrc/sf_kernels.cu"
+REPLACES = {"g2": "tensoralloy_tpu/ops/fused.py:326",
+            "g4": "tensoralloy_tpu/ops/fused.py:412"}
+# fcc repeats per axis -> 108, 864, 4000 and 32000 atoms
+REQUEST_REPS = (3, 6, 10, 20)
+LATTICE = 3.52      # Angstrom
+SIGMA = 0.05        # Angstrom, Gaussian jitter of every coordinate
+SEED = 0
+F32 = dict(rtol=2e-5, atol=2e-5)     # as tests/test_backends.py
+F64 = dict(rtol=1e-12, atol=1e-12)
+F32_REL = 1e-4      # E/F/S relative error, float32 serving
+F64_REL = 1e-10     # E/F/S relative error, float64 serving
+
+
+def jittered_fcc(reps: int, seed: int = SEED, a: float = LATTICE,
+                 sigma: float = SIGMA):
+    """Periodic fcc Ni supercell of 4 reps^3 atoms with every coordinate
+    jittered by N(0, sigma) from a seeded numpy generator.
+    -> (positions [n, 3], cell [3, 3])."""
+    basis = np.array([[0.0, 0.0, 0.0], [0.0, 0.5, 0.5],
+                      [0.5, 0.0, 0.5], [0.5, 0.5, 0.0]])
+    grid = np.array([(i, j, k) for i in range(reps) for j in range(reps)
+                     for k in range(reps)], dtype=np.float64)
+    pos = ((grid[:, None, :] + basis[None]) * a).reshape(-1, 3)
+    pos = pos + np.random.default_rng(seed).normal(0.0, sigma, pos.shape)
+    return pos, np.eye(3) * a * reps
+
+
+def rel_err(a, b) -> float:
+    """max |a - b| / max |b|."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.max(np.abs(a - b)) / max(np.max(np.abs(b)), 1e-300))
+
+
+def efs_errors(res, ref) -> dict:
+    return {k: rel_err(res[k], ref[k])
+            for k in ("energy", "forces", "stress")}
+
+
+def phase(name: str):
+    print(f"== phase {name}", flush=True)
+
+
+# ----------------------------------------------------------------------
+def check_card() -> str:
+    phase("card")
+    if not torch.cuda.is_available():
+        raise SystemExit("FAIL card: torch.cuda.is_available() is false")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    card = smi.stdout.strip().splitlines()[0].strip()
+    print(card)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"device {torch.cuda.get_device_name(0)} "
+          f"count {torch.cuda.device_count()}")
+    return card
+
+
+def build() -> None:
+    phase("build")
+    from tensoralloy_tpu_torch.ops import fused
+    t0 = time.perf_counter()
+    path = fused.build_kernels()
+    fused._library()
+    print(f"built {path.name} in {time.perf_counter() - t0:.1f} s")
+    for line in fused.build_log.splitlines():
+        if "Used" in line or "spill" in line:
+            print("  " + line.strip())
+
+
+def _random_pairs(rng, rows, n, n_slots, rc, dtype, device):
+    """Seeded [rows, n] pair rows: real entries first, then a masked
+    tail of zero distances (finite garbage a kernel must not read)."""
+    lengths = rng.integers(0, n + 1, size=rows)
+    real = np.arange(n)[None, :] < lengths[:, None]
+    rij = np.where(real, rng.uniform(0.5, 1.1 * rc, (rows, n)), 0.0)
+    slot = rng.integers(0, n_slots, (rows, n)).astype(np.float64)
+    t = lambda x: torch.as_tensor(x, dtype=dtype, device=device)
+    return t(rij), t(slot), t(real.astype(np.float64))
+
+
+def _random_triples(rng, rows, n, n_slots, rc, dtype, device):
+    lengths = rng.integers(0, n + 1, size=rows)
+    real = np.arange(n)[None, :] < lengths[:, None]
+
+    def vec():
+        u = rng.normal(size=(rows, n, 3))
+        u /= np.linalg.norm(u, axis=-1, keepdims=True)
+        return u * rng.uniform(1.0, 1.1 * rc, (rows, n, 1))
+
+    vj, vk = vec(), vec()
+    dists = [np.linalg.norm(v, axis=-1) for v in (vj, vk, vk - vj)]
+    dists = [np.where(real, d, 0.0) for d in dists]
+    slot = rng.integers(0, n_slots, (rows, n)).astype(np.float64)
+    t = lambda x: torch.as_tensor(x, dtype=dtype, device=device)
+    return [t(d) for d in dists] + [t(slot), t(real.astype(np.float64))]
+
+
+def check_kernels(device="cuda", rows=4001) -> None:
+    """Kernel wrapper against twin; the autograd Function's gradient
+    against the twin's own autograd."""
+    phase("kernels")
+    from tensoralloy_tpu_torch.ops import fused
+    from tensoralloy_tpu_torch.nn.sf import SymmetryFunction
+    sf = SymmetryFunction(["Ni"], eta=[0.01, 0.1, 0.5, 1.0, 4.0],
+                          omega=[0.0], beta=[0.005], gamma=[1.0, -1.0],
+                          zeta=[1.0, 4.0])
+    rng = np.random.default_rng(SEED)
+    for dtype, tol in ((torch.float32, F32), (torch.float64, F64)):
+        for cutoff in ("cosine", "polynomial"):
+            g2_args = (sf.radial_grid, 6.0, cutoff, 2)
+            rij, slot, mask = _random_pairs(rng, rows, 128, 2, 6.0, dtype,
+                                            device)
+            _compare("g2", fused.G2Function, fused.g2_reference,
+                     [rij], [slot, mask], g2_args, dtype, tol)
+            g4_args = (sf.angular_grid, 4.0, cutoff, 3)
+            *dists, slot, mask = _random_triples(rng, rows, 256, 3, 4.0,
+                                                 dtype, device)
+            _compare("g4", fused.G4Function, fused.g4_reference,
+                     dists, [slot, mask], g4_args, dtype, tol)
+
+
+def _compare(name, function, reference, diff, rest, spec, dtype, tol):
+    """Values and gradients of `function` (kernel forward) against the
+    plain `reference` on the same inputs."""
+    x = [d.clone().requires_grad_() for d in diff]
+    y = function.apply(*x, *rest, *spec)
+    torch.cuda.synchronize()
+    x_ref = [d.clone().requires_grad_() for d in diff]
+    y_ref = reference(*x_ref, *rest, *spec)
+    torch.testing.assert_close(y, y_ref, **tol)
+    gen = torch.Generator(device=y.device).manual_seed(SEED)
+    gbar = torch.randn(y.shape, generator=gen, dtype=dtype, device=y.device)
+    grads = torch.autograd.grad(y, x, gbar)
+    grads_ref = torch.autograd.grad(y_ref, x_ref, gbar)
+    for g, gr in zip(grads, grads_ref):
+        torch.testing.assert_close(g, gr, **tol)
+    err = (y - y_ref).abs().max().item()
+    print(f"  {name} {str(dtype)[6:]} {spec[2]} {tuple(y.shape)}: "
+          f"max_abs_err {err:.3e} at max|value| "
+          f"{y_ref.abs().max().item():.3e} (rtol/atol {tol['rtol']:g}) ok")
+
+
+def _structure(reps):
+    from tensoralloy_tpu_torch.atoms import Structure
+    pos, cell = jittered_fcc(reps)
+    return Structure.from_symbols(["Ni"] * len(pos), pos, cell,
+                                  pbc=[True] * 3)
+
+
+def _fixture():
+    from tensoralloy_tpu_torch.atoms import Structure
+    ref = json.loads(FIXTURE.read_text())
+    s = Structure.from_symbols(["Ni"] * len(ref["positions"]),
+                               ref["positions"], ref["cell"],
+                               pbc=[True] * 3)
+    return s, ref
+
+
+def serve(card: str, device="cuda", request_reps=REQUEST_REPS):
+    """The main path: four requests through the kernels, counted."""
+    phase("serve")
+    from tensoralloy_tpu_torch.calculator import TensorAlloyCalculator
+    from tensoralloy_tpu_torch.ops import fused
+    calc = TensorAlloyCalculator(str(MODEL), device=device, dtype="medium",
+                                 backend="pallas")
+    structures = [_fixture()[0]] + [_structure(r)
+                                    for r in request_reps[1:]]
+    results = []
+    fused.reset_launch_counts()
+    for s in structures:
+        before = dict(fused.launch_counts)
+        results.append(calc.calculate(s))
+        after = dict(fused.launch_counts)
+        if not all(after[k] > before[k] for k in after):
+            raise AssertionError(f"{len(s)} atoms: kernels not launched "
+                                 f"({before} -> {after})")
+    launches = dict(fused.launch_counts)
+    print(f"  launches over the four requests: {launches}")
+
+    twin = TensorAlloyCalculator(str(MODEL), device=device, dtype="medium",
+                                 backend="dense")
+    for s, res in zip(structures, results):
+        errs = efs_errors(res, twin.calculate(s))
+        fsum = float(np.max(np.abs(res["forces"].sum(axis=0))))
+        fmax = float(np.max(np.abs(res["forces"])))
+        print(f"  {len(s)} atoms: E {res['energy']:.6f} eV, "
+              f"max|F| {fmax:.4f} eV/A, |sum F| {fsum:.2e}; vs twins "
+              f"{json.dumps(errs)}")
+        if max(errs.values()) > F32_REL:
+            raise AssertionError(f"kernel path disagrees with twins: {errs}")
+        # float32 round-off of a few hundred terms per atom, summed over
+        # atoms as a random walk
+        if fsum > 1e-5 * fmax * np.sqrt(len(s)):
+            raise AssertionError(f"|sum F| = {fsum} is not ~0")
+
+    s, ref = _fixture()
+    errs32 = efs_errors(results[0], ref)
+    calc64 = TensorAlloyCalculator(str(MODEL), device=device, dtype="high",
+                                   backend="pallas")
+    errs64 = efs_errors(calc64.calculate(s), ref)
+    print(f"  108 atoms vs JAX fixture: float32 {json.dumps(errs32)}; "
+          f"float64 {json.dumps(errs64)}")
+    if max(errs32.values()) > F32_REL or max(errs64.values()) > F64_REL:
+        raise AssertionError("port disagrees with the JAX fixture")
+    return calc, twin, structures, launches
+
+
+def _median_ms(fn, reps: int, warmup: int = 3) -> float:
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def _median_host_ms(fn, reps: int) -> float:
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def time_path(card, calc, twin, structures, launches):
+    phase("time")
+    from tensoralloy_tpu_torch.ops import fused
+    from tensoralloy_tpu_torch.ops.dense import (dense_pair_geometry,
+                                                 dense_triple_geometry)
+    for s in structures:
+        reps = 5 if len(s) < 10000 else 3
+        vap = calc._get_vap(s)
+        t_req = _median_host_ms(lambda: calc.calculate(s), reps)
+        t_feat = _median_host_ms(lambda: calc.featurize(s, vap), reps)
+        feats = calc.featurize(s, vap)
+        t_k = _median_host_ms(lambda: calc._get_efs(s)(feats), reps)
+        t_t = _median_host_ms(lambda: twin._get_efs(s)(feats), reps)
+        print(f"  request {len(s)} atoms: {t_req:.2f} ms, of which host "
+              f"featurize + copy {t_feat:.2f} ms; device E/F/S {t_k:.2f} ms "
+              f"through the kernels, {t_t:.2f} ms through the twins "
+              f"(medians of {reps}; {card})")
+
+    # each kernel at the main path's shapes: the largest request
+    s = structures[-1]
+    feats = calc.featurize(s, calc._get_vap(s))
+    sf, fz = calc.model.descriptor, calc.featurizer
+    rij, _, islot, mask = dense_pair_geometry(feats, with_unit=False)
+    g2 = ((rij, islot, mask, sf.radial_grid, fz.rcut, sf.cutoff_function,
+           fz.n_radial_slots), fused.g2_kernel, fused.g2_reference)
+    trip = dense_triple_geometry(feats)
+    g4 = ((*trip, sf.angular_grid, fz.acut, sf.cutoff_function,
+           fz.n_angular_slots), fused.g4_kernel, fused.g4_reference)
+    rows = []
+    for name, (args, kernel, reference) in (("g2", g2), ("g4", g4)):
+        err = (kernel(*args) - reference(*args)).abs().max().item()
+        ms = _median_ms(lambda: kernel(*args), 20)
+        plain_ms = _median_ms(lambda: reference(*args), 20)
+        ms2 = _median_ms(lambda: kernel(*args), 20)
+        print(f"  {name} {tuple(args[0].shape)} float32: kernel {ms:.4f} / "
+              f"{ms2:.4f} ms, twin {plain_ms:.4f} ms, max_abs_err "
+              f"{err:.3e} ({card})")
+        rows.append({"name": name, "route": "cuda", "source": KERNEL_SOURCE,
+                     "replaces": REPLACES[name],
+                     "launches": launches[name], "max_abs_err": err,
+                     "ms": ms, "plain_ms": plain_ms})
+    return rows
+
+
+def main() -> int:
+    t0 = time.perf_counter()
+    card = check_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build()
+    check_kernels()
+    calc, twin, structures, launches = serve(card)
+    rows = time_path(card, calc, twin, structures, launches)
+    print(f"total {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,81 @@
+"""Smooth cutoff functions (port of `tensoralloy_tpu/ops/cutoffs.py`).
+
+Plain functions of torch tensors; shapes broadcast. The CUDA kernels in
+`csrc/sf_kernels.cu` carry the same five forms, selected by
+`CUTOFF_IDS`.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+
+def cosine_cutoff(r, rc):
+    """Behler cosine cutoff: 0.5 (cos(pi min(r/rc, 1)) + 1)."""
+    z = torch.clamp(r / rc, max=1.0)
+    return 0.5 * (torch.cos(z * math.pi) + 1.0)
+
+
+def polynomial_cutoff(r, rc, gamma: float = 5.0):
+    """Peterson polynomial cutoff:
+    1 + g (r/rc)^(g+1) - (g+1)(r/rc)^g, clamped at r = rc."""
+    z = torch.clamp(r / rc, max=1.0)
+    return 1.0 + gamma * z ** (gamma + 1.0) - (gamma + 1.0) * z ** gamma
+
+
+def meam_cutoff(x):
+    """MEAM cutoff of the *scaled* coordinate x in [0, 1]."""
+    x = torch.clamp(x, 0.0, 1.0)
+    return torch.square(1.0 - (1.0 - x) ** 4)
+
+
+def deepmd_cutoff(r, rc, rcs):
+    """DeePMD switching: 1/r inside rcs, smooth cosine decay to rc."""
+    z = torch.clamp((r - rcs) / (rc - rcs), 0.0, 1.0)
+    positive = r > 0
+    recip = torch.where(positive, 1.0 / torch.where(positive, r, 1.0), 0.0)
+    return recip * (0.5 * torch.cos(math.pi * z) + 0.5)
+
+
+def tersoff_cutoff(r, R, D):
+    """Tersoff cutoff: 1 for r<R-D, 0 for r>R+D, sine ramp between."""
+    z = torch.clamp((r - R) / D, -1.0, 1.0)
+    return 0.5 - 0.5 * torch.sin(0.5 * math.pi * z)
+
+
+def meam_radial_cutoff(r, rc, delta=None):
+    """MEAM cutoff as a radial function: fc((rc - r)/delta), with the
+    smoothing window `delta` defaulting to the full range rc."""
+    d = rc if delta is None else delta
+    return meam_cutoff((rc - r) / d)
+
+
+def deepmd_radial_cutoff(r, rc, rcs=None):
+    """DeePMD switching with rcs defaulting to 2/3 rc."""
+    return deepmd_cutoff(r, rc, (2.0 / 3.0) * rc if rcs is None else rcs)
+
+
+def tersoff_radial_cutoff(r, rc, d_frac=0.1):
+    """Tersoff cutoff pinned so f == 0 exactly at r = rc:
+    R = rc - D with half-width D = d_frac * rc."""
+    D = d_frac * rc
+    return tersoff_cutoff(r, rc - D, D)
+
+
+# Registry keyed by the `cutoff_function` option.
+CUTOFFS = {
+    "cosine": cosine_cutoff,
+    "polynomial": polynomial_cutoff,
+    "meam": meam_radial_cutoff,
+    "deepmd": deepmd_radial_cutoff,
+    "tersoff": tersoff_radial_cutoff,
+}
+
+# The id each cutoff has in the CUDA kernels (`cutoff_value` in
+# csrc/sf_kernels.cu), with the default keyword values above.
+CUTOFF_IDS = {name: i for i, name in enumerate(CUTOFFS)}
+
+
+def apply_cutoff(name: str, r, rc, **kwargs):
+    return CUTOFFS[name](r, rc, **kwargs)

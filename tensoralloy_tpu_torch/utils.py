@@ -1,0 +1,92 @@
+"""Foundational helpers: k-body term algebra, integer pairing.
+
+Parity targets: reference `tensoralloy/utils.py:69-290` (pairing functions,
+`get_kbody_terms`, `get_elements_from_kbody_term`) — re-implemented here
+with the same ordering semantics so descriptor feature layouts match.
+"""
+from __future__ import annotations
+
+import re
+from itertools import chain
+from typing import Dict, List, Tuple
+
+import numpy as np
+
+
+class Defaults:
+    """Default hyperparameters (reference `utils.py:393-420`)."""
+    rc = 6.5
+    seed = 611
+    variable_moving_average_decay = 0.999
+    activation = "softplus"
+    hidden_sizes = [64, 32]
+    learning_rate = 0.01
+
+
+# ----------------------------------------------------------------------
+# Integer pairing (triple/pair dedup during angular metadata build).
+# ----------------------------------------------------------------------
+
+def cantor_pairing(x: np.ndarray, y: np.ndarray) -> np.ndarray:
+    """Cantor pairing function z = (x+y)(x+y+1)/2 + y (N x N -> N)."""
+    x = np.asarray(x, dtype=np.int64)
+    y = np.asarray(y, dtype=np.int64)
+    return (x + y) * (x + y + 1) // 2 + y
+
+
+def szudzik_pairing(x: np.ndarray, y: np.ndarray) -> np.ndarray:
+    """Szudzik's elegant pairing of two (possibly negative) integers."""
+    x = np.asarray(x, dtype=np.int64)
+    y = np.asarray(y, dtype=np.int64)
+    # Fold Z -> N
+    a = np.where(x >= 0, 2 * x, -2 * x - 1)
+    b = np.where(y >= 0, 2 * y, -2 * y - 1)
+    return np.where(a >= b, a * a + a + b, b * b + a)
+
+
+def szudzik_pairing_nd(*cols) -> np.ndarray:
+    """Fold N integer columns into one unique id by chained Szudzik pairing."""
+    out = np.asarray(cols[0], dtype=np.int64)
+    for c in cols[1:]:
+        out = szudzik_pairing(out, c)
+    return out
+
+
+# ----------------------------------------------------------------------
+# K-body terms
+# ----------------------------------------------------------------------
+
+def get_elements_from_kbody_term(kbody_term: str) -> List[str]:
+    """Split 'NiMo' -> ['Ni','Mo'], 'NiNiMo' -> ['Ni','Ni','Mo']."""
+    return re.findall(r"[A-Z][a-z]*", kbody_term)
+
+
+def get_kbody_terms(elements: List[str], angular: bool = False,
+                    symmetric: bool = True
+                    ) -> Tuple[List[str], Dict[str, List[str]], List[str]]:
+    """Ordered k-body interaction classes.
+
+    Matches the ordering contract of the reference (`utils.py:237-290`):
+    elements sorted; for each center element e, radial terms are
+    [ee, e<other1>, e<other2>, ...] (self first, others in sorted order);
+    angular terms append e + sorted(jk) combinations (j<=k if symmetric).
+    """
+    elements = sorted(set(elements))
+    n = len(elements)
+    per_element: Dict[str, List[str]] = {e: [e + e] for e in elements}
+    for i, e in enumerate(elements):
+        for j, o in enumerate(elements):
+            if i != j:
+                per_element[e].append(e + o)
+    if angular:
+        for e in elements:
+            for j in range(n):
+                if symmetric:
+                    for k in range(j, n):
+                        suffix = "".join(sorted([elements[j], elements[k]]))
+                        per_element[e].append(e + suffix)
+                else:
+                    for k in range(n):
+                        per_element[e].append(e + elements[j] + elements[k])
+    all_terms = list(chain(*[per_element[e] for e in elements]))
+    return all_terms, per_element, elements

@@ -1,0 +1,173 @@
+"""The port's serving slice against the JAX package: the calculator end to
+end, the JAX-reference fixture that `chip_smoke.py` checks on the GPU,
+and the guards around the GPU-only parts.
+
+Regenerate the fixture from the repository root with
+`python -m tests.test_torch_calculator`.
+"""
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke
+from tensoralloy_tpu.atoms import Structure as JaxStructure
+from tensoralloy_tpu.calculator import (
+    TensorAlloyCalculator as JaxCalculator)
+from tensoralloy_tpu_torch.atoms import Structure
+from tensoralloy_tpu_torch.calculator import TensorAlloyCalculator
+
+ROOT = Path(__file__).resolve().parent.parent
+MODEL = str(ROOT / "artifacts" / "snap_ni_sfa" / "model" / "snap_Ni_sfa.npz")
+FIXTURE = ROOT / "tests" / "data" / "torch_port_ref_ni108.json"
+REL_F64 = 1e-10
+
+
+def _structures(reps, seed=0):
+    pos, cell = chip_smoke.jittered_fcc(reps, seed=seed)
+    symbols = ["Ni"] * len(pos)
+    return (JaxStructure.from_symbols(symbols, pos, cell, pbc=[True] * 3),
+            Structure.from_symbols(symbols, pos, cell, pbc=[True] * 3))
+
+
+def _jax_efs(structure, backend=None):
+    calc = JaxCalculator(MODEL)
+    if backend is not None:
+        calc.model.descriptor.backend = backend
+    return {"energy": calc.get_potential_energy(structure),
+            "forces": calc.get_forces(structure),
+            "stress": calc.get_stress(structure)}
+
+
+def _assert_efs_close(res, ref, rel):
+    errs = chip_smoke.efs_errors(res, ref)
+    assert max(errs.values()) <= rel, errs
+
+
+def _reference_record():
+    """The 108-atom request and the E/F/S the JAX package computes for
+    it at float64 with the model as saved."""
+    jax_s, _ = _structures(3)
+    ref = _jax_efs(jax_s)
+    return {"model": "artifacts/snap_ni_sfa/model/snap_Ni_sfa.npz",
+            "structure": "fcc Ni 3x3x3, a=3.52 A, N(0, 0.05 A) jitter, "
+                         "numpy default_rng(0)",
+            "precision": "float64",
+            "units": "eV, eV/A, eV/A^3 (Voigt xx yy zz yz xz xy)",
+            "positions": jax_s.positions.tolist(),
+            "cell": jax_s.cell.tolist(),
+            "energy": float(ref["energy"]),
+            "forces": np.asarray(ref["forces"]).tolist(),
+            "stress": np.asarray(ref["stress"]).tolist()}
+
+
+@pytest.fixture(autouse=True)
+def _numpy_neighbor_path(monkeypatch):
+    # both packages on the numpy neighbor/triple builders
+    monkeypatch.setenv("TENSORALLOY_TPU_NO_NATIVE", "1")
+
+
+def test_calculator_matches_jax_pallas():
+    """32-atom jittered fcc Ni, backend 'pallas', float64: the port's
+    calculator (kernel wrappers -> twins on the CPU) against the JAX
+    calculator (Pallas in interpret mode)."""
+    jax_s, s = _structures(2, seed=1)
+    ref = _jax_efs(jax_s, backend="pallas")
+    calc = TensorAlloyCalculator(MODEL, backend="pallas", dtype="high")
+    res = {"energy": calc.get_potential_energy(s),
+           "forces": calc.get_forces(s), "stress": calc.get_stress(s)}
+    _assert_efs_close(res, ref, REL_F64)
+    assert res["forces"].shape == (32, 3)
+    # the getters serve the cached result until the structure changes
+    assert calc.get_potential_energy(s) == res["energy"]
+    moved = s.copy()
+    moved.positions[0, 0] += 0.01
+    assert calc.get_potential_energy(moved) != res["energy"]
+
+
+def test_reference_fixture_is_current():
+    """The fixture `chip_smoke.py` checks the GPU against is what the JAX
+    package computes today, and the port on the CPU reproduces it."""
+    stored = json.loads(FIXTURE.read_text())
+    fresh = _reference_record()
+    np.testing.assert_array_equal(np.asarray(stored["positions"]),
+                                  np.asarray(fresh["positions"]))
+    np.testing.assert_array_equal(np.asarray(stored["cell"]),
+                                  np.asarray(fresh["cell"]))
+    _assert_efs_close(stored, fresh, REL_F64)
+    _, s = _structures(3)
+    calc = TensorAlloyCalculator(MODEL, backend="pallas", dtype="high")
+    r = calc.calculate(s)
+    _assert_efs_close(r, stored, REL_F64)
+
+
+def test_deferred_modes_raise():
+    with pytest.raises(NotImplementedError, match="slice"):
+        TensorAlloyCalculator(MODEL, device_nl=True)
+    with pytest.raises(NotImplementedError, match="slice"):
+        TensorAlloyCalculator(MODEL, chunked=True)
+    with pytest.raises(NotImplementedError, match="slice"):
+        TensorAlloyCalculator(MODEL, fast_efs=True)
+    _, s = _structures(1)
+    calc = TensorAlloyCalculator(MODEL)
+    with pytest.raises(NotImplementedError, match="slice"):
+        calc.get_hessian(s)
+    with pytest.raises(ValueError, match="not supported"):
+        calc.calculate(Structure.from_symbols(
+            ["Mo"], [[0.0, 0.0, 0.0]], np.eye(3) * 4.0))
+
+
+def test_chip_smoke_refuses_without_gpu(tmp_path):
+    """No fallback: without a card chip_smoke.py fails and prints no
+    result line."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
+                          cwd=tmp_path, env=env, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
+
+
+def test_port_imports_without_jax():
+    code = ("import sys; sys.modules['jax'] = None; "
+            "import tensoralloy_tpu_torch.calculator, "
+            "tensoralloy_tpu_torch.io.model, "
+            "tensoralloy_tpu_torch.ops.fused; print('ok')")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    sources = list((ROOT / "tensoralloy_tpu_torch").rglob("*.py"))
+    assert sources
+    for path in sources + [ROOT / "chip_smoke.py"]:
+        for line in path.read_text().splitlines():
+            words = line.split()
+            if len(words) > 1 and words[0] in ("import", "from"):
+                top = words[1].split(".")[0]
+                assert top not in ("jax", "tensoralloy_tpu"), \
+                    f"{path}: {line}"
+
+
+@pytest.mark.cuda
+def test_kernels_match_twins_on_gpu():
+    """Both CUDA kernels against their twins, float32 and float64."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is "
+                    "false)")
+    chip_smoke.build()
+    chip_smoke.check_kernels(rows=257)
+
+
+if __name__ == "__main__":
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    jax.config.update("jax_enable_x64", True)
+    from tensoralloy_tpu import set_precision
+    set_precision("high")
+    os.environ["TENSORALLOY_TPU_NO_NATIVE"] = "1"
+    FIXTURE.write_text(json.dumps(_reference_record(), indent=1) + "\n")
+    print(f"wrote {FIXTURE}")

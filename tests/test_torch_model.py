@@ -1,0 +1,128 @@
+"""AtomicNN E/F/S in the port against the JAX package at float64, the
+weights carried across with `params_from_jax`, and the `.npz` format
+read and written by both packages."""
+from collections import Counter
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tensoralloy_tpu.atoms import Structure as JaxStructure
+from tensoralloy_tpu.io.model import load_model as jax_load_model
+from tensoralloy_tpu.nn.atomic import AtomicNN as JaxAtomicNN
+from tensoralloy_tpu.nn.sf import SymmetryFunction as JaxSF
+from tensoralloy_tpu.ops.dense import make_dense_efs_fn as jax_dense_efs
+from tensoralloy_tpu.transform import Featurizer as JaxFeaturizer
+from tensoralloy_tpu_torch.io.model import (load_model, model_from_dict,
+                                            params_from_jax, params_to_jax,
+                                            save_model)
+from tensoralloy_tpu_torch.nn.fields import make_efs_fn
+from tensoralloy_tpu_torch.ops.dense import make_dense_efs_fn
+
+from test_torch_host import fcc_ni, mo_ni
+
+MODEL = "artifacts/snap_ni_sfa/model/snap_Ni_sfa.npz"
+REL = 1e-10
+
+
+def _rel(a, b):
+    a, b = np.asarray(a), np.asarray(b)
+    return float(np.max(np.abs(a - b)) / np.max(np.abs(b)))
+
+
+def _features(fz, symbols, pos, cell):
+    s = JaxStructure.from_symbols(symbols, pos, cell, pbc=[True] * 3)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("TENSORALLOY_TPU_NO_NATIVE", "1")
+        return fz.featurize(s, fz.make_vap(s), layout="dense",
+                            transpose=True)
+
+
+def _compare(jax_model, jax_params, model, feats):
+    want = jax.jit(jax_dense_efs(jax_model.energy))(
+        jax_params, {k: jnp.asarray(v) for k, v in feats.items()})
+    t_feats = {k: torch.as_tensor(v) for k, v in feats.items()}
+    got = make_dense_efs_fn(model.atomic_energies)(t_feats)
+    for key in ("energy", "forces", "stress_voigt", "total_pressure"):
+        assert _rel(got[key].numpy(), want[key]) <= REL, key
+    # the autodiff-w.r.t.-positions path agrees with the dense assembly
+    auto = make_efs_fn(model.atomic_energies)(t_feats)
+    for key in ("energy", "forces", "stress_voigt", "atomic_energies"):
+        assert _rel(auto[key].numpy(), got[key].numpy()) <= REL, key
+    return got
+
+
+def test_snap_ni_sfa_matches_jax():
+    """The served model, upcast to float64, backend 'pallas', 32 atoms."""
+    jax_model, params, _ = jax_load_model(MODEL)
+    jax_model.descriptor.backend = "pallas"
+    params = jax.tree_util.tree_map(lambda x: jnp.asarray(x, jnp.float64),
+                                    params)
+    model, config = load_model(MODEL, dtype="high", backend="pallas")
+    assert config["model"]["descriptor"]["backend"] == "dense"
+    assert next(model.parameters()).dtype == torch.float64
+    symbols, pos, cell = fcc_ni(2, seed=4)
+    jax_model = jax_model.clone_for(Counter(symbols))
+    model = model.clone_for(Counter(symbols))
+    got = _compare(jax_model, params, model,
+                   _features(jax_model.featurizer, symbols, pos, cell))
+    assert got["forces"].shape == (33, 3)
+
+
+def test_random_binary_model_matches_jax():
+    """A random-init Mo/Ni model (hidden [8, 8], scaled inputs, static
+    energies), carried into the port with params_from_jax."""
+    symbols, pos, cell = mo_ni(seed=2)
+    fz = JaxFeaturizer(["Mo", "Ni"], rcut=4.5, acut=3.5, angular=True)
+    jax_model = JaxAtomicNN(
+        fz, Counter(symbols), JaxSF(fz.elements, backend="pallas"),
+        hidden_sizes=[8, 8],
+        atomic_static_energy={"Mo": -10.9, "Ni": -5.6})
+    params = jax_model.init_params(jax.random.PRNGKey(0))
+    rng = np.random.RandomState(1)
+    for e in ("Mo", "Ni"):   # non-trivial min-max scaling
+        lo = rng.uniform(0.0, 0.5, jax_model.feature_dim)
+        params[e]["norm"] = {"xlo": jnp.asarray(lo),
+                             "xhi": jnp.asarray(lo + rng.uniform(
+                                 1.0, 3.0, jax_model.feature_dim))}
+    model = model_from_dict(jax_model.as_dict(), dtype=torch.float64)
+    model.load_state_dict(params_from_jax(params))
+    _compare(jax_model, params, model, _features(fz, symbols, pos, cell))
+
+
+def test_params_and_npz_round_trip(tmp_path):
+    """JAX tree -> port -> JAX tree is bit-identical, and a model the
+    port saves loads in both packages with the same weights."""
+    with np.load(MODEL) as z:
+        flat = {k: z[k] for k in z.files if k != "__config__"}
+    jax_model, params, _ = jax_load_model(MODEL)
+    back = params_to_jax(params_from_jax(params))
+    leaves = jax.tree_util.tree_leaves_with_path(params)
+    assert len(jax.tree_util.tree_leaves(back)) == len(leaves) == len(flat)
+    for (path, leaf), other in zip(leaves, jax.tree_util.tree_leaves(back)):
+        np.testing.assert_array_equal(np.asarray(leaf), other)
+        assert np.asarray(leaf).dtype == other.dtype
+
+    model, _ = load_model(MODEL, dtype="medium")
+    out = tmp_path / "resaved.npz"
+    save_model(str(out), model)
+    again, config = load_model(str(out), dtype="medium")
+    for (k, a), (k2, b) in zip(model.state_dict().items(),
+                               again.state_dict().items()):
+        assert k == k2
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert config["model"] == model.as_dict()
+    _, jax_params, _ = jax_load_model(str(out))
+    with np.load(out) as z:
+        for key, value in flat.items():
+            np.testing.assert_array_equal(z[key], value)
+    for a, b in zip(jax.tree_util.tree_leaves(jax_params),
+                    jax.tree_util.tree_leaves(params)):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
+def test_segment_backend_is_deferred():
+    with pytest.raises(NotImplementedError, match="later slice"):
+        load_model(MODEL, backend="segment")
