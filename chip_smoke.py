@@ -7,18 +7,27 @@ Run from the root of a checkout. Phases, each printing its result; any
 failure ends the run with a non-zero exit and no result line:
 
   1. card    require torch.cuda; print nvidia-smi's name and power limit
-  2. build   compile the G2/G4 CUDA kernels from the checkout's sources
+  2. build   compile the CUDA kernels (G2/G4, GRAP) from the checkout's
+             sources
   3. kernels each kernel against its plain PyTorch twin on seeded random
              geometry with masked tails: float32 values and gradients
-             to 2e-5, float64 values to 1e-12
-  4. serve   load snap_Ni_sfa.npz with backend="pallas" into the port's
-             calculator on cuda in float32 and answer jittered fcc Ni
-             requests of 108, 864, 4000 and 32000 atoms; each must
-             launch both kernels, agree with the same calculator on the
-             twins, and have |sum F| ~ 0; the 108-atom request is also
-             held against the JAX-reference fixture (float32 and float64)
+             to 2e-5, float64 values to 1e-12; GRAP over the algorithm x
+             moment grid with gaps, symmetric weights and two slots
+  4. serve   the port's calculator on cuda in float32 with
+             backend="pallas", one path after another, each with the
+             launch counts reset before it and read after it:
+               sf      snap_Ni_sfa.npz, jittered fcc Ni of 108, 864, 4000
+                       and 32000 atoms (G2 and G4)
+               grap    snap_Ni.npz (v5_readapt), the same four sizes
+               moni    snap_MoNi.npz (ref11), 4000 atoms, 10 % Mo
+               td      td_Be.npz, 36 atoms of hcp Be at 0.1 eV
+             Each request must launch its path's kernels, agree with the
+             same calculator on the twins, and have |sum F| ~ 0; the
+             108-atom Ni requests and the Be request are also held
+             against the JAX-reference fixtures (float32 and float64)
   5. time    median time per request and its device E/F/S part,
-             kernels vs twins; each kernel vs its twin (CUDA events)
+             kernels vs twins; each kernel vs its twin (CUDA events) at
+             the 32000-atom request's shapes
 
 The line before the last is a JSON object of per-kernel results; the
 last is {"ok": true, "device": {...}}.
@@ -35,15 +44,34 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
-MODEL = ROOT / "artifacts" / "snap_ni_sfa" / "model" / "snap_Ni_sfa.npz"
-FIXTURE = ROOT / "tests" / "data" / "torch_port_ref_ni108.json"
-KERNEL_SOURCE = "tensoralloy_tpu_torch/csrc/sf_kernels.cu"
+MODELS = ROOT / "artifacts"
+DATA = ROOT / "tests" / "data"
+SOURCES = {"g2": "tensoralloy_tpu_torch/csrc/sf_kernels.cu",
+           "g4": "tensoralloy_tpu_torch/csrc/sf_kernels.cu",
+           "grap": "tensoralloy_tpu_torch/csrc/grap_kernel.cu"}
 REPLACES = {"g2": "tensoralloy_tpu/ops/fused.py:326",
-            "g4": "tensoralloy_tpu/ops/fused.py:412"}
+            "g4": "tensoralloy_tpu/ops/fused.py:412",
+            "grap": "tensoralloy_tpu/ops/fused.py:170"}
+# the main path's paths: model, the kernels every request must launch,
+# and the JAX-reference fixture of its first request with the fixture's
+# element (or None)
+PATHS = {
+    "sf": (MODELS / "snap_ni_sfa" / "model" / "snap_Ni_sfa.npz",
+           ("g2", "g4"), (DATA / "torch_port_ref_ni108.json", "Ni")),
+    "grap": (MODELS / "snap_ni_v5_readapt" / "model" / "snap_Ni.npz",
+             ("grap",), (DATA / "torch_port_ref_grap_ni108.json", "Ni")),
+    "moni": (MODELS / "snap_moni_ref11" / "model" / "snap_MoNi.npz",
+             ("grap",), None),
+    "td": (MODELS / "td_be" / "model" / "td_Be.npz", ("grap",),
+           (DATA / "torch_port_ref_td_be.json", "Be")),
+}
+MONI_REPS = 10      # 4000 atoms
+MO_FRACTION = 0.1
 # fcc repeats per axis -> 108, 864, 4000 and 32000 atoms
 REQUEST_REPS = (3, 6, 10, 20)
 LATTICE = 3.52      # Angstrom
 SIGMA = 0.05        # Angstrom, Gaussian jitter of every coordinate
+BE_A, BE_C = 2.2858, 3.5843   # hcp Be, Angstrom
 SEED = 0
 F32 = dict(rtol=2e-5, atol=2e-5)     # as tests/test_backends.py
 F64 = dict(rtol=1e-12, atol=1e-12)
@@ -65,6 +93,23 @@ def jittered_fcc(reps: int, seed: int = SEED, a: float = LATTICE,
     return pos, np.eye(3) * a * reps
 
 
+def jittered_hcp(reps=(3, 3, 2), seed: int = SEED, a: float = BE_A,
+                 c: float = BE_C, sigma: float = SIGMA):
+    """Periodic hcp Be supercell of 2 reps[0] reps[1] reps[2] atoms, every
+    coordinate jittered by N(0, sigma) from a seeded numpy generator.
+    -> (positions [n, 3], cell [3, 3])."""
+    unit = np.array([[a, 0.0, 0.0], [-0.5 * a, 0.5 * np.sqrt(3.0) * a, 0.0],
+                     [0.0, 0.0, c]])
+    basis = np.array([[1 / 3, 2 / 3, 0.25], [2 / 3, 1 / 3, 0.75]])
+    grid = np.array([(i, j, k) for i in range(reps[0])
+                     for j in range(reps[1]) for k in range(reps[2])],
+                    dtype=np.float64)
+    frac = (grid[:, None, :] + basis[None]).reshape(-1, 3)
+    pos = frac @ unit
+    pos = pos + np.random.default_rng(seed).normal(0.0, sigma, pos.shape)
+    return pos, unit * np.asarray(reps, np.float64)[:, None]
+
+
 def rel_err(a, b) -> float:
     """max |a - b| / max |b|."""
     a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
@@ -72,8 +117,10 @@ def rel_err(a, b) -> float:
 
 
 def efs_errors(res, ref) -> dict:
-    return {k: rel_err(res[k], ref[k])
-            for k in ("energy", "forces", "stress")}
+    """Relative errors of E/F/S, and of S and F where `ref` has the
+    finite-temperature heads."""
+    keys = ("energy", "forces", "stress", "eentropy", "free_energy")
+    return {k: rel_err(res[k], ref[k]) for k in keys if k in ref}
 
 
 def phase(name: str):
@@ -105,8 +152,10 @@ def build() -> None:
     fused._library()
     print(f"built {path.name} in {time.perf_counter() - t0:.1f} s")
     for line in fused.build_log.splitlines():
-        if "Used" in line or "spill" in line:
-            print("  " + line.strip())
+        if line.startswith("== ") or "entry function" in line:
+            print("  " + line.strip().replace("ptxas info    : ", ""))
+        elif "Used" in line or "spill" in line:
+            print("    " + line.strip().replace("ptxas info    : ", ""))
 
 
 def _random_pairs(rng, rows, n, n_slots, rc, dtype, device):
@@ -152,16 +201,69 @@ def check_kernels(device="cuda", rows=4001) -> None:
             g2_args = (sf.radial_grid, 6.0, cutoff, 2)
             rij, slot, mask = _random_pairs(rng, rows, 128, 2, 6.0, dtype,
                                             device)
-            _compare("g2", fused.G2Function, fused.g2_reference,
+            _compare("g2", cutoff, fused.G2Function, fused.g2_reference,
                      [rij], [slot, mask], g2_args, dtype, tol)
             g4_args = (sf.angular_grid, 4.0, cutoff, 3)
             *dists, slot, mask = _random_triples(rng, rows, 256, 3, 4.0,
                                                  dtype, device)
-            _compare("g4", fused.G4Function, fused.g4_reference,
+            _compare("g4", cutoff, fused.G4Function, fused.g4_reference,
                      dists, [slot, mask], g4_args, dtype, tol)
+    check_grap_kernel(device, rows)
 
 
-def _compare(name, function, reference, diff, rest, spec, dtype, tol):
+# GRAP cases: the served snap_Ni filter bank (16 pexp filters) and the
+# small grids of tests/test_backends.py, moments with gaps, symmetric
+# weights; (algorithm, parameters, moments, symmetric, cutoff)
+_SNAP_PEXP = {"rl": np.linspace(1.0, 4.0, 16).tolist(),
+              "pl": np.linspace(5.0, 1.25, 16).tolist()}
+GRAP_CASES = (
+    ("pexp", _SNAP_PEXP, [0, 1, 2, 3, 4, 5], False, "cosine"),
+    ("pexp", _SNAP_PEXP, [0, 2, 5], False, "polynomial"),
+    ("pexp", {"rl": [1.0, 2.0, 3.0], "pl": [4.0, 3.0, 2.0]}, [0, 1, 2, 3],
+     True, "cosine"),
+    ("sf", {"eta": [0.5, 2.0, 8.0], "omega": [0.0, 0.0, 0.0]}, [0, 1, 2, 3],
+     False, "polynomial"),
+    ("morse", {"D": [1.0, 1.0], "gamma": [0.5, 1.0], "r0": [2.0, 2.5]},
+     [0, 1, 2, 3], False, "cosine"),
+    ("density", {"A": [1.0, 1.0], "beta": [2.0, 4.0], "re": [3.0, 3.0]},
+     [0, 1, 2, 3], False, "polynomial"),
+)
+
+
+def _random_unit_pairs(rng, rows, n, n_slots, rc, dtype, device):
+    """Seeded [rows, n] GRAP inputs (rij, ux, uy, uz, slot, mask): real
+    entries first, then a masked tail of zero distances and zero unit
+    vectors (finite garbage a kernel must not read)."""
+    rij, slot, mask = _random_pairs(rng, rows, n, n_slots, rc, dtype,
+                                    device)
+    u = rng.normal(size=(3, rows, n))
+    u /= np.linalg.norm(u, axis=0)
+    u = torch.as_tensor(u, dtype=dtype, device=device) * mask
+    return [rij, u[0].contiguous(), u[1].contiguous(), u[2].contiguous(),
+            slot, mask]
+
+
+def check_grap_kernel(device="cuda", rows=4001) -> None:
+    from tensoralloy_tpu_torch.nn.grap import GenericRadialAtomicPotential
+    from tensoralloy_tpu_torch.ops import fused
+    rng = np.random.default_rng(SEED + 1)
+    for dtype, tol in ((torch.float32, F32), (torch.float64, F64)):
+        for algorithm, params, moments, symmetric, cutoff in GRAP_CASES:
+            desc = GenericRadialAtomicPotential(
+                ["Mo", "Ni"], algorithm=algorithm, parameters=params,
+                moment_tensors=moments, symmetric=symmetric,
+                cutoff_function=cutoff)
+            *diff, slot, mask = _random_unit_pairs(rng, rows, 128, 2, 6.0,
+                                                   dtype, device)
+            label = (f"{algorithm} K={desc.n_filters} moments={moments}"
+                     f"{' symmetric' if symmetric else ''} {cutoff} S=2")
+            _compare("grap", label, fused.GrapFunction,
+                     fused.grap_reference, diff, [slot, mask],
+                     (desc, 6.0, 2), dtype, tol)
+
+
+def _compare(name, label, function, reference, diff, rest, spec, dtype,
+             tol):
     """Values and gradients of `function` (kernel forward) against the
     plain `reference` on the same inputs."""
     x = [d.clone().requires_grad_() for d in diff]
@@ -177,49 +279,76 @@ def _compare(name, function, reference, diff, rest, spec, dtype, tol):
     for g, gr in zip(grads, grads_ref):
         torch.testing.assert_close(g, gr, **tol)
     err = (y - y_ref).abs().max().item()
-    print(f"  {name} {str(dtype)[6:]} {spec[2]} {tuple(y.shape)}: "
+    print(f"  {name} {str(dtype)[6:]} {label} {tuple(y.shape)}: "
           f"max_abs_err {err:.3e} at max|value| "
           f"{y_ref.abs().max().item():.3e} (rtol/atol {tol['rtol']:g}) ok")
 
 
-def _structure(reps):
+def _structure(reps, symbols=None):
     from tensoralloy_tpu_torch.atoms import Structure
     pos, cell = jittered_fcc(reps)
-    return Structure.from_symbols(["Ni"] * len(pos), pos, cell,
-                                  pbc=[True] * 3)
+    symbols = symbols or ["Ni"] * len(pos)
+    return Structure.from_symbols(symbols, pos, cell, pbc=[True] * 3)
 
 
-def _fixture():
+def _moni_structure(reps=MONI_REPS):
+    """Jittered fcc with MO_FRACTION of the sites Mo, drawn from a seeded
+    numpy generator."""
+    n = 4 * reps ** 3
+    mo = np.random.default_rng(SEED).choice(n, int(MO_FRACTION * n),
+                                            replace=False)
+    symbols = np.full(n, "Ni", dtype=object)
+    symbols[mo] = "Mo"
+    return _structure(reps, symbols.tolist())
+
+
+def _fixture(fixture):
+    """-> (Structure, record) of a JAX-reference fixture (path, element)."""
     from tensoralloy_tpu_torch.atoms import Structure
-    ref = json.loads(FIXTURE.read_text())
-    s = Structure.from_symbols(["Ni"] * len(ref["positions"]),
+    path, element = fixture
+    ref = json.loads(path.read_text())
+    info = ({"etemperature": ref["etemperature"]}
+            if "etemperature" in ref else {})
+    s = Structure.from_symbols([element] * len(ref["positions"]),
                                ref["positions"], ref["cell"],
-                               pbc=[True] * 3)
+                               pbc=[True] * 3, **info)
     return s, ref
 
 
-def serve(card: str, device="cuda", request_reps=REQUEST_REPS):
-    """The main path: four requests through the kernels, counted."""
-    phase("serve")
+def _requests(path_name, request_reps):
+    model, _, fixture = PATHS[path_name]
+    if path_name in ("sf", "grap"):
+        return [_fixture(fixture)[0]] + [_structure(r)
+                                         for r in request_reps[1:]]
+    if path_name == "moni":
+        return [_moni_structure()]
+    return [_fixture(fixture)[0]]
+
+
+def serve_path(path_name, device="cuda", request_reps=REQUEST_REPS):
+    """One path of the main path: its requests through the kernels, with
+    the launch counts reset just before and read just after."""
     from tensoralloy_tpu_torch.calculator import TensorAlloyCalculator
     from tensoralloy_tpu_torch.ops import fused
-    calc = TensorAlloyCalculator(str(MODEL), device=device, dtype="medium",
+    model, kernels, fixture = PATHS[path_name]
+    print(f"  -- {path_name}: {model.relative_to(ROOT)}")
+    calc = TensorAlloyCalculator(str(model), device=device, dtype="medium",
                                  backend="pallas")
-    structures = [_fixture()[0]] + [_structure(r)
-                                    for r in request_reps[1:]]
+    structures = _requests(path_name, request_reps)
     results = []
     fused.reset_launch_counts()
     for s in structures:
         before = dict(fused.launch_counts)
         results.append(calc.calculate(s))
         after = dict(fused.launch_counts)
-        if not all(after[k] > before[k] for k in after):
-            raise AssertionError(f"{len(s)} atoms: kernels not launched "
-                                 f"({before} -> {after})")
+        if not all(after[k] > before[k] for k in kernels):
+            raise AssertionError(f"{path_name} {len(s)} atoms: kernels "
+                                 f"{kernels} not launched ({before} -> "
+                                 f"{after})")
     launches = dict(fused.launch_counts)
-    print(f"  launches over the four requests: {launches}")
+    print(f"  launches over the {len(structures)} request(s): {launches}")
 
-    twin = TensorAlloyCalculator(str(MODEL), device=device, dtype="medium",
+    twin = TensorAlloyCalculator(str(model), device=device, dtype="medium",
                                  backend="dense")
     for s, res in zip(structures, results):
         errs = efs_errors(res, twin.calculate(s))
@@ -235,16 +364,31 @@ def serve(card: str, device="cuda", request_reps=REQUEST_REPS):
         if fsum > 1e-5 * fmax * np.sqrt(len(s)):
             raise AssertionError(f"|sum F| = {fsum} is not ~0")
 
-    s, ref = _fixture()
-    errs32 = efs_errors(results[0], ref)
-    calc64 = TensorAlloyCalculator(str(MODEL), device=device, dtype="high",
-                                   backend="pallas")
-    errs64 = efs_errors(calc64.calculate(s), ref)
-    print(f"  108 atoms vs JAX fixture: float32 {json.dumps(errs32)}; "
-          f"float64 {json.dumps(errs64)}")
-    if max(errs32.values()) > F32_REL or max(errs64.values()) > F64_REL:
-        raise AssertionError("port disagrees with the JAX fixture")
-    return calc, twin, structures, launches
+    if fixture is not None:
+        s, ref = _fixture(fixture)
+        errs32 = efs_errors(results[0], ref)
+        calc64 = TensorAlloyCalculator(str(model), device=device,
+                                       dtype="high", backend="pallas")
+        errs64 = efs_errors(calc64.calculate(s), ref)
+        print(f"  {len(s)} atoms vs JAX fixture: float32 "
+              f"{json.dumps(errs32)}; float64 {json.dumps(errs64)}")
+        if max(errs32.values()) > F32_REL or max(errs64.values()) > F64_REL:
+            raise AssertionError("port disagrees with the JAX fixture")
+    return calc, twin, structures, {k: launches[k] for k in kernels}
+
+
+def serve(device="cuda", request_reps=REQUEST_REPS):
+    """The main path: every path in turn. -> {path: (calc, twin,
+    structures)}, launches per kernel summed over the paths."""
+    phase("serve")
+    served, launches = {}, {}
+    for name in PATHS:
+        calc, twin, structures, counts = serve_path(name, device,
+                                                    request_reps)
+        served[name] = (calc, twin, structures)
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+    return served, launches
 
 
 def _median_ms(fn, reps: int, warmup: int = 3) -> float:
@@ -273,25 +417,27 @@ def _median_host_ms(fn, reps: int) -> float:
     return float(np.median(times))
 
 
-def time_path(card, calc, twin, structures, launches):
+def time_path(card, served, launches):
     phase("time")
     from tensoralloy_tpu_torch.ops import fused
     from tensoralloy_tpu_torch.ops.dense import (dense_pair_geometry,
                                                  dense_triple_geometry)
-    for s in structures:
-        reps = 5 if len(s) < 10000 else 3
-        vap = calc._get_vap(s)
-        t_req = _median_host_ms(lambda: calc.calculate(s), reps)
-        t_feat = _median_host_ms(lambda: calc.featurize(s, vap), reps)
-        feats = calc.featurize(s, vap)
-        t_k = _median_host_ms(lambda: calc._get_efs(s)(feats), reps)
-        t_t = _median_host_ms(lambda: twin._get_efs(s)(feats), reps)
-        print(f"  request {len(s)} atoms: {t_req:.2f} ms, of which host "
-              f"featurize + copy {t_feat:.2f} ms; device E/F/S {t_k:.2f} ms "
-              f"through the kernels, {t_t:.2f} ms through the twins "
-              f"(medians of {reps}; {card})")
+    for name, (calc, twin, structures) in served.items():
+        for s in structures:
+            reps = 5 if len(s) < 10000 else 3
+            vap = calc._get_vap(s)
+            t_req = _median_host_ms(lambda: calc.calculate(s), reps)
+            t_feat = _median_host_ms(lambda: calc.featurize(s, vap), reps)
+            feats = calc.featurize(s, vap)
+            t_k = _median_host_ms(lambda: calc._get_efs(s)(feats), reps)
+            t_t = _median_host_ms(lambda: twin._get_efs(s)(feats), reps)
+            print(f"  {name} request {len(s)} atoms: {t_req:.2f} ms, of "
+                  f"which host featurize + copy {t_feat:.2f} ms; device "
+                  f"E/F/S {t_k:.2f} ms through the kernels, {t_t:.2f} ms "
+                  f"through the twins (medians of {reps}; {card})")
 
-    # each kernel at the main path's shapes: the largest request
+    # each kernel at the main path's shapes: its largest request
+    calc, _, structures = served["sf"]
     s = structures[-1]
     feats = calc.featurize(s, calc._get_vap(s))
     sf, fz = calc.model.descriptor, calc.featurizer
@@ -301,8 +447,16 @@ def time_path(card, calc, twin, structures, launches):
     trip = dense_triple_geometry(feats)
     g4 = ((*trip, sf.angular_grid, fz.acut, sf.cutoff_function,
            fz.n_angular_slots), fused.g4_kernel, fused.g4_reference)
+    calc, _, structures = served["grap"]
+    s = structures[-1]
+    feats = calc.featurize(s, calc._get_vap(s))
+    fz = calc.featurizer
+    rij, unit, islot, mask = dense_pair_geometry(feats)
+    grap = ((rij, *unit, islot, mask, calc.model.descriptor, fz.rcut,
+             fz.n_radial_slots), fused.grap_kernel, fused.grap_reference)
     rows = []
-    for name, (args, kernel, reference) in (("g2", g2), ("g4", g4)):
+    for name, (args, kernel, reference) in (("g2", g2), ("g4", g4),
+                                            ("grap", grap)):
         err = (kernel(*args) - reference(*args)).abs().max().item()
         ms = _median_ms(lambda: kernel(*args), 20)
         plain_ms = _median_ms(lambda: reference(*args), 20)
@@ -310,7 +464,7 @@ def time_path(card, calc, twin, structures, launches):
         print(f"  {name} {tuple(args[0].shape)} float32: kernel {ms:.4f} / "
               f"{ms2:.4f} ms, twin {plain_ms:.4f} ms, max_abs_err "
               f"{err:.3e} ({card})")
-        rows.append({"name": name, "route": "cuda", "source": KERNEL_SOURCE,
+        rows.append({"name": name, "route": "cuda", "source": SOURCES[name],
                      "replaces": REPLACES[name],
                      "launches": launches[name], "max_abs_err": err,
                      "ms": ms, "plain_ms": plain_ms})
@@ -324,8 +478,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     build()
     check_kernels()
-    calc, twin, structures, launches = serve(card)
-    rows = time_path(card, calc, twin, structures, launches)
+    served, launches = serve()
+    rows = time_path(card, served, launches)
     print(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

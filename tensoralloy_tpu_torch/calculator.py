@@ -3,10 +3,15 @@ dense path of `tensoralloy_tpu/calculator.py`).
 
 Structures are featurized on the host (numpy) into the dense per-atom
 layout, moved to `device`, and energy, forces and stress come from the
-scatter-free `ops.dense.make_dense_efs_fn`. Per-element counts are
-rounded up to powers of two and the dense row widths are bucketed
-(`nnl` from 32, `ntl` from 64), so a stream of structures reuses a few
-layouts; each layout gets a re-laid-out model clone from a cache.
+scatter-free `ops.dense.make_dense_efs_fn`: forces and stress
+differentiate the model's variational energy (the free energy F = U - TS
+of a finite-temperature model, at the electron temperature the
+featurizer reads from `structure.info["etemperature"]`), and the atomic
+energies and finite-temperature heads ride along as extras. Per-element
+counts are rounded up to powers of two and the dense row widths are
+bucketed (`nnl` from 32, `ntl` from 64), so a stream of structures
+reuses a few layouts; each layout gets a re-laid-out model clone from a
+cache.
 
 Not ported yet: the on-device neighbor list (`device_nl`), the
 row-chunked large-cell path (`chunked`), the analytic EAM EFS
@@ -42,11 +47,12 @@ def _not_ported(mode: str, slice_name: str):
 class TensorAlloyCalculator:
     """Evaluate energy/forces/stress of arbitrary structures.
 
-    `model_or_path`: a saved `.npz` or an `AtomicNN` (already on
-    `device` in `dtype`). `dtype` is 'high' (float64), 'medium'
-    (float32) or a torch float dtype; `backend` overrides the saved
-    descriptor backend ('dense' = plain PyTorch, 'pallas' = the CUDA
-    kernels) when loading from a path."""
+    `model_or_path`: a saved `.npz` or an `AtomicNN` (or a
+    finite-temperature subclass), already on `device` in `dtype`.
+    `dtype` is 'high' (float64), 'medium' (float32) or a torch float
+    dtype; `backend` overrides the saved descriptor backend ('dense' =
+    plain PyTorch, 'pallas' = the CUDA kernels) when loading from a
+    path."""
 
     implemented_properties = ("energy", "free_energy", "forces", "stress",
                               "pressure", "atomic_energies")
@@ -110,7 +116,20 @@ class TensorAlloyCalculator:
         efs = self._efs_cache.get(key)
         if efs is None:
             model = self.model.clone_for(Counter(dict(key)))
-            efs = make_dense_efs_fn(model.atomic_energies)
+
+            def extras(feats, model=model):
+                if not hasattr(model, "energy_ops"):
+                    return {"atomic_energies": model.atomic_energies(feats)}
+                # finite-T heads: one eager pass gives the atomic U_i and
+                # the totals (JAX's jit shares `atomic_energies` and
+                # `energy_ops`; eager PyTorch would run them twice)
+                heads = model._atomic_heads(feats)
+                return {"atomic_energies": heads["energy"],
+                        "energy_U": heads["energy"].sum(),
+                        "eentropy": heads["eentropy"].sum(),
+                        "free_energy_F": heads["free_energy"].sum()}
+
+            efs = make_dense_efs_fn(model.variational_energy, extras)
             self._efs_cache[key] = efs
         return efs
 
@@ -150,7 +169,7 @@ class TensorAlloyCalculator:
 
     @staticmethod
     def _assemble(out, vap) -> Dict[str, np.ndarray]:
-        return {
+        results = {
             "energy": float(out["energy"]),
             "free_energy": float(out["energy"]),
             "forces": vap.reverse_map(out["forces"]),
@@ -158,6 +177,11 @@ class TensorAlloyCalculator:
             "pressure": float(out["total_pressure"]),
             "atomic_energies": vap.reverse_map(out["atomic_energies"]),
         }
+        if "energy_U" in out:        # finite-temperature heads
+            results["energy"] = float(out["energy_U"])
+            results["eentropy"] = float(out["eentropy"])
+            results["free_energy"] = float(out["free_energy_F"])
+        return results
 
     @staticmethod
     def _fingerprint(structure: Structure):
@@ -200,6 +224,15 @@ class TensorAlloyCalculator:
     def get_atomic_energies(self, structure: Optional[Structure] = None
                             ) -> np.ndarray:
         return self._maybe_calculate(structure)["atomic_energies"]
+
+    def get_electron_entropy(self, structure: Optional[Structure] = None
+                             ) -> float:
+        results = self._maybe_calculate(structure)
+        if "eentropy" not in results:
+            raise ValueError(
+                "this model has no electron-entropy head (the finite-"
+                "temperature models provide one)")
+        return results["eentropy"]
 
     def get_free_energy(self, structure: Optional[Structure] = None
                         ) -> float:

@@ -113,17 +113,17 @@ def load_model(path: str, *, device="cpu", dtype="high",
 
 
 def model_from_dict(d: dict, *, device=None, dtype=None):
-    """Model factory; the serving slice carries AtomicNN with
-    SymmetryFunction descriptors."""
+    """Model factory: AtomicNN and the finite-temperature
+    TemperatureDependentAtomicNN and BeNN, with SymmetryFunction or GRAP
+    descriptors."""
     from ..transform.featurizer import Featurizer
-    if d["class"] != "AtomicNN":
+    cls = d["class"]
+    if cls not in ("AtomicNN", "TemperatureDependentAtomicNN", "BeNN"):
         raise NotImplementedError(
-            f"model class {d['class']!r} is not ported yet (the serving "
-            f"slice carries AtomicNN; other models come in later slices)")
-    from ..nn.atomic import AtomicNN
-    return AtomicNN(
-        Featurizer.from_dict(d["featurizer"]), Counter(d["max_occurs"]),
-        descriptor_from_dict(d["descriptor"]),
+            f"model class {cls!r} is not ported yet (the serving slices "
+            f"carry AtomicNN and the finite-temperature models; the "
+            f"EAM/ADP family comes with slice 3)")
+    kwargs = dict(
         hidden_sizes=d.get("hidden_sizes"),
         activation=d.get("activation", "softplus"),
         use_resnet_dt=d.get("use_resnet_dt", True),
@@ -131,16 +131,30 @@ def model_from_dict(d: dict, *, device=None, dtype=None):
         atomic_static_energy=d.get("atomic_static_energy"),
         fixed_static_energy=d.get("fixed_static_energy", False),
         device=device, dtype=dtype)
+    args = (Featurizer.from_dict(d["featurizer"]), Counter(d["max_occurs"]),
+            descriptor_from_dict(d["descriptor"]))
+    if cls == "AtomicNN":
+        from ..nn.atomic import AtomicNN
+        return AtomicNN(*args, **kwargs)
+    from ..nn.finite_temperature import TemperatureDependentAtomicNN
+    from ..nn.special import BeNN
+    td_cls = BeNN if cls == "BeNN" else TemperatureDependentAtomicNN
+    return td_cls(*args, layers=d.get("layers", [128, 128]),
+                  eentropy_algo=d.get("eentropy_algo", "default"),
+                  ft_activation=d.get("ft_activation", "softplus"),
+                  **kwargs)
 
 
 def descriptor_from_dict(d: dict):
-    if d["class"] != "SymmetryFunction":
-        raise NotImplementedError(
-            f"descriptor {d['class']!r} is not ported yet (GRAP comes "
-            f"with the next slice)")
-    from ..nn.sf import SymmetryFunction
-    return SymmetryFunction(
-        d["elements"], eta=d["eta"], omega=d["omega"], beta=d["beta"],
-        gamma=d["gamma"], zeta=d["zeta"],
-        cutoff_function=d.get("cutoff_function", "cosine"),
-        backend=d.get("backend", "segment"))
+    cls = d["class"]
+    if cls == "SymmetryFunction":
+        from ..nn.sf import SymmetryFunction
+        return SymmetryFunction(
+            d["elements"], eta=d["eta"], omega=d["omega"], beta=d["beta"],
+            gamma=d["gamma"], zeta=d["zeta"],
+            cutoff_function=d.get("cutoff_function", "cosine"),
+            backend=d.get("backend", "segment"))
+    if cls == "GenericRadialAtomicPotential":
+        from ..nn.grap import GenericRadialAtomicPotential
+        return GenericRadialAtomicPotential.from_dict(d)
+    raise ValueError(f"unknown descriptor class {cls}")

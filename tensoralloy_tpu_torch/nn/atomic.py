@@ -27,16 +27,20 @@ from .layers import (apply_dense_stack, freeze_output_bias,
 
 
 def _dense_stack(in_dim: int, hidden_sizes: Sequence[int], resnet_dt: bool,
-                 factory: dict) -> nn.ModuleDict:
+                 factory: dict, out_dim: int = 1,
+                 output_bias: bool = True) -> nn.ModuleDict:
     """Zero-filled stack with the JAX `init_dense_stack` shapes: hidden
-    layers with bias (and dt where widths match), a biased output of 1."""
-    sizes = [in_dim] + list(hidden_sizes) + [1]
+    layers with bias (and dt where widths match), a linear output of
+    `out_dim`, biased when `output_bias`."""
+    sizes = [in_dim] + list(hidden_sizes) + [out_dim]
     layers = nn.ModuleList()
     for li in range(len(sizes) - 1):
         fan_in, fan_out = sizes[li], sizes[li + 1]
-        layer = {"w": torch.zeros(fan_in, fan_out, **factory),
-                 "b": torch.zeros(fan_out, **factory)}
-        if li < len(sizes) - 2 and resnet_dt and fan_in == fan_out:
+        is_output = li == len(sizes) - 2
+        layer = {"w": torch.zeros(fan_in, fan_out, **factory)}
+        if not is_output or output_bias:
+            layer["b"] = torch.zeros(fan_out, **factory)
+        if not is_output and resnet_dt and fan_in == fan_out:
             layer["dt"] = torch.zeros(fan_out, **factory)
         layers.append(nn.ParameterDict(
             {k: nn.Parameter(v) for k, v in layer.items()}))
@@ -79,8 +83,7 @@ class AtomicNN(nn.Module):
         factory = {"device": device, "dtype": dtype}
         params = nn.ModuleDict()
         for e in self.elements:
-            net = nn.ModuleDict({"mlp": _dense_stack(
-                self.feature_dim, hidden_sizes[e], use_resnet_dt, factory)})
+            net = self._element_net(e, factory)
             if minmax_scale:
                 net["norm"] = nn.ParameterDict({
                     k: nn.Parameter(torch.zeros(self.feature_dim, **factory),
@@ -89,6 +92,12 @@ class AtomicNN(nn.Module):
             params[e] = net
         self.params = params
         self._set_layout(max_occurs)
+
+    def _element_net(self, element: str, factory: dict) -> nn.ModuleDict:
+        """The element's stacks (subclasses add heads)."""
+        return nn.ModuleDict({"mlp": _dense_stack(
+            self.feature_dim, self.hidden_sizes[element],
+            self.use_resnet_dt, factory)})
 
     def _set_layout(self, max_occurs: Counter) -> None:
         """Static VAP row layout: row 0 is the virtual atom, then one
@@ -137,6 +146,10 @@ class AtomicNN(nn.Module):
     def energy(self, features) -> torch.Tensor:
         """Total potential energy (scalar)."""
         return torch.sum(self.atomic_energies(features))
+
+    # what forces and stress differentiate; for the plain AtomicNN it IS
+    # the energy (the finite-temperature models use the free energy)
+    variational_energy = energy
 
     def as_dict(self) -> dict:
         return {"class": "AtomicNN",

@@ -12,7 +12,7 @@ tests hold the two against each other.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -28,30 +28,36 @@ def full_to_voigt(s: torch.Tensor) -> torch.Tensor:
                         0.5 * (s[..., 0, 1] + s[..., 1, 0])], dim=-1)
 
 
-def make_efs_fn(atomic_energy_fn: Callable) -> Callable:
-    """`atomic_energy_fn(features) -> [A]`; the energy is their sum.
+def make_efs_fn(energy_fn: Callable,
+                extras_fn: Optional[Callable] = None) -> Callable:
+    """`energy_fn(features) -> scalar`, differentiated w.r.t. positions
+    and cell (the JAX `make_efs_fn(energy_fn, extras_fn)` contract).
 
     Returns fn(features) -> dict with energy, forces [A, 3], virial and
-    stress [3, 3], stress_voigt [6], total_pressure (GPa) and
-    atomic_energies [A], all detached."""
+    stress [3, 3], stress_voigt [6] and total_pressure (GPa), plus what
+    `extras_fn(features) -> dict` returns (a second forward pass, run
+    without autograd), all detached."""
 
     def efs(features) -> Dict[str, torch.Tensor]:
         pos = features["positions"].detach().requires_grad_()
         cell = features["cell"].detach().requires_grad_()
         f = dict(features, positions=pos, cell=cell)
         with torch.enable_grad():
-            atomic = atomic_energy_fn(f)
-            energy = atomic.sum()
+            energy = energy_fn(f)
             gpos, gcell = torch.autograd.grad(energy, (pos, cell))
         pos, cell = pos.detach(), cell.detach()
         virial = gpos.T @ pos + gcell.T @ cell
         volume = torch.clamp(torch.abs(torch.linalg.det(cell)), min=1e-12)
         stress = virial / volume
-        return {"energy": energy.detach(), "forces": -gpos,
-                "virial": virial, "stress": stress,
-                "stress_voigt": full_to_voigt(stress),
-                "total_pressure": -torch.trace(stress) / 3.0
-                * EV_ANGSTROM3_TO_GPA,
-                "atomic_energies": atomic.detach()}
+        out = {"energy": energy.detach(), "forces": -gpos,
+               "virial": virial, "stress": stress,
+               "stress_voigt": full_to_voigt(stress),
+               "total_pressure": -torch.trace(stress) / 3.0
+               * EV_ANGSTROM3_TO_GPA}
+        if extras_fn is not None:
+            with torch.no_grad():
+                out.update(extras_fn(dict(features, positions=pos,
+                                          cell=cell)))
+        return out
 
     return efs

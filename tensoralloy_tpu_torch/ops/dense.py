@@ -109,12 +109,15 @@ def transpose_reduce(g, trans_idx: torch.Tensor, trans_mask: torch.Tensor):
                  for c in range(len(g)))
 
 
-def make_dense_efs_fn(atomic_energy_fn: Callable) -> Callable:
-    """Scatter-free E+F+stress for dense-layout descriptor models.
+def make_dense_efs_fn(energy_fn: Callable,
+                      extras_fn: Optional[Callable] = None) -> Callable:
+    """Scatter-free E+F+stress for dense-layout descriptor models (the
+    JAX `make_dense_efs_fn(energy_fn, extras_fn)` contract).
 
-    `atomic_energy_fn(features) -> [A]` atomic energies (zero on padding
-    rows); the energy is their sum. It is differentiated w.r.t. the pair
-    and triple VECTORS, and forces are assembled exactly:
+    `energy_fn(features) -> scalar` is the energy that forces and stress
+    differentiate (the variational energy: the free energy of a
+    finite-temperature model). It is differentiated w.r.t. the pair and
+    triple VECTORS, and forces are assembled exactly:
 
         dE/dpos_k = sum_{slots of row k} (-g)            (center side)
                   + sum_{slots pointing AT k} g          (neighbor side)
@@ -124,8 +127,11 @@ def make_dense_efs_fn(atomic_energy_fn: Callable) -> Callable:
     with `transpose=True`.
 
     Returns fn(features) -> dict of energy, forces [A, 3], virial and
-    stress [3, 3], stress_voigt [6], total_pressure (GPa) and
-    atomic_energies [A], all detached."""
+    stress [3, 3], stress_voigt [6] and total_pressure (GPa), plus what
+    `extras_fn(features) -> dict` returns (e.g. atomic energies, the
+    finite-temperature heads), all detached. Eager PyTorch does not
+    share work between the two calls: the extras are a second forward
+    pass, run without autograd."""
 
     def efs(features) -> Dict[str, torch.Tensor]:
         pos = features["positions"]
@@ -155,8 +161,7 @@ def make_dense_efs_fn(atomic_energy_fn: Callable) -> Callable:
             vecs.append(v)
 
         with torch.enable_grad():
-            atomic = atomic_energy_fn(f)
-            energy = atomic.sum()
+            energy = energy_fn(f)
             leaves = [c for v in vecs for c in v]
             flat = torch.autograd.grad(energy, leaves)
         grads = [flat[3 * i:3 * i + 3] for i in range(len(vecs))]
@@ -184,11 +189,14 @@ def make_dense_efs_fn(atomic_energy_fn: Callable) -> Callable:
         forces = torch.stack(fc, dim=-1)
         volume = torch.clamp(torch.abs(torch.linalg.det(cell)), min=1e-12)
         stress = virial / volume
-        return {"energy": energy.detach(), "forces": forces,
-                "virial": virial, "stress": stress,
-                "stress_voigt": full_to_voigt(stress),
-                "total_pressure": -torch.trace(stress) / 3.0
-                * EV_ANGSTROM3_TO_GPA,
-                "atomic_energies": atomic.detach()}
+        out = {"energy": energy.detach(), "forces": forces,
+               "virial": virial, "stress": stress,
+               "stress_voigt": full_to_voigt(stress),
+               "total_pressure": -torch.trace(stress) / 3.0
+               * EV_ANGSTROM3_TO_GPA}
+        if extras_fn is not None:
+            with torch.no_grad():
+                out.update(extras_fn(f))
+        return out
 
     return efs

@@ -1,18 +1,20 @@
-"""Behler G2/G4 descriptors through hand-written CUDA kernels (port of
-the G2/G4 half of `tensoralloy_tpu/ops/fused.py`).
+"""Descriptor kernels through hand-written CUDA kernels (port of
+`tensoralloy_tpu/ops/fused.py`): Behler G2/G4 and GRAP.
 
 Each descriptor has three pieces:
-  * a plain PyTorch twin (`g2_reference`, `g4_reference`), the port of
-    `_g2_ref_dense` / `_g4_ref_dense`: dense [A, N, T] math, any device;
-  * a kernel wrapper (`g2_kernel`, `g4_kernel`): on a CPU tensor it
-    returns the twin; on a CUDA tensor it launches the kernel from
-    `csrc/sf_kernels.cu` or raises — there is no fallback;
-  * an autograd Function (`G2Function`, `G4Function`), the port of
-    `_custom_vjp_op`: forward is the kernel wrapper, backward
-    recomputes the twin from the saved inputs and returns its VJP.
-    First-order only: the backward is not itself differentiable.
+  * a plain PyTorch twin (`g2_reference`, `g4_reference`,
+    `grap_reference`), the port of `_g2_ref_dense` / `_g4_ref_dense` /
+    `_grap_ref_dense`: dense [A, N, ...] math, any device;
+  * a kernel wrapper (`g2_kernel`, `g4_kernel`, `grap_kernel`): on a CPU
+    tensor it returns the twin; on a CUDA tensor it launches the kernel
+    from `csrc/` or raises — there is no fallback;
+  * an autograd Function (`G2Function`, `G4Function`, `GrapFunction`),
+    the port of `_custom_vjp_op`: forward is the kernel wrapper,
+    backward recomputes the twin from the saved inputs and returns its
+    VJP. First-order only: the backward is not itself differentiable.
 
-The CUDA source is compiled with nvcc for sm_90a into a shared library
+The CUDA sources `csrc/*.cu` are compiled with nvcc for sm_90a, one nvcc
+per source, all started together, and linked into one shared library
 with a plain C interface, at first use, into `_build/` next to this
 package, and loaded with ctypes.
 """
@@ -33,15 +35,19 @@ import torch
 from .cutoffs import CUTOFF_IDS, apply_cutoff
 
 _PACKAGE_DIR = Path(__file__).resolve().parent.parent
-KERNEL_SOURCE = _PACKAGE_DIR / "csrc" / "sf_kernels.cu"
+CSRC_DIR = _PACKAGE_DIR / "csrc"
 BUILD_DIR = _PACKAGE_DIR / "_build"
 MAX_PARAMS = 64          # kMaxParams in csrc/sf_kernels.cu
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+MAX_FILTERS = 64         # kMaxFilters in csrc/grap_kernel.cu
+MAX_MOMENT = 5           # kMaxMonomials = 56 in csrc/grap_kernel.cu
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                              "-Xptxas", "-v", "-c")
+LINK_FLAGS = ARCH_FLAGS + ("-shared",)
 
 # Launches of each kernel since the last `reset_launch_counts()`; a
 # wrapper adds one where it launches its kernel and nowhere else.
-launch_counts: Dict[str, int] = {"g2": 0, "g4": 0}
+launch_counts: Dict[str, int] = {"g2": 0, "g4": 0, "grap": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 build_log = ""
@@ -61,36 +67,62 @@ def _nvcc() -> str:
     for path in (os.path.join(home, "bin", "nvcc"), shutil.which("nvcc")):
         if path and os.path.exists(path):
             return path
-    raise RuntimeError("nvcc not found (set CUDA_HOME): the G2/G4 CUDA "
-                       "kernels are built from source at first use")
+    raise RuntimeError("nvcc not found (set CUDA_HOME): the CUDA "
+                       "descriptor kernels are built from source at first "
+                       "use")
+
+
+def kernel_sources():
+    """The `.cu` files compiled into the library."""
+    return sorted(CSRC_DIR.glob("*.cu"))
+
+
+def _digest() -> str:
+    """Hash over every file under csrc/ (sources and headers) and the
+    flags: a library is rebuilt when any of them changes."""
+    h = hashlib.sha1(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
+    for path in sorted(CSRC_DIR.iterdir()):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _run_all(commands):
+    """Run the commands concurrently -> [(returncode, output)]."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in commands]
+    outputs = [p.communicate()[0] for p in procs]
+    return [(p.returncode, out) for p, out in zip(procs, outputs)]
 
 
 def build_kernels() -> Path:
-    """Compile `csrc/sf_kernels.cu` (skipped when a library built from
-    the same source exists) and return the library's path. The
-    compiler's output, with ptxas' register and spill report, is kept
-    in `build_log`."""
+    """Compile every `csrc/*.cu` (one nvcc each, started together), link
+    them into one library (skipped when a library built from the same
+    sources exists) and return its path. The compilers' output, with
+    ptxas' register and spill report, is kept in `build_log`."""
     global build_log
-    digest = hashlib.sha1(KERNEL_SOURCE.read_bytes()
-                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib_path = BUILD_DIR / f"libsf_kernels_{digest}.so"
+    lib_path = BUILD_DIR / f"libtat_kernels_{_digest()}.so"
     if lib_path.exists():
         return lib_path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
+    work = tempfile.mkdtemp(dir=BUILD_DIR)
     try:
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(KERNEL_SOURCE)],
-            capture_output=True, text=True)
-        build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{build_log}")
+        nvcc = _nvcc()
+        sources = kernel_sources()
+        objects = [os.path.join(work, src.stem + ".o") for src in sources]
+        results = _run_all([[nvcc, *COMPILE_FLAGS, "-o", obj, str(src)]
+                            for src, obj in zip(sources, objects)])
+        tmp = os.path.join(work, lib_path.name)
+        if all(code == 0 for code, _ in results):
+            results += _run_all([[nvcc, *LINK_FLAGS, "-o", tmp, *objects]])
+        names = [src.name for src in sources] + ["link"]
+        build_log = "".join(f"== {name}\n{out}"
+                            for name, (_, out) in zip(names, results))
+        if len(results) != len(names) or any(code for code, _ in results):
+            raise RuntimeError(f"nvcc failed:\n{build_log}")
         os.replace(tmp, lib_path)
     finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+        shutil.rmtree(work, ignore_errors=True)
     return lib_path
 
 
@@ -106,6 +138,10 @@ def _library() -> ctypes.CDLL:
             g4 = getattr(lib, f"sf_g4_{dt}")
             g4.argtypes = [p, p, p, p, p, p, i, i, i, i, p, p, p, d, i, p]
             g4.restype = i
+            grap = getattr(lib, f"grap_{dt}")
+            grap.argtypes = [p] * 8 + [i] * 5 + [p] * 3 + [i, p, p, i, p,
+                                                            d, i, p]
+            grap.restype = i
         _lib = lib
     return _lib
 
@@ -312,3 +348,135 @@ class G4Function(torch.autograd.Function):
             y = g4_reference(*dists, aslotf, mask, *ctx.spec)
             grads = torch.autograd.grad(y, dists, gbar)
         return (*grads, None, None, None, None, None, None)
+
+
+# ----------------------------------------------------------------------
+# GRAP: filter bank x moment invariants
+# ----------------------------------------------------------------------
+
+# Each GRAP algorithm's parameter names, in the kernel's column order
+# (GrapSpec c0, c1, c2 in csrc/grap_kernel.cu); the descriptor's grid
+# (`nn.grap._param_grid`) orders them sorted.
+GRAP_ALGORITHMS = {"sf": ("eta", "omega"), "density": ("A", "beta", "re"),
+                   "morse": ("D", "gamma", "r0"), "pexp": ("rl", "pl")}
+
+_grap_weights: Dict[tuple, torch.Tensor] = {}
+
+
+def grap_reference(rij, ux, uy, uz, islotf, mask, desc, rcut: float,
+                   n_slots: int):
+    """Plain twin: [A, N] inputs -> [A, n_slots * K * M], (slot, filter,
+    moment) order. `desc` is the `nn.grap.GenericRadialAtomicPotential`
+    (its filter bank `_filter_values`, where 'sf' scales eta by 1/rc^2,
+    and its `invariants_from_p`). Masked distances read 1.0 and every
+    term is multiplied by the mask, as in the JAX package."""
+    from ..nn.grap import moment_basis_c
+    a, n = rij.shape
+    r = torch.where(mask > 0, rij, 1.0)
+    fc = apply_cutoff(desc.cutoff_function, r, rcut) * mask
+    h = desc._filter_values(r, rcut) * fc[..., None]       # [A, N, K]
+    m = moment_basis_c((ux, uy, uz), desc.max_moment)      # [A, N, D]
+    k = desc.n_filters
+    eye = torch.arange(n_slots, dtype=islotf.dtype, device=islotf.device)
+    sel = (islotf[..., None] == eye) * mask[..., None]     # [A, N, S]
+    hs = (sel[..., None] * h[..., None, :]).reshape(a, n, n_slots * k)
+    p = torch.einsum("anx,and->axd", hs, m)
+    p = p.reshape(a * n_slots, k, m.shape[-1])
+    return desc.invariants_from_p(p, a, n_slots)
+
+
+def grap_tables(desc):
+    """Host tables of the GRAP kernel: (algorithm id, the three grid
+    columns [K] in kernel order, parent and axis [D] of each monomial,
+    the invariant weights [D, M] in float64, the moments [M])."""
+    from ..nn.grap import moment_monomials, multiplicity_tensor
+    if desc.algorithm not in GRAP_ALGORITHMS:
+        raise ValueError(f"grap_kernel: no kernel for algorithm "
+                         f"{desc.algorithm!r}")
+    if desc.n_filters > MAX_FILTERS or desc.max_moment > MAX_MOMENT:
+        raise ValueError(
+            f"grap_kernel: at most {MAX_FILTERS} filters and moment "
+            f"{MAX_MOMENT}, got {desc.n_filters} and {desc.max_moment}")
+    names = GRAP_ALGORITHMS[desc.algorithm]
+    cols = [np.ascontiguousarray(desc._grid[:, desc._grid_keys.index(key)],
+                                 dtype=np.float64) for key in names]
+    cols += [np.zeros(desc.n_filters)] * (3 - len(cols))
+    monos = moment_monomials(desc.max_moment)
+    index = {mono: d for d, mono in enumerate(monos)}
+    parent = np.zeros(len(monos), np.uint8)
+    axis = np.zeros(len(monos), np.uint8)
+    for d, mono in enumerate(monos[1:], start=1):
+        parent[d], axis[d] = index[mono[:-1]], mono[-1]
+    weights = np.ascontiguousarray(multiplicity_tensor(
+        desc.max_moment, desc.symmetric)[:, desc.moment_tensors])
+    moments = np.asarray(desc.moment_tensors, np.int32)
+    algorithm = list(GRAP_ALGORITHMS).index(desc.algorithm)
+    return algorithm, cols, parent, axis, weights, moments
+
+
+def _device_weights(weights: np.ndarray, dtype, device) -> torch.Tensor:
+    """The [D, M] weights on the device, cached: a copy from host memory
+    would wait for the work already queued on the stream."""
+    key = (weights.tobytes(), weights.shape, dtype, str(device))
+    w = _grap_weights.get(key)
+    if w is None:
+        w = torch.as_tensor(weights, dtype=dtype, device=device)
+        _grap_weights[key] = w
+    return w
+
+
+def grap_kernel(rij, ux, uy, uz, islotf, mask, desc, rcut: float,
+                n_slots: int):
+    """GRAP invariants through the CUDA kernel `grap_kernel` (replaces
+    the Pallas `_grap_kernel`, tensoralloy_tpu/ops/fused.py:170); the
+    twin for CPU tensors. On the H100 it is bound by the P contraction's
+    FMAs (see the source)."""
+    if rij.device.type == "cpu":
+        return grap_reference(rij, ux, uy, uz, islotf, mask, desc, rcut,
+                              n_slots)
+    if rij.device.type != "cuda":
+        raise ValueError(f"grap_kernel: no kernel for device {rij.device}")
+    _check_cuda_inputs("grap_kernel", rij, ux, uy, uz, islotf, mask)
+    algorithm, cols, parent, axis, weights, moments = grap_tables(desc)
+    w = _device_weights(weights, rij.dtype, rij.device)
+    rows, n = rij.shape
+    k, n_mom = desc.n_filters, len(moments)
+    out = torch.empty((rows, n_slots * k * n_mom), dtype=rij.dtype,
+                      device=rij.device)
+    if rows == 0:
+        return out
+    lib = _library()
+    fn = lib.grap_f32 if rij.dtype == torch.float32 else lib.grap_f64
+    with torch.cuda.device(rij.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = fn(_ptr(rij), _ptr(ux), _ptr(uy), _ptr(uz), _ptr(islotf),
+                  _ptr(mask), _ptr(w), _ptr(out), rows, n, n_slots,
+                  algorithm, k, *(_ptr(c) for c in cols), len(parent),
+                  _ptr(parent), _ptr(axis), n_mom, _ptr(moments),
+                  float(rcut), CUTOFF_IDS[desc.cutoff_function],
+                  ctypes.c_void_p(stream))
+    _check_launch("grap", code)
+    launch_counts["grap"] += 1
+    return out
+
+
+class GrapFunction(torch.autograd.Function):
+    """Differentiable GRAP w.r.t. `rij`, `ux`, `uy`, `uz` (the JAX op's
+    `n_diff=4`); no gradient for slots or mask."""
+
+    @staticmethod
+    def forward(ctx, rij, ux, uy, uz, islotf, mask, desc, rcut, n_slots):
+        ctx.save_for_backward(rij, ux, uy, uz, islotf, mask)
+        ctx.spec = (desc, rcut, n_slots)
+        return grap_kernel(rij, ux, uy, uz, islotf, mask, desc, rcut,
+                           n_slots)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, gbar):
+        rij, ux, uy, uz, islotf, mask = ctx.saved_tensors
+        with torch.enable_grad():
+            diff = [x.detach().requires_grad_() for x in (rij, ux, uy, uz)]
+            y = grap_reference(*diff, islotf, mask, *ctx.spec)
+            grads = torch.autograd.grad(y, diff, gbar)
+        return (*grads, None, None, None, None, None)

@@ -2,7 +2,9 @@
 end, the JAX-reference fixture that `chip_smoke.py` checks on the GPU,
 and the guards around the GPU-only parts.
 
-Regenerate the fixture from the repository root with
+Regenerate the fixtures (this file's, and the GRAP and finite-
+temperature ones of tests/test_torch_grap.py and
+tests/test_torch_finite_temperature.py) from the repository root with
 `python -m tests.test_torch_calculator`.
 """
 import json
@@ -169,5 +171,13 @@ if __name__ == "__main__":
     from tensoralloy_tpu import set_precision
     set_precision("high")
     os.environ["TENSORALLOY_TPU_NO_NATIVE"] = "1"
-    FIXTURE.write_text(json.dumps(_reference_record(), indent=1) + "\n")
-    print(f"wrote {FIXTURE}")
+    sys.path.insert(0, str(ROOT / "tests"))
+    import test_torch_finite_temperature
+    import test_torch_grap
+    for path, record in (
+            (FIXTURE, _reference_record),
+            (test_torch_grap.FIXTURE, test_torch_grap.reference_record),
+            (test_torch_finite_temperature.FIXTURE,
+             test_torch_finite_temperature.reference_record)):
+        path.write_text(json.dumps(record(), indent=1) + "\n")
+        print(f"wrote {path}")
