@@ -10,12 +10,15 @@ failure ends the run with a non-zero exit and no result line:
   2. build   compile the CUDA kernels (G2/G4, GRAP) from the checkout's
              sources
   3. kernels each kernel against its plain PyTorch twin on seeded random
-             geometry with masked tails: float32 values and gradients
-             to 2e-5, float64 values to 1e-12; GRAP over the algorithm x
-             moment grid with gaps, symmetric weights and two slots
-  4. serve   the port's calculator on cuda in float32 with
-             backend="pallas", one path after another, each with the
-             launch counts reset before it and read after it:
+             geometry with masked tails and an empty first row: float32
+             values and gradients to 2e-5, float64 to 1e-12; G4 at 256
+             and 384 entries with 1 and 3 slots; GRAP over the algorithm
+             x moment grid with gaps, symmetric weights, 1-3 slots, rows
+             of 256 entries (more than 128 real pairs) and 64 filters
+  4. serve   the port's calculator in float32 with backend="pallas" on
+             its default device, which must be cuda, one path after
+             another, each with the launch counts reset before it and
+             read after it:
                sf      snap_Ni_sfa.npz, jittered fcc Ni of 108, 864, 4000
                        and 32000 atoms (G2 and G4)
                grap    snap_Ni.npz (v5_readapt), the same four sizes
@@ -26,8 +29,14 @@ failure ends the run with a non-zero exit and no result line:
              108-atom Ni requests and the Be request are also held
              against the JAX-reference fixtures (float32 and float64)
   5. time    median time per request and its device E/F/S part,
-             kernels vs twins; each kernel vs its twin (CUDA events) at
-             the 32000-atom request's shapes
+             kernels vs twins; each kernel vs its twin at the
+             32000-atom request's shapes (`ms`: the median of single
+             CUDA-event-timed launches, as since the first slice;
+             `ms_queued`: the device time of calls queued behind a
+             sleeping kernel), beside its bound: the larger of its
+             bytes (mask and slot read once, the geometry of the real
+             entries only, output written once) at 3.35 TB/s and its
+             useful FLOP at the FP32 67 TFLOP/s
 
 The line before the last is a JSON object of per-kernel results; the
 last is {"ok": true, "device": {...}}.
@@ -77,6 +86,10 @@ F32 = dict(rtol=2e-5, atol=2e-5)     # as tests/test_backends.py
 F64 = dict(rtol=1e-12, atol=1e-12)
 F32_REL = 1e-4      # E/F/S relative error, float32 serving
 F64_REL = 1e-10     # E/F/S relative error, float64 serving
+# H100 SXM peaks (NVIDIA's data sheet, 700 W): device memory and the
+# float32 rate outside the tensor cores
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FP32_FLOP_PER_S = 67e12
 
 
 def jittered_fcc(reps: int, seed: int = SEED, a: float = LATTICE,
@@ -160,8 +173,10 @@ def build() -> None:
 
 def _random_pairs(rng, rows, n, n_slots, rc, dtype, device):
     """Seeded [rows, n] pair rows: real entries first, then a masked
-    tail of zero distances (finite garbage a kernel must not read)."""
+    tail of zero distances (finite garbage a kernel must not read). The
+    first row has no real entry."""
     lengths = rng.integers(0, n + 1, size=rows)
+    lengths[0] = 0
     real = np.arange(n)[None, :] < lengths[:, None]
     rij = np.where(real, rng.uniform(0.5, 1.1 * rc, (rows, n)), 0.0)
     slot = rng.integers(0, n_slots, (rows, n)).astype(np.float64)
@@ -171,6 +186,7 @@ def _random_pairs(rng, rows, n, n_slots, rc, dtype, device):
 
 def _random_triples(rng, rows, n, n_slots, rc, dtype, device):
     lengths = rng.integers(0, n + 1, size=rows)
+    lengths[0] = 0
     real = np.arange(n)[None, :] < lengths[:, None]
 
     def vec():
@@ -203,30 +219,42 @@ def check_kernels(device="cuda", rows=4001) -> None:
                                             device)
             _compare("g2", cutoff, fused.G2Function, fused.g2_reference,
                      [rij], [slot, mask], g2_args, dtype, tol)
-            g4_args = (sf.angular_grid, 4.0, cutoff, 3)
-            *dists, slot, mask = _random_triples(rng, rows, 256, 3, 4.0,
-                                                 dtype, device)
-            _compare("g4", cutoff, fused.G4Function, fused.g4_reference,
-                     dists, [slot, mask], g4_args, dtype, tol)
+            for n, n_slots in ((256, 3), (384, 1), (384, 3)):
+                g4_args = (sf.angular_grid, 4.0, cutoff, n_slots)
+                *dists, slot, mask = _random_triples(rng, rows, n, n_slots,
+                                                     4.0, dtype, device)
+                _compare("g4", f"{cutoff} N={n} S={n_slots}",
+                         fused.G4Function, fused.g4_reference, dists,
+                         [slot, mask], g4_args, dtype, tol)
     check_grap_kernel(device, rows)
 
 
 # GRAP cases: the served snap_Ni filter bank (16 pexp filters) and the
 # small grids of tests/test_backends.py, moments with gaps, symmetric
-# weights; (algorithm, parameters, moments, symmetric, cutoff)
+# weights, then rows of 256 entries in one slot (more than 128 real
+# pairs), 64 filters (two passes over a row at moment 5) and three
+# slots; (algorithm, parameters, moments, symmetric, cutoff, N, slots)
 _SNAP_PEXP = {"rl": np.linspace(1.0, 4.0, 16).tolist(),
               "pl": np.linspace(5.0, 1.25, 16).tolist()}
+_WIDE_PEXP = {"rl": np.linspace(1.0, 4.0, 64).tolist(),
+              "pl": np.linspace(5.0, 1.25, 64).tolist()}
+_ALL = [0, 1, 2, 3, 4, 5]
 GRAP_CASES = (
-    ("pexp", _SNAP_PEXP, [0, 1, 2, 3, 4, 5], False, "cosine"),
-    ("pexp", _SNAP_PEXP, [0, 2, 5], False, "polynomial"),
+    ("pexp", _SNAP_PEXP, _ALL, False, "cosine", 128, 2),
+    ("pexp", _SNAP_PEXP, [0, 2, 5], False, "polynomial", 128, 2),
     ("pexp", {"rl": [1.0, 2.0, 3.0], "pl": [4.0, 3.0, 2.0]}, [0, 1, 2, 3],
-     True, "cosine"),
+     True, "cosine", 128, 2),
     ("sf", {"eta": [0.5, 2.0, 8.0], "omega": [0.0, 0.0, 0.0]}, [0, 1, 2, 3],
-     False, "polynomial"),
+     False, "polynomial", 128, 2),
     ("morse", {"D": [1.0, 1.0], "gamma": [0.5, 1.0], "r0": [2.0, 2.5]},
-     [0, 1, 2, 3], False, "cosine"),
+     [0, 1, 2, 3], False, "cosine", 128, 2),
     ("density", {"A": [1.0, 1.0], "beta": [2.0, 4.0], "re": [3.0, 3.0]},
-     [0, 1, 2, 3], False, "polynomial"),
+     [0, 1, 2, 3], False, "polynomial", 128, 2),
+    ("pexp", _SNAP_PEXP, _ALL, False, "cosine", 256, 1),
+    ("pexp", _WIDE_PEXP, _ALL, False, "polynomial", 128, 2),
+    ("pexp", _WIDE_PEXP, [0, 1, 2], False, "cosine", 128, 1),
+    ("sf", {"eta": [0.5, 2.0, 8.0], "omega": [0.0, 0.0, 0.0]}, [0, 1, 2, 3],
+     False, "cosine", 128, 3),
 )
 
 
@@ -248,18 +276,20 @@ def check_grap_kernel(device="cuda", rows=4001) -> None:
     from tensoralloy_tpu_torch.ops import fused
     rng = np.random.default_rng(SEED + 1)
     for dtype, tol in ((torch.float32, F32), (torch.float64, F64)):
-        for algorithm, params, moments, symmetric, cutoff in GRAP_CASES:
+        for (algorithm, params, moments, symmetric, cutoff, n,
+             n_slots) in GRAP_CASES:
             desc = GenericRadialAtomicPotential(
                 ["Mo", "Ni"], algorithm=algorithm, parameters=params,
                 moment_tensors=moments, symmetric=symmetric,
                 cutoff_function=cutoff)
-            *diff, slot, mask = _random_unit_pairs(rng, rows, 128, 2, 6.0,
-                                                   dtype, device)
+            *diff, slot, mask = _random_unit_pairs(rng, rows, n, n_slots,
+                                                   6.0, dtype, device)
             label = (f"{algorithm} K={desc.n_filters} moments={moments}"
-                     f"{' symmetric' if symmetric else ''} {cutoff} S=2")
+                     f"{' symmetric' if symmetric else ''} {cutoff} N={n} "
+                     f"S={n_slots}")
             _compare("grap", label, fused.GrapFunction,
                      fused.grap_reference, diff, [slot, mask],
-                     (desc, 6.0, 2), dtype, tol)
+                     (desc, 6.0, n_slots), dtype, tol)
 
 
 def _compare(name, label, function, reference, diff, rest, spec, dtype,
@@ -325,15 +355,20 @@ def _requests(path_name, request_reps):
     return [_fixture(fixture)[0]]
 
 
-def serve_path(path_name, device="cuda", request_reps=REQUEST_REPS):
+def serve_path(path_name, request_reps=REQUEST_REPS):
     """One path of the main path: its requests through the kernels, with
-    the launch counts reset just before and read just after."""
+    the launch counts reset just before and read just after. The
+    calculators name no device: they must land on the card."""
     from tensoralloy_tpu_torch.calculator import TensorAlloyCalculator
     from tensoralloy_tpu_torch.ops import fused
     model, kernels, fixture = PATHS[path_name]
     print(f"  -- {path_name}: {model.relative_to(ROOT)}")
-    calc = TensorAlloyCalculator(str(model), device=device, dtype="medium",
+    calc = TensorAlloyCalculator(str(model), dtype="medium",
                                  backend="pallas")
+    devices = {calc.device.type} | {p.device.type
+                                    for p in calc.model.parameters()}
+    if devices != {"cuda"}:
+        raise AssertionError(f"the default device is {devices}, not cuda")
     structures = _requests(path_name, request_reps)
     results = []
     fused.reset_launch_counts()
@@ -348,7 +383,7 @@ def serve_path(path_name, device="cuda", request_reps=REQUEST_REPS):
     launches = dict(fused.launch_counts)
     print(f"  launches over the {len(structures)} request(s): {launches}")
 
-    twin = TensorAlloyCalculator(str(model), device=device, dtype="medium",
+    twin = TensorAlloyCalculator(str(model), dtype="medium",
                                  backend="dense")
     for s, res in zip(structures, results):
         errs = efs_errors(res, twin.calculate(s))
@@ -367,8 +402,8 @@ def serve_path(path_name, device="cuda", request_reps=REQUEST_REPS):
     if fixture is not None:
         s, ref = _fixture(fixture)
         errs32 = efs_errors(results[0], ref)
-        calc64 = TensorAlloyCalculator(str(model), device=device,
-                                       dtype="high", backend="pallas")
+        calc64 = TensorAlloyCalculator(str(model), dtype="high",
+                                       backend="pallas")
         errs64 = efs_errors(calc64.calculate(s), ref)
         print(f"  {len(s)} atoms vs JAX fixture: float32 "
               f"{json.dumps(errs32)}; float64 {json.dumps(errs64)}")
@@ -377,14 +412,13 @@ def serve_path(path_name, device="cuda", request_reps=REQUEST_REPS):
     return calc, twin, structures, {k: launches[k] for k in kernels}
 
 
-def serve(device="cuda", request_reps=REQUEST_REPS):
+def serve(request_reps=REQUEST_REPS):
     """The main path: every path in turn. -> {path: (calc, twin,
     structures)}, launches per kernel summed over the paths."""
     phase("serve")
     served, launches = {}, {}
     for name in PATHS:
-        calc, twin, structures, counts = serve_path(name, device,
-                                                    request_reps)
+        calc, twin, structures, counts = serve_path(name, request_reps)
         served[name] = (calc, twin, structures)
         for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v
@@ -392,6 +426,8 @@ def serve(device="cuda", request_reps=REQUEST_REPS):
 
 
 def _median_ms(fn, reps: int, warmup: int = 3) -> float:
+    """Median of `reps` CUDA-event times of single calls: the event pair
+    also spans the host's enqueue when the device waits on it."""
     for _ in range(warmup):
         fn()
     times = []
@@ -406,6 +442,28 @@ def _median_ms(fn, reps: int, warmup: int = 3) -> float:
     return float(np.median(times))
 
 
+def _queued_ms(fn, reps: int, warmup: int = 3, runs: int = 5) -> float:
+    """Device time of one call: `reps` calls queued behind a sleeping
+    kernel, so the host has enqueued them all before the device starts;
+    the median of `runs` such runs, over `reps`. It leaves out the host
+    work of a call (the wrapper, the launch) that a single call pays."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(200_000_000)   # about 0.1 s of device clock
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return float(np.median(times))
+
+
 def _median_host_ms(fn, reps: int) -> float:
     times = []
     for _ in range(reps):
@@ -417,11 +475,35 @@ def _median_host_ms(fn, reps: int) -> float:
     return float(np.median(times))
 
 
-def time_path(card, served, launches):
-    phase("time")
+def kernel_cases(sf_calc, sf_structure, grap_calc, grap_structure):
+    """{kernel: (args, kernel wrapper, twin)} at the shapes the SF and
+    GRAP calculators give the kernels for these structures."""
     from tensoralloy_tpu_torch.ops import fused
     from tensoralloy_tpu_torch.ops.dense import (dense_pair_geometry,
                                                  dense_triple_geometry)
+    s = sf_structure
+    feats = sf_calc.featurize(s, sf_calc._get_vap(s))
+    sf, fz = sf_calc.model.descriptor, sf_calc.featurizer
+    rij, _, islot, mask = dense_pair_geometry(feats, with_unit=False)
+    cases = {
+        "g2": ((rij, islot, mask, sf.radial_grid, fz.rcut,
+                sf.cutoff_function, fz.n_radial_slots), fused.g2_kernel,
+               fused.g2_reference),
+        "g4": ((*dense_triple_geometry(feats), sf.angular_grid, fz.acut,
+                sf.cutoff_function, fz.n_angular_slots), fused.g4_kernel,
+               fused.g4_reference)}
+    s = grap_structure
+    feats = grap_calc.featurize(s, grap_calc._get_vap(s))
+    fz = grap_calc.featurizer
+    rij, unit, islot, mask = dense_pair_geometry(feats)
+    cases["grap"] = ((rij, *unit, islot, mask, grap_calc.model.descriptor,
+                      fz.rcut, fz.n_radial_slots), fused.grap_kernel,
+                     fused.grap_reference)
+    return cases
+
+
+def time_path(card, served, launches):
+    phase("time")
     for name, (calc, twin, structures) in served.items():
         for s in structures:
             reps = 5 if len(s) < 10000 else 3
@@ -437,38 +519,84 @@ def time_path(card, served, launches):
                   f"through the twins (medians of {reps}; {card})")
 
     # each kernel at the main path's shapes: its largest request
-    calc, _, structures = served["sf"]
-    s = structures[-1]
-    feats = calc.featurize(s, calc._get_vap(s))
-    sf, fz = calc.model.descriptor, calc.featurizer
-    rij, _, islot, mask = dense_pair_geometry(feats, with_unit=False)
-    g2 = ((rij, islot, mask, sf.radial_grid, fz.rcut, sf.cutoff_function,
-           fz.n_radial_slots), fused.g2_kernel, fused.g2_reference)
-    trip = dense_triple_geometry(feats)
-    g4 = ((*trip, sf.angular_grid, fz.acut, sf.cutoff_function,
-           fz.n_angular_slots), fused.g4_kernel, fused.g4_reference)
-    calc, _, structures = served["grap"]
-    s = structures[-1]
-    feats = calc.featurize(s, calc._get_vap(s))
-    fz = calc.featurizer
-    rij, unit, islot, mask = dense_pair_geometry(feats)
-    grap = ((rij, *unit, islot, mask, calc.model.descriptor, fz.rcut,
-             fz.n_radial_slots), fused.grap_kernel, fused.grap_reference)
+    cases = kernel_cases(served["sf"][0], served["sf"][2][-1],
+                         served["grap"][0], served["grap"][2][-1])
+    return time_kernels(cases, card, launches)
+
+
+def time_kernels(cases, card, launches=None):
+    """Each kernel of `kernel_cases` against its twin on the same inputs:
+    -> one row of the kernels line a kernel (`launches` from the main
+    path's run where given)."""
     rows = []
-    for name, (args, kernel, reference) in (("g2", g2), ("g4", g4),
-                                            ("grap", grap)):
-        err = (kernel(*args) - reference(*args)).abs().max().item()
+    for name, (args, kernel, reference) in cases.items():
+        out = kernel(*args)
+        err = (out - reference(*args)).abs().max().item()
+        n_bytes, flop = kernel_work(name, args, out)
+        bound = {"bytes": n_bytes / PEAK_BYTES_PER_S * 1e3,
+                 "operations": flop / PEAK_FP32_FLOP_PER_S * 1e3}
+        bound_by = max(bound, key=bound.get)
         ms = _median_ms(lambda: kernel(*args), 20)
         plain_ms = _median_ms(lambda: reference(*args), 20)
         ms2 = _median_ms(lambda: kernel(*args), 20)
+        queued = _queued_ms(lambda: kernel(*args), 50)
         print(f"  {name} {tuple(args[0].shape)} float32: kernel {ms:.4f} / "
-              f"{ms2:.4f} ms, twin {plain_ms:.4f} ms, max_abs_err "
+              f"{ms2:.4f} ms median of single launches "
+              f"({n_bytes / ms * 1e-6:.1f} GB/s, "
+              f"{flop / ms * 1e-9:.2f} TFLOP/s), {queued:.4f} ms "
+              f"queued ({n_bytes / queued * 1e-6:.1f} GB/s, "
+              f"{flop / queued * 1e-9:.2f} TFLOP/s); twin {plain_ms:.4f} ms; "
+              f"bound {bound[bound_by]:.4f} ms by {bound_by} "
+              f"({n_bytes / 1e6:.1f} MB, {flop / 1e9:.3f} GFLOP; single "
+              f"launches at {100 * bound[bound_by] / ms:.1f} % of it, queued "
+              f"at {100 * bound[bound_by] / queued:.1f} %), max_abs_err "
               f"{err:.3e} ({card})")
-        rows.append({"name": name, "route": "cuda", "source": SOURCES[name],
-                     "replaces": REPLACES[name],
-                     "launches": launches[name], "max_abs_err": err,
-                     "ms": ms, "plain_ms": plain_ms})
+        row = {"name": name, "route": "cuda", "source": SOURCES[name],
+               "replaces": REPLACES[name]}
+        if launches is not None:
+            row["launches"] = launches[name]
+        row.update({"max_abs_err": err, "ms": ms, "ms_queued": queued,
+                    "plain_ms": plain_ms, "bound_ms": bound[bound_by],
+                    "bound_by": bound_by,
+                    # no single PyTorch call computes G2, G4 or GRAP
+                    "library_ms": None})
+        rows.append(row)
     return rows
+
+
+def kernel_work(name, args, out):
+    """-> (bytes, useful FLOP) of one kernel call on these inputs.
+    Bytes: the slot and the mask read once in full, the geometry
+    (distances, unit vectors) of the real entries (mask > 0) only, since
+    a masked entry's geometry need not be read, and the output written
+    once; the kernels' small host tables aside. FLOP for the real entries
+    only, a transcendental as one:
+      g2   per pair 4 (cutoff) + 7 per (eta, omega) row
+      g4   per triple 23 (geometry, three cutoffs) + 11 per grid row
+      grap per pair 4 (cutoff), D - 1 (monomials), 5 per filter (its
+           value at 4 and the product with the cutoff) and 2 K D (the
+           contraction); per (row, slot, filter) 3 per nonzero invariant
+           weight (P^2, times the weight, added)"""
+    tensors = [a for a in args if isinstance(a, torch.Tensor)]
+    *geometry, slot, mask = tensors
+    size = mask.element_size()
+    real = int((mask > 0).sum().item())
+    n_bytes = ((slot.numel() + mask.numel() + len(geometry) * real) * size
+               + out.numel() * out.element_size())
+    if name == "g2":
+        flop = real * (4 + 7 * len(args[3]))
+    elif name == "g4":
+        flop = real * (23 + 11 * len(args[5]))
+    else:
+        from tensoralloy_tpu_torch.nn.grap import multiplicity_tensor
+        desc, n_slots = args[6], args[8]
+        weights = multiplicity_tensor(desc.max_moment, desc.symmetric)[
+            :, desc.moment_tensors]
+        k, d = desc.n_filters, weights.shape[0]
+        rows = args[0].shape[0]
+        flop = (real * (4 + (d - 1) + 5 * k + 2 * k * d)
+                + 3 * rows * n_slots * k * int(np.count_nonzero(weights)))
+    return n_bytes, flop
 
 
 def main() -> int:

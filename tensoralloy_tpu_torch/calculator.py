@@ -27,7 +27,7 @@ import torch
 
 from .atoms import Structure
 from .ops.dense import make_dense_efs_fn
-from .precision import resolve_dtype
+from .precision import resolve_device, resolve_dtype
 from .vap import VirtualAtomMap
 
 
@@ -49,6 +49,8 @@ class TensorAlloyCalculator:
 
     `model_or_path`: a saved `.npz` or an `AtomicNN` (or a
     finite-temperature subclass), already on `device` in `dtype`.
+    `device` is the card unless the caller passes "cpu"; "cuda" without
+    a card raises.
     `dtype` is 'high' (float64), 'medium' (float32) or a torch float
     dtype; `backend` overrides the saved descriptor backend ('dense' =
     plain PyTorch, 'pallas' = the CUDA kernels) when loading from a
@@ -57,7 +59,7 @@ class TensorAlloyCalculator:
     implemented_properties = ("energy", "free_energy", "forces", "stress",
                               "pressure", "atomic_energies")
 
-    def __init__(self, model_or_path, *, device="cpu", dtype="high",
+    def __init__(self, model_or_path, *, device="cuda", dtype="high",
                  backend: Optional[str] = None,
                  chunked: bool = False, device_nl: bool = False,
                  fast_efs: bool = False):
@@ -68,7 +70,7 @@ class TensorAlloyCalculator:
             raise _not_ported("device_nl", "the EAM/MD slice (slice 3)")
         if fast_efs:
             raise _not_ported("fast_efs", "the EAM/MD slice (slice 3)")
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.dtype = resolve_dtype(dtype)
         if isinstance(model_or_path, str):
             from .io.model import load_model

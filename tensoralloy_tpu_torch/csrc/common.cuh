@@ -4,7 +4,11 @@
 //
 // Full-precision exp/pow/cos/sqrt are used on purpose (no fast-math
 // intrinsics): parity with the plain PyTorch twins at float64 depends
-// on them.
+// on them. The cutoffs multiply by reciprocals of their radii, computed
+// in double on the host, and take cos(pi z) and sin(pi z) as cospi and
+// sinpi, whose argument reduction is exact: each differs from the
+// twin's division and cos(z * pi) by an ulp or so, and costs a
+// fraction of it. Integer powers are products.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -13,26 +17,25 @@
 
 namespace {
 
-constexpr double kPi = 3.14159265358979323846;
-
 // Cutoff id (ops/cutoffs.py CUTOFF_IDS) and the radius-derived
 // constants, computed in double on the host as the Python twin does.
 template <typename T>
 struct Cutoff {
   int id;
   T rc;
-  T rcs;      // deepmd: 2/3 rc
-  T rc_rcs;   // deepmd: rc - rcs
-  T d;        // tersoff: 0.1 rc
-  T big_r;    // tersoff: rc - d
+  T inv_rc;      // 1 / rc
+  T rcs;         // deepmd: 2/3 rc
+  T inv_rc_rcs;  // deepmd: 1 / (rc - rcs)
+  T inv_d;       // tersoff: 1 / d, d = 0.1 rc
+  T big_r;       // tersoff: rc - d
 };
 
 __device__ __forceinline__ float d_exp(float x) { return expf(x); }
 __device__ __forceinline__ double d_exp(double x) { return exp(x); }
-__device__ __forceinline__ float d_cos(float x) { return cosf(x); }
-__device__ __forceinline__ double d_cos(double x) { return cos(x); }
-__device__ __forceinline__ float d_sin(float x) { return sinf(x); }
-__device__ __forceinline__ double d_sin(double x) { return sin(x); }
+__device__ __forceinline__ float d_cospi(float x) { return cospif(x); }
+__device__ __forceinline__ double d_cospi(double x) { return cospi(x); }
+__device__ __forceinline__ float d_sinpi(float x) { return sinpif(x); }
+__device__ __forceinline__ double d_sinpi(double x) { return sinpi(x); }
 __device__ __forceinline__ float d_pow(float x, float y) { return powf(x, y); }
 __device__ __forceinline__ double d_pow(double x, double y) { return pow(x, y); }
 __device__ __forceinline__ float d_sqrt(float x) { return sqrtf(x); }
@@ -47,29 +50,31 @@ template <typename T>
 __device__ __forceinline__ T cutoff_value(const Cutoff<T>& c, T r) {
   switch (c.id) {
     case 0: {  // cosine
-      T z = r / c.rc;
+      T z = r * c.inv_rc;
       if (z > T(1)) z = T(1);
-      return T(0.5) * (d_cos(z * T(kPi)) + T(1));
+      return T(0.5) * (d_cospi(z) + T(1));
     }
     case 1: {  // polynomial, gamma = 5
-      T z = r / c.rc;
+      T z = r * c.inv_rc;
       if (z > T(1)) z = T(1);
-      const T g = T(5);
-      return T(1) + g * d_pow(z, g + T(1)) - (g + T(1)) * d_pow(z, g);
+      const T z2 = z * z;
+      const T z5 = z2 * z2 * z;
+      return T(1) + T(5) * (z5 * z) - T(6) * z5;
     }
     case 2: {  // meam, window = rc
-      const T x = clamp_to((c.rc - r) / c.rc, T(0), T(1));
-      const T y = T(1) - d_pow(T(1) - x, T(4));
+      const T x = clamp_to((c.rc - r) * c.inv_rc, T(0), T(1));
+      const T w = (T(1) - x) * (T(1) - x);
+      const T y = T(1) - w * w;
       return y * y;
     }
     case 3: {  // deepmd, rcs = 2/3 rc
-      const T z = clamp_to((r - c.rcs) / c.rc_rcs, T(0), T(1));
+      const T z = clamp_to((r - c.rcs) * c.inv_rc_rcs, T(0), T(1));
       const T recip = r > T(0) ? T(1) / r : T(0);
-      return recip * (T(0.5) * d_cos(T(kPi) * z) + T(0.5));
+      return recip * (T(0.5) * d_cospi(z) + T(0.5));
     }
     default: {  // tersoff, d = 0.1 rc
-      const T z = clamp_to((r - c.big_r) / c.d, T(-1), T(1));
-      return T(0.5) - T(0.5) * d_sin(T(0.5 * kPi) * z);
+      const T z = clamp_to((r - c.big_r) * c.inv_d, T(-1), T(1));
+      return T(0.5) - T(0.5) * d_sinpi(T(0.5) * z);
     }
   }
 }
@@ -79,11 +84,12 @@ Cutoff<T> make_cutoff(int id, double rc) {
   Cutoff<T> c;
   c.id = id;
   c.rc = T(rc);
+  c.inv_rc = T(1.0 / rc);
   const double rcs = (2.0 / 3.0) * rc;
   c.rcs = T(rcs);
-  c.rc_rcs = T(rc - rcs);
+  c.inv_rc_rcs = T(1.0 / (rc - rcs));
   const double d = 0.1 * rc;
-  c.d = T(d);
+  c.inv_d = T(1.0 / d);
   c.big_r = T(rc - d);
   return c;
 }

@@ -17,45 +17,84 @@
 // multiplicity tensor's requested columns, computed in double on the
 // host.
 //
-// What bounds it on an H100: the P contraction, 2 A N K D flops (7.5
-// GFLOP at 32000 atoms, A = 32769, N = 128, K = 16, D = 56) against about
-// 100 MB of input reads, about 75 flop/byte: CUDA-core FMAs bound it, not
-// memory. Tensor cores are later work: TF32 would break parity, and
-// 3xTF32 or wgmma is a redesign. What the design does about it:
-//   * one block of 128 threads per atom row; the row is walked in chunks
-//     of up to 128 pairs;
-//   * per chunk, the pairs of the current slot whose mask is > 0 are
-//     compacted (warp ballots) into shared memory, so masked tails and
-//     other slots' pairs cost no FMAs; a masked entry's geometry is never
-//     read;
-//   * per compacted pair, h_k and the D monomials are staged in shared
-//     memory; each monomial is the product of its degree-(m-1) prefix
-//     and one more component, as the JAX `moment_basis_c` builds it;
-//   * the contraction runs on 2 x 4 register tiles of P (8 FMAs per 6
-//     shared-memory loads), accumulated across chunks in shared memory;
-//   * the filter table, the monomial tables, the cutoff id and radius
-//     constants arrive as __grid_constant__ kernel arguments, so one
-//     binary serves every model.
-// Dynamic shared memory is sized on the host from (K, D, M, chunk); at
-// float64 the chunk shrinks towards 48 KB, and the launcher sets
-// cudaFuncAttributeMaxDynamicSharedMemorySize to what it asks for. Full-
-// precision pow/exp/sqrt (common.cuh): float64 parity with the twin
-// depends on them.
+// What binds it on an H100: the P contraction's FP32 FMAs. At the
+// serving shape (32769 rows of 128 entries, 78 of them real pairs;
+// K = 16, D = 56, M = 6, S = 1) it is 2 * 78 * 16 * 56 FLOP a row,
+// 4.58 GFLOP in all (0.068 ms at 67 TFLOP/s), against 0.113 GB of input
+// and output (0.034 ms at 3.35 TB/s). What the design does about it:
+//   * one warp per atom row, kWarps rows per block. One block barrier
+//     stages the small tables (weights, filter grid, log2 of the pexp
+//     lengths);
+//     after it a warp meets only __syncwarp;
+//   * the warp reads mask and slot of 64 entries at once (2 per lane,
+//     all loads issued together); each lane then reads the geometry of
+//     its own real pairs of the current slot (mask > 0; a masked
+//     entry's geometry is never read), and warp ballots compact them,
+//     with their cutoff, into a per-warp stage in shared memory: two
+//     dependent trips to device memory a row;
+//   * per batch of 32 compacted pairs, one lane per pair builds the
+//     pair's 56 monomials in registers, each the product of its
+//     degree-(m-1) prefix and one more component, as `moment_basis_c`
+//     builds it (55 multiplies, no table lookups), and stores them to a
+//     per-warp tile whose rows are padded by one 16-byte chunk, so the
+//     lanes' stores and the contraction's loads both avoid bank
+//     conflicts. Then all lanes compute each (pair, filter) value h once
+//     into a second tile; pexp takes one exp2 a filter (see
+//     filter_value);
+//   * the contraction runs in registers: each lane owns a tile of 4
+//     filters x 8 monomials (K padded to a power of two, D to 64), so a
+//     pair costs one 16-byte load of h (shared by the lanes of one
+//     filter block), two of m and 32 FMAs. P stays in registers from
+//     the first batch to the last; a lane holds at most 2 tiles, and
+//     more filters run in passes over the row;
+//   * the invariants come from the accumulators: each lane sums w P^2
+//     over its 8 monomials (16-byte loads of a [M, 64] weight table),
+//     and a reduce-scatter of 21 xor shuffles adds the 8 lanes of a
+//     filter block, leaving each lane 3 of the block's 24 outputs to
+//     write.
+// float64 runs the same template with tiles twice the size. The launcher
+// asks the runtime for the shared-memory limit and the resident blocks
+// once per (device, kernel, shared-memory size) and keeps the answers.
+// Full-precision exp/exp2/log2/sqrt (common.cuh): float64 parity with the
+// twin depends on them.
 
 #include <cuda_runtime.h>
+
+#include <cstddef>
+#include <map>
+#include <mutex>
+#include <tuple>
+#include <utility>
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
+constexpr int kWarps = 4;                 // atom rows per block
+constexpr int kThreads = 32 * kWarps;
+constexpr int kBatch = 32;                // pairs per h / m tile
+constexpr int kSpan = 64;                 // entries compacted per step
+constexpr int kList = kSpan + kBatch;     // stage: a step + carry
 constexpr int kMaxFilters = 64;
-constexpr int kMaxMonomials = 56;   // max_moment 5
+constexpr int kMaxMonomials = 56;         // max_moment 5
 constexpr int kMaxMoments = 6;
-constexpr int kTileK = 2;
-constexpr int kTileD = 4;
-constexpr size_t kSmemTarget = 48 * 1024;   // the default opt-in limit
+constexpr int kTileK = 4;                 // a lane's tile: 4 filters
+constexpr int kTileD = 8;                 //   x 8 monomials
+constexpr int kMaxTilesPerLane = 2;
+constexpr int kDp = 64;                   // monomials padded: 8 tiles of 8
+constexpr int kTilesD = kDp / kTileD;     // lanes of one filter block
+
+// Elements of T in a 16-byte chunk of shared memory: 4 floats, 2 doubles.
+template <typename T>
+constexpr int kChunk = 16 / sizeof(T);
+
+// Row stride of the monomial tile: kDp and one chunk more, so that row
+// p starts p chunks further round the banks: the lanes' stores (one
+// pair a lane) and the contraction's loads (one pair, a chunk a lane)
+// both meet no bank conflicts.
+template <typename T>
+constexpr int kMs = kDp + kChunk<T>;
+constexpr unsigned kFull = 0xffffffffu;
 
 enum Algorithm { kSf = 0, kDensity = 1, kMorse = 2, kPexp = 3 };
 
@@ -68,201 +107,458 @@ struct GrapSpec {
   T c0[kMaxFilters];   // sf: eta   density: A     morse: D      pexp: rl
   T c1[kMaxFilters];   // sf: omega density: beta  morse: gamma  pexp: pl
   T c2[kMaxFilters];   //           density: re    morse: r0
-  unsigned char parent[kMaxMonomials];  // m_d = m_parent[d] * u_axis[d]
-  unsigned char axis[kMaxMonomials];
   int moment[kMaxMoments];
 };
 
-__host__ __device__ __forceinline__ int round_up(int x, int m) {
-  return (x + m - 1) / m * m;
-}
-
-// Filter k at distance r, before the cutoff (ops/fused.py twin).
-template <typename T>
-__device__ __forceinline__ T filter_value(const GrapSpec<T>& g, int k, T r,
-                                          T rc2) {
-  switch (g.algorithm) {
-    case kSf: {
-      const T d = r - g.c1[k];
-      return d_exp(-g.c0[k] * (d * d) / rc2);
-    }
-    case kDensity:
-      return g.c0[k] * d_exp(-g.c1[k] * (r / g.c2[k] - T(1)));
-    case kMorse: {
-      const T x = g.c1[k] * (r - g.c2[k]);
-      return g.c0[k] * (d_exp(T(-2) * x) - T(2) * d_exp(-x));
-    }
-    default:
-      return d_exp(-d_pow(r / g.c0[k], g.c1[k]));
-  }
-}
-
-// Shared-memory layout, in elements of T. The h and m row strides are
-// odd, so the per-pair writes of neighbouring threads hit distinct banks.
-struct Layout {
-  int kp, dp, hs, ms;            // padded K, D; h and m row strides
-  int w, p, h, m, r, c, total;   // offsets
-
-  __host__ __device__ Layout(int k, int d, int n_moments, int chunk) {
-    kp = round_up(k, kTileK);
-    dp = round_up(d, kTileD);
-    hs = kp + 1;
-    ms = dp + 1;
-    w = 0;
-    p = w + d * n_moments;
-    h = p + kp * dp;
-    m = h + chunk * hs;
-    r = m + chunk * ms;
-    c = r + chunk;
-    total = c + chunk;
-  }
+// Launch shape, fixed on the host from (K, D).
+struct Shape {
+  int kg;        // filters per pass over the row
+  int kgp;       // kg padded to a power of two >= kTileK
 };
 
+// The monomials in `moment_monomials` order, the code of each as the
+// host builds it (ops/fused.py `monomial_codes`: bits 0-2 the degree,
+// then 2 bits per sorted axis). The launcher holds the host's codes to
+// this table, so the kernel's fixed recurrence below is the host's
+// basis.
+constexpr unsigned short kCodes[kMaxMonomials] = {
+    0,    1,    9,    17,   2,    34,   66,   42,   74,   82,   3,    131,
+    259,  163,  291,  323,  171,  299,  331,  339,  4,    516,  1028, 644,
+    1156, 1284, 676,  1188, 1316, 1348, 684,  1196, 1324, 1356, 1364, 5,
+    2053, 4101, 2565, 4613, 5125, 2693, 4741, 5253, 5381, 2725, 4773, 5285,
+    5413, 5445, 2733, 4781, 5293, 5421, 5453, 5461};
+
+// The 56 monomials of (x, y, z) up to degree 5, each the product of its
+// prefix monomial and its last axis (the twin's `moment_basis_c`).
 template <typename T>
+__device__ __forceinline__ void monomials(T x, T y, T z,
+                                          T (&m)[kMaxMonomials]) {
+  m[0] = T(1); m[1] = x; m[2] = y; m[3] = z; m[4] = m[1] * x;
+  m[5] = m[1] * y; m[6] = m[1] * z; m[7] = m[2] * y; m[8] = m[2] * z;
+  m[9] = m[3] * z; m[10] = m[4] * x; m[11] = m[4] * y; m[12] = m[4] * z;
+  m[13] = m[5] * y; m[14] = m[5] * z; m[15] = m[6] * z; m[16] = m[7] * y;
+  m[17] = m[7] * z; m[18] = m[8] * z; m[19] = m[9] * z; m[20] = m[10] * x;
+  m[21] = m[10] * y; m[22] = m[10] * z; m[23] = m[11] * y;
+  m[24] = m[11] * z; m[25] = m[12] * z; m[26] = m[13] * y;
+  m[27] = m[13] * z; m[28] = m[14] * z; m[29] = m[15] * z;
+  m[30] = m[16] * y; m[31] = m[16] * z; m[32] = m[17] * z;
+  m[33] = m[18] * z; m[34] = m[19] * z; m[35] = m[20] * x;
+  m[36] = m[20] * y; m[37] = m[20] * z; m[38] = m[21] * y;
+  m[39] = m[21] * z; m[40] = m[22] * z; m[41] = m[23] * y;
+  m[42] = m[23] * z; m[43] = m[24] * z; m[44] = m[25] * z;
+  m[45] = m[26] * y; m[46] = m[26] * z; m[47] = m[27] * z;
+  m[48] = m[28] * z; m[49] = m[29] * z; m[50] = m[30] * y;
+  m[51] = m[30] * z; m[52] = m[31] * z; m[53] = m[32] * z;
+  m[54] = m[33] * z; m[55] = m[34] * z;
+}
+
+// Bytes of one warp's tiles: m [kBatch, kMs] and h [kBatch, kgp] of T,
+// log2 r [kBatch] in double, and the compacted pairs' r, cutoff, u0,
+// u1, u2 [5, kList] of T. Each piece is a multiple of 16 bytes, so the
+// m and h rows stay 16-byte aligned.
+template <typename T>
+__host__ __device__ __forceinline__ int warp_bytes(const Shape& sh) {
+  return sizeof(T) * (kBatch * (kMs<T> + sh.kgp) + 5 * kList) +
+         sizeof(double) * kBatch;
+}
+
+// The warps' tiles, then the invariant weights [M, kDp] of T (16-byte
+// aligned: their rows are read as 16-byte chunks), log2 of the pexp
+// lengths [K] in double, the filter grid [3, K] of T and the moments
+// [M].
+template <typename T>
+size_t smem_bytes(const Shape& sh, int n_filters, int n_moments) {
+  return static_cast<size_t>(kWarps) * warp_bytes<T>(sh) +
+         sizeof(double) * n_filters +
+         sizeof(T) * (kDp * n_moments + 3 * n_filters) +
+         sizeof(int) * n_moments;
+}
+
+__device__ __forceinline__ float d_exp2(float x) { return exp2f(x); }
+__device__ __forceinline__ double d_exp2(double x) { return exp2(x); }
+
+// A filter at distance r, before the cutoff (ops/fused.py twin), from
+// its grid row (c0, c1, c2). pexp's exp(-(r / rl)^pl) is taken as
+// exp(-2^(pl (log2 r - log2 rl))), with log2 r (`lr`, once per pair),
+// log2 rl (`lrl`, once per block) and their difference in double: one
+// exp2 a filter in place of a division and a pow.
+template <typename T>
+__device__ __forceinline__ T filter_value(int algorithm, T c0, T c1, T c2,
+                                          double lrl, T r, double lr,
+                                          T rc2) {
+  switch (algorithm) {
+    case kSf: {
+      const T d = r - c1;
+      return d_exp(-c0 * (d * d) / rc2);
+    }
+    case kDensity:
+      return c0 * d_exp(-c1 * (r / c2 - T(1)));
+    case kMorse: {
+      const T x = c1 * (r - c2);
+      return c0 * (d_exp(T(-2) * x) - T(2) * d_exp(-x));
+    }
+    default:
+      return d_exp(-d_exp2(T(double(c1) * (lr - lrl))));
+  }
+}
+
+__device__ __forceinline__ void load_chunk(const float* p, float* v) {
+  const float4 q = *reinterpret_cast<const float4*>(p);
+  v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+}
+
+__device__ __forceinline__ void load_chunk(const double* p, double* v) {
+  const double2 q = *reinterpret_cast<const double2*>(p);
+  v[0] = q.x; v[1] = q.y;
+}
+
+__device__ __forceinline__ void store_chunk(float* p, const float* v) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+
+__device__ __forceinline__ void store_chunk(double* p, const double* v) {
+  *reinterpret_cast<double2*>(p) = make_double2(v[0], v[1]);
+}
+
+// v[0, 4) = p[0, 4), 16-byte aligned.
+template <typename T>
+__device__ __forceinline__ void load4(const T* p, T* v) {
+#pragma unroll
+  for (int q = 0; q < 4; q += kChunk<T>) load_chunk(p + q, v + q);
+}
+
+template <typename T, int TPL>
 __global__ void __launch_bounds__(kThreads)
 grap_kernel(const T* __restrict__ rij, const T* __restrict__ ux,
             const T* __restrict__ uy, const T* __restrict__ uz,
             const T* __restrict__ slot, const T* __restrict__ mask,
-            const T* __restrict__ w, T* __restrict__ out, int n,
-            int n_slots, int chunk, const __grid_constant__ GrapSpec<T> spec,
+            const T* __restrict__ w, T* __restrict__ out, int rows, int n,
+            int n_slots, Shape sh, const __grid_constant__ GrapSpec<T> spec,
             const __grid_constant__ Cutoff<T> cut, T rc2) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ int warp_count[kWarps];
-  const int k_f = spec.n_filters, n_mono = spec.n_mono;
-  const int n_mom = spec.n_moments;
-  const Layout lay(k_f, n_mono, n_mom, chunk);
-  T* smem = reinterpret_cast<T*>(smem_raw);
-  T* w_s = smem + lay.w;   // [D, M] invariant weights
-  T* p_s = smem + lay.p;   // [kp, dp] P of the current slot
-  T* h_s = smem + lay.h;   // [chunk, hs] filter values of compacted pairs
-  T* m_s = smem + lay.m;   // [chunk, ms] monomials of compacted pairs
-  T* r_s = smem + lay.r;   // [chunk] distances
-  T* c_s = smem + lay.c;   // [chunk] cutoff times mask
+  const int K = spec.n_filters, D = spec.n_mono, M = spec.n_moments;
+  T* w_s = reinterpret_cast<T*>(smem_raw + kWarps * warp_bytes<T>(sh));
+  double* lrl_s = reinterpret_cast<double*>(w_s + kDp * M);   // [K]
+  T* f_s = reinterpret_cast<T*>(lrl_s + K);  // [3, K] filter grid
+  int* mom_s = reinterpret_cast<int*>(f_s + 3 * K);   // [M] moments
 
   const int tid = threadIdx.x;
+  for (int i = tid; i < kDp * M; i += kThreads) {
+    const int mi = i / kDp, d = i - mi * kDp;
+    w_s[i] = d < D ? w[d * M + mi] : T(0);
+  }
+  for (int mi = tid; mi < M; mi += kThreads) mom_s[mi] = spec.moment[mi];
+  for (int k = tid; k < K; k += kThreads) {
+    f_s[k] = spec.c0[k];
+    f_s[K + k] = spec.c1[k];
+    f_s[2 * K + k] = spec.c2[k];
+    lrl_s[k] = log2(double(spec.c0[k]));   // pexp: log2 rl
+  }
+  __syncthreads();   // the only block-wide barrier
+
   const int lane = tid & 31, warp = tid >> 5;
-  const size_t row = blockIdx.x;
-  const size_t base = row * n;
-  T* out_row = out + row * static_cast<size_t>(n_slots * k_f * n_mom);
-  const int tiles_d = lay.dp / kTileD;
-  const int n_tiles = (lay.kp / kTileK) * tiles_d;
+  T* m_s = reinterpret_cast<T*>(smem_raw + warp * warp_bytes<T>(sh));
+  T* h_s = m_s + kBatch * kMs<T>;            // [kBatch, kMs], [kBatch, kgp]
+  double* lr_s = reinterpret_cast<double*>(h_s + kBatch * sh.kgp);
+  T* stage = reinterpret_cast<T*>(lr_s + kBatch);   // [5, kList]
+  const bool pexp = spec.algorithm == kPexp;
+  const unsigned lanes_below = (1u << lane) - 1u;
+  constexpr int V = kChunk<T>;
 
-  for (int i = tid; i < n_mono * n_mom; i += kThreads) w_s[i] = w[i];
-
-  for (int s = 0; s < n_slots; ++s) {
-    const T slot_value = T(s);
-    for (int i = tid; i < lay.kp * lay.dp; i += kThreads) p_s[i] = T(0);
-
-    for (int j0 = 0; j0 < n; j0 += chunk) {
-      // the previous chunk's readers are done with h_s, m_s, r_s, c_s
-      // (and p_s is zeroed, w_s loaded, before the first chunk)
-      __syncthreads();
-      const int jj = tid;
-      bool active = false;
-      size_t idx = 0;
-      T m_val = T(0);
-      if (jj < chunk && j0 + jj < n) {
-        idx = base + j0 + jj;
-        m_val = mask[idx];
-        active = m_val > T(0) && slot[idx] == slot_value;
-      }
-      const unsigned ballot = __ballot_sync(0xffffffffu, active);
-      if (lane == 0) warp_count[warp] = __popc(ballot);
-      __syncthreads();
-      int offset = 0, n_active = 0;
+  // this lane's tiles: filter block kb[t], monomial block db[t]
+  int kb[TPL], db[TPL];
 #pragma unroll
-      for (int v = 0; v < kWarps; ++v) {
-        if (v < warp) offset += warp_count[v];
-        n_active += warp_count[v];
-      }
-      if (n_active == 0) continue;   // uniform across the block
-      if (active) {
-        const int pos = offset + __popc(ballot & ((1u << lane) - 1u));
-        const T r = rij[idx];
-        r_s[pos] = r;
-        c_s[pos] = cutoff_value(cut, r) * m_val;
-        const T u0 = ux[idx], u1 = uy[idx], u2 = uz[idx];
-        T* m_row = m_s + pos * lay.ms;
-        m_row[0] = T(1);
-        for (int d = 1; d < n_mono; ++d) {
-          const int ax = spec.axis[d];
-          const T u = ax == 0 ? u0 : (ax == 1 ? u1 : u2);
-          m_row[d] = m_row[spec.parent[d]] * u;
+  for (int t = 0; t < TPL; ++t) {
+    const int tile = lane + 32 * t;
+    kb[t] = tile / kTilesD;
+    db[t] = tile % kTilesD;
+  }
+
+  // persistent warps: a warp takes every (gridDim.x * kWarps)-th row
+  for (int row = blockIdx.x * kWarps + warp; row < rows;
+       row += gridDim.x * kWarps) {
+    const size_t base = static_cast<size_t>(row) * n;
+    T* out_row = out + static_cast<size_t>(row) * n_slots * K * M;
+    for (int s = 0; s < n_slots; ++s) {
+      const T slot_value = T(s);
+      for (int k0 = 0; k0 < K; k0 += sh.kg) {
+        const int kg = min(sh.kg, K - k0);
+        int kgp = kTileK, k_shift = 2;   // kg padded to a power of two
+        while (kgp < kg) {
+          kgp <<= 1;
+          ++k_shift;
         }
-        for (int d = n_mono; d < lay.dp; ++d) m_row[d] = T(0);
-      }
-      __syncthreads();
+        bool on[TPL];
+#pragma unroll
+        for (int t = 0; t < TPL; ++t) on[t] = kb[t] * kTileK < kgp;
+        // kgp divides 32, so a lane computes h of one filter, kk_h, for
+        // every (32 / kgp)-th pair of a batch
+        const int kk_h = lane & (kgp - 1);
+        const bool k_on = kk_h < kg;
+        const int k_h = k0 + (k_on ? kk_h : 0);
 
-      // filters of the compacted pairs; padded filter rows read zero
-      for (int e = tid; e < n_active * lay.kp; e += kThreads) {
-        const int k = e / n_active, p = e - k * n_active;
-        h_s[p * lay.hs + k] =
-            k < k_f ? filter_value(spec, k, r_s[p], rc2) * c_s[p] : T(0);
-      }
-      __syncthreads();
-
-      // P[k, d] += sum_p h[p, k] m[p, d] on 2 x 4 register tiles
-      for (int t = tid; t < n_tiles; t += kThreads) {
-        const int k0 = (t / tiles_d) * kTileK;
-        const int d0 = (t % tiles_d) * kTileD;
-        T acc[kTileK][kTileD];
+        T acc[TPL][kTileK][kTileD];
 #pragma unroll
-        for (int a = 0; a < kTileK; ++a) {
-#pragma unroll
-          for (int b = 0; b < kTileD; ++b) {
-            acc[a][b] = p_s[(k0 + a) * lay.dp + d0 + b];
-          }
-        }
-        for (int p = 0; p < n_active; ++p) {
-          const T* h_row = h_s + p * lay.hs + k0;
-          const T* m_row = m_s + p * lay.ms + d0;
-          T hv[kTileK], mv[kTileD];
-#pragma unroll
-          for (int a = 0; a < kTileK; ++a) hv[a] = h_row[a];
-#pragma unroll
-          for (int b = 0; b < kTileD; ++b) mv[b] = m_row[b];
+        for (int t = 0; t < TPL; ++t) {
 #pragma unroll
           for (int a = 0; a < kTileK; ++a) {
 #pragma unroll
-            for (int b = 0; b < kTileD; ++b) acc[a][b] += hv[a] * mv[b];
+            for (int b = 0; b < kTileD; ++b) acc[t][a][b] = T(0);
           }
         }
-#pragma unroll
-        for (int a = 0; a < kTileK; ++a) {
-#pragma unroll
-          for (int b = 0; b < kTileD; ++b) {
-            p_s[(k0 + a) * lay.dp + d0 + b] = acc[a][b];
-          }
-        }
-      }
-    }
-    __syncthreads();
 
-    // invariants of this slot, (filter, moment) order
-    for (int e = tid; e < k_f * n_mom; e += kThreads) {
-      const int k = e / n_mom, mi = e - k * n_mom;
-      const T* p_row = p_s + k * lay.dp;
-      T acc = T(0);
-      for (int d = 0; d < n_mono; ++d) {
-        const T p = p_row[d];
-        acc += w_s[d * n_mom + mi] * (p * p);
+        // Compact the slot's real pairs, kSpan entries a step: each lane
+        // reads the geometry of its own real pairs (masked entries are not
+        // read) and stores it, with the cutoff, at the pair's place in
+        // `stage`. Then run P += h m over each full batch of kBatch pairs;
+        // the last step also runs the partial batch left over.
+        int count = 0;   // compacted pairs waiting in `stage`
+        for (int j0 = 0; j0 < n; j0 += kSpan) {
+          constexpr int kE = kSpan / 32;   // entries a lane
+          T mk[kE], sl[kE];
+#pragma unroll
+          for (int i = 0; i < kE; ++i) {
+            const int j = j0 + lane + 32 * i;
+            mk[i] = j < n ? mask[base + j] : T(0);
+            sl[i] = j < n ? slot[base + j] : T(-1);
+          }
+          bool act[kE];
+          T rv[kE], u0v[kE], u1v[kE], u2v[kE];
+#pragma unroll
+          for (int i = 0; i < kE; ++i) {
+            const size_t idx = base + j0 + lane + 32 * i;
+            act[i] = mk[i] > T(0) && sl[i] == slot_value;
+            rv[i] = act[i] ? rij[idx] : T(0);
+            u0v[i] = act[i] ? ux[idx] : T(0);
+            u1v[i] = act[i] ? uy[idx] : T(0);
+            u2v[i] = act[i] ? uz[idx] : T(0);
+          }
+#pragma unroll
+          for (int i = 0; i < kE; ++i) {
+            const unsigned ballot = __ballot_sync(kFull, act[i]);
+            if (act[i]) {
+              const int q = count + __popc(ballot & lanes_below);
+              stage[q] = rv[i];
+              stage[kList + q] = cutoff_value(cut, rv[i]) * mk[i];
+              stage[2 * kList + q] = u0v[i];
+              stage[3 * kList + q] = u1v[i];
+              stage[4 * kList + q] = u2v[i];
+            }
+            count += __popc(ballot);
+          }
+          const bool last = j0 + kSpan >= n;
+          int done = 0;
+          while (count - done >= kBatch || (last && count > done)) {
+            const int nb = min(kBatch, count - done);
+            const T* r_b = stage + done;          // this batch's r
+            const T* c_b = stage + kList + done;  // and cutoff
+            // the stage is written; the last batch's readers are done with
+            // the tiles
+            __syncwarp();
+            if (lane < nb) {
+              const int q = done + lane;
+              if (pexp) lr_s[lane] = log2(double(stage[q]));
+              T m[kMaxMonomials];
+              monomials(stage[2 * kList + q], stage[3 * kList + q],
+                        stage[4 * kList + q], m);
+              T* m_row = m_s + lane * kMs<T>;
+#pragma unroll
+              for (int c = 0; c < kDp / V; ++c) {
+                T v[V];
+#pragma unroll
+                for (int q = 0; q < V; ++q) {
+                  const int d = c * V + q;   // d < 64; monomials end at 56
+                  v[q] = d < kMaxMonomials && d < D
+                             ? m[d < kMaxMonomials ? d : 0]
+                             : T(0);
+                }
+                store_chunk(m_row + c * V, v);
+              }
+            }
+            __syncwarp();
+            const T c0 = f_s[k_h], c1 = f_s[K + k_h], c2 = f_s[2 * K + k_h];
+            const double lrl = lrl_s[k_h];
+#pragma unroll 2
+            for (int p = lane >> k_shift; p < nb; p += 32 >> k_shift) {
+              h_s[(p << k_shift) + kk_h] =
+                  k_on ? filter_value(spec.algorithm, c0, c1, c2, lrl,
+                                      r_b[p], lr_s[p], rc2) *
+                             c_b[p]
+                       : T(0);
+            }
+            __syncwarp();
+#pragma unroll 2
+            for (int p = 0; p < nb; ++p) {
+#pragma unroll
+              for (int t = 0; t < TPL; ++t) {
+                if (!on[t]) continue;
+                T hv[kTileK], mv[kTileD];
+                load4(h_s + p * kgp + kb[t] * kTileK, hv);
+                const T* m_row = m_s + p * kMs<T> + db[t] * kTileD;
+#pragma unroll
+                for (int q = 0; q < kTileD / V; ++q) {
+                  load_chunk(m_row + q * V, mv + q * V);
+                }
+#pragma unroll
+                for (int a = 0; a < kTileK; ++a) {
+#pragma unroll
+                  for (int b = 0; b < kTileD; ++b) {
+                    acc[t][a][b] = fma(hv[a], mv[b], acc[t][a][b]);
+                  }
+                }
+              }
+            }
+            done += nb;
+          }
+          if (done > 0 && !last) {   // carry the rest to the stage's front
+            const int rest = count - done;
+            __syncwarp();
+            T v[5];
+#pragma unroll
+            for (int a = 0; a < 5; ++a) {
+              v[a] = lane < rest ? stage[a * kList + done + lane] : T(0);
+            }
+            __syncwarp();
+            if (lane < rest) {
+#pragma unroll
+              for (int a = 0; a < 5; ++a) stage[a * kList + lane] = v[a];
+            }
+            count = rest;
+          }
+        }
+
+        // invariants of filters [k0, k0 + kg) of slot s
+#pragma unroll
+        for (int t = 0; t < TPL; ++t) {
+          // v[a * kMaxMoments + mi]: this lane's sum of w P^2 over its 8
+          // monomials, for its filters a and the moments mi
+          T v[kTileK * kMaxMoments];
+#pragma unroll
+          for (int i = 0; i < kTileK * kMaxMoments; ++i) v[i] = T(0);
+          if (on[t]) {
+            T sq[kTileK][kTileD];
+#pragma unroll
+            for (int a = 0; a < kTileK; ++a) {
+#pragma unroll
+              for (int b = 0; b < kTileD; ++b) {
+                sq[a][b] = acc[t][a][b] * acc[t][a][b];
+              }
+            }
+#pragma unroll
+            for (int mi = 0; mi < kMaxMoments; ++mi) {
+              if (mi >= M) continue;
+              T wv[kTileD];
+              load4(w_s + mi * kDp + db[t] * kTileD, wv);
+              load4(w_s + mi * kDp + db[t] * kTileD + 4, wv + 4);
+#pragma unroll
+              for (int a = 0; a < kTileK; ++a) {
+#pragma unroll
+                for (int b = 0; b < kTileD; ++b) {
+                  v[a * kMaxMoments + mi] += wv[b] * sq[a][b];
+                }
+              }
+            }
+          }
+          // reduce-scatter over the 8 lanes of the filter block: each
+          // xor step keeps half the values, 24 -> 12 -> 6 -> 3
+          T v12[12], v6[6], v3[3];
+          {
+            const bool hi = lane & 4;
+#pragma unroll
+            for (int i = 0; i < 12; ++i) {
+              const T send = hi ? v[i] : v[12 + i];
+              v12[i] = (hi ? v[12 + i] : v[i]) +
+                       __shfl_xor_sync(kFull, send, 4);
+            }
+          }
+          {
+            const bool hi = lane & 2;
+#pragma unroll
+            for (int i = 0; i < 6; ++i) {
+              const T send = hi ? v12[i] : v12[6 + i];
+              v6[i] = (hi ? v12[6 + i] : v12[i]) +
+                      __shfl_xor_sync(kFull, send, 2);
+            }
+          }
+          {
+            const bool hi = lane & 1;
+#pragma unroll
+            for (int i = 0; i < 3; ++i) {
+              const T send = hi ? v6[i] : v6[3 + i];
+              v3[i] = (hi ? v6[3 + i] : v6[i]) +
+                      __shfl_xor_sync(kFull, send, 1);
+            }
+          }
+          // P[k, 0] of the block's filters: monomial 0 of its first lane
+          T p0[kTileK];
+#pragma unroll
+          for (int a = 0; a < kTileK; ++a) {
+            p0[a] = __shfl_sync(kFull, acc[t][a][0], lane & ~(kTilesD - 1));
+          }
+          if (on[t]) {
+            const int first = (lane & 4 ? 12 : 0) + (lane & 2 ? 6 : 0) +
+                              (lane & 1 ? 3 : 0);
+#pragma unroll
+            for (int j = 0; j < 3; ++j) {
+              const int i = first + j;
+              const int a = i / kMaxMoments, mi = i - a * kMaxMoments;
+              const int kk = kb[t] * kTileK + a;
+              if (mi >= M || kk >= kg) continue;
+              T val = v3[j];
+              if (mom_s[mi] == 0) {
+                // sign(0) is 0, as in both frameworks (no copysign)
+                const T p = a == 0 ? p0[0]
+                                   : (a == 1 ? p0[1] : (a == 2 ? p0[2]
+                                                               : p0[3]));
+                const T sgn = p > T(0) ? T(1) : (p < T(0) ? T(-1) : T(0));
+                val = sgn * d_sqrt(val + T(1e-16));
+              }
+              out_row[(s * K + k0 + kk) * M + mi] = val;
+            }
+          }
+        }
       }
-      if (spec.moment[mi] == 0) {
-        // sign(0) is 0, as in both frameworks (no copysign)
-        const T p0 = p_row[0];
-        const T sgn = p0 > T(0) ? T(1) : (p0 < T(0) ? T(-1) : T(0));
-        acc = sgn * d_sqrt(acc + T(1e-16));
-      }
-      out_row[s * k_f * n_mom + e] = acc;
     }
-    __syncthreads();   // p_s is zeroed again for the next slot
   }
 }
 
-template <typename T>
-size_t smem_bytes(int k, int d, int n_moments, int chunk) {
-  return sizeof(T) *
-         static_cast<size_t>(Layout(k, d, n_moments, chunk).total);
+// Blocks of `kernel` resident on the current device at `smem` bytes of
+// dynamic shared memory a block, after raising the kernel's shared-memory
+// limit to `smem` (a launch asking for more than the limit is refused, so
+// the limit only grows). Asked of the runtime once per (device, kernel,
+// smem) and kept: a server launches one kernel at one size again and
+// again.
+cudaError_t resident_blocks(const void* kernel, size_t smem, int* blocks) {
+  static std::mutex lock;
+  static std::map<std::pair<int, const void*>, size_t> limits;
+  static std::map<std::tuple<int, const void*, size_t>, int> resident;
+  int device = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e != cudaSuccess) return e;
+  const std::lock_guard<std::mutex> guard(lock);
+  const auto key = std::make_tuple(device, kernel, smem);
+  const auto hit = resident.find(key);
+  if (hit != resident.end()) {
+    *blocks = hit->second;
+    return cudaSuccess;
+  }
+  size_t& limit = limits[std::make_pair(device, kernel)];
+  if (smem > limit) {
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+    limit = smem;
+  }
+  int sms = 0, per_sm = 0;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (e != cudaSuccess) return e;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                    kThreads, smem);
+  if (e != cudaSuccess) return e;
+  *blocks = sms * (per_sm > 0 ? per_sm : 1);
+  resident.emplace(key, *blocks);
+  return cudaSuccess;
 }
 
 template <typename T>
@@ -270,8 +566,7 @@ int launch_grap(const T* rij, const T* ux, const T* uy, const T* uz,
                 const T* slot, const T* mask, const T* w, T* out, int rows,
                 int n, int n_slots, int algorithm, int n_filters,
                 const double* c0, const double* c1, const double* c2,
-                int n_mono, const unsigned char* parent,
-                const unsigned char* axis, int n_moments,
+                int n_mono, const unsigned short* codes, int n_moments,
                 const int* moments, double rc, int cutoff_id,
                 void* stream) {
   if (rows <= 0 || n <= 0 || n_slots <= 0 || algorithm < kSf ||
@@ -291,44 +586,47 @@ int launch_grap(const T* rij, const T* ux, const T* uy, const T* uz,
     spec.c1[k] = T(in ? c1[k] : 0.0);
     spec.c2[k] = T(in ? c2[k] : 0.0);
   }
-  for (int d = 0; d < kMaxMonomials; ++d) {
-    const bool in = d < n_mono;
-    if (in && d > 0 && (parent[d] >= d || axis[d] > 2)) {
-      return static_cast<int>(cudaErrorInvalidValue);
-    }
-    spec.parent[d] = in ? parent[d] : 0;
-    spec.axis[d] = in ? axis[d] : 0;
+  for (int d = 0; d < n_mono; ++d) {
+    if (codes[d] != kCodes[d]) return static_cast<int>(cudaErrorInvalidValue);
   }
   for (int m = 0; m < kMaxMoments; ++m) {
     spec.moment[m] = m < n_moments ? moments[m] : -1;
   }
-  int chunk = kThreads;
-  size_t smem = smem_bytes<T>(n_filters, n_mono, n_moments, chunk);
-  while (smem > kSmemTarget && chunk > 32) {
-    chunk /= 2;
-    smem = smem_bytes<T>(n_filters, n_mono, n_moments, chunk);
-  }
-  // a launch asking for more than the kernel's current limit is refused
-  // and never runs, so the limit is set for every launch
-  const cudaError_t e = cudaFuncSetAttribute(
-      grap_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (e != cudaSuccess) return static_cast<int>(e);
+
+  Shape sh;
+  const int max_filters = kMaxTilesPerLane * 32 / kTilesD * kTileK;
+  sh.kg = n_filters < max_filters ? n_filters : max_filters;
+  sh.kgp = kTileK;
+  while (sh.kgp < sh.kg) sh.kgp *= 2;
+  const bool one_tile = sh.kgp / kTileK * kTilesD <= 32;
+  const size_t smem = smem_bytes<T>(sh, n_filters, n_moments);
   const Cutoff<T> cut = make_cutoff<T>(cutoff_id, rc);
   const T rc2 = T(rc * rc);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  grap_kernel<T><<<rows, kThreads, smem, st>>>(
-      rij, ux, uy, uz, slot, mask, w, out, n, n_slots, chunk, spec, cut,
-      rc2);
-  return static_cast<int>(cudaGetLastError());
+
+  auto launch = [&](auto kernel) {
+    // as many blocks as fit on the card at once, or fewer for few rows:
+    // each block stages its tables once for all the rows it takes
+    int resident = 0;
+    const cudaError_t e = resident_blocks(
+        reinterpret_cast<const void*>(kernel), smem, &resident);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    const int needed = (rows + kWarps - 1) / kWarps;
+    const int blocks = needed < resident ? needed : resident;
+    kernel<<<blocks, kThreads, smem, st>>>(rij, ux, uy, uz, slot, mask, w,
+                                           out, rows, n, n_slots, sh, spec,
+                                           cut, rc2);
+    return static_cast<int>(cudaGetLastError());
+  };
+  return one_tile ? launch(grap_kernel<T, 1>) : launch(grap_kernel<T, 2>);
 }
 
 }  // namespace
 
 // Each function launches on `stream` without synchronising and returns
 // the cudaError_t of the launch (0 on success). `w` is a device array
-// [n_mono, n_moments] of the input type; the parameter tables are host
-// arrays copied into the launch.
+// [n_mono, n_moments] of the input type; the parameter tables and the
+// monomial codes are host arrays copied into the launch.
 extern "C" {
 
 int grap_f32(const float* rij, const float* ux, const float* uy,
@@ -336,12 +634,11 @@ int grap_f32(const float* rij, const float* ux, const float* uy,
              const float* w, float* out, int rows, int n, int n_slots,
              int algorithm, int n_filters, const double* c0,
              const double* c1, const double* c2, int n_mono,
-             const unsigned char* parent, const unsigned char* axis,
-             int n_moments, const int* moments, double rc, int cutoff_id,
-             void* stream) {
+             const unsigned short* codes, int n_moments, const int* moments,
+             double rc, int cutoff_id, void* stream) {
   return launch_grap<float>(rij, ux, uy, uz, slot, mask, w, out, rows, n,
                             n_slots, algorithm, n_filters, c0, c1, c2,
-                            n_mono, parent, axis, n_moments, moments, rc,
+                            n_mono, codes, n_moments, moments, rc,
                             cutoff_id, stream);
 }
 
@@ -350,12 +647,11 @@ int grap_f64(const double* rij, const double* ux, const double* uy,
              const double* w, double* out, int rows, int n, int n_slots,
              int algorithm, int n_filters, const double* c0,
              const double* c1, const double* c2, int n_mono,
-             const unsigned char* parent, const unsigned char* axis,
-             int n_moments, const int* moments, double rc, int cutoff_id,
-             void* stream) {
+             const unsigned short* codes, int n_moments, const int* moments,
+             double rc, int cutoff_id, void* stream) {
   return launch_grap<double>(rij, ux, uy, uz, slot, mask, w, out, rows, n,
                              n_slots, algorithm, n_filters, c0, c1, c2,
-                             n_mono, parent, axis, n_moments, moments, rc,
+                             n_mono, codes, n_moments, moments, rc,
                              cutoff_id, stream);
 }
 

@@ -8,26 +8,39 @@
 //
 // Inputs are the dense per-atom layout: [rows, n] row-major arrays of
 // distances, the slot index carried as a float, and a 0/1 mask. Padded
-// slots hold finite garbage geometry, so a slot whose mask is not > 0 is
-// skipped before anything is computed from it (this also covers G4's
-// division by r_ij * r_ik). Output is [rows, n_slots * n_params] in
-// (slot, param) order.
+// slots hold finite garbage geometry, so nothing is computed from an
+// entry whose mask is not > 0 (this also covers G4's division by
+// r_ij * r_ik). Output is [rows, n_slots * n_params] in (slot, param)
+// order.
 //
-// What bounds it on an H100: each element is read once (3 arrays for G2,
-// 5 for G4) and costs one cutoff plus n_params exp (and pow for G4); no
-// matmul. At the serving widths (n = 128 / 256, n_params = 5 / 4) the
-// reads dominate, so the design keeps each element's work in registers
-// and writes only the reduced row:
-//   * one block of 128 threads per atom row; threads stride over n;
-//   * the grid parameters, the cutoff id and radius arrive as kernel
-//     arguments (a struct in the constant bank);
-//   * per slot, each thread accumulates its n_params partial sums in
+// What binds them on an H100: each element is read once (3 arrays for
+// G2, 5 for G4) and costs one cutoff (three for G4) plus n_params exp
+// (and pow for G4); no matmul. At the serving widths (n = 128 / 256,
+// n_params = 5 / 4) the reads bind: 168 MB for G4 at 32769 rows of 256,
+// 0.050 ms at 3.35 TB/s. The grid parameters, the cutoff id and radius
+// arrive as kernel arguments (a struct in the constant bank).
+//   * G2: one block of 128 threads per atom row; threads stride over n;
+//     per slot, each thread accumulates its n_params partial sums in
 //     registers (the template bound P keeps the array in registers),
 //     then warp shuffles and one shared-memory step reduce each column.
+//   * G4: one warp per atom row, kWarps rows per block, no block
+//     barrier. A lane reads 8 entries of a 256-entry span as two
+//     16-byte loads per array (each warp load 512 contiguous bytes),
+//     all five arrays' loads issued before any math.
+//     Warp ballots compact the span's real entries (mask > 0) into a
+//     per-warp stage in shared memory; one lane per entry computes
+//     them, so masked tails cost no lanes and the per-entry math is one
+//     copy of code. Each entry's terms go to its slot's accumulators in
+//     registers (SB slots at a time, a template bound; more slots read
+//     the row again, from cache). The reduction is xor shuffles only.
+//     An integer zeta (1..16) is raised by multiplies, others by
+//     full-precision pow.
 // Full-precision exp/pow/cos are used on purpose (common.cuh).
 
 #include <cuda_runtime.h>
 
+#include <cmath>
+#include <cstdint>
 #include <type_traits>
 
 #include "common.cuh"
@@ -50,6 +63,7 @@ struct G4Grid {
   T gamma[kMaxParams];
   T zeta[kMaxParams];
   T scale[kMaxParams];  // 2^(1 - zeta)
+  int izeta[kMaxParams];  // zeta where it is an integer in 1..16, else 0
 };
 
 template <typename T>
@@ -121,49 +135,166 @@ g2_kernel(const T* __restrict__ rij, const T* __restrict__ slot,
   }
 }
 
+// Sum of v over the warp, in every lane.
+template <typename T>
+__device__ __forceinline__ T warp_allsum(T v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    v += __shfl_xor_sync(0xffffffffu, v, off);
+  }
+  return v;
+}
+
+constexpr int kLaneEntries = 8;                    // G4 entries a lane owns
+constexpr int kSpan = 32 * kLaneEntries;           // G4 entries a warp reads
+
+// A lane's 8 entries of the span at j0: v[0, 4) = p[j0 + 4 lane, + 4)
+// and v[4, 8) = p[j0 + 128 + 4 lane, + 4), zero past n, so each warp
+// load reads 512 contiguous bytes. 16-byte loads where `vec` (row and
+// pointer aligned) and the 4 entries lie inside the row.
+__device__ __forceinline__ void load_quad(const float* p, int j, int n,
+                                          bool vec, float* v) {
+  if (vec && j + 4 <= n) {
+    const float4 a = *reinterpret_cast<const float4*>(p + j);
+    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) v[i] = j + i < n ? p[j + i] : 0.f;
+  }
+}
+
+__device__ __forceinline__ void load_quad(const double* p, int j, int n,
+                                          bool vec, double* v) {
+  if (vec && j + 4 <= n) {
+    const double2 a = *reinterpret_cast<const double2*>(p + j);
+    const double2 b = *reinterpret_cast<const double2*>(p + j + 2);
+    v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) v[i] = j + i < n ? p[j + i] : 0.0;
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void load8(const T* p, int j0, int n, bool vec,
+                                      T (&v)[kLaneEntries]) {
+  const int lane = threadIdx.x & 31;
+  load_quad(p, j0 + 4 * lane, n, vec, v);
+  load_quad(p, j0 + kSpan / 2 + 4 * lane, n, vec, v + 4);
+}
+
+// x^k by k - 1 multiplies, k >= 1.
+template <typename T>
+__device__ __forceinline__ T int_pow(T x, int k) {
+  T r = x;
+  for (int i = 1; i < k; ++i) r *= x;
+  return r;
+}
+
+// One triple's G4 terms into the accumulators of slots [s0, s0 + ns);
+// the caller passes only entries with mask > 0.
+template <typename T, int P, int SB>
+__device__ __forceinline__ void g4_entry(T a, T b, T c, T sl, T mk, int s0,
+                                         int ns, int n_params,
+                                         const G4Grid<T>& grid,
+                                         const Cutoff<T>& cut, T inv_rc2,
+                                         T (&acc)[SB][P]) {
+  const T a2 = a * a, b2 = b * b, c2 = c * c;
+  const T z = (a2 + b2 + c2) * inv_rc2;
+  const T cos_theta = (a2 + b2 - c2) / (T(2) * a * b);
+  const T fc3 = cutoff_value(cut, a) * cutoff_value(cut, b) *
+                cutoff_value(cut, c);
+#pragma unroll
+  for (int t = 0; t < P; ++t) {
+    if (t < n_params) {
+      T base_t = T(1) + grid.gamma[t] * cos_theta;
+      if (base_t < T(0)) base_t = T(0);
+      const T powed = grid.izeta[t] > 0 ? int_pow(base_t, grid.izeta[t])
+                                        : d_pow(base_t, grid.zeta[t]);
+      const T v = grid.scale[t] * powed * d_exp(-grid.beta[t] * z) * fc3 *
+                  mk;
+#pragma unroll
+      for (int ss = 0; ss < SB; ++ss) {
+        if (ss < ns && sl == T(s0 + ss)) acc[ss][t] += v;
+      }
+    }
+  }
+}
+
 // G4[a, s, t] = sum_{triples j<k of a} [slot == s] mask
 //   2^(1-zeta) max(1 + gamma cos theta, 0)^zeta
 //   exp(-beta (r_ij^2 + r_ik^2 + r_jk^2) / rc^2) fc(r_ij) fc(r_ik) fc(r_jk)
-template <typename T, int P>
+template <typename T, int P, int SB>
 __global__ void __launch_bounds__(kThreads)
 g4_kernel(const T* __restrict__ rij, const T* __restrict__ rik,
           const T* __restrict__ rjk, const T* __restrict__ slot,
-          const T* __restrict__ mask, T* __restrict__ out, int n,
+          const T* __restrict__ mask, T* __restrict__ out, int rows, int n,
           int n_slots, int n_params, G4Grid<T> grid, Cutoff<T> cut,
-          T rc2) {
-  __shared__ T partial[kWarps][P];
-  const size_t row = blockIdx.x;
-  const size_t base = row * n;
-  T* out_row = out + row * n_slots * n_params;
-  for (int s = 0; s < n_slots; ++s) {
-    const T slot_value = T(s);
-    T acc[P];
+          T inv_rc2, bool vec) {
+  __shared__ T stage_all[kWarps][5][kSpan];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int row = blockIdx.x * kWarps + warp;
+  if (row >= rows) return;   // the whole warp leaves together
+  T(*stage)[kSpan] = stage_all[warp];
+  const unsigned lanes_below = (1u << lane) - 1u;
+  const size_t base = static_cast<size_t>(row) * n;
+  T* out_row = out + static_cast<size_t>(row) * n_slots * n_params;
+  for (int s0 = 0; s0 < n_slots; s0 += SB) {
+    const int ns = min(SB, n_slots - s0);
+    T acc[SB][P];
 #pragma unroll
-    for (int t = 0; t < P; ++t) acc[t] = T(0);
-    for (int j = threadIdx.x; j < n; j += kThreads) {
-      const T m = mask[base + j];
-      if (!(m > T(0)) || slot[base + j] != slot_value) continue;
-      const T a = rij[base + j];
-      const T b = rik[base + j];
-      const T c = rjk[base + j];
-      const T a2 = a * a, b2 = b * b, c2 = c * c;
-      const T z = (a2 + b2 + c2) / rc2;
-      const T cos_theta = (a2 + b2 - c2) / (T(2) * a * b);
-      const T fc3 = cutoff_value(cut, a) * cutoff_value(cut, b) *
-                    cutoff_value(cut, c);
+    for (int ss = 0; ss < SB; ++ss) {
+#pragma unroll
+      for (int t = 0; t < P; ++t) acc[ss][t] = T(0);
+    }
+    for (int j0 = 0; j0 < n; j0 += kSpan) {
+      T a[kLaneEntries], b[kLaneEntries], c[kLaneEntries];
+      T sl[kLaneEntries], mk[kLaneEntries];
+      load8(rij + base, j0, n, vec, a);
+      load8(rik + base, j0, n, vec, b);
+      load8(rjk + base, j0, n, vec, c);
+      load8(slot + base, j0, n, vec, sl);
+      load8(mask + base, j0, n, vec, mk);
+      __syncwarp();   // the last span's readers are done with the stage
+      int count = 0;
+#pragma unroll
+      for (int i = 0; i < kLaneEntries; ++i) {
+        const bool active =
+            mk[i] > T(0) && sl[i] >= T(s0) && sl[i] < T(s0 + ns);
+        const unsigned ballot = __ballot_sync(0xffffffffu, active);
+        if (active) {
+          const int pos = count + __popc(ballot & lanes_below);
+          stage[0][pos] = a[i];
+          stage[1][pos] = b[i];
+          stage[2][pos] = c[i];
+          stage[3][pos] = sl[i];
+          stage[4][pos] = mk[i];
+        }
+        count += __popc(ballot);
+      }
+      __syncwarp();
+      for (int p = lane; p < count; p += 32) {
+        g4_entry<T, P, SB>(stage[0][p], stage[1][p], stage[2][p],
+                           stage[3][p], stage[4][p], s0, ns, n_params, grid,
+                           cut, inv_rc2, acc);
+      }
+    }
+#pragma unroll
+    for (int ss = 0; ss < SB; ++ss) {
+      if (ss >= ns) continue;
 #pragma unroll
       for (int t = 0; t < P; ++t) {
         if (t < n_params) {
-          T base_t = T(1) + grid.gamma[t] * cos_theta;
-          if (base_t < T(0)) base_t = T(0);
-          const T v = grid.scale[t] * d_pow(base_t, grid.zeta[t]) *
-                      d_exp(-grid.beta[t] * z) * fc3;
-          acc[t] += v * m;
+          const T v = warp_allsum(acc[ss][t]);
+          if (lane == (t & 31)) out_row[(s0 + ss) * n_params + t] = v;
         }
       }
     }
-    reduce_store<T, P>(acc, partial, n_params, out_row + s * n_params);
   }
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
 bool bad_args(int rows, int n, int n_slots, int n_params, int cutoff_id) {
@@ -217,14 +348,26 @@ int launch_g4(const T* rij, const T* rik, const T* rjk, const T* slot,
     grid.gamma[t] = T(gamma[t]);
     grid.zeta[t] = T(zeta[t]);
     grid.scale[t] = T(std::pow(2.0, 1.0 - zeta[t]));
+    const bool whole = zeta[t] >= 1.0 && zeta[t] <= 16.0 &&
+                       zeta[t] == std::floor(zeta[t]);
+    grid.izeta[t] = whole ? static_cast<int>(zeta[t]) : 0;
   }
   const Cutoff<T> cut = make_cutoff<T>(cutoff_id, rc);
-  const T rc2 = T(rc * rc);
+  const T inv_rc2 = T(1.0 / (rc * rc));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool vec = n * sizeof(T) % 16 == 0 &&
+                   aligned16(rij) && aligned16(rik) && aligned16(rjk) &&
+                   aligned16(slot) && aligned16(mask);
+  const int blocks = (rows + kWarps - 1) / kWarps;
   return dispatch_params(n_params, [&](auto p) {
-    g4_kernel<T, decltype(p)::value><<<rows, kThreads, 0, st>>>(
-        rij, rik, rjk, slot, mask, out, n, n_slots, n_params, grid, cut,
-        rc2);
+    constexpr int P = decltype(p)::value;
+    // slots a pass: SB * P = 16 accumulators up to P = 16; one slot
+    // alone needs no per-entry slot select
+    constexpr int SB = P <= 4 ? 4 : (P <= 8 ? 2 : 1);
+    auto kernel = n_slots == 1 ? g4_kernel<T, P, 1> : g4_kernel<T, P, SB>;
+    kernel<<<blocks, kThreads, 0, st>>>(rij, rik, rjk, slot, mask, out, rows,
+                                        n, n_slots, n_params, grid, cut,
+                                        inv_rc2, vec);
     return static_cast<int>(cudaGetLastError());
   });
 }

@@ -17,7 +17,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from ..precision import resolve_dtype
+from ..precision import resolve_device, resolve_dtype
 
 API_VERSION = "1.1"
 _PREFIX = "p/"
@@ -90,13 +90,15 @@ def save_model(path: str, model, extra_metadata: Optional[dict] = None):
     np.savez(path, **flat)
 
 
-def load_model(path: str, *, device="cpu", dtype="high",
+def load_model(path: str, *, device="cuda", dtype="high",
                backend: Optional[str] = None) -> Tuple[object, dict]:
     """-> (model, config). The model is built from its config on `device`
-    in `dtype` ('high' | 'medium' | a torch float dtype) and the saved
-    weights are cast into it. `backend` overrides the descriptor backend
-    named in the file ('dense' = plain PyTorch, 'pallas' = the CUDA
-    kernels)."""
+    (the card unless the caller passes "cpu"; "cuda" without a card
+    raises) in `dtype` ('high' | 'medium' | a torch float dtype) and the
+    saved weights are cast into it. `backend` overrides the descriptor
+    backend named in the file ('dense' = plain PyTorch, 'pallas' = the
+    CUDA kernels)."""
+    device = resolve_device(device)
     with np.load(path) as z:
         flat = {k: z[k] for k in z.files}
     config = json.loads(bytes(flat.pop("__config__")).decode())
@@ -104,7 +106,7 @@ def load_model(path: str, *, device="cpu", dtype="high",
     if backend is not None:
         model_cfg["descriptor"] = dict(model_cfg["descriptor"],
                                        backend=backend)
-    model = model_from_dict(model_cfg, device=torch.device(device),
+    model = model_from_dict(model_cfg, device=device,
                             dtype=resolve_dtype(dtype))
     state = {_STATE_PREFIX + k[len(_PREFIX):].replace("/", "."):
              torch.from_numpy(v) for k, v in flat.items()}

@@ -139,8 +139,8 @@ def _library() -> ctypes.CDLL:
             g4.argtypes = [p, p, p, p, p, p, i, i, i, i, p, p, p, d, i, p]
             g4.restype = i
             grap = getattr(lib, f"grap_{dt}")
-            grap.argtypes = [p] * 8 + [i] * 5 + [p] * 3 + [i, p, p, i, p,
-                                                            d, i, p]
+            grap.argtypes = [p] * 8 + [i] * 5 + [p] * 3 + [i, p, i, p, d,
+                                                            i, p]
             grap.restype = i
         _lib = lib
     return _lib
@@ -385,11 +385,27 @@ def grap_reference(rij, ux, uy, uz, islotf, mask, desc, rcut: float,
     return desc.invariants_from_p(p, a, n_slots)
 
 
+def monomial_codes(max_moment: int) -> np.ndarray:
+    """[D] uint16 code of each monomial of `nn.grap.moment_monomials`, in
+    its order, for the GRAP kernel: bits 0-2 hold the degree, then two
+    bits per factor hold its axis (0, 1, 2), in the tuple's sorted order.
+    The kernel multiplies 1 by the factors left to right, the order in
+    which `moment_basis_c` builds each monomial from its prefix."""
+    from ..nn.grap import moment_monomials
+    codes = []
+    for mono in moment_monomials(max_moment):
+        code = len(mono)
+        for i, ax in enumerate(mono):
+            code |= ax << (3 + 2 * i)
+        codes.append(code)
+    return np.asarray(codes, np.uint16)
+
+
 def grap_tables(desc):
     """Host tables of the GRAP kernel: (algorithm id, the three grid
-    columns [K] in kernel order, parent and axis [D] of each monomial,
-    the invariant weights [D, M] in float64, the moments [M])."""
-    from ..nn.grap import moment_monomials, multiplicity_tensor
+    columns [K] in kernel order, the monomial codes [D], the invariant
+    weights [D, M] in float64, the moments [M])."""
+    from ..nn.grap import multiplicity_tensor
     if desc.algorithm not in GRAP_ALGORITHMS:
         raise ValueError(f"grap_kernel: no kernel for algorithm "
                          f"{desc.algorithm!r}")
@@ -401,17 +417,12 @@ def grap_tables(desc):
     cols = [np.ascontiguousarray(desc._grid[:, desc._grid_keys.index(key)],
                                  dtype=np.float64) for key in names]
     cols += [np.zeros(desc.n_filters)] * (3 - len(cols))
-    monos = moment_monomials(desc.max_moment)
-    index = {mono: d for d, mono in enumerate(monos)}
-    parent = np.zeros(len(monos), np.uint8)
-    axis = np.zeros(len(monos), np.uint8)
-    for d, mono in enumerate(monos[1:], start=1):
-        parent[d], axis[d] = index[mono[:-1]], mono[-1]
+    codes = monomial_codes(desc.max_moment)
     weights = np.ascontiguousarray(multiplicity_tensor(
         desc.max_moment, desc.symmetric)[:, desc.moment_tensors])
     moments = np.asarray(desc.moment_tensors, np.int32)
     algorithm = list(GRAP_ALGORITHMS).index(desc.algorithm)
-    return algorithm, cols, parent, axis, weights, moments
+    return algorithm, cols, codes, weights, moments
 
 
 def _device_weights(weights: np.ndarray, dtype, device) -> torch.Tensor:
@@ -437,7 +448,7 @@ def grap_kernel(rij, ux, uy, uz, islotf, mask, desc, rcut: float,
     if rij.device.type != "cuda":
         raise ValueError(f"grap_kernel: no kernel for device {rij.device}")
     _check_cuda_inputs("grap_kernel", rij, ux, uy, uz, islotf, mask)
-    algorithm, cols, parent, axis, weights, moments = grap_tables(desc)
+    algorithm, cols, codes, weights, moments = grap_tables(desc)
     w = _device_weights(weights, rij.dtype, rij.device)
     rows, n = rij.shape
     k, n_mom = desc.n_filters, len(moments)
@@ -451,8 +462,8 @@ def grap_kernel(rij, ux, uy, uz, islotf, mask, desc, rcut: float,
         stream = torch.cuda.current_stream().cuda_stream
         code = fn(_ptr(rij), _ptr(ux), _ptr(uy), _ptr(uz), _ptr(islotf),
                   _ptr(mask), _ptr(w), _ptr(out), rows, n, n_slots,
-                  algorithm, k, *(_ptr(c) for c in cols), len(parent),
-                  _ptr(parent), _ptr(axis), n_mom, _ptr(moments),
+                  algorithm, k, *(_ptr(c) for c in cols), len(codes),
+                  _ptr(codes), n_mom, _ptr(moments),
                   float(rcut), CUTOFF_IDS[desc.cutoff_function],
                   ctypes.c_void_p(stream))
     _check_launch("grap", code)

@@ -80,7 +80,8 @@ def test_calculator_matches_jax_pallas():
     calculator (Pallas in interpret mode)."""
     jax_s, s = _structures(2, seed=1)
     ref = _jax_efs(jax_s, backend="pallas")
-    calc = TensorAlloyCalculator(MODEL, backend="pallas", dtype="high")
+    calc = TensorAlloyCalculator(MODEL, device="cpu", backend="pallas",
+                                 dtype="high")
     res = {"energy": calc.get_potential_energy(s),
            "forces": calc.get_forces(s), "stress": calc.get_stress(s)}
     _assert_efs_close(res, ref, REL_F64)
@@ -103,25 +104,42 @@ def test_reference_fixture_is_current():
                                   np.asarray(fresh["cell"]))
     _assert_efs_close(stored, fresh, REL_F64)
     _, s = _structures(3)
-    calc = TensorAlloyCalculator(MODEL, backend="pallas", dtype="high")
+    calc = TensorAlloyCalculator(MODEL, device="cpu", backend="pallas",
+                                 dtype="high")
     r = calc.calculate(s)
     _assert_efs_close(r, stored, REL_F64)
 
 
 def test_deferred_modes_raise():
     with pytest.raises(NotImplementedError, match="slice"):
-        TensorAlloyCalculator(MODEL, device_nl=True)
+        TensorAlloyCalculator(MODEL, device="cpu", device_nl=True)
     with pytest.raises(NotImplementedError, match="slice"):
-        TensorAlloyCalculator(MODEL, chunked=True)
+        TensorAlloyCalculator(MODEL, device="cpu", chunked=True)
     with pytest.raises(NotImplementedError, match="slice"):
-        TensorAlloyCalculator(MODEL, fast_efs=True)
+        TensorAlloyCalculator(MODEL, device="cpu", fast_efs=True)
     _, s = _structures(1)
-    calc = TensorAlloyCalculator(MODEL)
+    calc = TensorAlloyCalculator(MODEL, device="cpu")
     with pytest.raises(NotImplementedError, match="slice"):
         calc.get_hessian(s)
     with pytest.raises(ValueError, match="not supported"):
         calc.calculate(Structure.from_symbols(
             ["Mo"], [[0.0, 0.0, 0.0]], np.eye(3) * 4.0))
+
+
+def test_entry_points_default_to_the_card(monkeypatch):
+    """With no device named, the calculator and the loader ask for the
+    card; without one they raise and do not carry on on the CPU."""
+    from tensoralloy_tpu_torch.io.model import load_model
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        TensorAlloyCalculator(MODEL)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        load_model(MODEL)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        TensorAlloyCalculator(MODEL, device="cuda:0")
+    calc = TensorAlloyCalculator(MODEL, device="cpu")
+    assert calc.device.type == "cpu"
+    assert next(calc.model.parameters()).device.type == "cpu"
 
 
 def test_chip_smoke_refuses_without_gpu(tmp_path):
@@ -135,6 +153,34 @@ def test_chip_smoke_refuses_without_gpu(tmp_path):
     assert '"ok": true' not in proc.stdout
 
 
+def test_kernel_bounds_count_real_geometry():
+    """chip_smoke's bound: slot and mask read in full, the geometry of
+    the real entries only, the output once; GRAP's invariant FLOP from
+    the nonzero weights (one a monomial at moments 0-5)."""
+    from tensoralloy_tpu_torch.nn.grap import GenericRadialAtomicPotential
+    mask = torch.zeros(2, 8, dtype=torch.float32)
+    mask[1, :3] = 1.0
+    geo = [torch.full_like(mask, 2.0) for _ in range(4)]
+    slot = torch.zeros_like(mask)
+    out = torch.zeros(2, 4)
+    n_bytes, flop = chip_smoke.kernel_work(
+        "g4", (*geo[:3], slot, mask, np.zeros((4, 3)), 4.0, "cosine", 1),
+        out)
+    assert n_bytes == 4 * (2 * 16 + 3 * 3 + 8)
+    assert flop == 3 * (23 + 11 * 4)
+    desc = GenericRadialAtomicPotential(
+        ["Ni"], algorithm="pexp",
+        parameters={"rl": [1.0, 2.0], "pl": [4.0, 3.0]},
+        moment_tensors=[0, 1, 2, 3, 4, 5])
+    out = torch.zeros(2, 2 * 6)
+    n_bytes, flop = chip_smoke.kernel_work(
+        "grap", (*geo, slot, mask, desc, 6.0, 1), out)
+    assert n_bytes == 4 * (2 * 16 + 4 * 3 + 24)
+    k, d = 2, 56
+    assert flop == (3 * (4 + (d - 1) + 5 * k + 2 * k * d)
+                    + 3 * 2 * 1 * k * d)
+
+
 def test_port_imports_without_jax():
     code = ("import sys; sys.modules['jax'] = None; "
             "import tensoralloy_tpu_torch.calculator, "
@@ -145,7 +191,7 @@ def test_port_imports_without_jax():
     assert proc.returncode == 0, proc.stderr
     sources = list((ROOT / "tensoralloy_tpu_torch").rglob("*.py"))
     assert sources
-    for path in sources + [ROOT / "chip_smoke.py"]:
+    for path in sources + [ROOT / "chip_smoke.py", ROOT / "kernel_times.py"]:
         for line in path.read_text().splitlines():
             words = line.split()
             if len(words) > 1 and words[0] in ("import", "from"):

@@ -85,7 +85,8 @@ def test_td_be_matches_jax():
     jax_model.descriptor.backend = "pallas"
     params = jax.tree_util.tree_map(lambda x: jnp.asarray(x, jnp.float64),
                                     params)
-    model, _ = load_model(MODEL, dtype="high", backend="pallas")
+    model, _ = load_model(MODEL, device="cpu", dtype="high",
+                          backend="pallas")
     assert isinstance(model, TemperatureDependentAtomicNN)
     symbols, pos, cell = _be_cell(seed=3)
     jax_model = jax_model.clone_for(Counter(symbols))
@@ -180,7 +181,8 @@ def test_td_be_fixture_is_current(monkeypatch):
                                stored["positions"], stored["cell"],
                                pbc=[True] * 3,
                                etemperature=stored["etemperature"])
-    calc = TensorAlloyCalculator(str(ROOT / MODEL), backend="pallas")
+    calc = TensorAlloyCalculator(str(ROOT / MODEL), device="cpu",
+                                 backend="pallas")
     res = calc.calculate(s)
     for key in keys:
         assert _rel(res[key], stored[key]) <= REL, key
@@ -195,7 +197,8 @@ def test_td_be_fixture_is_current(monkeypatch):
 
 def test_electron_entropy_needs_a_finite_temperature_model():
     calc = TensorAlloyCalculator(
-        str(ROOT / "artifacts/snap_ni_v5_readapt/model/snap_Ni.npz"))
+        str(ROOT / "artifacts/snap_ni_v5_readapt/model/snap_Ni.npz"),
+        device="cpu")
     pos, cell = chip_smoke.jittered_fcc(1)
     s = Structure.from_symbols(["Ni"] * 4, pos, cell, pbc=[True] * 3)
     with pytest.raises(ValueError, match="electron-entropy"):

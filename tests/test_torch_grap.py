@@ -186,7 +186,8 @@ def test_trained_grap_model_matches_jax(path, cell):
     jax_model.descriptor.backend = "pallas"
     params = jax.tree_util.tree_map(lambda x: jnp.asarray(x, jnp.float64),
                                     params)
-    model, _ = load_model(path, dtype="high", backend="pallas")
+    model, _ = load_model(path, device="cpu", dtype="high",
+                          backend="pallas")
     symbols, pos, box = fcc_ni(2, seed=5) if cell == "ni" else mo_ni(seed=4)
     jax_model = jax_model.clone_for(Counter(symbols))
     model = model.clone_for(Counter(symbols))
@@ -201,7 +202,8 @@ def test_saved_grap_models_load(path):
     loader's weights, bit for bit."""
     assert len(GRAP_FILES) == 16
     _, params, config = jax_load_model(path)
-    model, _ = load_model(path, dtype="medium", backend="pallas")
+    model, _ = load_model(path, device="cpu", dtype="medium",
+                          backend="pallas")
     assert model.as_dict()["class"] == config["model"]["class"]
     state = model.state_dict()
     want = params_from_jax(params)
@@ -221,7 +223,7 @@ def test_deferred_options_raise():
         grap.GenericRadialAtomicPotential(
             ["Ni"], algorithm="nn", parameters={"num_filters": 4})
     with pytest.raises(NotImplementedError, match="training slice"):
-        load_model(NI_MODEL, backend="segment")
+        load_model(NI_MODEL, device="cpu", backend="segment")
 
 
 def test_feature_dim_gap_quirk_matches_jax():
@@ -253,12 +255,49 @@ def test_kernel_wrapper_refuses_bad_inputs():
                     "pl": [2.0] * 65})
     with pytest.raises(ValueError, match="at most"):
         fused.grap_tables(wide)
-    algorithm, cols, parent, axis, weights, moments = fused.grap_tables(desc)
+    algorithm, cols, codes, weights, moments = fused.grap_tables(desc)
     assert algorithm == list(fused.GRAP_ALGORITHMS).index("pexp")
     np.testing.assert_array_equal(cols[0], [1.0, 2.0, 3.0])   # rl
     np.testing.assert_array_equal(cols[1], [4.0, 3.0, 2.0])   # pl
-    assert parent.tolist() == [0, 0, 0, 0] and axis.tolist() == [0, 0, 1, 2]
+    # 1, ux, uy, uz: degree 0, then degree 1 with axis 0, 1, 2
+    assert codes.dtype == np.uint16
+    assert codes.tolist() == [0, 1, 1 | 1 << 3, 1 | 2 << 3]
     assert weights.shape == (4, 2) and moments.tolist() == [0, 1]
+
+
+def _decode_monomials(codes, u):
+    """The kernel's reading of the codes, in numpy: each monomial is 1
+    times its factors, left to right. u [3, ...] -> [..., D]."""
+    cols = []
+    for code in codes.tolist():
+        degree = code & 7
+        assert code >> (3 + 2 * degree) == 0
+        v = np.ones_like(u[0])
+        for i in range(degree):
+            v = v * u[(code >> (3 + 2 * i)) & 3]
+        cols.append(v)
+    return np.stack(cols, axis=-1)
+
+
+@pytest.mark.parametrize("max_moment", range(6))
+def test_monomial_codes_follow_the_basis(max_moment):
+    """The kernel's monomial codes name `moment_monomials` in its order
+    (degree, then the sorted axes), and decoded in numpy they give the
+    values of `moment_basis_c` bit for bit (the same products in the
+    same order)."""
+    codes = fused.monomial_codes(max_moment)
+    monos = grap.moment_monomials(max_moment)
+    assert len(codes) == len(monos)
+    for code, mono in zip(codes.tolist(), monos):
+        degree = code & 7
+        assert degree == len(mono)
+        assert tuple((code >> (3 + 2 * i)) & 3 for i in range(degree)) == mono
+    rng = np.random.default_rng(max_moment)
+    u = rng.normal(size=(3, 5, 7))
+    u /= np.linalg.norm(u, axis=0)
+    want = grap.moment_basis_c(tuple(torch.as_tensor(c) for c in u),
+                               max_moment).numpy()
+    np.testing.assert_array_equal(_decode_monomials(codes, u), want)
 
 
 # ----------------------------------------------------------------------
@@ -292,7 +331,8 @@ def test_grap_fixture_is_current(monkeypatch):
     assert max(chip_smoke.efs_errors(stored, fresh).values()) <= REL
     s = Structure.from_symbols(["Ni"] * 108, stored["positions"],
                                stored["cell"], pbc=[True] * 3)
-    calc = TensorAlloyCalculator(str(ROOT / NI_MODEL), backend="pallas")
+    calc = TensorAlloyCalculator(str(ROOT / NI_MODEL), device="cpu",
+                                 backend="pallas")
     errs = chip_smoke.efs_errors(calc.calculate(s), stored)
     assert max(errs.values()) <= REL, errs
 

@@ -66,7 +66,8 @@ def test_snap_ni_sfa_matches_jax():
     jax_model.descriptor.backend = "pallas"
     params = jax.tree_util.tree_map(lambda x: jnp.asarray(x, jnp.float64),
                                     params)
-    model, config = load_model(MODEL, dtype="high", backend="pallas")
+    model, config = load_model(MODEL, device="cpu", dtype="high",
+                               backend="pallas")
     assert config["model"]["descriptor"]["backend"] == "dense"
     assert next(model.parameters()).dtype == torch.float64
     symbols, pos, cell = fcc_ni(2, seed=4)
@@ -111,10 +112,10 @@ def test_params_and_npz_round_trip(tmp_path):
         np.testing.assert_array_equal(np.asarray(leaf), other)
         assert np.asarray(leaf).dtype == other.dtype
 
-    model, _ = load_model(MODEL, dtype="medium")
+    model, _ = load_model(MODEL, device="cpu", dtype="medium")
     out = tmp_path / "resaved.npz"
     save_model(str(out), model)
-    again, config = load_model(str(out), dtype="medium")
+    again, config = load_model(str(out), device="cpu", dtype="medium")
     for (k, a), (k2, b) in zip(model.state_dict().items(),
                                again.state_dict().items()):
         assert k == k2
@@ -131,4 +132,4 @@ def test_params_and_npz_round_trip(tmp_path):
 
 def test_segment_backend_is_deferred():
     with pytest.raises(NotImplementedError, match="later slice"):
-        load_model(MODEL, backend="segment")
+        load_model(MODEL, device="cpu", backend="segment")
