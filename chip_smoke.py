@@ -11,7 +11,9 @@ failure ends the run with a non-zero exit and no result line:
              sources
   3. kernels each kernel against its plain PyTorch twin on seeded random
              geometry with masked tails and an empty first row: float32
-             values and gradients to 2e-5, float64 to 1e-12; G4 at 256
+             values and gradients to 2e-5, float64 to 1e-12; G2 at 32 to
+             256 entries and at widths that are no multiple of 4, 1 to 6
+             slots, the served grid and one of 18 rows; G4 at 256
              and 384 entries with 1 and 3 slots; GRAP over the algorithm
              x moment grid with gaps, symmetric weights, 1-3 slots, rows
              of 256 entries (more than 128 real pairs) and 64 filters
@@ -33,7 +35,10 @@ failure ends the run with a non-zero exit and no result line:
              32000-atom request's shapes (`ms`: the median of single
              CUDA-event-timed launches, as since the first slice;
              `ms_queued`: the device time of calls queued behind a
-             sleeping kernel), beside its bound: the larger of its
+             sleeping kernel, on the same buffers, and
+             `ms_queued_rotated`: the same over 4 copies of the inputs
+             in turn, more than the L2 cache holds), beside its bound:
+             the larger of its
              bytes (mask and slot read once, the geometry of the real
              entries only, output written once) at 3.35 TB/s and its
              useful FLOP at the FP32 67 TFLOP/s
@@ -43,6 +48,7 @@ last is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import subprocess
 import sys
@@ -90,6 +96,9 @@ F64_REL = 1e-10     # E/F/S relative error, float64 serving
 # float32 rate outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOP_PER_S = 67e12
+# copies of a kernel's inputs launched in turn: G2's 50 MB (the size of
+# the L2 cache) become 200 MB
+ROTATED_COPIES = 4
 
 
 def jittered_fcc(reps: int, seed: int = SEED, a: float = LATTICE,
@@ -202,6 +211,15 @@ def _random_triples(rng, rows, n, n_slots, rc, dtype, device):
     return [t(d) for d in dists] + [t(slot), t(real.astype(np.float64))]
 
 
+# G2 cases (N, slots, wide grid): the featurizer's bucket widths, widths
+# that are no multiple of 4 (unaligned rows, a partial second span), 1-3
+# slots and more than one pass holds (6), the served 5-row grid and a
+# wide one of 18 rows (the 32-row instantiation)
+G2_CASES = ((32, 1, False), (64, 2, False), (128, 1, False),
+            (128, 2, False), (256, 3, False), (130, 3, False),
+            (77, 1, True), (128, 2, True), (64, 6, False))
+
+
 def check_kernels(device="cuda", rows=4001) -> None:
     """Kernel wrapper against twin; the autograd Function's gradient
     against the twin's own autograd."""
@@ -211,14 +229,19 @@ def check_kernels(device="cuda", rows=4001) -> None:
     sf = SymmetryFunction(["Ni"], eta=[0.01, 0.1, 0.5, 1.0, 4.0],
                           omega=[0.0], beta=[0.005], gamma=[1.0, -1.0],
                           zeta=[1.0, 4.0])
+    wide = SymmetryFunction(["Ni"], eta=[0.01, 0.1, 0.5, 1.0, 4.0, 20.0],
+                            omega=[0.0, 1.5, 3.0])
     rng = np.random.default_rng(SEED)
     for dtype, tol in ((torch.float32, F32), (torch.float64, F64)):
         for cutoff in ("cosine", "polynomial"):
-            g2_args = (sf.radial_grid, 6.0, cutoff, 2)
-            rij, slot, mask = _random_pairs(rng, rows, 128, 2, 6.0, dtype,
-                                            device)
-            _compare("g2", cutoff, fused.G2Function, fused.g2_reference,
-                     [rij], [slot, mask], g2_args, dtype, tol)
+            for n, n_slots, is_wide in G2_CASES:
+                grid = (wide if is_wide else sf).radial_grid
+                rij, slot, mask = _random_pairs(rng, rows, n, n_slots, 6.0,
+                                                dtype, device)
+                _compare("g2", f"{cutoff} N={n} S={n_slots} T2={len(grid)}",
+                         fused.G2Function, fused.g2_reference, [rij],
+                         [slot, mask], (grid, 6.0, cutoff, n_slots), dtype,
+                         tol)
             for n, n_slots in ((256, 3), (384, 1), (384, 3)):
                 g4_args = (sf.angular_grid, 4.0, cutoff, n_slots)
                 *dists, slot, mask = _random_triples(rng, rows, n, n_slots,
@@ -464,6 +487,15 @@ def _queued_ms(fn, reps: int, warmup: int = 3, runs: int = 5) -> float:
     return float(np.median(times))
 
 
+def _rotated(args, copies: int):
+    """Endless turns over `copies` copies of `args`, its tensors cloned:
+    a launch then finds none of its inputs in the L2 cache, as a served
+    request's launch does."""
+    sets = [args] + [tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                           for a in args) for _ in range(copies - 1)]
+    return itertools.cycle(sets)
+
+
 def _median_host_ms(fn, reps: int) -> float:
     times = []
     for _ in range(reps):
@@ -540,12 +572,18 @@ def time_kernels(cases, card, launches=None):
         plain_ms = _median_ms(lambda: reference(*args), 20)
         ms2 = _median_ms(lambda: kernel(*args), 20)
         queued = _queued_ms(lambda: kernel(*args), 50)
+        turns = _rotated(args, ROTATED_COPIES)
+        rotated = _queued_ms(lambda: kernel(*next(turns)),
+                             12 * ROTATED_COPIES)
+        del turns
         print(f"  {name} {tuple(args[0].shape)} float32: kernel {ms:.4f} / "
               f"{ms2:.4f} ms median of single launches "
               f"({n_bytes / ms * 1e-6:.1f} GB/s, "
               f"{flop / ms * 1e-9:.2f} TFLOP/s), {queued:.4f} ms "
               f"queued ({n_bytes / queued * 1e-6:.1f} GB/s, "
-              f"{flop / queued * 1e-9:.2f} TFLOP/s); twin {plain_ms:.4f} ms; "
+              f"{flop / queued * 1e-9:.2f} TFLOP/s), {rotated:.4f} ms queued "
+              f"over {ROTATED_COPIES} copies of the inputs in turn; twin "
+              f"{plain_ms:.4f} ms; "
               f"bound {bound[bound_by]:.4f} ms by {bound_by} "
               f"({n_bytes / 1e6:.1f} MB, {flop / 1e9:.3f} GFLOP; single "
               f"launches at {100 * bound[bound_by] / ms:.1f} % of it, queued "
@@ -556,6 +594,7 @@ def time_kernels(cases, card, launches=None):
         if launches is not None:
             row["launches"] = launches[name]
         row.update({"max_abs_err": err, "ms": ms, "ms_queued": queued,
+                    "ms_queued_rotated": rotated,
                     "plain_ms": plain_ms, "bound_ms": bound[bound_by],
                     "bound_by": bound_by,
                     # no single PyTorch call computes G2, G4 or GRAP

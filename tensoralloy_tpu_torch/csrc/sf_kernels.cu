@@ -17,12 +17,27 @@
 // G2, 5 for G4) and costs one cutoff (three for G4) plus n_params exp
 // (and pow for G4); no matmul. At the serving widths (n = 128 / 256,
 // n_params = 5 / 4) the reads bind: 168 MB for G4 at 32769 rows of 256,
-// 0.050 ms at 3.35 TB/s. The grid parameters, the cutoff id and radius
-// arrive as kernel arguments (a struct in the constant bank).
-//   * G2: one block of 128 threads per atom row; threads stride over n;
-//     per slot, each thread accumulates its n_params partial sums in
-//     registers (the template bound P keeps the array in registers),
-//     then warp shuffles and one shared-memory step reduce each column.
+// 0.050 ms at 3.35 TB/s; 50 MB for G2 at 32769 rows of 128, 0.015 ms,
+// beside which its math (about 80 instructions an entry) is a
+// co-limit. The grid parameters, the cutoff id and radius arrive as
+// kernel arguments (a struct in the constant bank).
+//   * G2: one warp per atom row, 4 rows a block, no shared memory and no
+//     block barrier. The launch has at most 16 blocks an SM and a warp
+//     strides over the rows; about 10 blocks are resident on an SM, each
+//     warp with one row's twelve loads (1.5 KB at n = 128) started before
+//     any math, 60 KB in flight an SM. A lane takes entries l, l + 32,
+//     l + 64 and l + 96 of a 128-entry span, so every warp load reads 32
+//     neighbouring elements whatever the row's alignment, and since rows
+//     are filled from the front, a pass whose 32 entries are all masked
+//     is skipped by the whole warp: as many passes as a compaction of
+//     the real entries would leave, without its staging. A masked entry
+//     reads r = 1 with weight 0 (no divergent branch). Each term is one
+//     exp2: -eta log2(e) / rc^2 is folded on the host, in double; four
+//     terms run with no branch between them. An entry's terms go to its
+//     slot's accumulators in registers, up to 4 slots a pass over the row
+//     (a template bound; one slot alone has no per-term select), and a
+//     reduce-scatter of xor shuffles (V - 1 shuffles for V columns) leaves
+//     each column in a lane of its own to store.
 //   * G4: one warp per atom row, kWarps rows per block, no block
 //     barrier. A lane reads 8 entries of a 256-entry span as two
 //     16-byte loads per array (each warp load 512 contiguous bytes),
@@ -50,10 +65,11 @@ namespace {
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxParams = 64;
+constexpr unsigned kFull = 0xffffffffu;
 
 template <typename T>
 struct G2Grid {
-  T eta[kMaxParams];
+  T scale[kMaxParams];  // -eta log2(e) / rc^2
   T omega[kMaxParams];
 };
 
@@ -66,72 +82,177 @@ struct G4Grid {
   int izeta[kMaxParams];  // zeta where it is an integer in 1..16, else 0
 };
 
+__device__ __forceinline__ float d_exp2(float x) { return exp2f(x); }
+__device__ __forceinline__ double d_exp2(double x) { return exp2(x); }
+
+constexpr int kG2Entries = 4;                 // G2 entries a lane owns
+constexpr int kG2Span = 32 * kG2Entries;      // G2 entries a warp reads
+// Blocks launched per SM, at most: more than are resident at once (10 at
+// the served instantiation's 45 registers), so that the blocks still
+// waiting fill the launch's tail; each warp strides over 4 rows or so.
+// Measured on an H100 at 32769 rows of 128, float, in builds that
+// differed in this number alone: 10, 16, 20 and 32 blocks an SM took
+// 0.0244, 0.0242, 0.0247 and 0.0251 ms; one row a warp (8193 blocks)
+// took a fifth more than 16 an SM.
+constexpr int kG2BlocksPerSm = 16;
+
+// A lane's entries of one span of one row.
 template <typename T>
-__device__ __forceinline__ T warp_sum(T v) {
+struct G2Span {
+  T r[kG2Entries], sl[kG2Entries], mk[kG2Entries];
+};
+
+// Entries [j0, j0 + kG2Span) of the row at `base`, zeros past n: lane l
+// takes entries j0 + 32 i + l, so each of the warp's loads reads 32
+// neighbouring elements, whatever the row's alignment. All twelve loads
+// are started before any value is used.
+template <typename T>
+__device__ __forceinline__ void g2_load(const T* __restrict__ rij,
+                                        const T* __restrict__ slot,
+                                        const T* __restrict__ mask,
+                                        size_t base, int j0, int n,
+                                        G2Span<T>& v) {
+  const int lane = threadIdx.x & 31;
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    v += __shfl_down_sync(0xffffffffu, v, off);
+  for (int i = 0; i < kG2Entries; ++i) {
+    const int j = j0 + 32 * i + lane;
+    const bool in = j < n;
+    v.mk[i] = in ? mask[base + j] : T(0);
+    v.sl[i] = in ? slot[base + j] : T(0);
+    v.r[i] = in ? rij[base + j] : T(0);
   }
-  return v;
 }
 
-// Reduce acc[t] over the block and write out_row[t], t < n_params.
-template <typename T, int P>
-__device__ __forceinline__ void reduce_store(const T (&acc)[P],
-                                             T (*partial)[P],
-                                             int n_params, T* out_row) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
+// Term t of one entry, weight w, into its slot's accumulator.
+template <typename T, int P, int SB>
+__device__ __forceinline__ void g2_term(int t, T r, T w, T sl, int s0,
+                                        const G2Grid<T>& grid,
+                                        T (&acc)[SB][P]) {
+  const T d = r - grid.omega[t];
+  const T term = d_exp2(grid.scale[t] * (d * d)) * w;
+  if (SB == 1) {
+    acc[0][t] += term;
+  } else {
 #pragma unroll
-  for (int t = 0; t < P; ++t) {
-    if (t < n_params) {
-      const T v = warp_sum(acc[t]);
-      if (lane == 0) partial[warp][t] = v;
+    for (int ss = 0; ss < SB; ++ss) {
+      acc[ss][t] += sl == T(s0 + ss) ? term : T(0);
     }
   }
-  __syncthreads();
-  if (threadIdx.x < n_params) {
-    T v = partial[0][threadIdx.x];
+}
+
+// One span's G2 terms into the accumulators of slots [s0, s0 + ns). An
+// entry that is masked or of another slot reads r = 1 and weighs 0, as
+// in the twin. Rows are filled from the front, so the spans' later
+// entries are mostly masked: a pass in which no lane has a real entry
+// is skipped by the whole warp.
+template <typename T, int P, int SB>
+__device__ __forceinline__ void g2_span(const G2Span<T>& v, int s0, int ns,
+                                        int n_params, const G2Grid<T>& grid,
+                                        const Cutoff<T>& cut,
+                                        T (&acc)[SB][P]) {
 #pragma unroll
-    for (int w = 1; w < kWarps; ++w) v += partial[w][threadIdx.x];
-    out_row[threadIdx.x] = v;
+  for (int i = 0; i < kG2Entries; ++i) {
+    const T sl = v.sl[i];
+    const bool real = v.mk[i] > T(0) && sl >= T(s0) && sl < T(s0 + ns);
+    if (!__any_sync(kFull, real)) continue;
+    const T r = real ? v.r[i] : T(1);
+    const T w = real ? cutoff_value(cut, r) * v.mk[i] : T(0);
+    // four terms at a time with no branch between them, so that their
+    // exp2 chains overlap; the grid's last rows one by one
+#pragma unroll
+    for (int t0 = 0; t0 < P; t0 += 4) {
+      if (t0 + 4 <= n_params) {
+#pragma unroll
+        for (int t = t0; t < t0 + 4; ++t) {
+          g2_term<T, P, SB>(t, r, w, sl, s0, grid, acc);
+        }
+      } else {
+#pragma unroll
+        for (int t = t0; t < t0 + 4; ++t) {
+          if (t < n_params) g2_term<T, P, SB>(t, r, w, sl, s0, grid, acc);
+        }
+      }
+    }
   }
-  __syncthreads();
+}
+
+// Sum each of the SB * P accumulators over the warp and store the
+// columns of slots < ns and parameters < n_params to
+// out[ss * n_params + t]. A reduce-scatter: each xor step halves the
+// values a lane holds (the lane keeps one half and adds its partner's),
+// so V values cost V - 1 shuffles, not 5 V; once one value is left, the
+// remaining steps add it across the lanes that share its column.
+template <typename T, int P, int SB>
+__device__ __forceinline__ void g2_reduce_store(const T (&acc)[SB][P],
+                                                int ns, int n_params,
+                                                T* out) {
+  constexpr int V = SB * P;
+  const int lane = threadIdx.x & 31;
+  T a[V];
+#pragma unroll
+  for (int ss = 0; ss < SB; ++ss) {
+#pragma unroll
+    for (int t = 0; t < P; ++t) a[ss * P + t] = acc[ss][t];
+  }
+  int width = V;   // values the lane holds: a[0, width)
+  int first = 0;   // flat index (ss * P + t) of a[0]
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    if (width > 1) {
+      const int half = width / 2;
+      const bool upper = (lane & off) != 0;
+#pragma unroll
+      for (int i = 0; i < V / 2; ++i) {
+        if (i < half) {
+          const T send = upper ? a[i] : a[i + half];
+          const T keep = upper ? a[i + half] : a[i];
+          a[i] = keep + __shfl_xor_sync(kFull, send, off);
+        }
+      }
+      if (upper) first += half;
+      width = half;
+    } else {
+      a[0] += __shfl_xor_sync(kFull, a[0], off);
+    }
+  }
+  // a value summed over the steps left after width reached 1 is the same
+  // in the lanes that differ in the low bits: the lowest of them stores
+  constexpr int kSharing = V >= 32 ? 1 : 32 / V;
+  if ((lane & (kSharing - 1)) != 0) return;
+#pragma unroll
+  for (int i = 0; i < (V + 31) / 32; ++i) {
+    const int ss = (first + i) / P, t = (first + i) % P;
+    if (ss < ns && t < n_params) out[ss * n_params + t] = a[i];
+  }
 }
 
 // G2[a, s, t] = sum_j [slot_aj == s] mask_aj fc(r_aj)
 //               exp(-eta_t (r_aj - omega_t)^2 / rc^2)
-template <typename T, int P>
+template <typename T, int P, int SB>
 __global__ void __launch_bounds__(kThreads)
 g2_kernel(const T* __restrict__ rij, const T* __restrict__ slot,
-          const T* __restrict__ mask, T* __restrict__ out, int n,
-          int n_slots, int n_params, G2Grid<T> grid, Cutoff<T> cut,
-          T rc2) {
-  __shared__ T partial[kWarps][P];
-  const size_t row = blockIdx.x;
-  const T* r_row = rij + row * n;
-  const T* s_row = slot + row * n;
-  const T* m_row = mask + row * n;
-  T* out_row = out + row * n_slots * n_params;
-  for (int s = 0; s < n_slots; ++s) {
-    const T slot_value = T(s);
-    T acc[P];
+          const T* __restrict__ mask, T* __restrict__ out, int rows, int n,
+          int n_slots, int n_params, G2Grid<T> grid, Cutoff<T> cut) {
+  const int first = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const int stride = gridDim.x * kWarps;
+  for (int row = first; row < rows; row += stride) {   // warp-uniform
+    const size_t base = static_cast<size_t>(row) * n;
+    T* out_row = out + static_cast<size_t>(row) * n_slots * n_params;
+    for (int s0 = 0; s0 < n_slots; s0 += SB) {
+      const int ns = min(SB, n_slots - s0);
+      T acc[SB][P];
 #pragma unroll
-    for (int t = 0; t < P; ++t) acc[t] = T(0);
-    for (int j = threadIdx.x; j < n; j += kThreads) {
-      const T m = m_row[j];
-      if (!(m > T(0)) || s_row[j] != slot_value) continue;
-      const T r = r_row[j];
-      const T w = cutoff_value(cut, r) * m;
+      for (int ss = 0; ss < SB; ++ss) {
 #pragma unroll
-      for (int t = 0; t < P; ++t) {
-        if (t < n_params) {
-          const T d = r - grid.omega[t];
-          acc[t] += d_exp(-grid.eta[t] * (d * d / rc2)) * w;
-        }
+        for (int t = 0; t < P; ++t) acc[ss][t] = T(0);
       }
+      for (int j0 = 0; j0 < n; j0 += kG2Span) {
+        G2Span<T> v;
+        g2_load(rij, slot, mask, base, j0, n, v);
+        g2_span<T, P, SB>(v, s0, ns, n_params, grid, cut, acc);
+      }
+      g2_reduce_store<T, P, SB>(acc, ns, n_params, out_row + s0 * n_params);
     }
-    reduce_store<T, P>(acc, partial, n_params, out_row + s * n_params);
   }
 }
 
@@ -293,7 +414,7 @@ g4_kernel(const T* __restrict__ rij, const T* __restrict__ rik,
   }
 }
 
-bool aligned16(const void* p) {
+[[maybe_unused]] bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
@@ -312,6 +433,16 @@ int dispatch_params(int n_params, F&& launch) {
   return launch(std::integral_constant<int, 64>());
 }
 
+// Streaming multiprocessors of the current device, or 0 with `*e` set.
+[[maybe_unused]] int sm_count(cudaError_t* e) {
+  int device = 0, sms = 0;
+  *e = cudaGetDevice(&device);
+  if (*e == cudaSuccess) {
+    *e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  }
+  return sms;
+}
+
 template <typename T>
 int launch_g2(const T* rij, const T* slot, const T* mask, T* out, int rows,
               int n, int n_slots, int n_params, const double* eta,
@@ -319,17 +450,27 @@ int launch_g2(const T* rij, const T* slot, const T* mask, T* out, int rows,
   if (bad_args(rows, n, n_slots, n_params, cutoff_id)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  constexpr double kLog2E = 1.4426950408889634074;
   G2Grid<T> grid;
   for (int t = 0; t < n_params; ++t) {
-    grid.eta[t] = T(eta[t]);
+    grid.scale[t] = T(-eta[t] * kLog2E / (rc * rc));
     grid.omega[t] = T(omega[t]);
   }
   const Cutoff<T> cut = make_cutoff<T>(cutoff_id, rc);
-  const T rc2 = T(rc * rc);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  const int most = sm_count(&e) * kG2BlocksPerSm;
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int needed = (rows + kWarps - 1) / kWarps;
+  const int blocks = needed < most ? needed : most;
   return dispatch_params(n_params, [&](auto p) {
-    g2_kernel<T, decltype(p)::value><<<rows, kThreads, 0, st>>>(
-        rij, slot, mask, out, n, n_slots, n_params, grid, cut, rc2);
+    constexpr int P = decltype(p)::value;
+    // slots a pass over the row: SB * P <= 32 accumulators; one slot
+    // alone needs no per-term slot select
+    constexpr int SB = P <= 8 ? 4 : (P <= 16 ? 2 : 1);
+    auto kernel = n_slots == 1 ? g2_kernel<T, P, 1> : g2_kernel<T, P, SB>;
+    kernel<<<blocks, kThreads, 0, st>>>(rij, slot, mask, out, rows, n,
+                                        n_slots, n_params, grid, cut);
     return static_cast<int>(cudaGetLastError());
   });
 }
@@ -375,9 +516,19 @@ int launch_g4(const T* rij, const T* rik, const T* rjk, const T* slot,
 }  // namespace
 
 // Each function launches on `stream` without synchronising and returns
-// the cudaError_t of the launch (0 on success).
+// the cudaError_t of the launch (0 on success). A build that defines
+// SF_ENTRY as 0..3 compiles that one entry point only, so that four
+// compilers can share the file's instantiations between them; without
+// it, all four.
+#ifdef SF_ENTRY
+#define SF_HAS_ENTRY(i) (SF_ENTRY == (i))
+#else
+#define SF_HAS_ENTRY(i) 1
+#endif
+
 extern "C" {
 
+#if SF_HAS_ENTRY(0)
 int sf_g2_f32(const float* rij, const float* slot, const float* mask,
               float* out, int rows, int n, int n_slots, int n_params,
               const double* eta, const double* omega, double rc,
@@ -385,7 +536,9 @@ int sf_g2_f32(const float* rij, const float* slot, const float* mask,
   return launch_g2<float>(rij, slot, mask, out, rows, n, n_slots, n_params,
                           eta, omega, rc, cutoff_id, stream);
 }
+#endif
 
+#if SF_HAS_ENTRY(1)
 int sf_g2_f64(const double* rij, const double* slot, const double* mask,
               double* out, int rows, int n, int n_slots, int n_params,
               const double* eta, const double* omega, double rc,
@@ -393,7 +546,9 @@ int sf_g2_f64(const double* rij, const double* slot, const double* mask,
   return launch_g2<double>(rij, slot, mask, out, rows, n, n_slots,
                            n_params, eta, omega, rc, cutoff_id, stream);
 }
+#endif
 
+#if SF_HAS_ENTRY(2)
 int sf_g4_f32(const float* rij, const float* rik, const float* rjk,
               const float* slot, const float* mask, float* out, int rows,
               int n, int n_slots, int n_params, const double* beta,
@@ -403,7 +558,9 @@ int sf_g4_f32(const float* rij, const float* rik, const float* rjk,
                           n_params, beta, gamma, zeta, rc, cutoff_id,
                           stream);
 }
+#endif
 
+#if SF_HAS_ENTRY(3)
 int sf_g4_f64(const double* rij, const double* rik, const double* rjk,
               const double* slot, const double* mask, double* out, int rows,
               int n, int n_slots, int n_params, const double* beta,
@@ -413,5 +570,6 @@ int sf_g4_f64(const double* rij, const double* rik, const double* rjk,
                            n_slots, n_params, beta, gamma, zeta, rc,
                            cutoff_id, stream);
 }
+#endif
 
 }  // extern "C"

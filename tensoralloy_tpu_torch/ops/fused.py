@@ -14,9 +14,13 @@ Each descriptor has three pieces:
     VJP. First-order only: the backward is not itself differentiable.
 
 The CUDA sources `csrc/*.cu` are compiled with nvcc for sm_90a, one nvcc
-per source, all started together, and linked into one shared library
-with a plain C interface, at first use, into `_build/` next to this
-package, and loaded with ctypes.
+per source (one per entry point for `sf_kernels.cu`), all started
+together, and linked into one shared library with a plain C interface,
+at first use, into `_build/` next to this package, and loaded with
+ctypes. What a launch needs beyond its tensors (the host tables, the
+bound C function and its constant arguments) is built once per
+descriptor specification and kept; a call checks its inputs, allocates
+the output and passes pointers, sizes and the stream.
 """
 from __future__ import annotations
 
@@ -44,6 +48,9 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                               "-Xptxas", "-v", "-c")
 LINK_FLAGS = ARCH_FLAGS + ("-shared",)
+# A source whose entry points compile one per object (-D<macro>=<i>), so
+# that its instantiations are shared between as many compilers
+SPLIT_SOURCES = {"sf_kernels.cu": ("SF_ENTRY", 4)}
 
 # Launches of each kernel since the last `reset_launch_counts()`; a
 # wrapper adds one where it launches its kernel and nowhere else.
@@ -51,6 +58,15 @@ launch_counts: Dict[str, int] = {"g2": 0, "g4": 0, "grap": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 build_log = ""
+
+# What a launch needs beyond its tensors is built once and kept: the host
+# tables by the content of the descriptor's specification, and the bound C
+# function with its constant arguments by (specification, launch constants,
+# dtype[, device]). A descriptor with another grid has another key.
+_host_tables: Dict[tuple, tuple] = {}
+_bound: Dict[tuple, tuple] = {}
+_CACHE_LIMIT = 256
+_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 
 def reset_launch_counts() -> None:
@@ -80,7 +96,8 @@ def kernel_sources():
 def _digest() -> str:
     """Hash over every file under csrc/ (sources and headers) and the
     flags: a library is rebuilt when any of them changes."""
-    h = hashlib.sha1(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
+    h = hashlib.sha1(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode()
+                     + repr(SPLIT_SOURCES).encode())
     for path in sorted(CSRC_DIR.iterdir()):
         h.update(path.name.encode() + b"\0" + path.read_bytes())
     return h.hexdigest()[:16]
@@ -96,7 +113,8 @@ def _run_all(commands):
 
 
 def build_kernels() -> Path:
-    """Compile every `csrc/*.cu` (one nvcc each, started together), link
+    """Compile every `csrc/*.cu` (one nvcc each, or one per entry point
+    for `SPLIT_SOURCES`, all started together), link
     them into one library (skipped when a library built from the same
     sources exists) and return its path. The compilers' output, with
     ptxas' register and spill report, is kept in `build_log`."""
@@ -108,14 +126,20 @@ def build_kernels() -> Path:
     work = tempfile.mkdtemp(dir=BUILD_DIR)
     try:
         nvcc = _nvcc()
-        sources = kernel_sources()
-        objects = [os.path.join(work, src.stem + ".o") for src in sources]
-        results = _run_all([[nvcc, *COMPILE_FLAGS, "-o", obj, str(src)]
-                            for src, obj in zip(sources, objects)])
+        units = []      # (source, extra flags)
+        for src in kernel_sources():
+            macro, parts = SPLIT_SOURCES.get(src.name, (None, 1))
+            units += [(src, [f"-D{macro}={i}"] if macro else [])
+                      for i in range(parts)]
+        objects = [os.path.join(work, f"{i}.o") for i in range(len(units))]
+        results = _run_all([[nvcc, *COMPILE_FLAGS, *define, "-o", obj,
+                             str(src)]
+                            for (src, define), obj in zip(units, objects)])
         tmp = os.path.join(work, lib_path.name)
         if all(code == 0 for code, _ in results):
             results += _run_all([[nvcc, *LINK_FLAGS, "-o", tmp, *objects]])
-        names = [src.name for src in sources] + ["link"]
+        names = [" ".join([src.name, *define])
+                 for src, define in units] + ["link"]
         build_log = "".join(f"== {name}\n{out}"
                             for name, (_, out) in zip(names, results))
         if len(results) != len(names) or any(code for code, _ in results):
@@ -148,26 +172,25 @@ def _library() -> ctypes.CDLL:
 
 def _check_cuda_inputs(name: str, *tensors: torch.Tensor) -> None:
     ref = tensors[0]
-    if ref.dtype not in (torch.float32, torch.float64):
+    dtype, device, shape = ref.dtype, ref.device, ref.shape
+    if dtype not in _SUFFIX:
         raise TypeError(f"{name}: float32 or float64 inputs required, "
-                        f"got {ref.dtype}")
-    if ref.dim() != 2:
+                        f"got {dtype}")
+    if len(shape) != 2:
         raise ValueError(f"{name}: [rows, n] inputs required, got shape "
-                         f"{tuple(ref.shape)}")
+                         f"{tuple(shape)}")
     for t in tensors:
-        if t.device != ref.device:
-            raise ValueError(f"{name}: inputs on {t.device} and "
-                             f"{ref.device}")
-        if t.dtype != ref.dtype:
-            raise TypeError(f"{name}: mixed dtypes {t.dtype} and "
-                            f"{ref.dtype}")
-        if t.shape != ref.shape:
+        if t.device != device:
+            raise ValueError(f"{name}: inputs on {t.device} and {device}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: mixed dtypes {t.dtype} and {dtype}")
+        if t.shape != shape:
             raise ValueError(f"{name}: shapes {tuple(t.shape)} and "
-                             f"{tuple(ref.shape)} differ")
+                             f"{tuple(shape)} differ")
         if not t.is_contiguous():
             raise ValueError(f"{name}: inputs must be contiguous")
-    if ref.shape[0] >= 2 ** 31 or ref.shape[1] >= 2 ** 31:
-        raise ValueError(f"{name}: shape {tuple(ref.shape)} too large")
+    if shape[0] >= 2 ** 31 or shape[1] >= 2 ** 31:
+        raise ValueError(f"{name}: shape {tuple(shape)} too large")
 
 
 def _check_launch(name: str, code: int) -> None:
@@ -183,9 +206,67 @@ def _grid_columns(grid: np.ndarray) -> Tuple[np.ndarray, ...]:
                  for c in range(grid.shape[1]))
 
 
-def _ptr(a) -> ctypes.c_void_p:
-    return ctypes.c_void_p(a.data_ptr() if isinstance(a, torch.Tensor)
-                           else a.ctypes.data)
+def _keep(cache: dict, key, value):
+    """Store `value` under `key` in a bounded cache -> value."""
+    if len(cache) >= _CACHE_LIMIT:
+        cache.clear()
+    cache[key] = value
+    return value
+
+
+def _read_only(arrays):
+    for a in arrays:
+        a.setflags(write=False)
+    return arrays
+
+
+def grid_spec(grid: np.ndarray) -> tuple:
+    """Immutable specification of a parameter grid: its content."""
+    return grid.shape, grid.dtype.str, grid.tobytes()
+
+
+def grid_tables(grid) -> Tuple[np.ndarray, ...]:
+    """The float64 columns of a G2 / G4 parameter grid as the kernels
+    take them, built once per grid content and kept, read-only."""
+    grid = np.asarray(grid)
+    key = grid_spec(grid)
+    cols = _host_tables.get(key)
+    if cols is None:
+        cols = _keep(_host_tables, key, _read_only(_grid_columns(grid)))
+    return cols
+
+
+def _bound_sf(kind: str, grid, rc: float, cutoff: str, n_slots: int,
+              dtype) -> tuple:
+    """-> (the C entry point of G2 / G4 for `dtype`, its constant
+    arguments (n_slots, n_params, the grid columns, rc, the cutoff id),
+    n_params), bound once per (grid content, rc, cutoff, n_slots, dtype).
+    The tuple holds the columns so that the pointers stay valid."""
+    grid = np.asarray(grid)
+    key = (kind, grid_spec(grid), rc, cutoff, n_slots, dtype)
+    bound = _bound.get(key)
+    if bound is None:
+        cols = grid_tables(grid)
+        fn = getattr(_library(), f"sf_{kind}_{_SUFFIX[dtype]}")
+        tail = (n_slots, len(cols[0]), *(c.ctypes.data for c in cols),
+                float(rc), CUTOFF_IDS[cutoff])
+        bound = _keep(_bound, key, (fn, tail, len(cols[0]), cols))
+    return bound
+
+
+def _launch(name: str, fn, device, *args) -> None:
+    """Call the C entry point `fn(*args, stream)` with `device` current,
+    on its current stream; raise if the launch is refused. The stream's
+    handle is read without building a `torch.cuda.Stream` (a quarter of
+    a call's host time on an H100 host)."""
+    if device.index == torch.cuda.current_device():
+        code = fn(*args, torch._C._cuda_getCurrentRawStream(device.index))
+    else:
+        with torch.cuda.device(device):
+            code = fn(*args,
+                      torch._C._cuda_getCurrentRawStream(device.index))
+    _check_launch(name, code)
+    launch_counts[name] += 1
 
 
 # ----------------------------------------------------------------------
@@ -214,28 +295,27 @@ def g2_kernel(rij, islotf, mask, grid, rcut: float, cutoff: str,
               n_slots: int):
     """G2 through the CUDA kernel `g2_kernel` (replaces the Pallas
     `_g2_kernel`, tensoralloy_tpu/ops/fused.py:326); the twin for CPU
-    tensors. On the H100 it is bound by reading the three [A, N] inputs
-    plus one cutoff and T2 exp per pair; no matmul (see the source)."""
+    tensors. On the H100 it is bound by reading the three [A, N] inputs;
+    one cutoff and T2 exp2 per pair must overlap the reads. One warp per
+    atom row, persistent warps striding over the rows with the next
+    span's loads in flight during this span's math, up to 4 slots
+    accumulated in one pass, xor-shuffle reduction (see the source). The
+    grid columns and the bound C function are kept per (grid, rcut,
+    cutoff, n_slots, dtype); a call passes pointers, sizes and stream."""
     if rij.device.type == "cpu":
         return g2_reference(rij, islotf, mask, grid, rcut, cutoff, n_slots)
     if rij.device.type != "cuda":
         raise ValueError(f"g2_kernel: no kernel for device {rij.device}")
     _check_cuda_inputs("g2_kernel", rij, islotf, mask)
-    eta, omega = _grid_columns(np.asarray(grid))
+    fn, tail, n_params, _ = _bound_sf("g2", grid, rcut, cutoff, n_slots,
+                                      rij.dtype)
     rows, n = rij.shape
-    out = torch.empty((rows, n_slots * len(eta)), dtype=rij.dtype,
+    out = torch.empty((rows, n_slots * n_params), dtype=rij.dtype,
                       device=rij.device)
     if rows == 0:
         return out
-    lib = _library()
-    fn = lib.sf_g2_f32 if rij.dtype == torch.float32 else lib.sf_g2_f64
-    with torch.cuda.device(rij.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = fn(_ptr(rij), _ptr(islotf), _ptr(mask), _ptr(out), rows, n,
-                  n_slots, len(eta), _ptr(eta), _ptr(omega), float(rcut),
-                  CUTOFF_IDS[cutoff], ctypes.c_void_p(stream))
-    _check_launch("g2", code)
-    launch_counts["g2"] += 1
+    _launch("g2", fn, rij.device, rij.data_ptr(), islotf.data_ptr(),
+            mask.data_ptr(), out.data_ptr(), rows, n, *tail)
     return out
 
 
@@ -309,22 +389,16 @@ def g4_kernel(rij, rik, rjk, aslotf, mask, grid, acut: float, cutoff: str,
     if rij.device.type != "cuda":
         raise ValueError(f"g4_kernel: no kernel for device {rij.device}")
     _check_cuda_inputs("g4_kernel", rij, rik, rjk, aslotf, mask)
-    beta, gamma, zeta = _grid_columns(np.asarray(grid))
+    fn, tail, n_params, _ = _bound_sf("g4", grid, acut, cutoff, n_slots,
+                                      rij.dtype)
     rows, n = rij.shape
-    out = torch.empty((rows, n_slots * len(beta)), dtype=rij.dtype,
+    out = torch.empty((rows, n_slots * n_params), dtype=rij.dtype,
                       device=rij.device)
     if rows == 0:
         return out
-    lib = _library()
-    fn = lib.sf_g4_f32 if rij.dtype == torch.float32 else lib.sf_g4_f64
-    with torch.cuda.device(rij.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = fn(_ptr(rij), _ptr(rik), _ptr(rjk), _ptr(aslotf), _ptr(mask),
-                  _ptr(out), rows, n, n_slots, len(beta), _ptr(beta),
-                  _ptr(gamma), _ptr(zeta), float(acut), CUTOFF_IDS[cutoff],
-                  ctypes.c_void_p(stream))
-    _check_launch("g4", code)
-    launch_counts["g4"] += 1
+    _launch("g4", fn, rij.device, rij.data_ptr(), rik.data_ptr(),
+            rjk.data_ptr(), aslotf.data_ptr(), mask.data_ptr(),
+            out.data_ptr(), rows, n, *tail)
     return out
 
 
@@ -360,7 +434,6 @@ class G4Function(torch.autograd.Function):
 GRAP_ALGORITHMS = {"sf": ("eta", "omega"), "density": ("A", "beta", "re"),
                    "morse": ("D", "gamma", "r0"), "pexp": ("rl", "pl")}
 
-_grap_weights: Dict[tuple, torch.Tensor] = {}
 
 
 def grap_reference(rij, ux, uy, uz, islotf, mask, desc, rcut: float,
@@ -425,15 +498,49 @@ def grap_tables(desc):
     return algorithm, cols, codes, weights, moments
 
 
-def _device_weights(weights: np.ndarray, dtype, device) -> torch.Tensor:
-    """The [D, M] weights on the device, cached: a copy from host memory
-    would wait for the work already queued on the stream."""
-    key = (weights.tobytes(), weights.shape, dtype, str(device))
-    w = _grap_weights.get(key)
-    if w is None:
-        w = torch.as_tensor(weights, dtype=dtype, device=device)
-        _grap_weights[key] = w
-    return w
+def grap_spec(desc) -> tuple:
+    """Immutable specification of what `grap_tables(desc)` depends on."""
+    return (desc.algorithm, tuple(desc._grid_keys), grid_spec(desc._grid),
+            tuple(desc.moment_tensors), desc.max_moment,
+            bool(desc.symmetric))
+
+
+def kept_grap_tables(desc):
+    """`grap_tables(desc)`, built once per specification and kept,
+    read-only."""
+    key = ("grap", grap_spec(desc))
+    tables = _host_tables.get(key)
+    if tables is None:
+        tables = grap_tables(desc)
+        _, cols, codes, weights, moments = tables
+        _read_only([*cols, codes, weights, moments])
+        _keep(_host_tables, key, tables)
+    return tables
+
+
+def _bound_grap(desc, rcut: float, n_slots: int, dtype, device) -> tuple:
+    """-> (the C entry point of GRAP for `dtype`, the [D, M] weights on
+    `device` (a copy from host memory at each call would wait for the
+    work already queued on the stream), the constant arguments that
+    follow (rows, n), the output columns), bound once per
+    (specification, cutoff, rcut, n_slots, dtype, device). The tuple
+    holds the host tables so that the pointers stay valid."""
+    key = ("grap", grap_spec(desc), desc.cutoff_function, rcut, n_slots,
+           dtype, device)
+    bound = _bound.get(key)
+    if bound is None:
+        tables = kept_grap_tables(desc)
+        algorithm, cols, codes, weights, moments = tables
+        fn = getattr(_library(), f"grap_{_SUFFIX[dtype]}")
+        w = torch.as_tensor(weights.copy(), dtype=dtype, device=device)
+        k = len(cols[0])
+        tail = (n_slots, algorithm, k, *(c.ctypes.data for c in cols),
+                len(codes), codes.ctypes.data, len(moments),
+                moments.ctypes.data, float(rcut),
+                CUTOFF_IDS[desc.cutoff_function])
+        bound = _keep(_bound, key, (fn, w, tail, n_slots * k * len(moments),
+                                    tables))
+    return bound
 
 
 def grap_kernel(rij, ux, uy, uz, islotf, mask, desc, rcut: float,
@@ -448,26 +555,15 @@ def grap_kernel(rij, ux, uy, uz, islotf, mask, desc, rcut: float,
     if rij.device.type != "cuda":
         raise ValueError(f"grap_kernel: no kernel for device {rij.device}")
     _check_cuda_inputs("grap_kernel", rij, ux, uy, uz, islotf, mask)
-    algorithm, cols, codes, weights, moments = grap_tables(desc)
-    w = _device_weights(weights, rij.dtype, rij.device)
+    fn, w, tail, n_out, _ = _bound_grap(desc, rcut, n_slots, rij.dtype,
+                                        rij.device)
     rows, n = rij.shape
-    k, n_mom = desc.n_filters, len(moments)
-    out = torch.empty((rows, n_slots * k * n_mom), dtype=rij.dtype,
-                      device=rij.device)
+    out = torch.empty((rows, n_out), dtype=rij.dtype, device=rij.device)
     if rows == 0:
         return out
-    lib = _library()
-    fn = lib.grap_f32 if rij.dtype == torch.float32 else lib.grap_f64
-    with torch.cuda.device(rij.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = fn(_ptr(rij), _ptr(ux), _ptr(uy), _ptr(uz), _ptr(islotf),
-                  _ptr(mask), _ptr(w), _ptr(out), rows, n, n_slots,
-                  algorithm, k, *(_ptr(c) for c in cols), len(codes),
-                  _ptr(codes), n_mom, _ptr(moments),
-                  float(rcut), CUTOFF_IDS[desc.cutoff_function],
-                  ctypes.c_void_p(stream))
-    _check_launch("grap", code)
-    launch_counts["grap"] += 1
+    _launch("grap", fn, rij.device, rij.data_ptr(), ux.data_ptr(),
+            uy.data_ptr(), uz.data_ptr(), islotf.data_ptr(), mask.data_ptr(),
+            w.data_ptr(), out.data_ptr(), rows, n, *tail)
     return out
 
 
