@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path once on one NVIDIA GPU.
+"""Drive the PyTorch port's serving and training paths once on one NVIDIA
+GPU.
 
     python3 chip_smoke.py
 
@@ -21,16 +22,41 @@ failure ends the run with a non-zero exit and no result line:
              its default device, which must be cuda, one path after
              another, each with the launch counts reset before it and
              read after it:
-               sf      snap_Ni_sfa.npz, jittered fcc Ni of 108, 864, 4000
-                       and 32000 atoms (G2 and G4)
-               grap    snap_Ni.npz (v5_readapt), the same four sizes
+               sf      snap_Ni_sfa.npz, jittered fcc Ni of 108 and 4000
+                       atoms (G2 and G4)
+               grap    snap_Ni.npz (v5_readapt), the same two sizes
                moni    snap_MoNi.npz (ref11), 4000 atoms, 10 % Mo
                td      td_Be.npz, 36 atoms of hcp Be at 0.1 eV
-             Each request must launch its path's kernels, agree with the
+             Each request must launch each of its path's kernels once
+             (forces, stress and the by-products come from one pass),
+             agree with the
              same calculator on the twins, and have |sum F| ~ 0; the
              108-atom Ni requests and the Be request are also held
              against the JAX-reference fixtures (float32 and float64)
-  5. time    median time per request and its device E/F/S part,
+  5. train   the port's trainer on its default device, which must be
+             cuda, backend="pallas", on artifacts/snap_ni/snap-Ni.db
+             (400 training and 61 test structures), the dataset built
+             by the port's host code in a temporary directory:
+               train_sf    the snap_ni_sfa configuration at full width
+                           (5 G2 + 4 G4, 9-128-128-1, batch 25, adam
+                           0.002, exponential 0.94/1000, energy per
+                           atom x20 + forces)
+               train_grap  the snap_ni_v5_readapt configuration (16 pexp
+                           filters, moments 0-5, 96-128-128-1, batch 50,
+                           adam 0.0005)
+             (a) float64 steps from seeded (sf) or the saved (grap)
+             parameters: every loss and the first gradient norm against
+             the JAX trainer's fixture, 1e-8; (b) float32 steps from
+             `init_params`: finite losses, a fixed batch's loss falls,
+             one launch of each kernel per forward, and the same run on
+             the twins agrees (1e-4 over 5 steps, 1e-3 after); the
+             parameter gradient through the kernels against the twins';
+             (c) sf: `evaluate` of the saved weights on the test set
+             against the fixture; (d) sf: checkpoint, restore, two more
+             steps bit for bit; export, and the calculator serves a test
+             structure. Prints structures/s, the split of a step from
+             CUDA events, peak memory and the dataset build time
+  6. time    median time per request and its device E/F/S part,
              kernels vs twins; each kernel vs its twin at the
              32000-atom request's shapes (`ms`: the median of single
              CUDA-event-timed launches, as since the first slice;
@@ -50,8 +76,11 @@ from __future__ import annotations
 
 import itertools
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -82,8 +111,10 @@ PATHS = {
 }
 MONI_REPS = 10      # 4000 atoms
 MO_FRACTION = 0.1
-# fcc repeats per axis -> 108, 864, 4000 and 32000 atoms
-REQUEST_REPS = (3, 6, 10, 20)
+# fcc repeats per axis -> 108 and 4000 atoms served; the kernels are
+# timed at the 32000-atom request's shapes
+REQUEST_REPS = (3, 10)
+TIMED_REPS = 20
 LATTICE = 3.52      # Angstrom
 SIGMA = 0.05        # Angstrom, Gaussian jitter of every coordinate
 BE_A, BE_C = 2.2858, 3.5843   # hcp Be, Angstrom
@@ -92,6 +123,36 @@ F32 = dict(rtol=2e-5, atol=2e-5)     # as tests/test_backends.py
 F64 = dict(rtol=1e-12, atol=1e-12)
 F32_REL = 1e-4      # E/F/S relative error, float32 serving
 F64_REL = 1e-10     # E/F/S relative error, float64 serving
+TRAIN_DB = MODELS / "snap_ni" / "snap-Ni.db"
+# the training configurations (artifacts/<run>/input.toml) at full width:
+# the model file gives featurizer, descriptor and widths
+TRAIN_CONFIGS = {
+    "sf": dict(
+        model="artifacts/snap_ni_sfa/model/snap_Ni_sfa.npz",
+        name="snap_Ni_sfa", test_size=61, seed=611, batch_size=25,
+        opt=dict(method="adam", learning_rate=0.002,
+                 decay_function="exponential", decay_rate=0.94,
+                 decay_steps=1000),
+        warm_start=False, fixture_steps=5, steps=30, evaluate=True,
+        kernels=("g2", "g4")),
+    "grap": dict(
+        model="artifacts/snap_ni_v5_readapt/model/snap_Ni.npz",
+        name="snap_Ni", test_size=61, seed=611, batch_size=50,
+        opt=dict(method="adam", learning_rate=0.0005,
+                 decay_function="exponential", decay_rate=0.95,
+                 decay_steps=2500),
+        warm_start=True, fixture_steps=3, steps=10, evaluate=False,
+        kernels=("grap",)),
+}
+TRAIN_F64_REL = 1e-8     # losses, gradient norm, metrics vs the fixture
+# ... the gradient norm at a warm start: the converged model's energy
+# error is 1e-6 of the energy, so a few ulps of the energy (another
+# summation order) move the gradient by 1e-9 to 1e-8
+TRAIN_F64_WARM_GRAD_REL = 1e-7
+TRAIN_F32_REL = 1e-3     # float32 losses and metrics, kernels vs twins
+TRAIN_F32_REL_FIRST = 1e-4   # ... over the first 5 steps
+GRAD_F32_REL = 1e-4      # parameter gradient, kernel path vs twin path
+GRAD_F64_REL = 1e-10
 # H100 SXM peaks (NVIDIA's data sheet, 700 W): device memory and the
 # float32 rate outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
@@ -238,17 +299,21 @@ def check_kernels(device="cuda", rows=4001) -> None:
                 grid = (wide if is_wide else sf).radial_grid
                 rij, slot, mask = _random_pairs(rng, rows, n, n_slots, 6.0,
                                                 dtype, device)
-                _compare("g2", f"{cutoff} N={n} S={n_slots} T2={len(grid)}",
-                         fused.G2Function, fused.g2_reference, [rij],
-                         [slot, mask], (grid, 6.0, cutoff, n_slots), dtype,
-                         tol)
+                g2_case = ("g2", f"{cutoff} N={n} S={n_slots} "
+                           f"T2={len(grid)}", fused.G2Function,
+                           fused.g2_reference, [rij], [slot, mask],
+                           (grid, 6.0, cutoff, n_slots), dtype, tol)
+                _compare(*g2_case)
+            _compare_second_order(*g2_case)
             for n, n_slots in ((256, 3), (384, 1), (384, 3)):
                 g4_args = (sf.angular_grid, 4.0, cutoff, n_slots)
                 *dists, slot, mask = _random_triples(rng, rows, n, n_slots,
                                                      4.0, dtype, device)
-                _compare("g4", f"{cutoff} N={n} S={n_slots}",
-                         fused.G4Function, fused.g4_reference, dists,
-                         [slot, mask], g4_args, dtype, tol)
+                g4_case = ("g4", f"{cutoff} N={n} S={n_slots}",
+                           fused.G4Function, fused.g4_reference, dists,
+                           [slot, mask], g4_args, dtype, tol)
+                _compare(*g4_case)
+            _compare_second_order(*g4_case)
     check_grap_kernel(device, rows)
 
 
@@ -310,9 +375,12 @@ def check_grap_kernel(device="cuda", rows=4001) -> None:
             label = (f"{algorithm} K={desc.n_filters} moments={moments}"
                      f"{' symmetric' if symmetric else ''} {cutoff} N={n} "
                      f"S={n_slots}")
-            _compare("grap", label, fused.GrapFunction,
-                     fused.grap_reference, diff, [slot, mask],
-                     (desc, 6.0, n_slots), dtype, tol)
+            grap_case = ("grap", label, fused.GrapFunction,
+                         fused.grap_reference, diff, [slot, mask],
+                         (desc, 6.0, n_slots), dtype, tol)
+            _compare(*grap_case)
+            if desc.n_filters <= 16:
+                _compare_second_order(*grap_case)
 
 
 def _compare(name, label, function, reference, diff, rest, spec, dtype,
@@ -335,6 +403,37 @@ def _compare(name, label, function, reference, diff, rest, spec, dtype,
     print(f"  {name} {str(dtype)[6:]} {label} {tuple(y.shape)}: "
           f"max_abs_err {err:.3e} at max|value| "
           f"{y_ref.abs().max().item():.3e} (rtol/atol {tol['rtol']:g}) ok")
+
+
+def _compare_second_order(name, label, function, reference, diff, rest,
+                          spec, dtype, tol):
+    """The scalar sum_i <u_i, dY/dx_i . gbar> of the first-order
+    gradients (seeded u, gbar), differentiated w.r.t. gbar and the
+    inputs: kernel forward against the all-twin path."""
+    gen = torch.Generator(device=diff[0].device).manual_seed(SEED + 2)
+    rand = lambda shape: torch.randn(shape, generator=gen, dtype=dtype,
+                                     device=diff[0].device)
+    us = [rand(d.shape) for d in diff]
+    gbar0 = None
+    results = []
+    for fn in (function.apply, reference):
+        x = [d.clone().requires_grad_() for d in diff]
+        y = fn(*x, *rest, *spec)
+        if gbar0 is None:
+            gbar0 = rand(y.shape)
+        gbar = gbar0.clone().requires_grad_()
+        grads = torch.autograd.grad(y, x, gbar, create_graph=True)
+        scalar = sum((u * g).sum() for u, g in zip(us, grads))
+        results.append(torch.autograd.grad(scalar, [gbar] + x))
+    for got, want in zip(*results):
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"{name} {label}: second-order gradient "
+                                 "is not finite")
+        torch.testing.assert_close(got, want, **tol)
+    top = max(w.abs().max().item() for w in results[1])
+    print(f"  {name} {str(dtype)[6:]} {label}: second-order gradients "
+          f"w.r.t. gbar and {len(diff)} input(s) finite, max|value| "
+          f"{top:.3e}, kernel forward vs twins ok")
 
 
 def _structure(reps, symbols=None):
@@ -399,10 +498,10 @@ def serve_path(path_name, request_reps=REQUEST_REPS):
         before = dict(fused.launch_counts)
         results.append(calc.calculate(s))
         after = dict(fused.launch_counts)
-        if not all(after[k] > before[k] for k in kernels):
+        if not all(after[k] == before[k] + 1 for k in kernels):
             raise AssertionError(f"{path_name} {len(s)} atoms: kernels "
-                                 f"{kernels} not launched ({before} -> "
-                                 f"{after})")
+                                 f"{kernels} not launched once each "
+                                 f"({before} -> {after})")
     launches = dict(fused.launch_counts)
     print(f"  launches over the {len(structures)} request(s): {launches}")
 
@@ -446,6 +545,373 @@ def serve(request_reps=REQUEST_REPS):
         for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v
     return served, launches
+
+
+# ----------------------------------------------------------------------
+# train
+# ----------------------------------------------------------------------
+
+def seeded_params(tree, seed: int):
+    """Parameters in the shape of `tree` (nested dicts and lists of
+    arrays, the JAX parameter tree), made with numpy from a seed: kernels
+    N(0, 1/fan_in), biases the tree's own plus N(0, 0.1), dt 0.1 plus
+    N(0, 0.02); the min/max statistics ('norm') are kept. Leaves are
+    visited in sorted key order."""
+    rng = np.random.default_rng(seed)
+
+    def visit(node, path):
+        if isinstance(node, dict):
+            return {k: visit(node[k], path + [k]) for k in sorted(node)}
+        if isinstance(node, (list, tuple)):
+            return [visit(v, path + [str(i)]) for i, v in enumerate(node)]
+        x = np.asarray(node, np.float64)
+        if "norm" in path:
+            return x
+        if path[-1] == "w":
+            return rng.normal(0.0, 1.0 / np.sqrt(x.shape[0]), x.shape)
+        if path[-1] == "dt":
+            return 0.1 + rng.normal(0.0, 0.02, x.shape)
+        return x + rng.normal(0.0, 0.1, x.shape)
+
+    return visit(tree, [])
+
+
+def _tree_rel_err(got, want) -> float:
+    """max over leaves of max|got - want| over the largest |want|."""
+    from tensoralloy_tpu_torch.utils import tree_flatten
+    got, want = tree_flatten(got), tree_flatten(want)
+    top = max(float(w.abs().max()) for w in want.values())
+    return max(float((got[k] - want[k]).abs().max())
+               for k in want) / max(top, 1e-300)
+
+
+def _trainer(cfg, dtype, backend, steps):
+    """The configuration's model (from its file, on the default device)
+    in a Trainer with its loss and optimizer."""
+    from tensoralloy_tpu_torch.io.model import load_model
+    from tensoralloy_tpu_torch.nn import losses as L
+    from tensoralloy_tpu_torch.train.trainer import (
+        OptParameters, TrainParameters, Trainer)
+    model, _ = load_model(str(ROOT / cfg["model"]), dtype=dtype,
+                          backend=backend)
+    lp = L.LossParameters(
+        energy=L.LossOptions(weight=20.0, per_atom_loss=True),
+        forces=L.LossOptions(weight=1.0))
+    trainer = Trainer(
+        model, lp, OptParameters(**cfg["opt"]),
+        TrainParameters(batch_size=cfg["batch_size"], train_steps=steps,
+                        eval_steps=10 ** 9, log_steps=10 ** 9,
+                        seed=cfg["seed"]),
+        minimize_properties=("energy", "forces"), dtype=dtype)
+    if trainer.device.type != "cuda":
+        raise AssertionError(f"the default device is {trainer.device}, "
+                             "not cuda")
+    return trainer
+
+
+def _fit_losses(trainer, arrays, params, timed=False):
+    """fit -> (result, the loss of every step[, seconds of every step,
+    the device waited for after each])."""
+    losses, seconds = [], []
+    last = [time.perf_counter()]
+
+    def record(step, state, metrics):
+        losses.append(metrics["loss/total"])
+        if timed:
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            seconds.append(now - last[0])
+            last[0] = now
+
+    out = trainer.fit(arrays[0], arrays[1], params=params, verbose=False,
+                      callback=record)
+    return out, [float(x) for x in losses], seconds
+
+
+def _check_losses(what, got, want, rel):
+    errs = [abs(g - w) / abs(w) for g, w in zip(got, want)]
+    print(f"  {what}: losses {[f'{x:.8g}' for x in got]}, max rel err "
+          f"{max(errs):.2e} (limit {rel:g})")
+    if len(got) != len(want) or not all(np.isfinite(got)) \
+            or max(errs) > rel:
+        raise AssertionError(f"{what}: losses {got} vs {want}")
+
+
+def _step_split(trainer, state, dev_feats, dev_labels, batches_idx, card):
+    """The split of one train step from CUDA events: batch gather,
+    forward, first backward (forces), loss backward (double),
+    optimizer + EMA; medians over the given batches."""
+    names = ("gather", "forward", "first backward (forces)",
+             "loss + loss backward (double)", "optimizer + EMA")
+    marks = {}
+
+    def mark(key):
+        marks[key] = torch.cuda.Event(enable_timing=True)
+        marks[key].record()
+
+    model = trainer.model
+
+    def predictions(params, feats, create_graph=False):
+        def energy_fn(f):
+            out = model.energy_and_aux(f, params)
+            mark("forward")
+            return out
+        out = trainer._select_efs(feats)(energy_fn, create_graph)(feats)
+        mark("first")
+        return out
+
+    update = trainer._opt_update
+
+    def timed_update(*args):
+        mark("loss")
+        return update(*args)
+
+    trainer.batched_predictions, trainer._opt_update = \
+        predictions, timed_update
+    rows = []
+    try:
+        for sel in batches_idx:
+            mark("start")
+            sel = torch.as_tensor(sel, device=trainer.device)
+            bf = {k: v[sel] for k, v in dev_feats.items()}
+            bl = {k: v[sel] for k, v in dev_labels.items()}
+            mark("gather")
+            state, _ = trainer.train_step(state, bf, bl)
+            mark("end")
+            torch.cuda.synchronize()
+            order = ("start", "gather", "forward", "first", "loss", "end")
+            rows.append([marks[a].elapsed_time(marks[b])
+                         for a, b in zip(order, order[1:])])
+    finally:
+        del trainer.batched_predictions
+        trainer._opt_update = update
+    med = np.median(np.asarray(rows[2:]), axis=0)
+    parts = ", ".join(f"{n} {t:.3f} ms" for n, t in zip(names, med))
+    print(f"  step split (CUDA events, medians of {len(rows) - 2} steps "
+          f"after 2): {parts}; sum {med.sum():.3f} ms ({card})")
+    return dict(zip(names, med.tolist()))
+
+
+def train_path(name, workdir, card):
+    """One training configuration through the kernels; the launch counts
+    are reset before each measured run and read after it."""
+    from tensoralloy_tpu_torch.calculator import TensorAlloyCalculator
+    from tensoralloy_tpu_torch.io.model import save_model
+    from tensoralloy_tpu_torch.io.sqlite import connect
+    from tensoralloy_tpu_torch.ops import fused
+    from tensoralloy_tpu_torch.train.dataset import (Dataset,
+                                                     batch_index_stream)
+    from tensoralloy_tpu_torch.train.optim import global_norm
+    from tensoralloy_tpu_torch.utils import tree_map
+    cfg = TRAIN_CONFIGS[name]
+    kernels = cfg["kernels"]
+    fixture = json.loads(
+        (DATA / f"torch_port_ref_train_{name}.json").read_text())
+    work = Path(workdir) / name
+    work.mkdir()
+    print(f"  -- train_{name}: {cfg['model']}, batch {cfg['batch_size']}")
+    shutil.copy(TRAIN_DB, work / "snap-Ni.db")
+    db = connect(str(work / "snap-Ni.db"))
+
+    # the dataset, built once at float64 by the port's host code; the
+    # float32 trainer casts it
+    t64 = _trainer(cfg, "high", "pallas", cfg["fixture_steps"])
+    t0 = time.perf_counter()
+    ds = Dataset(db, t64.model.featurizer, name=cfg["name"],
+                 test_size=cfg["test_size"], seed=cfg["seed"],
+                 dtype=np.float64, cache_dir=str(work), transpose=True)
+    feats, labels = ds.build(serial=False)
+    build_s = time.perf_counter() - t0
+    arrays = ds.split(feats, labels)
+    n_train, n_test = len(arrays[1]["energy"]), len(arrays[3]["energy"])
+    print(f"  dataset: {len(db)} structures featurized on the host in "
+          f"{build_s:.1f} s ({n_train} train, {n_test} test; pair rows "
+          f"{feats['pair_j_d'].shape}"
+          + (f", triple rows {feats['trip_j_d'].shape}"
+             if "trip_j_d" in feats else "") + ")")
+    if (n_train, n_test) != (fixture["n_train"], fixture["n_test"]) \
+            or ds.max_occurs != t64.model.max_occurs:
+        raise AssertionError("the split or the layout differs from the "
+                             "fixture's")
+
+    # (a) float64 against the JAX trainer's fixture
+    saved = t64.model.param_tree()
+    if cfg["warm_start"]:
+        params0 = saved
+    else:
+        params0 = seeded_params(
+            tree_map(lambda x: x.cpu().numpy(), saved), cfg["seed"])
+    first = next(batch_index_stream(n_train, cfg["batch_size"],
+                                    seed=cfg["seed"], repeat=True))
+    bf = t64._to_device({k: v[first] for k, v in arrays[0].items()})
+    bl = t64._to_device({k: v[first] for k, v in arrays[1].items()})
+    p64 = t64._tree_to_device(params0)
+    (_, _), grads = t64.loss_and_grads(p64, bf, bl, 0)
+    gnorm = float(global_norm(grads))
+    gerr = abs(gnorm - fixture["grad_norm_first_step"]) \
+        / fixture["grad_norm_first_step"]
+    fused.reset_launch_counts()
+    _, losses64, _ = _fit_losses(t64, arrays, params0)
+    counts = dict(fused.launch_counts)
+    _check_losses(f"train_{name} float64 vs the JAX fixture", losses64,
+                  fixture["losses"], TRAIN_F64_REL)
+    grad_rel = (TRAIN_F64_WARM_GRAD_REL if cfg["warm_start"]
+                else TRAIN_F64_REL)
+    print(f"  first-step gradient norm {gnorm:.10g} vs "
+          f"{fixture['grad_norm_first_step']:.10g}: rel err {gerr:.2e} "
+          f"(limit {grad_rel:g}); "
+          f"launches over {len(losses64)} steps {counts}")
+    if gerr > grad_rel or any(
+            counts[k] != len(losses64) for k in kernels):
+        raise AssertionError("float64 training disagrees with the fixture "
+                             "or a step did not launch each kernel once")
+    # kernel path against twin path at seeded parameters (away from a
+    # converged model, whose gradient is ill-conditioned, see above)
+    seeded64 = t64._tree_to_device(seeded_params(
+        tree_map(lambda x: x.cpu().numpy(), saved), cfg["seed"]))
+    twin64 = _trainer(cfg, "high", "dense", 1)
+    (_, _), grads_kernel = t64.loss_and_grads(seeded64, bf, bl, 0)
+    (_, _), grads_twin = twin64.loss_and_grads(seeded64, bf, bl, 0)
+    gerr64 = _tree_rel_err(grads_kernel, grads_twin)
+
+    # (b) float32 from init_params, kernels then twins
+    steps = cfg["steps"]
+    t32 = _trainer(cfg, "medium", "pallas", steps)
+    twin32 = _trainer(cfg, "medium", "dense", steps)
+    params_init = t32.init_params(arrays[0], verbose=False)
+    fixed_f = t32._to_device({k: v[:cfg["batch_size"]]
+                              for k, v in arrays[0].items()})
+    fixed_l = t32._to_device({k: v[:cfg["batch_size"]]
+                              for k, v in arrays[1].items()})
+    (_, _), g32 = t32.loss_and_grads(params_init, fixed_f, fixed_l, 0)
+    (_, _), g32_twin = twin32.loss_and_grads(params_init, fixed_f, fixed_l,
+                                            0)
+    gerr32 = _tree_rel_err(g32, g32_twin)
+    print(f"  parameter gradient of the energy+force loss, kernel path "
+          f"vs twin path: float64 rel err {gerr64:.2e} (limit "
+          f"{GRAD_F64_REL:g}), float32 {gerr32:.2e} (limit "
+          f"{GRAD_F32_REL:g})")
+    if gerr64 > GRAD_F64_REL or gerr32 > GRAD_F32_REL:
+        raise AssertionError("the kernel path's parameter gradient "
+                             "disagrees with the twin path's")
+    with torch.no_grad():
+        before = float(t32.total_loss(params_init, fixed_f, fixed_l, 0)[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fused.reset_launch_counts()
+    out, losses32, seconds = _fit_losses(t32, arrays, params_init,
+                                         timed=True)
+    launches = dict(fused.launch_counts)
+    peak = torch.cuda.max_memory_allocated()
+    state = out["state"]
+    with torch.no_grad():
+        after = float(t32.total_loss(state["params"], fixed_f, fixed_l,
+                                     steps)[0])
+    print(f"  float32, {steps} steps from init_params: loss on a fixed "
+          f"batch {before:.6f} -> {after:.6f}; launches {launches}")
+    if not all(np.isfinite(losses32)) or not after < before or any(
+            launches[k] != steps for k in kernels):
+        raise AssertionError("float32 training: a loss is not finite, the "
+                             "fixed batch's loss did not fall, or a "
+                             "forward did not launch each kernel once")
+    _, losses_twin, _ = _fit_losses(twin32, arrays, params_init)
+    _check_losses(f"train_{name} float32, kernels vs twins, steps 1-5",
+                  losses32[:5], losses_twin[:5], TRAIN_F32_REL_FIRST)
+    _check_losses(f"train_{name} float32, kernels vs twins, all steps",
+                  losses32, losses_twin, TRAIN_F32_REL)
+    warm = 3
+    rates = cfg["batch_size"] / np.asarray(seconds[warm:])
+    print(f"  train_{name} float32 throughput: median "
+          f"{np.median(rates):.1f} structures/s over {len(rates)} steps "
+          f"after {warm} (min {rates.min():.1f}, max {rates.max():.1f}; "
+          f"each step waited for); peak memory allocated "
+          f"{peak / 2 ** 20:.1f} MiB; dataset build {build_s:.1f} s on "
+          f"the host ({card})")
+    dev_f, dev_l = t32._to_device(arrays[0]), t32._to_device(arrays[1])
+    idx = batch_index_stream(n_train, cfg["batch_size"], seed=cfg["seed"],
+                             repeat=True)
+    split = _step_split(t32, state, dev_f, dev_l,
+                        [next(idx) for _ in range(8)], card)
+
+    if cfg["evaluate"]:
+        # (c) the saved weights on the test structures
+        for trainer, rel in ((t64, TRAIN_F64_REL), (t32, TRAIN_F32_REL)):
+            ev = trainer.evaluate(saved, arrays[2], arrays[3])
+            errs = {k: abs(ev[k] - v) / max(abs(v), 1e-300)
+                    for k, v in fixture["evaluate"].items()}
+            worst = max(errs, key=errs.get)
+            print(f"  evaluate {n_test} test structures at "
+                  f"{str(trainer.dtype)[6:]}: energy/mae/atom "
+                  f"{ev['energy/mae/atom']:.6f} eV, forces/mae "
+                  f"{ev['forces/mae']:.6f} eV/A; worst rel err vs the JAX "
+                  f"fixture {errs[worst]:.2e} ({worst}; limit {rel:g})")
+            if set(ev) != set(errs) or errs[worst] > rel:
+                raise AssertionError(f"evaluate disagrees: {errs}")
+        _check_resume_and_export(cfg, t32, arrays, params_init, work, ds,
+                                 db, TensorAlloyCalculator, save_model)
+    return {"launches": launches, "steps": steps, "split": split,
+            "structures_per_s": float(np.median(rates)),
+            "peak_mib": peak / 2 ** 20, "build_s": build_s}
+
+
+def _check_resume_and_export(cfg, trainer, arrays, params, work, ds, db,
+                             calculator_cls, save_model):
+    """(d) checkpoint, restore, two more steps equal two uninterrupted
+    steps bit for bit (with deterministic algorithms on: the backward of
+    an index gather otherwise adds in no fixed order); export, and the
+    calculator serves a test structure with the exported model."""
+    from tensoralloy_tpu_torch.train.trainer import TrainParameters
+    tp = trainer.train_parameters
+    trainer.train_parameters = TrainParameters(
+        **{**tp.__dict__, "train_steps": 4})
+    torch.use_deterministic_algorithms(True)
+    try:
+        kept = {}
+        straight = trainer.fit(
+            arrays[0], arrays[1], params=params, verbose=False,
+            callback=lambda s, st, m: kept.update({s + 1: st}))
+        path = str(work / "ckpt-2.npz")
+        trainer.save_checkpoint(path, kept[2])
+        resumed = trainer.fit(arrays[0], arrays[1], verbose=False,
+                              initial_state=trainer.restore_state(path))
+    finally:
+        torch.use_deterministic_algorithms(False)
+        trainer.train_parameters = tp
+    worst = max(_tree_rel_err(resumed["state"][k], straight["state"][k])
+                for k in ("params", "ema_params"))
+    print(f"  checkpoint at step 2, restore, 2 more steps vs 4 "
+          f"uninterrupted: max difference {worst:.1e}")
+    if worst != 0.0 or resumed["state"]["step"] != 4:
+        raise AssertionError("resume is not bit for bit")
+    exported = str(work / "exported.npz")
+    save_model(exported, trainer.model, resumed["state"]["ema_params"])
+    calc = calculator_cls(exported, dtype="medium", backend="pallas")
+    test_row = int(ds.split_indices(len(db))[1][0])
+    structure = db.get(test_row + 1)
+    res = calc.calculate(structure)
+    bf = trainer._to_device({k: v[:1] for k, v in arrays[2].items()})
+    want = trainer.batched_predictions(resumed["state"]["ema_params"], bf)
+    err = abs(res["energy"] - float(want["energy"][0])) \
+        / abs(float(want["energy"][0]))
+    print(f"  exported model serves test structure {test_row + 1} "
+          f"({len(structure)} atoms): E {res['energy']:.6f} eV, rel err vs "
+          f"the trainer's prediction {err:.2e}")
+    if res["forces"].shape != (len(structure), 3) \
+            or not np.isfinite(res["forces"]).all() or err > F32_REL:
+        raise AssertionError("the exported model is not served right")
+
+
+def train(card):
+    """The training half of the main path: both configurations. ->
+    launches of each kernel per train step, and what was measured."""
+    phase("train")
+    measured, per_step = {}, {}
+    with tempfile.TemporaryDirectory() as workdir:
+        for name in TRAIN_CONFIGS:
+            measured[name] = m = train_path(name, workdir, card)
+            for k in TRAIN_CONFIGS[name]["kernels"]:
+                per_step[k] = m["launches"][k] // m["steps"]
+    return measured, per_step
 
 
 def _median_ms(fn, reps: int, warmup: int = 3) -> float:
@@ -536,7 +1002,10 @@ def kernel_cases(sf_calc, sf_structure, grap_calc, grap_structure):
 
 def time_path(card, served, launches):
     phase("time")
+    largest = _structure(TIMED_REPS)
     for name, (calc, twin, structures) in served.items():
+        if name in ("sf", "grap"):
+            structures = structures + [largest]
         for s in structures:
             reps = 5 if len(s) < 10000 else 3
             vap = calc._get_vap(s)
@@ -551,8 +1020,8 @@ def time_path(card, served, launches):
                   f"through the twins (medians of {reps}; {card})")
 
     # each kernel at the main path's shapes: its largest request
-    cases = kernel_cases(served["sf"][0], served["sf"][2][-1],
-                         served["grap"][0], served["grap"][2][-1])
+    cases = kernel_cases(served["sf"][0], largest,
+                         served["grap"][0], largest)
     return time_kernels(cases, card, launches)
 
 
@@ -640,13 +1109,22 @@ def kernel_work(name, args, out):
 
 def main() -> int:
     t0 = time.perf_counter()
+    # cuBLAS needs this to run under torch.use_deterministic_algorithms
+    # (the train phase's bit-for-bit resume check)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     card = check_card()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     build()
     check_kernels()
     served, launches = serve()
+    measured, per_step = train(card)
+    for m in measured.values():
+        for k, v in m["launches"].items():
+            launches[k] = launches.get(k, 0) + v
     rows = time_path(card, served, launches)
+    for row in rows:
+        row["launches_per_train_step"] = per_step[row["name"]]
     print(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -120,7 +120,7 @@ def main() -> int:
         raise SystemExit(f"imported {tensoralloy_tpu_torch.__file__}, "
                          f"not the package under {root}")
     from tensoralloy_tpu_torch.calculator import TensorAlloyCalculator
-    structure = chip_smoke._structure(chip_smoke.REQUEST_REPS[-1])
+    structure = chip_smoke._structure(chip_smoke.TIMED_REPS)
     sf, grap = (TensorAlloyCalculator(str(chip_smoke.PATHS[name][0]),
                                       device="cuda", dtype="medium",
                                       backend="pallas")

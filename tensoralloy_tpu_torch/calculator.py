@@ -7,7 +7,8 @@ scatter-free `ops.dense.make_dense_efs_fn`: forces and stress
 differentiate the model's variational energy (the free energy F = U - TS
 of a finite-temperature model, at the electron temperature the
 featurizer reads from `structure.info["etemperature"]`), and the atomic
-energies and finite-temperature heads ride along as extras. Per-element
+energies and finite-temperature heads come out of the same pass
+(`model.energy_and_aux`): a request evaluates its descriptors once. Per-element
 counts are rounded up to powers of two and the dense row widths are
 bucketed (`nnl` from 32, `ntl` from 64), so a stream of structures
 reuses a few layouts; each layout gets a re-laid-out model clone from a
@@ -118,20 +119,7 @@ class TensorAlloyCalculator:
         efs = self._efs_cache.get(key)
         if efs is None:
             model = self.model.clone_for(Counter(dict(key)))
-
-            def extras(feats, model=model):
-                if not hasattr(model, "energy_ops"):
-                    return {"atomic_energies": model.atomic_energies(feats)}
-                # finite-T heads: one eager pass gives the atomic U_i and
-                # the totals (JAX's jit shares `atomic_energies` and
-                # `energy_ops`; eager PyTorch would run them twice)
-                heads = model._atomic_heads(feats)
-                return {"atomic_energies": heads["energy"],
-                        "energy_U": heads["energy"].sum(),
-                        "eentropy": heads["eentropy"].sum(),
-                        "free_energy_F": heads["free_energy"].sum()}
-
-            efs = make_dense_efs_fn(model.variational_energy, extras)
+            efs = make_dense_efs_fn(model.energy_and_aux)
             self._efs_cache[key] = efs
         return efs
 
@@ -173,16 +161,14 @@ class TensorAlloyCalculator:
     def _assemble(out, vap) -> Dict[str, np.ndarray]:
         results = {
             "energy": float(out["energy"]),
-            "free_energy": float(out["energy"]),
+            "free_energy": float(out.get("free_energy", out["energy"])),
             "forces": vap.reverse_map(out["forces"]),
             "stress": np.asarray(out["stress_voigt"]),
             "pressure": float(out["total_pressure"]),
             "atomic_energies": vap.reverse_map(out["atomic_energies"]),
         }
-        if "energy_U" in out:        # finite-temperature heads
-            results["energy"] = float(out["energy_U"])
+        if "eentropy" in out:        # finite-temperature heads
             results["eentropy"] = float(out["eentropy"])
-            results["free_energy"] = float(out["free_energy_F"])
         return results
 
     @staticmethod

@@ -25,8 +25,8 @@ _STATE_PREFIX = "params."
 
 
 def params_from_jax(tree) -> Dict[str, torch.Tensor]:
-    """JAX parameter pytree (nested dicts/lists of arrays) -> the port's
-    state dict, e.g. tree["Ni"]["mlp"]["layers"][0]["w"] ->
+    """JAX parameter pytree (nested dicts/lists of arrays or tensors) ->
+    the port's state dict, e.g. tree["Ni"]["mlp"]["layers"][0]["w"] ->
     "params.Ni.mlp.layers.0.w". Arrays keep their dtype;
     `load_state_dict` casts them to the model's."""
     out = {}
@@ -38,6 +38,8 @@ def params_from_jax(tree) -> Dict[str, torch.Tensor]:
         elif isinstance(node, (list, tuple)):
             for i, v in enumerate(node):
                 visit(v, path + [str(i)])
+        elif isinstance(node, torch.Tensor):
+            out[_STATE_PREFIX + ".".join(path)] = node.detach()
         else:
             out[_STATE_PREFIX + ".".join(path)] = torch.from_numpy(
                 np.array(node))
@@ -70,9 +72,14 @@ def params_to_jax(state_dict: Dict[str, torch.Tensor]) -> dict:
     return listify(root)
 
 
-def save_model(path: str, model, extra_metadata: Optional[dict] = None):
-    """Serialize a model and its weights to one `.npz`."""
-    state = model.state_dict()
+def save_model(path: str, model, params=None,
+               extra_metadata: Optional[dict] = None):
+    """Serialize a model and its weights to one `.npz` that the port's
+    and the JAX package's calculators both load. `params` is a parameter
+    tree to write in place of the module's own weights (the trainer's
+    EMA parameters, as the JAX `save_model(path, model, params)`)."""
+    state = (model.state_dict() if params is None
+             else params_from_jax(params))
     first = next(iter(state.values()))
     config = {
         "model": model.as_dict(),

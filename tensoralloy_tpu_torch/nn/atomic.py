@@ -9,7 +9,15 @@ Weights live in `self.params`, an `nn.ModuleDict` shaped like the JAX
 parameter tree: state-dict key ``params.Ni.mlp.layers.0.w`` is the JAX
 leaf ``params["Ni"]["mlp"]["layers"][0]["w"]`` (see
 `io.model.params_from_jax`). Construction allocates zero weights; load
-them with `load_state_dict` (or `io.model.load_model`).
+them with `load_state_dict`, `load_param_tree` or `io.model.load_model`,
+or draw fresh ones with `init_params`.
+
+Every compute method takes one structure's features or a batch's
+([B, A, ...]): the descriptor kernels are row-independent, so a batch is
+B * A rows of one launch, and each element's MLP takes its row slice of
+every structure at once. The methods also take `params`, a parameter
+tree used in place of the module's own weights (the trainer's raw or
+EMA tree).
 """
 from __future__ import annotations
 
@@ -22,8 +30,10 @@ from torch import nn
 
 from ..transform.featurizer import Featurizer
 from ..utils import Defaults
+from ..utils import tree_flatten, tree_unflatten
 from .layers import (apply_dense_stack, freeze_output_bias,
-                     minmax_normalize_apply)
+                     init_dense_stack, l2_of_stack,
+                     minmax_normalize_apply, minmax_normalize_init)
 
 
 def _dense_stack(in_dim: int, hidden_sizes: Sequence[int], resnet_dt: bool,
@@ -61,6 +71,7 @@ class AtomicNN(nn.Module):
                  minmax_scale: bool = True,
                  atomic_static_energy: Optional[Dict[str, float]] = None,
                  fixed_static_energy: bool = False,
+                 kernel_initializer: str = "he_normal",
                  *, device=None, dtype=None):
         super().__init__()
         self.featurizer = featurizer
@@ -76,6 +87,7 @@ class AtomicNN(nn.Module):
         self.minmax_scale = minmax_scale
         self.atomic_static_energy = dict(atomic_static_energy or {})
         self.fixed_static_energy = fixed_static_energy
+        self.kernel_initializer = kernel_initializer
         self.feature_dim = descriptor.feature_dim(
             featurizer.n_radial_slots, featurizer.n_angular_slots,
             featurizer.angular)
@@ -120,36 +132,147 @@ class AtomicNN(nn.Module):
         return clone
 
     # ------------------------------------------------------------------
+    # Parameters as a tree. Every compute method takes `params`, a nested
+    # mapping shaped like `self.params` (and like the JAX parameter
+    # pytree); None means the module's own weights. The trainer passes
+    # its trees (raw or EMA) without touching the module.
+    def param_tree(self) -> dict:
+        """The module's weights as a tree of detached tensors (shared
+        storage, not copies)."""
+        return tree_unflatten({k: v.detach()
+                               for k, v in tree_flatten(self.params).items()})
+
+    def load_param_tree(self, tree) -> None:
+        """Copy a parameter tree (tensors or arrays) into the module."""
+        from ..io.model import params_from_jax
+        self.load_state_dict(params_from_jax(tree))
+
+    def _factory(self) -> dict:
+        first = next(self.parameters())
+        return {"device": first.device, "dtype": first.dtype}
+
+    def _init_element(self, element: str, generator, factory) -> dict:
+        """Fresh stacks of one element (subclasses add heads)."""
+        bias0 = float(self.atomic_static_energy.get(element, 0.0))
+        return {"mlp": init_dense_stack(
+            generator, self.feature_dim, self.hidden_sizes[element],
+            out_dim=1, output_bias=True, output_bias_mean=bias0,
+            resnet_dt=self.use_resnet_dt,
+            kernel_init=self.kernel_initializer, **factory)}
+
+    def init_params(self, generator: torch.Generator) -> dict:
+        """A fresh parameter tree drawn from `generator` (a CPU
+        `torch.Generator`; the draws are moved to the module's device
+        and dtype): the JAX `init_params` distributions and scales, not
+        its bits."""
+        factory = self._factory()
+        params = {}
+        for e in self.elements:
+            p = self._init_element(e, generator, factory)
+            if self.minmax_scale:
+                p["norm"] = minmax_normalize_init(self.feature_dim,
+                                                  **factory)
+            params[e] = p
+        return params
+
+    # ------------------------------------------------------------------
     def descriptors(self, features) -> torch.Tensor:
         f = self.featurizer
         return self.descriptor.compute(
             features, f.rcut, f.acut, f.n_radial_slots, f.n_angular_slots,
             f.angular)
 
-    def atomic_energies(self, features) -> torch.Tensor:
-        """-> [n_vap] atomic energies (zero at padding rows)."""
-        g = self.descriptors(features)
-        rows = [g.new_zeros(1)]
+    def _element_rows(self, g: torch.Tensor, params):
+        """(element net, its min-max scaled descriptor rows [.., cnt, D])
+        for every element with rows in the layout, in layout order."""
         for e in self.elements:
             lo, cnt = self.layout[e]
             if cnt == 0:
                 continue
-            x = g[lo:lo + cnt]
+            net = params[e]
+            x = g[..., lo:lo + cnt, :]
             if self.minmax_scale:
-                x = minmax_normalize_apply(self.params[e]["norm"], x)
-            layers = self.params[e]["mlp"]["layers"]
+                x = minmax_normalize_apply(net["norm"], x)
+            yield net, x
+
+    def atomic_energies(self, features, params=None) -> torch.Tensor:
+        """-> [.., n_vap] atomic energies (zero at padding rows);
+        features are one structure's or a batch's ([B, A, ...])."""
+        params = self.params if params is None else params
+        g = self.descriptors(features)
+        rows = [g.new_zeros(*g.shape[:-2], 1)]
+        for net, x in self._element_rows(g, params):
+            layers = net["mlp"]["layers"]
             if self.fixed_static_energy:
                 layers = freeze_output_bias(layers)
-            rows.append(apply_dense_stack(layers, x, self.activation)[:, 0])
-        return torch.cat(rows) * features["atom_masks"]
+            rows.append(apply_dense_stack(layers, x,
+                                          self.activation)[..., 0])
+        return torch.cat(rows, dim=-1) * features["atom_masks"]
 
-    def energy(self, features) -> torch.Tensor:
-        """Total potential energy (scalar)."""
-        return torch.sum(self.atomic_energies(features))
+    def energy(self, features, params=None) -> torch.Tensor:
+        """Total potential energy (a scalar, or [B] for a batch)."""
+        return torch.sum(self.atomic_energies(features, params), dim=-1)
 
     # what forces and stress differentiate; for the plain AtomicNN it IS
     # the energy (the finite-temperature models use the free energy)
     variational_energy = energy
+
+    def energy_and_aux(self, features, params=None):
+        """-> (variational energy, by-products of the same pass): what
+        `make_dense_efs_fn` / `make_efs_fn` differentiate."""
+        atomic = self.atomic_energies(features, params)
+        return torch.sum(atomic, dim=-1), {"atomic_energies": atomic}
+
+    def _stacks(self, params):
+        """Every dense stack that carries kernel weights."""
+        return [params[e]["mlp"] for e in self.elements]
+
+    def l2_loss(self, params=None) -> torch.Tensor:
+        params = self.params if params is None else params
+        return sum(l2_of_stack(stack) for stack in self._stacks(params))
+
+    # ------------------------------------------------------------------
+    def norm_sweep_bytes_per_structure(self, feats) -> int:
+        """Working-set estimate (bytes) of ONE structure inside a batched
+        descriptor evaluation; the trainer chunks the whole-set min/max
+        sweep by it."""
+        if "pair_j_d" not in feats:
+            return 0
+        sh = feats["pair_j_d"].shape
+        pairs = int(sh[-2]) * int(sh[-1])
+        per_pair = getattr(self.descriptor, "sweep_bytes_per_pair", None)
+        total = (pairs * per_pair(self.featurizer.n_radial_slots)
+                 if per_pair is not None else pairs * 512)
+        if "trip_j_d" in feats:
+            sh = feats["trip_j_d"].shape
+            triples = int(sh[-2]) * int(sh[-1])
+            per_trip = getattr(self.descriptor, "sweep_bytes_per_triple",
+                               None)
+            total += (triples * per_trip(self.featurizer.n_angular_slots)
+                      if per_trip is not None else triples * 256)
+        return total
+
+    @torch.no_grad()
+    def update_norm_stats(self, params: dict, features_batch) -> dict:
+        """Running min/max of the descriptors over a batch -> a new tree
+        with the `norm` leaves widened (the other leaves shared)."""
+        g = self.descriptors(features_batch)           # [B, n_vap, D]
+        masks = features_batch["atom_masks"]
+        params = {e: dict(params[e]) for e in params}
+        for e in self.elements:
+            lo, cnt = self.layout[e]
+            if cnt == 0 or not self.minmax_scale:
+                continue
+            ge = g[..., lo:lo + cnt, :].reshape(-1, g.shape[-1])
+            me = (masks[..., lo:lo + cnt].reshape(-1) > 0)[:, None]
+            inf = torch.full_like(ge, float("inf"))
+            big = torch.where(me, ge, -inf).amax(0)
+            small = torch.where(me, ge, inf).amin(0)
+            norm = params[e]["norm"]
+            params[e]["norm"] = {
+                "xlo": torch.minimum(norm["xlo"].detach(), small),
+                "xhi": torch.maximum(norm["xhi"].detach(), big)}
+        return params
 
     def as_dict(self) -> dict:
         return {"class": "AtomicNN",

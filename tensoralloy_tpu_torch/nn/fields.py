@@ -12,7 +12,7 @@ tests hold the two against each other.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict
 
 import torch
 
@@ -28,36 +28,45 @@ def full_to_voigt(s: torch.Tensor) -> torch.Tensor:
                         0.5 * (s[..., 0, 1] + s[..., 1, 0])], dim=-1)
 
 
-def make_efs_fn(energy_fn: Callable,
-                extras_fn: Optional[Callable] = None) -> Callable:
-    """`energy_fn(features) -> scalar`, differentiated w.r.t. positions
-    and cell (the JAX `make_efs_fn(energy_fn, extras_fn)` contract).
+def stress_outputs(virial: torch.Tensor, cell: torch.Tensor
+                   ) -> Dict[str, torch.Tensor]:
+    """virial [.., 3, 3], cell [.., 3, 3] -> virial, stress = W / V,
+    stress_voigt and total_pressure (GPa)."""
+    volume = torch.clamp(torch.abs(torch.linalg.det(cell)), min=1e-12)
+    stress = virial / volume[..., None, None]
+    trace = stress.diagonal(dim1=-2, dim2=-1).sum(-1)
+    return {"virial": virial, "stress": stress,
+            "stress_voigt": full_to_voigt(stress),
+            "total_pressure": -trace / 3.0 * EV_ANGSTROM3_TO_GPA}
 
-    Returns fn(features) -> dict with energy, forces [A, 3], virial and
-    stress [3, 3], stress_voigt [6] and total_pressure (GPa), plus what
-    `extras_fn(features) -> dict` returns (a second forward pass, run
-    without autograd), all detached."""
+
+def make_efs_fn(energy_fn: Callable, create_graph: bool = False
+                ) -> Callable:
+    """`energy_fn(features) -> (energy, aux)`, differentiated w.r.t.
+    positions and cell (the JAX `make_efs_fn` contract, with the
+    by-products `aux` returned by the differentiated pass itself).
+    `energy` is a scalar for one structure or [B] for a batch.
+
+    Returns fn(features) -> dict with energy, forces [.., A, 3], virial
+    and stress [.., 3, 3], stress_voigt [.., 6] and total_pressure (GPa),
+    updated with `aux`. With `create_graph` the outputs stay in the
+    autograd graph (a loss on the forces can be differentiated w.r.t.
+    the model's parameters); without it all are detached."""
 
     def efs(features) -> Dict[str, torch.Tensor]:
         pos = features["positions"].detach().requires_grad_()
         cell = features["cell"].detach().requires_grad_()
         f = dict(features, positions=pos, cell=cell)
         with torch.enable_grad():
-            energy = energy_fn(f)
-            gpos, gcell = torch.autograd.grad(energy, (pos, cell))
-        pos, cell = pos.detach(), cell.detach()
-        virial = gpos.T @ pos + gcell.T @ cell
-        volume = torch.clamp(torch.abs(torch.linalg.det(cell)), min=1e-12)
-        stress = virial / volume
-        out = {"energy": energy.detach(), "forces": -gpos,
-               "virial": virial, "stress": stress,
-               "stress_voigt": full_to_voigt(stress),
-               "total_pressure": -torch.trace(stress) / 3.0
-               * EV_ANGSTROM3_TO_GPA}
-        if extras_fn is not None:
-            with torch.no_grad():
-                out.update(extras_fn(dict(features, positions=pos,
-                                          cell=cell)))
+            energy, aux = energy_fn(f)
+            gpos, gcell = torch.autograd.grad(energy.sum(), (pos, cell),
+                                              create_graph=create_graph)
+        virial = (gpos.transpose(-1, -2) @ pos.detach()
+                  + gcell.transpose(-1, -2) @ cell.detach())
+        out = {"energy": energy, "forces": -gpos,
+               **stress_outputs(virial, cell.detach()), **aux}
+        if not create_graph:
+            out = {k: v.detach() for k, v in out.items()}
         return out
 
     return efs

@@ -27,7 +27,7 @@ from torch import nn
 
 from .atomic import AtomicNN, _dense_stack
 from .layers import (apply_dense_stack, freeze_output_bias,
-                     minmax_normalize_apply)
+                     init_dense_stack)
 
 
 class TemperatureDependentAtomicNN(AtomicNN):
@@ -63,53 +63,81 @@ class TemperatureDependentAtomicNN(AtomicNN):
             return s_raw * t
         return s_raw
 
+    def _init_element(self, element: str, generator, factory) -> dict:
+        trunk_out = self.layers[-1]
+        bias0 = float(self.atomic_static_energy.get(element, 0.0))
+        common = dict(resnet_dt=self.use_resnet_dt,
+                      kernel_init=self.kernel_initializer, **factory)
+        return {
+            "trunk": init_dense_stack(
+                generator, self.feature_dim, self.layers[:-1],
+                out_dim=trunk_out, output_bias=True, **common),
+            "head_u": init_dense_stack(
+                generator, trunk_out + 1, self.hidden_sizes[element],
+                out_dim=1, output_bias=True, output_bias_mean=bias0,
+                **common),
+            "head_s": init_dense_stack(
+                generator, trunk_out + 1, self.hidden_sizes[element],
+                out_dim=1, output_bias=True, output_bias_mean=0.0,
+                **common)}
+
     # ------------------------------------------------------------------
-    def _atomic_heads(self, features) -> Dict[str, torch.Tensor]:
+    def _atomic_heads(self, features, params=None
+                      ) -> Dict[str, torch.Tensor]:
         """-> {'energy': U_i, 'eentropy': S_i, 'free_energy': F_i}, each
-        [n_vap], zero at padding rows."""
+        [.., n_vap], zero at padding rows."""
+        params = self.params if params is None else params
         g = self.descriptors(features)
-        t = features["etemperature"].to(g.dtype)
-        u_rows, s_rows = [g.new_zeros(1)], [g.new_zeros(1)]
-        for e in self.elements:
-            lo, cnt = self.layout[e]
-            if cnt == 0:
-                continue
-            net = self.params[e]
-            x = g[lo:lo + cnt]
-            if self.minmax_scale:
-                x = minmax_normalize_apply(net["norm"], x)
+        t = features["etemperature"].to(g.dtype)[..., None]   # [.., 1]
+        zero = g.new_zeros(*g.shape[:-2], 1)
+        u_rows, s_rows = [zero], [zero]
+        for net, x in self._element_rows(g, params):
             h = apply_dense_stack(net["trunk"]["layers"], x,
                                   self.ft_activation)
-            ht = torch.cat([h, t.reshape(1, 1).expand(cnt, 1)], dim=1)
+            ht = torch.cat([h, t[..., None].expand(*h.shape[:-1], 1)],
+                           dim=-1)
             head_u = net["head_u"]["layers"]
             if self.fixed_static_energy:
                 head_u = freeze_output_bias(head_u)
-            u_rows.append(apply_dense_stack(head_u, ht, self.activation)[:, 0])
+            u_rows.append(apply_dense_stack(head_u, ht,
+                                            self.activation)[..., 0])
             s = apply_dense_stack(net["head_s"]["layers"], ht,
-                                  self.activation)[:, 0]
+                                  self.activation)[..., 0]
             s_rows.append(self._entropy_from_head(s, t))
         masks = features["atom_masks"]
-        u = torch.cat(u_rows) * masks
-        s = torch.cat(s_rows) * masks
+        u = torch.cat(u_rows, dim=-1) * masks
+        s = torch.cat(s_rows, dim=-1) * masks
         return {"energy": u, "eentropy": s, "free_energy": u - t * s}
 
-    def atomic_energies(self, features) -> torch.Tensor:
+    def atomic_energies(self, features, params=None) -> torch.Tensor:
         """Atomic internal energies U_i."""
-        return self._atomic_heads(features)["energy"]
+        return self._atomic_heads(features, params)["energy"]
 
-    def energy_ops(self, features) -> Dict[str, torch.Tensor]:
+    def energy_ops(self, features, params=None) -> Dict[str, torch.Tensor]:
         """Totals U, S and F = U - T S."""
-        return {k: torch.sum(v)
-                for k, v in self._atomic_heads(features).items()}
+        return {k: torch.sum(v, dim=-1)
+                for k, v in self._atomic_heads(features, params).items()}
 
-    def energy(self, features) -> torch.Tensor:
+    def energy(self, features, params=None) -> torch.Tensor:
         """Internal energy U."""
-        return torch.sum(self.atomic_energies(features))
+        return torch.sum(self.atomic_energies(features, params), dim=-1)
 
-    def variational_energy(self, features) -> torch.Tensor:
+    def variational_energy(self, features, params=None) -> torch.Tensor:
         """Free energy F = U - T S; what forces and stress differentiate
         for finite-temperature systems."""
-        return torch.sum(self._atomic_heads(features)["free_energy"])
+        return self.energy_ops(features, params)["free_energy"]
+
+    def energy_and_aux(self, features, params=None):
+        """-> (F, {atomic U_i, and the totals 'energy' U, 'eentropy' S,
+        'free_energy' F}) from one pass over the heads."""
+        heads = self._atomic_heads(features, params)
+        totals = {k: torch.sum(v, dim=-1) for k, v in heads.items()}
+        return totals["free_energy"], {"atomic_energies": heads["energy"],
+                                       **totals}
+
+    def _stacks(self, params):
+        return [params[e][key] for e in self.elements
+                for key in ("trunk", "head_u", "head_s")]
 
     def as_dict(self) -> dict:
         d = super().as_dict()

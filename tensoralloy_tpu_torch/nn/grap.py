@@ -32,7 +32,7 @@ from typing import List, Optional, Union
 import numpy as np
 import torch
 
-from ..ops.dense import dense_pair_geometry
+from ..ops.dense import as_rows, dense_pair_geometry
 from ..ops.fused import GRAP_ALGORITHMS, GrapFunction, grap_reference
 from ..ops.generic import density_exp, morse, power_exp
 
@@ -199,12 +199,22 @@ class GenericRadialAtomicPotential:
     def compute(self, features, rcut: float, acut: float,
                 n_radial_slots: int, n_angular_slots: int,
                 angular: bool) -> torch.Tensor:
-        """-> [n_vap, n_radial_slots * K * M]."""
+        """-> [.., n_vap, n_radial_slots * K * M]; a batch [B, A, N] is
+        B * A rows of one call."""
         grap = (GrapFunction.apply if self.backend == "pallas"
                 else grap_reference)
-        rij, (ux, uy, uz), islotf, mask = dense_pair_geometry(features)
-        return grap(rij, ux, uy, uz, islotf, mask, self, float(rcut),
-                    n_radial_slots)
+        rij, unit, islotf, mask = dense_pair_geometry(features)
+        g = grap(*as_rows(rij, *unit, islotf, mask), self, float(rcut),
+                 n_radial_slots)
+        return g.reshape(*rij.shape[:-1], g.shape[-1])
+
+    def sweep_bytes_per_pair(self, n_slots: int, itemsize: int = 4) -> int:
+        """Working bytes per pair slot of one descriptor evaluation: the
+        moment basis [pairs, D] and the slot-expanded filters
+        [pairs, S*K], with a 2x allowance; sizes the chunks of the
+        trainer's min/max sweep."""
+        d = multiplicity_tensor(self.max_moment, self.symmetric).shape[0]
+        return itemsize * 2 * (d + self.n_filters * (n_slots + 1))
 
     # ------------------------------------------------------------------
     def as_dict(self) -> dict:

@@ -8,6 +8,7 @@ parameter tree leaf for leaf.
 """
 from __future__ import annotations
 
+import math
 from typing import List, Mapping, Sequence
 
 import torch
@@ -42,6 +43,114 @@ ACTIVATIONS = {
 
 def get_activation(name: str):
     return ACTIVATIONS[name]
+
+
+# Kernel initializers. The variance-scaling *normal* variants draw from a
+# normal truncated at +-2 sigma, with the standard deviation corrected
+# for the truncation; the *uniform* variants from U(-limit, limit) with
+# limit = sqrt(3 * scale / fan).
+_TRUNC_STD_CORRECTION = 0.8796256610342398  # std of N(0,1)|[-2,2]
+
+KERNEL_INITIALIZERS = (
+    "he_normal", "he_uniform", "lecun_normal", "lecun_uniform",
+    "glorot_normal", "glorot_uniform", "xavier_normal",
+    "xavier_uniform", "truncated_normal", "random_normal",
+    "random_uniform", "zeros", "constant")
+
+
+def _uniform(generator, shape, lo: float, hi: float) -> torch.Tensor:
+    u = torch.rand(shape, generator=generator, dtype=torch.float64)
+    return lo + (hi - lo) * u
+
+
+def _truncated_normal(generator, shape) -> torch.Tensor:
+    """N(0, 1) truncated to [-2, 2], by the inverse of its distribution
+    function on a uniform draw."""
+    phi = 0.5 * (1.0 + math.erf(-2.0 / math.sqrt(2.0)))
+    u = _uniform(generator, shape, phi, 1.0 - phi)
+    return math.sqrt(2.0) * torch.erfinv(2.0 * u - 1.0)
+
+
+def sample_kernel(generator: torch.Generator, name: str, fan_in: int,
+                  fan_out: int, dtype=None, value: float = 0.0,
+                  stddev: float = 0.05, limit: float = 0.05,
+                  device=None) -> torch.Tensor:
+    """Draw a [fan_in, fan_out] kernel from the named initializer with a
+    CPU `torch.Generator` (drawn at float64 on the host, then cast and
+    moved): the distributions and scales of the JAX package's
+    `sample_kernel`, not its bits."""
+    name = (name or "he_normal").lower()
+    shape = (fan_in, fan_out)
+    scaled = {"he_normal": 2.0 / fan_in, "he_uniform": 2.0 / fan_in,
+              "lecun_normal": 1.0 / fan_in,
+              "lecun_uniform": 1.0 / fan_in,
+              "glorot_normal": 2.0 / (fan_in + fan_out),
+              "glorot_uniform": 2.0 / (fan_in + fan_out),
+              "xavier_normal": 2.0 / (fan_in + fan_out),
+              "xavier_uniform": 2.0 / (fan_in + fan_out)}
+    if name in scaled:
+        if name.endswith("_uniform"):
+            lim = math.sqrt(3.0 * scaled[name])
+            w = _uniform(generator, shape, -lim, lim)
+        else:
+            std = math.sqrt(scaled[name]) / _TRUNC_STD_CORRECTION
+            w = _truncated_normal(generator, shape) * std
+    elif name == "truncated_normal":
+        w = _truncated_normal(generator, shape) * (
+            stddev / _TRUNC_STD_CORRECTION)
+    elif name == "random_normal":
+        w = torch.randn(shape, generator=generator,
+                        dtype=torch.float64) * stddev
+    elif name == "random_uniform":
+        w = _uniform(generator, shape, -limit, limit)
+    elif name == "zeros":
+        w = torch.zeros(shape, dtype=torch.float64)
+    elif name == "constant":
+        w = torch.full(shape, value, dtype=torch.float64)
+    else:
+        raise ValueError(f"unknown kernel initializer {name!r} "
+                         f"(allowed: {KERNEL_INITIALIZERS})")
+    return w.to(device=device, dtype=dtype or torch.float32)
+
+
+def init_dense_stack(generator: torch.Generator, in_dim: int,
+                     hidden_sizes: Sequence[int], out_dim: int = 1,
+                     output_bias: bool = True,
+                     output_bias_mean: float = 0.0,
+                     resnet_dt: bool = False,
+                     kernel_init: str = "he_normal",
+                     dtype=None, device=None) -> dict:
+    """Initialize an MLP parameter tree {"layers": [...]}: hidden layers
+    (zero bias, dt = 0.1 where widths match) and a linear output."""
+    factory = {"dtype": dtype or torch.float32, "device": device}
+    sizes = [in_dim] + list(hidden_sizes) + [out_dim]
+    layers = []
+    for li in range(len(sizes) - 1):
+        fan_in, fan_out = sizes[li], sizes[li + 1]
+        layer = {"w": sample_kernel(generator, kernel_init, fan_in,
+                                    fan_out, **factory)}
+        is_output = li == len(sizes) - 2
+        if not is_output:
+            layer["b"] = torch.zeros(fan_out, **factory)
+            if resnet_dt and fan_in == fan_out:
+                layer["dt"] = torch.full((fan_out,), 0.1, **factory)
+        elif output_bias:
+            layer["b"] = torch.full((fan_out,), output_bias_mean, **factory)
+        layers.append(layer)
+    return {"layers": layers}
+
+
+def l2_of_stack(stack) -> torch.Tensor:
+    """Sum of squared kernel weights (for L2 regularization)."""
+    return sum(torch.sum(torch.square(layer["w"]))
+               for layer in stack["layers"])
+
+
+def minmax_normalize_init(feature_dim: int, dtype=None, device=None) -> dict:
+    """Running min-max input scaling state: xlo = 0, xhi = 1."""
+    factory = {"dtype": dtype or torch.float32, "device": device}
+    return {"xlo": torch.zeros(feature_dim, **factory),
+            "xhi": torch.ones(feature_dim, **factory)}
 
 
 def apply_dense_stack(layers: Sequence[Mapping[str, torch.Tensor]],

@@ -25,7 +25,8 @@ from itertools import product
 import numpy as np
 import torch
 
-from ..ops.dense import dense_pair_geometry, dense_triple_geometry
+from ..ops.dense import (as_rows, dense_pair_geometry,
+                         dense_triple_geometry)
 from ..ops.fused import G2Function, G4Function, g2_reference, g4_reference
 
 BACKENDS = ("dense", "pallas")
@@ -75,18 +76,21 @@ class SymmetryFunction:
 
     # ------------------------------------------------------------------
     def radial(self, features, rcut: float, n_slots: int) -> torch.Tensor:
-        """-> [n_vap, n_slots * n_radial_params]."""
+        """-> [.., n_vap, n_slots * n_radial_params]; a batch [B, A, N]
+        is B * A rows of one call."""
         g2 = G2Function.apply if self.backend == "pallas" else g2_reference
         rij, _, islotf, mask = dense_pair_geometry(features, with_unit=False)
-        return g2(rij, islotf, mask, self.radial_grid, float(rcut),
-                  self.cutoff_function, n_slots)
+        g = g2(*as_rows(rij, islotf, mask), self.radial_grid, float(rcut),
+               self.cutoff_function, n_slots)
+        return g.reshape(*rij.shape[:-1], g.shape[-1])
 
     def angular(self, features, acut: float, n_slots: int) -> torch.Tensor:
-        """-> [n_vap, n_slots * n_angular_params]."""
+        """-> [.., n_vap, n_slots * n_angular_params]."""
         g4 = G4Function.apply if self.backend == "pallas" else g4_reference
         rij, rik, rjk, aslotf, mask = dense_triple_geometry(features)
-        return g4(rij, rik, rjk, aslotf, mask, self.angular_grid, float(acut),
-                  self.cutoff_function, n_slots)
+        g = g4(*as_rows(rij, rik, rjk, aslotf, mask), self.angular_grid,
+               float(acut), self.cutoff_function, n_slots)
+        return g.reshape(*rij.shape[:-1], g.shape[-1])
 
     def compute(self, features, rcut: float, acut: float,
                 n_radial_slots: int, n_angular_slots: int,
@@ -94,8 +98,18 @@ class SymmetryFunction:
         g = self.radial(features, rcut, n_radial_slots)
         if angular:
             g4 = self.angular(features, acut, n_angular_slots)
-            g = torch.cat([g, g4], dim=1)
+            g = torch.cat([g, g4], dim=-1)
         return g
+
+    def sweep_bytes_per_pair(self, n_slots: int, itemsize: int = 4) -> int:
+        """Working bytes per pair slot of one descriptor evaluation (the
+        [pairs, T2] terms and the slot selection, with a 2x allowance);
+        sizes the chunks of the trainer's min/max sweep."""
+        return itemsize * 2 * self.n_radial_params * (n_slots + 1)
+
+    def sweep_bytes_per_triple(self, n_slots: int,
+                               itemsize: int = 4) -> int:
+        return itemsize * 2 * self.n_angular_params * (n_slots + 1)
 
     def as_dict(self) -> dict:
         return {"class": "SymmetryFunction", "elements": self.elements,

@@ -5,15 +5,17 @@ The featurizer builds `[A, N]` neighbor and triple tables on the host;
 here the geometry is gathered from the positions, kept as three `[A, N]`
 component tensors, and forces are assembled through the host-built
 transpose tables, so the backward pass is a gather and a row sum too.
+Every function takes one structure's arrays or a batch's (`[B, A, N]`,
+as the trainer stacks them): a single structure is a batch of one.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict
 
 import torch
 
 from ..transform.featurizer import SIMG_BASE, SIMG_OFF
-from ..nn.fields import full_to_voigt, EV_ANGSTROM3_TO_GPA
+from ..nn.fields import stress_outputs
 
 
 def decode_simg(simg: torch.Tensor, dtype: torch.dtype):
@@ -26,20 +28,29 @@ def decode_simg(simg: torch.Tensor, dtype: torch.dtype):
 
 
 def shift_dot_cell(simg: torch.Tensor, cell: torch.Tensor, dtype):
-    """packed images -> cartesian offset components (sv_x, sv_y, sv_z):
-    sv = s @ cell done per component so no [*, 3] array exists."""
+    """packed images [B, A, N] and cells [B, 3, 3] -> cartesian offset
+    components (sv_x, sv_y, sv_z): sv = s @ cell done per component so no
+    [*, 3] array exists."""
     sx, sy, sz = decode_simg(simg, dtype)
-    return tuple(sx * cell[0, a] + sy * cell[1, a] + sz * cell[2, a]
+    c = cell[:, :, :, None, None]                  # [B, 3, 3, 1, 1]
+    return tuple(sx * c[:, 0, a] + sy * c[:, 1, a] + sz * c[:, 2, a]
                  for a in range(3))
 
 
 def gather_vec(pos: torch.Tensor, jd: torch.Tensor, simg: torch.Tensor,
                cell: torch.Tensor):
-    """Per-pair vectors r_j + S @ cell - r_i as THREE [A, N] component
-    tensors, from one row gather `pos[jd]`."""
+    """Per-pair vectors r_j + S @ cell - r_i as THREE [B, A, N] component
+    tensors, from one row gather over the batch's [B * A, 3] positions
+    (structure b's neighbor indices are offset by b * A). A single
+    structure ([A, 3] positions) is a batch of one."""
+    if pos.dim() == 2:
+        return tuple(v[0] for v in gather_vec(pos[None], jd[None],
+                                              simg[None], cell[None]))
+    b, a, _ = pos.shape
     sv = shift_dot_cell(simg, cell, pos.dtype)
-    g = pos[jd]                                    # [A, N, 3]
-    return tuple(g[..., a] + sv[a] - pos[:, a, None] for a in range(3))
+    offset = torch.arange(0, b * a, a, device=pos.device).view(b, 1, 1)
+    g = pos.reshape(b * a, 3)[jd + offset]         # [B, A, N, 3]
+    return tuple(g[..., c] + sv[c] - pos[..., c, None] for c in range(3))
 
 
 def safe_norm_components(vec, eps: float = 1e-14):
@@ -48,9 +59,16 @@ def safe_norm_components(vec, eps: float = 1e-14):
                       + vec[2] * vec[2] + eps)
 
 
+def as_rows(*tensors: torch.Tensor):
+    """[.., A, N] tensors -> contiguous [rows, N]: the descriptor kernels
+    are row-independent, so a batch is B * A rows of one launch."""
+    n = tensors[0].shape[-1]
+    return tuple(t.reshape(-1, n).contiguous() for t in tensors)
+
+
 def dense_pair_geometry(features, with_unit: bool = True):
-    """-> (rij_d [A, N], (ux, uy, uz) [A, N] each or None, islotf_d,
-    mask_d).
+    """-> (rij_d [.., A, N], (ux, uy, uz) [.., A, N] each or None,
+    islotf_d, mask_d), for one structure's features or a batch's.
 
     Padding entries (mask 0) carry FINITE garbage geometry (they alias
     the virtual-atom row): every consumer must multiply by the mask
@@ -74,7 +92,7 @@ def dense_pair_geometry(features, with_unit: bool = True):
 
 
 def dense_triple_geometry(features):
-    """-> (rij_d, rik_d, rjk_d [A, Nt], aslotf_d, mask_d); masked
+    """-> (rij_d, rik_d, rjk_d [.., A, Nt], aslotf_d, mask_d); masked
     entries read 1.0."""
     if "trip_j_d" not in features:
         raise KeyError("features lack the dense triple layout "
@@ -101,23 +119,36 @@ def dense_triple_geometry(features):
 def transpose_reduce(g, trans_idx: torch.Tensor, trans_mask: torch.Tensor):
     """scatter-add(g by index table) as a GATHER + row reduction through
     the host-built transpose table: out[a] = sum_c g.flat[trans_idx[a, c]]
-    * trans_mask[a, c]. `g` is a tuple of [A, N] components; they are
-    stacked into one [A*N, 3] table fetched by a single row gather."""
-    tab = torch.stack([gc.reshape(-1) for gc in g], dim=-1)  # [A*N, 3]
-    gt = tab[trans_idx]                                      # [A, C, 3]
-    return tuple(torch.sum(gt[..., c] * trans_mask, dim=1)
+    * trans_mask[a, c], per structure. `g` is a tuple of [B, A, N]
+    components (or [A, N]: a batch of one); they are stacked into one
+    [B*A*N, 3] table fetched by a single row gather, structure b's
+    indices offset by b * A * N."""
+    if trans_idx.dim() == 2:
+        return tuple(r[0] for r in transpose_reduce(
+            [gc[None] for gc in g], trans_idx[None], trans_mask[None]))
+    b, a, n = g[0].shape
+    tab = torch.stack([gc.reshape(-1) for gc in g], dim=-1)  # [B*A*N, 3]
+    offset = torch.arange(0, b * a * n, a * n,
+                          device=trans_idx.device).view(b, 1, 1)
+    gt = tab[trans_idx + offset]                             # [B, A, C, 3]
+    return tuple(torch.sum(gt[..., c] * trans_mask, dim=-1)
                  for c in range(len(g)))
 
 
 def make_dense_efs_fn(energy_fn: Callable,
-                      extras_fn: Optional[Callable] = None) -> Callable:
+                      create_graph: bool = False) -> Callable:
     """Scatter-free E+F+stress for dense-layout descriptor models (the
-    JAX `make_dense_efs_fn(energy_fn, extras_fn)` contract).
+    JAX `make_dense_efs_fn` contract, with the by-products returned by
+    the differentiated pass itself, as `jax.value_and_grad(...,
+    has_aux=True)`).
 
-    `energy_fn(features) -> scalar` is the energy that forces and stress
-    differentiate (the variational energy: the free energy of a
-    finite-temperature model). It is differentiated w.r.t. the pair and
-    triple VECTORS, and forces are assembled exactly:
+    `energy_fn(features) -> (energy, aux)`: `energy` is what forces and
+    stress differentiate (the variational energy: the free energy of a
+    finite-temperature model), a scalar for one structure or [B] for a
+    batch; `aux` is a dict of by-products of the same pass (atomic
+    energies, the finite-temperature heads). The energy is
+    differentiated w.r.t. the pair and triple VECTORS, and forces are
+    assembled exactly:
 
         dE/dpos_k = sum_{slots of row k} (-g)            (center side)
                   + sum_{slots pointing AT k} g          (neighbor side)
@@ -126,12 +157,13 @@ def make_dense_efs_fn(energy_fn: Callable,
     tables. The virial is sum g (x) v per slot. Needs features built
     with `transpose=True`.
 
-    Returns fn(features) -> dict of energy, forces [A, 3], virial and
-    stress [3, 3], stress_voigt [6] and total_pressure (GPa), plus what
-    `extras_fn(features) -> dict` returns (e.g. atomic energies, the
-    finite-temperature heads), all detached. Eager PyTorch does not
-    share work between the two calls: the extras are a second forward
-    pass, run without autograd."""
+    Returns fn(features) -> dict of energy, forces [.., A, 3], virial and
+    stress [.., 3, 3], stress_voigt [.., 6] and total_pressure (GPa),
+    updated with `aux` (so a finite-temperature model's 'energy' is its
+    internal energy U and 'free_energy' what was differentiated). With
+    `create_graph` the outputs stay in the autograd graph, so a loss on
+    the forces can be differentiated w.r.t. the model's parameters;
+    without it everything is returned detached and no graph is kept."""
 
     def efs(features) -> Dict[str, torch.Tensor]:
         pos = features["positions"]
@@ -161,20 +193,23 @@ def make_dense_efs_fn(energy_fn: Callable,
             vecs.append(v)
 
         with torch.enable_grad():
-            energy = energy_fn(f)
+            energy, aux = energy_fn(f)
             leaves = [c for v in vecs for c in v]
-            flat = torch.autograd.grad(energy, leaves)
+            flat = torch.autograd.grad(energy.sum(), leaves,
+                                       create_graph=create_graph)
         grads = [flat[3 * i:3 * i + 3] for i in range(len(vecs))]
 
         def assemble(g, tidx, tmask):
             rev = transpose_reduce(g, tidx, tmask)
-            return tuple(torch.sum(gc, dim=1) - rc
+            return tuple(torch.sum(gc, dim=-1) - rc
                          for gc, rc in zip(g, rev))
 
         def outer_virial(g, vv):
             return torch.stack(
-                [torch.stack([torch.sum(g[a] * vv[b].detach())
-                              for b in range(3)]) for a in range(3)])
+                [torch.stack([torch.sum(g[a] * vv[b].detach(),
+                                        dim=(-2, -1))
+                              for b in range(3)], dim=-1)
+                 for a in range(3)], dim=-2)
 
         tables = [("pair_trans_d", "pair_trans_mask_d"),
                   ("trip_trans_j_d", "trip_trans_j_mask_d"),
@@ -186,17 +221,10 @@ def make_dense_efs_fn(energy_fn: Callable,
             wi = outer_virial(g, vv)
             fc = fi if fc is None else tuple(a + b for a, b in zip(fc, fi))
             virial = wi if virial is None else virial + wi
-        forces = torch.stack(fc, dim=-1)
-        volume = torch.clamp(torch.abs(torch.linalg.det(cell)), min=1e-12)
-        stress = virial / volume
-        out = {"energy": energy.detach(), "forces": forces,
-               "virial": virial, "stress": stress,
-               "stress_voigt": full_to_voigt(stress),
-               "total_pressure": -torch.trace(stress) / 3.0
-               * EV_ANGSTROM3_TO_GPA}
-        if extras_fn is not None:
-            with torch.no_grad():
-                out.update(extras_fn(f))
+        out = {"energy": energy, "forces": torch.stack(fc, dim=-1),
+               **stress_outputs(virial, cell), **aux}
+        if not create_graph:
+            out = {k: v.detach() for k, v in out.items()}
         return out
 
     return efs

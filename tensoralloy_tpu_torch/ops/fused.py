@@ -11,7 +11,12 @@ Each descriptor has three pieces:
   * an autograd Function (`G2Function`, `G4Function`, `GrapFunction`),
     the port of `_custom_vjp_op`: forward is the kernel wrapper,
     backward recomputes the twin from the saved inputs and returns its
-    VJP. First-order only: the backward is not itself differentiable.
+    VJP. When the backward runs with grad mode on (a caller asked for
+    `create_graph=True`, as a force loss does) the VJP is built on the
+    saved inputs themselves and stays in the graph, so it can be
+    differentiated again w.r.t. the incoming gradient and the inputs;
+    otherwise no graph is kept. There is no backward kernel, as in the
+    JAX package: the second derivative is the twin's.
 
 The CUDA sources `csrc/*.cu` are compiled with nvcc for sm_90a, one nvcc
 per source (one per entry point for `sf_kernels.cu`), all started
@@ -72,6 +77,27 @@ _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 def reset_launch_counts() -> None:
     for key in launch_counts:
         launch_counts[key] = 0
+
+
+def _twin_vjp(twin, diff, rest, spec, gbar):
+    """VJP of `twin(*diff, *rest, *spec)` w.r.t. `diff` along `gbar`, for
+    the backward of a kernel's autograd Function. Under grad mode (the
+    caller differentiates with `create_graph=True`) the twin is rebuilt
+    on the saved inputs themselves and the result stays in the graph:
+    it depends differentiably on `gbar` and on the inputs. Otherwise the
+    inputs are detached and no graph outlives the call."""
+    if torch.is_grad_enabled():
+        # a view of each input: a node of its own, so that the VJP
+        # w.r.t. one input does not run on through another input that
+        # was computed from it (ux = vx / rij)
+        x = [d.view_as(d) if d.requires_grad
+             else d.detach().requires_grad_() for d in diff]
+        y = twin(*x, *rest, *spec)
+        return torch.autograd.grad(y, x, gbar, create_graph=True)
+    with torch.enable_grad():
+        x = [d.detach().requires_grad_() for d in diff]
+        y = twin(*x, *rest, *spec)
+        return torch.autograd.grad(y, x, gbar)
 
 
 # ----------------------------------------------------------------------
@@ -329,13 +355,10 @@ class G2Function(torch.autograd.Function):
         return g2_kernel(rij, islotf, mask, grid, rcut, cutoff, n_slots)
 
     @staticmethod
-    @torch.autograd.function.once_differentiable
     def backward(ctx, gbar):
         rij, islotf, mask = ctx.saved_tensors
-        with torch.enable_grad():
-            r = rij.detach().requires_grad_()
-            y = g2_reference(r, islotf, mask, *ctx.spec)
-            (grad,) = torch.autograd.grad(y, r, gbar)
+        (grad,) = _twin_vjp(g2_reference, [rij], [islotf, mask], ctx.spec,
+                            gbar)
         return grad, None, None, None, None, None, None
 
 
@@ -414,13 +437,10 @@ class G4Function(torch.autograd.Function):
                          n_slots)
 
     @staticmethod
-    @torch.autograd.function.once_differentiable
     def backward(ctx, gbar):
         rij, rik, rjk, aslotf, mask = ctx.saved_tensors
-        with torch.enable_grad():
-            dists = [x.detach().requires_grad_() for x in (rij, rik, rjk)]
-            y = g4_reference(*dists, aslotf, mask, *ctx.spec)
-            grads = torch.autograd.grad(y, dists, gbar)
+        grads = _twin_vjp(g4_reference, [rij, rik, rjk], [aslotf, mask],
+                          ctx.spec, gbar)
         return (*grads, None, None, None, None, None, None)
 
 
@@ -433,7 +453,6 @@ class G4Function(torch.autograd.Function):
 # (`nn.grap._param_grid`) orders them sorted.
 GRAP_ALGORITHMS = {"sf": ("eta", "omega"), "density": ("A", "beta", "re"),
                    "morse": ("D", "gamma", "r0"), "pexp": ("rl", "pl")}
-
 
 
 def grap_reference(rij, ux, uy, uz, islotf, mask, desc, rcut: float,
@@ -579,11 +598,8 @@ class GrapFunction(torch.autograd.Function):
                            n_slots)
 
     @staticmethod
-    @torch.autograd.function.once_differentiable
     def backward(ctx, gbar):
         rij, ux, uy, uz, islotf, mask = ctx.saved_tensors
-        with torch.enable_grad():
-            diff = [x.detach().requires_grad_() for x in (rij, ux, uy, uz)]
-            y = grap_reference(*diff, islotf, mask, *ctx.spec)
-            grads = torch.autograd.grad(y, diff, gbar)
+        grads = _twin_vjp(grap_reference, [rij, ux, uy, uz],
+                          [islotf, mask], ctx.spec, gbar)
         return (*grads, None, None, None, None, None)

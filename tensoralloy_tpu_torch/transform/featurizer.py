@@ -126,6 +126,7 @@ class Featurizer:
                   nnl_max: Optional[int] = None,
                   ntl_max: Optional[int] = None,
                   nnl_bucket=None, ntl_bucket=None,
+                  layout: str = "dense",
                   transpose: bool = False,
                   ttrans_max: Optional[int] = None) -> Features:
         """Build the dense feature arrays for one structure.
@@ -135,7 +136,17 @@ class Featurizer:
         rounded up by `nnl_bucket`/`ntl_bucket` when given (bounded
         shape variety for serving). `transpose=True` adds the transpose
         tables that `ops.dense.make_dense_efs_fn` assembles forces
-        with; `ttrans_max` fixes the width of the triple tables."""
+        with; `ttrans_max` fixes the width of the triple tables (pass
+        the dataset's `NeighborSize.ttrans` so that structures stack).
+        `layout` is 'dense'; the flat 'segment' layout (and 'both') is
+        not ported."""
+        if layout != "dense":
+            if layout in ("both", "segment"):
+                raise NotImplementedError(
+                    f"layout={layout!r}: the flat 'segment' feature "
+                    "layout is not ported yet (it comes with the "
+                    "'segment' descriptor backends); use layout='dense'")
+            raise ValueError(f"unknown layout {layout!r}")
         structure = structure.ensure_cell()
         if vap is None:
             vap = self.make_vap(structure)
@@ -336,3 +347,16 @@ def _columns_of(centers: np.ndarray, n_atoms: int):
     cols = np.zeros(len(centers), dtype=np.int64)
     cols[order] = np.arange(len(centers)) - start[centers[order]]
     return cols, int(counts.max())
+
+
+def _pad(arr: np.ndarray, size: int, fill) -> np.ndarray:
+    arr = np.asarray(arr, dtype=np.int32)
+    out = np.full(size, fill, dtype=np.int32)
+    out[:len(arr)] = arr
+    return out
+
+
+def batch_features(feature_list: List[Features]) -> Features:
+    """Stack per-structure feature dicts along a leading batch axis."""
+    keys = feature_list[0].keys()
+    return {k: np.stack([f[k] for f in feature_list], axis=0) for k in keys}

@@ -90,3 +90,72 @@ def get_kbody_terms(elements: List[str], angular: bool = False,
                         per_element[e].append(e + elements[j] + elements[k])
     all_terms = list(chain(*[per_element[e] for e in elements]))
     return all_terms, per_element, elements
+
+
+# ----------------------------------------------------------------------
+# Parameter trees: nested mappings and sequences of tensors, shaped like
+# the JAX package's parameter pytrees. A tree's flat form maps
+# 'Ni/mlp/layers/0/w' to its leaf; mappings are walked in sorted key
+# order, sequences in place (the order of `jax.tree_util`).
+# ----------------------------------------------------------------------
+
+def _children(node):
+    """[(key, child)] of a mapping (dict, ModuleDict, ParameterDict) or a
+    sequence (list, tuple, ModuleList); None for a leaf (an array or
+    tensor: anything with a shape, or a scalar)."""
+    if hasattr(node, "keys"):
+        return [(str(k), node[k]) for k in sorted(node.keys(), key=str)]
+    if hasattr(node, "__getitem__") and hasattr(node, "__len__") \
+            and not hasattr(node, "shape"):
+        return [(str(i), node[i]) for i in range(len(node))]
+    return None
+
+
+def tree_flatten(tree, prefix: str = "") -> Dict[str, object]:
+    """Nested mapping/sequence -> {'a/b/0/w': leaf}; `prefix` is put
+    before every key ('params' -> 'params/a/b/0/w')."""
+    out: Dict[str, object] = {}
+
+    def visit(node, path):
+        kids = _children(node)
+        if kids is None:
+            out["/".join(path)] = node
+            return
+        for key, child in kids:
+            visit(child, path + [key])
+
+    visit(tree, [prefix] if prefix else [])
+    return out
+
+
+def tree_unflatten(flat: Dict[str, object], prefix: str = ""):
+    """{'a/b/0/w': leaf} -> nested dicts, with lists where every key of a
+    level is an index. Only the keys under `prefix` are read."""
+    root: dict = {}
+    lead = prefix + "/" if prefix else ""
+    for key, value in flat.items():
+        if not key.startswith(lead):
+            continue
+        parts = key[len(lead):].split("/")
+        node = root
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = value
+
+    def listify(node):
+        if not isinstance(node, dict):
+            return node
+        node = {k: listify(v) for k, v in node.items()}
+        if node and all(k.isdigit() for k in node):
+            return [node[str(i)] for i in range(len(node))]
+        return node
+
+    return listify(root)
+
+
+def tree_map(fn, tree, *rest):
+    """Apply `fn(leaf, *leaves_of_rest)` leaf by leaf -> a tree of plain
+    dicts and lists with the structure of `tree`."""
+    flats = [tree_flatten(t) for t in (tree, *rest)]
+    return tree_unflatten({k: fn(*(f[k] for f in flats))
+                           for k in flats[0]})

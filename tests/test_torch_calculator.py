@@ -110,6 +110,30 @@ def test_reference_fixture_is_current():
     _assert_efs_close(r, stored, REL_F64)
 
 
+def count_descriptor_evaluations(calc, structure) -> int:
+    """Serve one request and count the passes over its descriptors."""
+    desc = calc.model.descriptor
+    compute, calls = desc.compute, []
+    desc.compute = lambda *a, **kw: (calls.append(1), compute(*a, **kw))[1]
+    try:
+        calc.calculate(structure)
+    finally:
+        del desc.compute
+    return len(calls)
+
+
+def test_request_evaluates_descriptors_once():
+    """Forces, stress and the atomic energies come out of one pass: a
+    request is one evaluation of G2 and G4 (on the card: one launch of
+    each kernel)."""
+    _, s = _structures(1)
+    calc = TensorAlloyCalculator(MODEL, device="cpu", backend="pallas")
+    assert count_descriptor_evaluations(calc, s) == 1
+    assert calc.results["atomic_energies"].shape == (len(s),)
+    np.testing.assert_allclose(calc.results["atomic_energies"].sum(),
+                               calc.results["energy"], rtol=1e-12)
+
+
 def test_deferred_modes_raise():
     with pytest.raises(NotImplementedError, match="slice"):
         TensorAlloyCalculator(MODEL, device="cpu", device_nl=True)

@@ -40,19 +40,15 @@ FIXTURE = ROOT / "tests" / "data" / "torch_port_ref_td_be.json"
 ETEMP = 0.1      # eV
 REL = 1e-10
 HEADS = ("energy_U", "eentropy", "free_energy_F")
+# the same heads under the port's names: its E/F/S function returns the
+# by-products of the differentiated pass, 'energy' being U
+PORT_HEADS = {"energy_U": "energy", "eentropy": "eentropy",
+              "free_energy_F": "free_energy"}
 
 
 def _be_cell(seed=0):
     pos, cell = chip_smoke.jittered_hcp(seed=seed)
     return ["Be"] * len(pos), pos, cell
-
-
-def _heads(model):
-    def extras(f):
-        ops = model.energy_ops(f)
-        return {"energy_U": ops["energy"], "eentropy": ops["eentropy"],
-                "free_energy_F": ops["free_energy"]}
-    return extras
 
 
 def _compare(jax_model, jax_params, model, feats):
@@ -61,7 +57,13 @@ def _compare(jax_model, jax_params, model, feats):
                                  lambda p, f: _heads_jax(jax_model, p, f)))(
         jax_params, {k: jnp.asarray(v) for k, v in feats.items()})
     t_feats = {k: torch.as_tensor(v) for k, v in feats.items()}
-    got = make_dense_efs_fn(model.variational_energy, _heads(model))(t_feats)
+    got = make_dense_efs_fn(model.energy_and_aux)(t_feats)
+    got = dict(got, **{k: got[v] for k, v in PORT_HEADS.items()},
+               energy=got["free_energy"])
+    np.testing.assert_allclose(
+        float(model.variational_energy(t_feats).detach()),
+        float(got["energy"]),
+        rtol=1e-12)
     for key in ("energy", "forces", "stress_voigt") + HEADS:
         assert _rel(got[key].numpy(), want[key]) <= REL, key
     t = float(feats["etemperature"])
@@ -193,6 +195,25 @@ def test_td_be_fixture_is_current(monkeypatch):
     hot = s.copy()
     hot.info["etemperature"] = 0.2
     assert calc.get_electron_entropy(hot) != res["eentropy"]
+
+
+def test_td_request_evaluates_descriptors_once():
+    """U, S, F, the atomic energies, forces and stress of a
+    finite-temperature request come out of one pass over the descriptor
+    (on the card: one launch of `grap_kernel`)."""
+    from test_torch_calculator import count_descriptor_evaluations
+    symbols, pos, cell = _be_cell(seed=2)
+    s = Structure.from_symbols(symbols, pos, cell, pbc=[True] * 3,
+                               etemperature=ETEMP)
+    calc = TensorAlloyCalculator(str(ROOT / MODEL), device="cpu",
+                                 backend="pallas")
+    assert count_descriptor_evaluations(calc, s) == 1
+    res = calc.results
+    np.testing.assert_allclose(res["atomic_energies"].sum(), res["energy"],
+                               rtol=1e-12)
+    np.testing.assert_allclose(
+        res["free_energy"], res["energy"] - ETEMP * res["eentropy"],
+        rtol=1e-12)
 
 
 def test_electron_entropy_needs_a_finite_temperature_model():

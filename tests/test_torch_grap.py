@@ -196,6 +196,20 @@ def test_trained_grap_model_matches_jax(path, cell):
     assert got["forces"].shape == (len(symbols) + 1, 3)
 
 
+def test_grap_request_evaluates_descriptors_once():
+    """A served GRAP request is one pass over the descriptor (on the
+    card: one launch of `grap_kernel`)."""
+    from test_torch_calculator import count_descriptor_evaluations
+    from tensoralloy_tpu_torch.atoms import Structure
+    from tensoralloy_tpu_torch.calculator import TensorAlloyCalculator
+    symbols, pos, box = fcc_ni(1, seed=5)
+    s = Structure.from_symbols(symbols, pos, box, pbc=[True] * 3)
+    calc = TensorAlloyCalculator(NI_MODEL, device="cpu", backend="pallas")
+    assert count_descriptor_evaluations(calc, s) == 1
+    np.testing.assert_allclose(calc.results["atomic_energies"].sum(),
+                               calc.results["energy"], rtol=1e-12)
+
+
 @pytest.mark.parametrize("path", GRAP_FILES)
 def test_saved_grap_models_load(path):
     """Every saved GRAP and finite-temperature model loads with the JAX
@@ -358,3 +372,43 @@ def test_grap_kernel_matches_twin_on_gpu():
                     "false)")
     chip_smoke.build()
     chip_smoke.check_grap_kernel(rows=257)
+
+
+@pytest.mark.parametrize("algorithm,moments", [
+    ("pexp", [0, 1, 2]), ("pexp", [0, 1, 2, 3, 4, 5]), ("morse", [0, 1, 2])])
+def test_second_order_matches_jax(algorithm, moments):
+    """The double backward of GrapFunction against jax.grad of jax.grad
+    through the JAX custom-VJP op, on seeded rows with masked tails of
+    zero distances and an empty first row (P_0 = 0 exactly); with the
+    morse filters, whose sign changes, one row's single pair sits where
+    its P_0 is within 1e-7 of zero, where the moment-0 invariant
+    sign(P_0) sqrt(P_0^2 + 1e-16) bends most."""
+    from test_torch_ops import check_second_order, seeded_rows
+    rng = np.random.RandomState(31)
+    rows, n, n_slots, rc = 6, 9, 2, 4.5
+    (rij,), slot, mask = seeded_rows(rng, rows, n, n_slots, rc)
+    if algorithm == "morse":
+        gamma, r0 = PARAMS["morse"]["gamma"][0], PARAMS["morse"]["r0"][0]
+        mask[1] = 0.0
+        mask[1, 0] = 1.0
+        rij[1] = 0.0
+        rij[1, 0] = r0 - np.log(2.0) / gamma + 1e-7
+    unit = rng.normal(size=(3, rows, n))
+    unit /= np.linalg.norm(unit, axis=0)
+    unit *= mask
+    jdesc, desc = _descriptors(algorithm, moments)
+    if algorithm == "morse":
+        p0 = fused.grap_reference(
+            *(torch.as_tensor(x) for x in (rij, *unit, slot, mask)),
+            grap.GenericRadialAtomicPotential(
+                ["Mo", "Ni"], algorithm="morse", parameters=PARAMS["morse"],
+                moment_tensors=[0]), rc, n_slots)
+        near = p0[1].abs()
+        assert ((near > 0) & (near < 1e-6)).any()
+    ref = functools.partial(jax_fused._grap_ref_dense, jdesc, rc, n_slots)
+    op = jax_fused._custom_vjp_op(
+        functools.partial(jax_fused._grap_pallas, jdesc, rc, n_slots), ref,
+        n_diff=4)
+    check_second_order(op, ref, fused.GrapFunction, [rij, *unit],
+                       [slot, mask],
+                       (desc, rc, n_slots))

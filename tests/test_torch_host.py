@@ -83,3 +83,136 @@ def test_neighbor_size_and_terms_match_jax(case, monkeypatch):
             == asdict(jax_neighbor_size(js, kw["rcut"], True, acut)))
     assert get_kbody_terms(elements, angular=True) == jax_terms(
         elements, angular=True)
+
+
+# ----------------------------------------------------------------------
+# Database, Dataset and batches
+# ----------------------------------------------------------------------
+
+def _assert_arrays_equal(got, want):
+    assert sorted(got) == sorted(want)
+    for key, w in want.items():
+        g = got[key]
+        assert g.dtype == w.dtype and g.shape == w.shape, key
+        if np.issubdtype(w.dtype, np.integer):
+            np.testing.assert_array_equal(g, w, err_msg=key)
+        else:
+            np.testing.assert_allclose(g, w, rtol=1e-12, atol=1e-12,
+                                       err_msg=key)
+
+
+@pytest.fixture(scope="module")
+def small_databases(tmp_path_factory):
+    """12 Ni structures of at most 32 atoms and 8 Be frames (with electron
+    temperature and entropy), written by the port and opened by both
+    packages."""
+    from pathlib import Path
+    from tensoralloy_tpu.io.sqlite import connect as jax_connect
+    from test_torch_training import BE_DB, NI_DB, small_db
+    tmp = tmp_path_factory.mktemp("host_db")
+    out = {}
+    for name, source, n, atoms in (("ni", NI_DB, 12, 32),
+                                   ("be", BE_DB, 8, 36)):
+        db = small_db(source, Path(tmp) / f"{name}.db", n, atoms)
+        out[name] = (db, jax_connect(db.filename))
+    return out
+
+
+@pytest.mark.parametrize("name", ["ni", "be"])
+def test_database_matches_jax(small_databases, name, monkeypatch):
+    """Rows, labels and info, and the cached metadata: max_occurs,
+    neighbor sizes, static energies."""
+    monkeypatch.setenv("TENSORALLOY_TPU_NO_NATIVE", "1")
+    db, jax_db = small_databases[name]
+    assert len(db) == len(jax_db)
+    for s, js in zip(db, jax_db):
+        np.testing.assert_array_equal(s.numbers, js.numbers)
+        np.testing.assert_array_equal(s.positions, js.positions)
+        np.testing.assert_array_equal(s.cell, js.cell)
+        np.testing.assert_array_equal(s.pbc, js.pbc)
+        assert s.energy == js.energy
+        np.testing.assert_array_equal(s.forces, js.forces)
+        np.testing.assert_array_equal(s.stress, js.stress)
+        assert sorted(s.info) == sorted(js.info)
+        for key in ("eentropy", "etemperature", "free_energy", "source"):
+            assert s.info.get(key) == js.info.get(key)
+        np.testing.assert_array_equal(s.info.get("weights", []),
+                                      js.info.get("weights", []))
+    if name == "be":
+        assert "eentropy" in db.get(1).info
+    # the JAX package computes and caches first, the port reads the cache;
+    # then the port computes what is not cached yet
+    assert db.elements == jax_db.elements
+    assert jax_db.max_occurs == db.max_occurs
+    assert jax_db.get_atomic_static_energy() == db.get_atomic_static_energy()
+    want = jax_db.get_neighbor_sizes(4.5, angular=True, acut=3.5)
+    assert asdict(db.get_neighbor_sizes(4.5, angular=True, acut=3.5)) \
+        == asdict(want)
+    got = db.get_neighbor_sizes(4.0, angular=True, acut=3.0)
+    sizes = [find_neighbor_size_of_atoms(s, 4.0, True, acut=3.0)
+             for s in db]
+    assert got.ntl == max(x.ntl for x in sizes) > 0
+    assert asdict(jax_db.get_neighbor_sizes(4.0, angular=True, acut=3.0)) \
+        == asdict(got)
+    with pytest.raises(KeyError):
+        db.get(10 ** 6)
+
+
+@pytest.mark.parametrize("name,angular", [("ni", True), ("ni", False),
+                                          ("be", False)])
+def test_dataset_matches_jax(small_databases, name, angular, tmp_path,
+                             monkeypatch):
+    """The port's Dataset against the JAX Dataset over one database: the
+    signature, the arrays (integers exactly), the cache file of either
+    read by the other, the split and the batch order."""
+    monkeypatch.setenv("TENSORALLOY_TPU_NO_NATIVE", "1")
+    from tensoralloy_tpu.train import dataset as jax_dataset
+    from tensoralloy_tpu_torch.train import dataset
+    from tensoralloy_tpu_torch.transform.featurizer import batch_features
+    db, jax_db = small_databases[name]
+    kw = dict(rcut=4.5, angular=angular)
+    if angular:
+        kw["acut"] = 3.5
+    common = dict(name=name, test_size=3, seed=7, dtype=np.float64,
+                  transpose=True)
+    jds = jax_dataset.Dataset(jax_db, JaxFeaturizer(jax_db.elements, **kw),
+                              cache_dir=str(tmp_path / "jax"),
+                              layout="dense", **common)
+    ds = dataset.Dataset(db, Featurizer(db.elements, **kw),
+                         cache_dir=str(tmp_path / "port"), **common)
+    assert ds.signature == jds.signature
+    want_f, want_l = jds.build()
+    got_f, got_l = ds.build()
+    _assert_arrays_equal(got_f, want_f)
+    _assert_arrays_equal(got_l, want_l)
+    assert got_f["positions"].shape[:2] == (len(db), ds.n_atoms_vap)
+    # each reads the other's cache
+    cached = dataset.Dataset(db, ds.featurizer,
+                             cache_dir=str(tmp_path / "jax"), **common)
+    _assert_arrays_equal(cached.build()[0], want_f)
+    for a, b in zip(ds.split_indices(len(db)), jds.split_indices(len(db))):
+        np.testing.assert_array_equal(a, b)
+    for a, b in zip(ds.split(got_f, got_l), jds.split(want_f, want_l)):
+        _assert_arrays_equal(a, b)
+    for opts in (dict(repeat=True, skip=2), dict(shuffle=False),
+                 dict(drop_remainder=False)):
+        port = dataset.batch_index_stream(len(db), 5, seed=3, **opts)
+        jax_ = jax_dataset.batch_index_stream(len(db), 5, seed=3, **opts)
+        for _ in range(4):
+            a, b = next(port, None), next(jax_, None)
+            assert (a is None) == (b is None)
+            if a is not None:
+                np.testing.assert_array_equal(a, b)
+    bf, bl = next(dataset.batches(got_f, got_l, 4, seed=1))
+    jf, jl = next(jax_dataset.batches(want_f, want_l, 4, seed=1))
+    _assert_arrays_equal(bf, jf)
+    _assert_arrays_equal(bl, jl)
+    one = [ds._featurize_one(s)[0] for s in list(db)[:2]]
+    _assert_arrays_equal(batch_features(one),
+                         {k: v[:2] for k, v in got_f.items()})
+    with pytest.raises(NotImplementedError, match="segment"):
+        dataset.Dataset(db, ds.featurizer, cache_dir=str(tmp_path),
+                        layout="both")
+    s = next(iter(db))
+    with pytest.raises(NotImplementedError, match="segment"):
+        ds.featurizer.featurize(s, layout="segment")

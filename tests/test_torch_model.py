@@ -42,19 +42,16 @@ def _features(fz, symbols, pos, cell):
 
 def _compare(jax_model, jax_params, model, feats):
     """E/F/S of the variational energy (the energy of an AtomicNN) in
-    both packages, the port's atomic energies riding along as extras."""
+    both packages, the port's atomic energies coming out of the same
+    pass."""
     want = jax.jit(jax_dense_efs(jax_model.variational_energy))(
         jax_params, {k: jnp.asarray(v) for k, v in feats.items()})
     t_feats = {k: torch.as_tensor(v) for k, v in feats.items()}
-
-    def extras(f):
-        return {"atomic_energies": model.atomic_energies(f)}
-
-    got = make_dense_efs_fn(model.variational_energy, extras)(t_feats)
+    got = make_dense_efs_fn(model.energy_and_aux)(t_feats)
     for key in ("energy", "forces", "stress_voigt", "total_pressure"):
         assert _rel(got[key].numpy(), want[key]) <= REL, key
     # the autodiff-w.r.t.-positions path agrees with the dense assembly
-    auto = make_efs_fn(model.variational_energy, extras)(t_feats)
+    auto = make_efs_fn(model.energy_and_aux)(t_feats)
     for key in ("energy", "forces", "stress_voigt", "atomic_energies"):
         assert _rel(auto[key].numpy(), got[key].numpy()) <= REL, key
     return got

@@ -295,3 +295,133 @@ def test_kept_grid_columns_survive_a_second_call(kind):
     other[0, 0] += 0.25
     assert fused.grid_tables(other)[0][0] == grid[0, 0] + 0.25
     assert fused.grid_tables(grid)[0][0] == grid[0, 0]
+
+
+# ----------------------------------------------------------------------
+# Second order: the Functions' backwards are differentiable, as the JAX
+# custom-VJP op (its backward is `jax.vjp` of the XLA reference).
+# ----------------------------------------------------------------------
+
+SECOND = dict(rtol=1e-10, atol=1e-10)
+
+
+def check_second_order(op, ref, function, diff, rest, spec, seed=5):
+    """s = sum_i <u_i, VJP_i(x; gbar)> with seeded u and gbar; ds/dgbar
+    and ds/dx through the autograd Function (double backward) against
+    `jax.grad` of the same scalar (jax.grad of jax.grad): ds/dgbar
+    through the JAX custom-VJP op `op` (Pallas forward), which is what a
+    force loss differentiates, and ds/dx through the XLA reference `ref`
+    (JAX cannot linearize the Pallas forward w.r.t. its inputs). `diff`,
+    `rest` are numpy arrays. Every result is finite."""
+    rng = np.random.RandomState(seed)
+    us = [rng.normal(size=d.shape) for d in diff]
+    j_rest = [jnp.asarray(x) for x in rest]
+    shape = op(*(jnp.asarray(d) for d in diff), *j_rest).shape
+    gbar = rng.normal(size=shape)
+
+    def scalar(fn, xs, gb):
+        _, vjp = jax.vjp(lambda *d: fn(*d, *j_rest), *xs)
+        grads = vjp(gb)[:len(xs)]
+        return sum(jnp.vdot(jnp.asarray(u), g) for u, g in zip(us, grads))
+
+    j_diff = tuple(jnp.asarray(d) for d in diff)
+    want_gbar = jax.grad(functools.partial(scalar, op), argnums=1)(
+        j_diff, jnp.asarray(gbar))
+    want_x, ref_gbar = jax.grad(functools.partial(scalar, ref),
+                                argnums=(0, 1))(j_diff, jnp.asarray(gbar))
+    np.testing.assert_allclose(np.asarray(ref_gbar), np.asarray(want_gbar),
+                               rtol=1e-9, atol=1e-9)
+
+    x = [torch.as_tensor(np.array(d)).requires_grad_() for d in diff]
+    gb = torch.as_tensor(gbar).requires_grad_()
+    y = function.apply(*x, *(torch.as_tensor(np.array(r)) for r in rest),
+                       *spec)
+    grads = torch.autograd.grad(y, x, gb, create_graph=True)
+    s = sum((torch.as_tensor(u) * g).sum() for u, g in zip(us, grads))
+    got_gbar, *got_x = torch.autograd.grad(s, [gb] + x)
+    assert np.abs(np.asarray(want_gbar)).max() > 0
+    for got, want in zip([got_gbar] + got_x, [want_gbar] + list(want_x)):
+        assert torch.isfinite(got).all()
+        scale = max(np.abs(np.asarray(want)).max(), 1.0)
+        np.testing.assert_allclose(got.numpy() / scale,
+                                   np.asarray(want) / scale, **SECOND)
+    # with grad mode off in the backward (serving) no graph is kept
+    (first,) = torch.autograd.grad(function.apply(
+        *x, *(torch.as_tensor(np.array(r)) for r in rest), *spec).sum(),
+        x[:1])
+    assert not first.requires_grad
+
+
+def seeded_rows(rng, rows, n, n_slots, rc, triples=False):
+    """[rows, n] distances with masked tails of ZERO distances and an
+    empty first row -> (list of distance arrays, slot, mask)."""
+    lengths = rng.randint(0, n + 1, size=rows)
+    lengths[0] = 0
+    mask = (np.arange(n)[None, :] < lengths[:, None]).astype(np.float64)
+    slot = rng.randint(0, n_slots, (rows, n)).astype(np.float64)
+    if not triples:
+        return [rng.uniform(0.5, 1.1 * rc, (rows, n)) * mask], slot, mask
+    vj, vk = (rng.normal(size=(rows, n, 3)) for _ in range(2))
+    vj *= rng.uniform(1.0, 1.1 * rc, (rows, n, 1)) / np.linalg.norm(
+        vj, axis=-1, keepdims=True)
+    vk *= rng.uniform(1.0, 1.1 * rc, (rows, n, 1)) / np.linalg.norm(
+        vk, axis=-1, keepdims=True)
+    dists = [np.linalg.norm(v, axis=-1) * mask for v in (vj, vk, vk - vj)]
+    return dists, slot, mask
+
+
+@pytest.mark.parametrize("cutoff", ["cosine", "polynomial"])
+def test_g2_second_order_matches_jax(cutoff):
+    rng = np.random.RandomState(21)
+    diff, slot, mask = seeded_rows(rng, 6, 13, 2, 4.5)
+    sf = JaxSF(["Mo", "Ni"], eta=[0.05, 0.5, 4.0], omega=[0.0, 1.0],
+               cutoff_function=cutoff, backend="pallas")
+    ref = functools.partial(jax_fused._g2_ref_dense, sf, 4.5, 2)
+    op = _jax_op(functools.partial(jax_fused._g2_pallas, sf, 4.5, 2), ref, 1)
+    check_second_order(op, ref, fused.G2Function, diff, [slot, mask],
+                       (sf.radial_grid, 4.5, cutoff, 2))
+
+
+@pytest.mark.parametrize("gamma,zeta", [([1.0, -1.0], [1.0, 4.0]),
+                                        ([2.0, -2.0], [1.0, 2.0, 4.0])])
+@pytest.mark.parametrize("cutoff", ["cosine", "polynomial"])
+def test_g4_second_order_matches_jax(cutoff, gamma, zeta):
+    """Masked tails of zero distances, and with |gamma| = 2 the clamp of
+    1 + gamma cos(theta) at 0 is active on many triples."""
+    rng = np.random.RandomState(22)
+    diff, slot, mask = seeded_rows(rng, 12, 11, 3, 3.5, triples=True)
+    sf = JaxSF(["Mo", "Ni"], beta=[0.005, 0.05], gamma=gamma, zeta=zeta,
+               cutoff_function=cutoff, backend="pallas")
+    if gamma[0] == 2.0:
+        cos = (diff[0] ** 2 + diff[1] ** 2 - diff[2] ** 2) / np.where(
+            mask > 0, 2 * diff[0] * diff[1], 1.0)
+        assert ((1.0 - 2.0 * cos < 0) & (mask > 0)).sum() > 5
+    ref = functools.partial(jax_fused._g4_ref_dense, sf, 3.5, 3)
+    op = _jax_op(functools.partial(jax_fused._g4_pallas, sf, 3.5, 3), ref, 3)
+    check_second_order(op, ref, fused.G4Function, diff, [slot, mask],
+                       (sf.angular_grid, 3.5, cutoff, 3))
+
+
+def test_function_inputs_computed_from_each_other():
+    """Inputs of one Function call that depend on each other in the
+    graph (r_jk computed from r_ij and r_ik): the differentiable backward
+    returns the partial derivative of each, not the total one, so first
+    and second derivatives equal the plain twin's."""
+    rng = np.random.RandomState(23)
+    (rij, rik, _), slot, mask = seeded_rows(rng, 5, 7, 2, 3.5, triples=True)
+    sf = JaxSF(["Mo", "Ni"], beta=[0.005, 0.05], gamma=[1.0, -1.0],
+               zeta=[1.0, 4.0])
+    spec = (sf.angular_grid, 3.5, "cosine", 2)
+    rest = [torch.as_tensor(slot), torch.as_tensor(mask)]
+    results = []
+    for fn in (fused.G4Function.apply, fused.g4_reference):
+        a = torch.as_tensor(rij).requires_grad_()
+        b = torch.as_tensor(rik).requires_grad_()
+        c = torch.sqrt(a * a + b * b - 0.7 * a * b + 1e-3)
+        y = fn(a, b, c, *rest, *spec)
+        ga, gb = torch.autograd.grad(y.sum(), (a, b), create_graph=True)
+        second = torch.autograd.grad((ga * ga).sum() + gb.sum(), (a, b))
+        results.append((ga.detach(), gb.detach(), *second))
+    for got, want in zip(*results):
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-10,
+                                   atol=1e-12)
