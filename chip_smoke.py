@@ -10,7 +10,13 @@ failure ends the run with a non-zero exit and no result line:
   1. card    require torch.cuda; print nvidia-smi's name and power limit
   2. build   compile the CUDA kernels (G2/G4, GRAP) from the checkout's
              sources
-  3. kernels each kernel against its plain PyTorch twin on seeded random
+  3. native  build the C++ host lists (neighbor list, triples) with g++
+             and fail if they do not build; hold them against the numpy
+             lists on the 4000-atom Ni cell, the 4000-atom MoNi cell and
+             the 36-atom Be cell (feature dicts: integer arrays exactly,
+             floats to 1e-12); print the featurize + copy time of the sf
+             and grap requests at 4000 and 32000 atoms both ways
+  4. kernels each kernel against its plain PyTorch twin on seeded random
              geometry with masked tails and an empty first row: float32
              values and gradients to 2e-5, float64 to 1e-12; G2 at 32 to
              256 entries and at widths that are no multiple of 4, 1 to 6
@@ -18,7 +24,7 @@ failure ends the run with a non-zero exit and no result line:
              and 384 entries with 1 and 3 slots; GRAP over the algorithm
              x moment grid with gaps, symmetric weights, 1-3 slots, rows
              of 256 entries (more than 128 real pairs) and 64 filters
-  4. serve   the port's calculator in float32 with backend="pallas" on
+  5. serve   the port's calculator in float32 with backend="pallas" on
              its default device, which must be cuda, one path after
              another, each with the launch counts reset before it and
              read after it:
@@ -33,10 +39,12 @@ failure ends the run with a non-zero exit and no result line:
              same calculator on the twins, and have |sum F| ~ 0; the
              108-atom Ni requests and the Be request are also held
              against the JAX-reference fixtures (float32 and float64)
-  5. train   the port's trainer on its default device, which must be
-             cuda, backend="pallas", on artifacts/snap_ni/snap-Ni.db
-             (400 training and 61 test structures), the dataset built
-             by the port's host code in a temporary directory:
+  6. train   the port's trainer on its default device, which must be
+             cuda, each trainer built by `TrainingManager` from the
+             run's input.toml (backend 'pallas', force_assembly 'dense',
+             one step a block, the paths in a temporary directory), on
+             artifacts/snap_ni/snap-Ni.db (400 training and 61 test
+             structures), the dataset built by the port's host code:
                train_sf    the snap_ni_sfa configuration at full width
                            (5 G2 + 4 G4, 9-128-128-1, batch 25, adam
                            0.002, exponential 0.94/1000, energy per
@@ -56,7 +64,20 @@ failure ends the run with a non-zero exit and no result line:
              steps bit for bit; export, and the calculator serves a test
              structure. Prints structures/s, the split of a step from
              CUDA events, peak memory and the dataset build time
-  6. time    median time per request and its device E/F/S part,
+  7. manager the experiment path at full width, for
+             artifacts/snap_ni_sfa/input.toml and
+             artifacts/snap_ni_v5_readapt/input.toml, each with backend
+             'pallas', the paths moved to a temporary directory and the
+             depth cut to 30 steps with one evaluation and one periodic
+             checkpoint: TrainingManager -> train_and_evaluate -> export
+             -> evaluate_run -> the exported file served by the
+             calculator. The device must be cuda, the run's files must
+             exist, every train step must launch each kernel once,
+             evaluate_run's overall MAE must equal the trainer's own
+             evaluation of the same checkpoint, and a second
+             train_and_evaluate with more steps must resume from the
+             newest checkpoint
+  8. time    median time per request and its device E/F/S part,
              kernels vs twins; each kernel vs its twin at the
              32000-atom request's shapes (`ms`: the median of single
              CUDA-event-timed launches, as since the first slice;
@@ -69,19 +90,22 @@ failure ends the run with a non-zero exit and no result line:
              entries only, output written once) at 3.35 TB/s and its
              useful FLOP at the FP32 67 TFLOP/s
 
-The line before the last is a JSON object of per-kernel results; the
-last is {"ok": true, "device": {...}}.
+The line before the last is a JSON object of per-kernel results (the
+launches of the serve, train and manager phases, each counted from 0);
+the last is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
 import itertools
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
 import tempfile
 import time
+import tomllib
 from pathlib import Path
 
 import numpy as np
@@ -124,26 +148,24 @@ F64 = dict(rtol=1e-12, atol=1e-12)
 F32_REL = 1e-4      # E/F/S relative error, float32 serving
 F64_REL = 1e-10     # E/F/S relative error, float64 serving
 TRAIN_DB = MODELS / "snap_ni" / "snap-Ni.db"
-# the training configurations (artifacts/<run>/input.toml) at full width:
-# the model file gives featurizer, descriptor and widths
+# the training configurations at full width: the run whose input.toml
+# the manager reads, the run's saved model (its weights are the warm
+# start and what `evaluate` is held on), and the depth of each part
 TRAIN_CONFIGS = {
     "sf": dict(
+        run="snap_ni_sfa", descriptor="sf",
         model="artifacts/snap_ni_sfa/model/snap_Ni_sfa.npz",
-        name="snap_Ni_sfa", test_size=61, seed=611, batch_size=25,
-        opt=dict(method="adam", learning_rate=0.002,
-                 decay_function="exponential", decay_rate=0.94,
-                 decay_steps=1000),
         warm_start=False, fixture_steps=5, steps=30, evaluate=True,
         kernels=("g2", "g4")),
     "grap": dict(
+        run="snap_ni_v5_readapt", descriptor="grap",
         model="artifacts/snap_ni_v5_readapt/model/snap_Ni.npz",
-        name="snap_Ni", test_size=61, seed=611, batch_size=50,
-        opt=dict(method="adam", learning_rate=0.0005,
-                 decay_function="exponential", decay_rate=0.95,
-                 decay_steps=2500),
         warm_start=True, fixture_steps=3, steps=10, evaluate=False,
         kernels=("grap",)),
 }
+# the manager phase: steps of the first run (one evaluation and one
+# periodic checkpoint at EVAL_STEPS) and of the run that resumes it
+MANAGER_STEPS, MANAGER_EVAL_STEPS, MANAGER_RESUMED_STEPS = 30, 20, 40
 TRAIN_F64_REL = 1e-8     # losses, gradient norm, metrics vs the fixture
 # ... the gradient norm at a warm start: the converged model's energy
 # error is 1e-6 of the energy, so a few ulps of the energy (another
@@ -211,6 +233,64 @@ def phase(name: str):
 
 
 # ----------------------------------------------------------------------
+# experiment files
+# ----------------------------------------------------------------------
+
+def experiment_config(run: str, workdir, overrides=None, database=None
+                      ) -> dict:
+    """artifacts/<run>/input.toml, merged over the defaults, as a dict
+    that writes nothing under artifacts/: the database (the run's own, or
+    `database`) is copied into `workdir`, and the cache and `model_dir`
+    lie there too. `overrides` maps dotted keys to values."""
+    from tensoralloy_tpu_torch.io.input import InputReader
+    from tensoralloy_tpu_torch.utils import nested_set
+    workdir = Path(workdir)
+    config = InputReader(str(MODELS / run / "input.toml")).as_dict()
+    source = Path(database or config["dataset"]["sqlite3"])
+    target = workdir / source.name
+    if not target.exists():
+        shutil.copy(source, target)
+    for key, value in {"dataset.sqlite3": str(target),
+                       "dataset.tfrecords_dir": str(workdir / "cache"),
+                       "train.model_dir": str(workdir / "model"),
+                       **(overrides or {})}.items():
+        nested_set(config, key, value)
+    return config
+
+
+def dump_toml(config: dict, path) -> None:
+    """Write a nested dict of strings, numbers, booleans and lists as a
+    TOML file (what `evaluate_run` reads from a run's directory)."""
+    def key(k):
+        return k if re.fullmatch(r"[A-Za-z0-9_-]+", k) else json.dumps(k)
+
+    def value(v):
+        if isinstance(v, bool):
+            return "true" if v else "false"
+        if isinstance(v, (int, float)):
+            return repr(v)
+        if isinstance(v, str):
+            return json.dumps(v)
+        if isinstance(v, (list, tuple)):
+            return "[" + ", ".join(value(x) for x in v) + "]"
+        raise TypeError(f"no TOML form for {v!r}")
+
+    lines = []
+
+    def table(d, prefix):
+        if prefix:
+            lines.append(f"[{prefix}]")
+        lines.extend(f"{key(k)} = {value(v)}" for k, v in d.items()
+                     if not isinstance(v, dict))
+        for k, v in d.items():
+            if isinstance(v, dict):
+                table(v, f"{prefix}.{key(k)}" if prefix else key(k))
+
+    table(config, "")
+    Path(path).write_text("\n".join(lines) + "\n")
+
+
+# ----------------------------------------------------------------------
 def check_card() -> str:
     phase("card")
     if not torch.cuda.is_available():
@@ -239,6 +319,109 @@ def build() -> None:
             print("  " + line.strip().replace("ptxas info    : ", ""))
         elif "Used" in line or "spill" in line:
             print("    " + line.strip().replace("ptxas info    : ", ""))
+
+
+def _numpy_lists(on: bool):
+    """Switch the host lists to the numpy path (or back to native)."""
+    if on:
+        os.environ["TENSORALLOY_TPU_NO_NATIVE"] = "1"
+    else:
+        os.environ.pop("TENSORALLOY_TPU_NO_NATIVE", None)
+
+
+def check_native(card) -> dict:
+    """Build the C++ host lists, hold them against the numpy lists on the
+    served cells, and time a request's featurization both ways. ->
+    {request: {"native": [ms, ...], "numpy": [ms, ...]}}."""
+    phase("native")
+    from tensoralloy_tpu_torch import native
+    from tensoralloy_tpu_torch.calculator import TensorAlloyCalculator
+    t0 = time.perf_counter()
+    if native.get_lib() is None:
+        raise SystemExit("FAIL native: the C++ host lists did not build "
+                         "(g++ -O3 on tensoralloy_tpu_torch/native/"
+                         "neighbor.cpp)")
+    print(f"built {native.library_path().name} in "
+          f"{time.perf_counter() - t0:.1f} s")
+    calcs = {name: TensorAlloyCalculator(str(PATHS[name][0]),
+                                         dtype="medium", backend="pallas")
+             for name in PATHS}
+
+    def features(calc, s):
+        feats = calc.featurize(s, calc._get_vap(s))
+        torch.cuda.synchronize()
+        return feats
+
+    cells = (("sf", _structure(REQUEST_REPS[1])), ("moni", _moni_structure()),
+             ("td", _fixture(PATHS["td"][2])[0]))
+    for name, s in cells:
+        got = features(calcs[name], s)
+        _numpy_lists(True)
+        try:
+            want = features(calcs[name], s)
+        finally:
+            _numpy_lists(False)
+        if sorted(got) != sorted(want):
+            raise AssertionError(f"native {name}: keys differ")
+        for k, w in want.items():
+            if w.is_floating_point():
+                torch.testing.assert_close(got[k], w, rtol=1e-12, atol=1e-12)
+            elif not torch.equal(got[k], w):
+                raise AssertionError(f"native {name}: {k} differs from the "
+                                     "numpy lists")
+        print(f"  {name} {len(s)} atoms: {len(want)} feature arrays equal "
+              f"the numpy lists' (pair rows "
+              f"{tuple(want['pair_j_d'].shape)}"
+              + (f", triple rows {tuple(want['trip_j_d'].shape)}"
+                 if "trip_j_d" in want else "") + ")")
+
+    # the C++ calls' own share of a featurization with the native lists
+    in_lists = [0.0]
+
+    def clocked(fn):
+        def call(*args):
+            t0 = time.perf_counter()
+            out = fn(*args)
+            in_lists[0] += (time.perf_counter() - t0) * 1e3
+            return out
+        return call
+
+    lists = native.native_neighbor_list, native.native_triple_list
+    times = {}
+    try:
+        native.native_neighbor_list, native.native_triple_list = map(
+            clocked, lists)
+        for name in ("sf", "grap"):
+            for reps in (REQUEST_REPS[1], TIMED_REPS):
+                s = _structure(reps)
+                row = times[f"{name} {len(s)}"] = {}
+                for which in ("native", "numpy"):
+                    _numpy_lists(which == "numpy")
+                    try:
+                        features(calcs[name], s)      # warm-up
+                        n = 3 if len(s) < 10000 or which == "native" else 2
+                        row[which] = []
+                        in_lists[0] = 0.0
+                        for _ in range(n):
+                            t0 = time.perf_counter()
+                            features(calcs[name], s)
+                            row[which].append(
+                                (time.perf_counter() - t0) * 1e3)
+                        if which == "native":
+                            row["cpp"] = in_lists[0] / n
+                    finally:
+                        _numpy_lists(False)
+                print(f"  {name} {len(s)} atoms, host featurize + copy: "
+                      + "; ".join(
+                          f"{which} lists median {np.median(row[which]):.1f} "
+                          f"ms (min {min(row[which]):.1f}, max "
+                          f"{max(row[which]):.1f}, {len(row[which])} calls)"
+                          for which in ("native", "numpy"))
+                      + f"; inside the two C++ calls {row['cpp']:.1f} ms a "
+                      f"native-list call ({card})")
+    finally:
+        native.native_neighbor_list, native.native_triple_list = lists
+    return times
 
 
 def _random_pairs(rng, rows, n, n_slots, rc, dtype, device):
@@ -585,28 +768,25 @@ def _tree_rel_err(got, want) -> float:
                for k in want) / max(top, 1e-300)
 
 
-def _trainer(cfg, dtype, backend, steps):
-    """The configuration's model (from its file, on the default device)
-    in a Trainer with its loss and optimizer."""
-    from tensoralloy_tpu_torch.io.model import load_model
-    from tensoralloy_tpu_torch.nn import losses as L
-    from tensoralloy_tpu_torch.train.trainer import (
-        OptParameters, TrainParameters, Trainer)
-    model, _ = load_model(str(ROOT / cfg["model"]), dtype=dtype,
-                          backend=backend)
-    lp = L.LossParameters(
-        energy=L.LossOptions(weight=20.0, per_atom_loss=True),
-        forces=L.LossOptions(weight=1.0))
-    trainer = Trainer(
-        model, lp, OptParameters(**cfg["opt"]),
-        TrainParameters(batch_size=cfg["batch_size"], train_steps=steps,
-                        eval_steps=10 ** 9, log_steps=10 ** 9,
-                        seed=cfg["seed"]),
-        minimize_properties=("energy", "forces"), dtype=dtype)
-    if trainer.device.type != "cuda":
-        raise AssertionError(f"the default device is {trainer.device}, "
-                             "not cuda")
-    return trainer
+def _manager(cfg, work, dtype, backend, steps):
+    """The configuration's `TrainingManager`, built from the run's
+    input.toml on the default device: loss, optimizer, batch size, seed
+    and split are the file's. Changed for this phase: the precision, the
+    descriptor backend, the depth, one step a block (every step's loss
+    is read), the scatter-free force assembly, and no periodic work."""
+    from tensoralloy_tpu_torch.train.manager import TrainingManager
+    config = experiment_config(cfg["run"], work, {
+        "precision": dtype,
+        f"nn.atomic.{cfg['descriptor']}.backend": backend,
+        "train.train_steps": steps, "train.scan_steps": 1,
+        "train.eval_steps": 10 ** 9, "train.log_steps": 10 ** 9,
+        "train.force_assembly": "dense",
+        "train.final_f32_steps": 0}, database=TRAIN_DB)
+    manager = TrainingManager(config)
+    if manager.trainer.device.type != "cuda":
+        raise AssertionError(f"the default device is "
+                             f"{manager.trainer.device}, not cuda")
+    return manager
 
 
 def _fit_losses(trainer, arrays, params, timed=False):
@@ -696,11 +876,9 @@ def train_path(name, workdir, card):
     """One training configuration through the kernels; the launch counts
     are reset before each measured run and read after it."""
     from tensoralloy_tpu_torch.calculator import TensorAlloyCalculator
-    from tensoralloy_tpu_torch.io.model import save_model
-    from tensoralloy_tpu_torch.io.sqlite import connect
+    from tensoralloy_tpu_torch.io.model import load_model, save_model
     from tensoralloy_tpu_torch.ops import fused
-    from tensoralloy_tpu_torch.train.dataset import (Dataset,
-                                                     batch_index_stream)
+    from tensoralloy_tpu_torch.train.dataset import batch_index_stream
     from tensoralloy_tpu_torch.train.optim import global_norm
     from tensoralloy_tpu_torch.utils import tree_map
     cfg = TRAIN_CONFIGS[name]
@@ -709,40 +887,46 @@ def train_path(name, workdir, card):
         (DATA / f"torch_port_ref_train_{name}.json").read_text())
     work = Path(workdir) / name
     work.mkdir()
-    print(f"  -- train_{name}: {cfg['model']}, batch {cfg['batch_size']}")
-    shutil.copy(TRAIN_DB, work / "snap-Ni.db")
-    db = connect(str(work / "snap-Ni.db"))
+
+    def trainer_of(dtype, backend, steps):
+        return _manager(cfg, work, dtype, backend, steps).trainer
 
     # the dataset, built once at float64 by the port's host code; the
     # float32 trainer casts it
-    t64 = _trainer(cfg, "high", "pallas", cfg["fixture_steps"])
+    m64 = _manager(cfg, work, "high", "pallas", cfg["fixture_steps"])
+    t64, ds, db = m64.trainer, m64.dataset, m64.db
+    batch_size, seed = (t64.train_parameters.batch_size,
+                        t64.train_parameters.seed)
+    print(f"  -- train_{name}: artifacts/{cfg['run']}/input.toml, batch "
+          f"{batch_size}, {m64.opt_parameters}")
+    model_file, _ = load_model(str(ROOT / cfg["model"]), dtype="high")
     t0 = time.perf_counter()
-    ds = Dataset(db, t64.model.featurizer, name=cfg["name"],
-                 test_size=cfg["test_size"], seed=cfg["seed"],
-                 dtype=np.float64, cache_dir=str(work), transpose=True)
-    feats, labels = ds.build(serial=False)
+    feats, labels = ds.build()
     build_s = time.perf_counter() - t0
     arrays = ds.split(feats, labels)
     n_train, n_test = len(arrays[1]["energy"]), len(arrays[3]["energy"])
-    print(f"  dataset: {len(db)} structures featurized on the host in "
+    print(f"  dataset: {len(db)} structures featurized on the host "
+          f"(native lists, one process) in "
           f"{build_s:.1f} s ({n_train} train, {n_test} test; pair rows "
           f"{feats['pair_j_d'].shape}"
           + (f", triple rows {feats['trip_j_d'].shape}"
-             if "trip_j_d" in feats else "") + ")")
+             if "trip_j_d" in feats else "") + f") ({card})")
     if (n_train, n_test) != (fixture["n_train"], fixture["n_test"]) \
-            or ds.max_occurs != t64.model.max_occurs:
-        raise AssertionError("the split or the layout differs from the "
-                             "fixture's")
+            or ds.max_occurs != model_file.max_occurs \
+            or t64.model.as_dict()["descriptor"] != dict(
+                model_file.as_dict()["descriptor"], backend="pallas"):
+        raise AssertionError("the split, the layout or the descriptor "
+                             "differs from the fixture's")
 
     # (a) float64 against the JAX trainer's fixture
-    saved = t64.model.param_tree()
+    saved = model_file.param_tree()
     if cfg["warm_start"]:
         params0 = saved
     else:
         params0 = seeded_params(
-            tree_map(lambda x: x.cpu().numpy(), saved), cfg["seed"])
-    first = next(batch_index_stream(n_train, cfg["batch_size"],
-                                    seed=cfg["seed"], repeat=True))
+            tree_map(lambda x: x.cpu().numpy(), saved), seed)
+    first = next(batch_index_stream(n_train, batch_size,
+                                    seed=seed, repeat=True))
     bf = t64._to_device({k: v[first] for k, v in arrays[0].items()})
     bl = t64._to_device({k: v[first] for k, v in arrays[1].items()})
     p64 = t64._tree_to_device(params0)
@@ -768,20 +952,20 @@ def train_path(name, workdir, card):
     # kernel path against twin path at seeded parameters (away from a
     # converged model, whose gradient is ill-conditioned, see above)
     seeded64 = t64._tree_to_device(seeded_params(
-        tree_map(lambda x: x.cpu().numpy(), saved), cfg["seed"]))
-    twin64 = _trainer(cfg, "high", "dense", 1)
+        tree_map(lambda x: x.cpu().numpy(), saved), seed))
+    twin64 = trainer_of("high", "dense", 1)
     (_, _), grads_kernel = t64.loss_and_grads(seeded64, bf, bl, 0)
     (_, _), grads_twin = twin64.loss_and_grads(seeded64, bf, bl, 0)
     gerr64 = _tree_rel_err(grads_kernel, grads_twin)
 
     # (b) float32 from init_params, kernels then twins
     steps = cfg["steps"]
-    t32 = _trainer(cfg, "medium", "pallas", steps)
-    twin32 = _trainer(cfg, "medium", "dense", steps)
+    t32 = trainer_of("medium", "pallas", steps)
+    twin32 = trainer_of("medium", "dense", steps)
     params_init = t32.init_params(arrays[0], verbose=False)
-    fixed_f = t32._to_device({k: v[:cfg["batch_size"]]
+    fixed_f = t32._to_device({k: v[:batch_size]
                               for k, v in arrays[0].items()})
-    fixed_l = t32._to_device({k: v[:cfg["batch_size"]]
+    fixed_l = t32._to_device({k: v[:batch_size]
                               for k, v in arrays[1].items()})
     (_, _), g32 = t32.loss_and_grads(params_init, fixed_f, fixed_l, 0)
     (_, _), g32_twin = twin32.loss_and_grads(params_init, fixed_f, fixed_l,
@@ -820,7 +1004,7 @@ def train_path(name, workdir, card):
     _check_losses(f"train_{name} float32, kernels vs twins, all steps",
                   losses32, losses_twin, TRAIN_F32_REL)
     warm = 3
-    rates = cfg["batch_size"] / np.asarray(seconds[warm:])
+    rates = batch_size / np.asarray(seconds[warm:])
     print(f"  train_{name} float32 throughput: median "
           f"{np.median(rates):.1f} structures/s over {len(rates)} steps "
           f"after {warm} (min {rates.min():.1f}, max {rates.max():.1f}; "
@@ -828,7 +1012,7 @@ def train_path(name, workdir, card):
           f"{peak / 2 ** 20:.1f} MiB; dataset build {build_s:.1f} s on "
           f"the host ({card})")
     dev_f, dev_l = t32._to_device(arrays[0]), t32._to_device(arrays[1])
-    idx = batch_index_stream(n_train, cfg["batch_size"], seed=cfg["seed"],
+    idx = batch_index_stream(n_train, batch_size, seed=seed,
                              repeat=True)
     split = _step_split(t32, state, dev_f, dev_l,
                         [next(idx) for _ in range(8)], card)
@@ -912,6 +1096,163 @@ def train(card):
             for k in TRAIN_CONFIGS[name]["kernels"]:
                 per_step[k] = m["launches"][k] // m["steps"]
     return measured, per_step
+
+
+# ----------------------------------------------------------------------
+# manager
+# ----------------------------------------------------------------------
+
+def _count_step_launches(trainer, kernels, rows):
+    """Have `trainer.train_step` append to `rows` the step it started
+    from and the launches of each kernel it made."""
+    from tensoralloy_tpu_torch.ops import fused
+    step_fn = trainer.train_step
+
+    def counted(state, feats, labels):
+        before = dict(fused.launch_counts)
+        out = step_fn(state, feats, labels)
+        rows.append((int(state["step"]),
+                     {k: fused.launch_counts[k] - before[k]
+                      for k in kernels}))
+        return out
+
+    trainer.train_step = counted
+
+
+def manager_path(name, workdir, card):
+    """One experiment file through the port's experiment path at full
+    width. -> launches of each kernel over the path, and what was
+    measured."""
+    from tensoralloy_tpu_torch.calculator import TensorAlloyCalculator
+    from tensoralloy_tpu_torch.ops import fused
+    from tensoralloy_tpu_torch.train.evaluation import evaluate_run
+    from tensoralloy_tpu_torch.train.manager import TrainingManager
+    cfg = TRAIN_CONFIGS[name]
+    kernels = cfg["kernels"]
+    work = Path(workdir) / f"manager_{name}"
+    work.mkdir()
+    config = experiment_config(cfg["run"], work, {
+        f"nn.atomic.{cfg['descriptor']}.backend": "pallas",
+        "train.train_steps": MANAGER_STEPS,
+        "train.eval_steps": MANAGER_EVAL_STEPS,
+        "train.log_steps": MANAGER_EVAL_STEPS,
+        "train.summary_steps": 10}, database=TRAIN_DB)
+    dump_toml(config, work / "input.toml")
+    print(f"  -- manager_{name}: artifacts/{cfg['run']}/input.toml, "
+          f"{MANAGER_STEPS} steps, blocks of "
+          f"{config['train']['scan_steps']}")
+    fused.reset_launch_counts()
+    manager = TrainingManager(str(work / "input.toml"))
+    trainer = manager.trainer
+    devices = {trainer.device.type} | {p.device.type
+                                       for p in manager.model.parameters()}
+    if devices != {"cuda"} or trainer.dtype != torch.float32:
+        raise AssertionError(f"the manager's device is {devices} and its "
+                             f"dtype {trainer.dtype}: not cuda, float32")
+    step_rows = []
+    _count_step_launches(trainer, kernels, step_rows)
+    t0 = time.perf_counter()
+    feats, _ = manager.dataset.build()
+    build_s = time.perf_counter() - t0
+    print(f"  dataset: {len(manager.db)} structures featurized on the host "
+          f"(native lists, one process, float32, no transpose tables) in "
+          f"{build_s:.1f} s ({card})")
+    t0 = time.perf_counter()
+    result = manager.train_and_evaluate(verbose=False)
+    fit_s = time.perf_counter() - t0
+    exported = manager.export()
+    model_dir = Path(manager.model_dir)
+    wanted = ["input.json", "run.pid", f"ckpt-{MANAGER_EVAL_STEPS}.npz",
+              "ckpt-best.npz", "best.json", "metrics.jsonl",
+              "checkpoint.npz", "history.json", Path(exported).name]
+    missing = [f for f in wanted if not (model_dir / f).exists()]
+    history = json.loads((model_dir / "history.json").read_text())
+    if missing or [h["step"] for h in history] != [MANAGER_EVAL_STEPS] \
+            or int(result["state"]["step"]) != MANAGER_STEPS:
+        raise AssertionError(f"manager_{name}: files missing {missing}, "
+                             f"or history {history} is not one evaluation "
+                             f"at step {MANAGER_EVAL_STEPS}")
+    bad = [row for row in step_rows if set(row[1].values()) != {1}]
+    if len(step_rows) != MANAGER_STEPS or bad:
+        raise AssertionError(f"manager_{name}: {len(step_rows)} steps, "
+                             f"not one launch of each kernel in {bad}")
+    print(f"  train_and_evaluate: {MANAGER_STEPS} steps in {fit_s:.1f} s "
+          f"(min/max sweep, one evaluation and the checkpoints included), "
+          f"{result['throughput']:.1f} structures/s; one launch of "
+          f"{kernels} in each step; files {wanted} ({card})")
+
+    # evaluate_run reads the run's directory again: input.toml, the
+    # cached dataset, the newest numbered checkpoint
+    report = evaluate_run(str(work), per_group=True, verbose=False)
+    overall = report["splits"]["test"]["overall"]
+    want = history[0]
+    errs = {"energy": abs(overall["energy_meV_per_atom"]
+                          - 1000 * want["energy/mae/atom"])
+            / (1000 * want["energy/mae/atom"]),
+            "forces": abs(overall["force_eV_A"] - want["forces/mae"])
+            / want["forces/mae"]}
+    print(f"  evaluate_run at step {report['step']}: test overall "
+          f"{overall['energy_meV_per_atom']:.3f} meV/atom, "
+          f"{overall['force_eV_A']:.4f} eV/A over {overall['n']} structures "
+          f"in {len(report['splits']['test']) - 1} groups; rel err vs the "
+          f"trainer's evaluation of the same checkpoint "
+          f"{json.dumps(errs)}")
+    if report["step"] != MANAGER_EVAL_STEPS or overall["n"] != len(
+            manager.dataset.split_indices(len(manager.db))[1]) \
+            or max(errs.values()) > 1e-6 \
+            or not (work / "group_maes.json").exists():
+        raise AssertionError(f"manager_{name}: evaluate_run disagrees with "
+                             "Trainer.evaluate")
+
+    # the exported model, served
+    calc = TensorAlloyCalculator(exported, dtype="medium", backend="pallas")
+    test_row = int(manager.dataset.split_indices(len(manager.db))[1][0])
+    structure = manager.db.get(test_row + 1)
+    res = calc.calculate(structure)
+    bf = trainer._to_device(
+        {k: v[test_row:test_row + 1] for k, v in feats.items()})
+    pred = trainer.batched_predictions(result["state"]["ema_params"], bf)
+    err = abs(res["energy"] - float(pred["energy"][0])) \
+        / abs(float(pred["energy"][0]))
+    print(f"  exported {Path(exported).name} serves test structure "
+          f"{test_row + 1} ({len(structure)} atoms): E {res['energy']:.6f} "
+          f"eV, rel err vs the trainer's prediction {err:.2e}")
+    if res["forces"].shape != (len(structure), 3) \
+            or not np.isfinite(res["forces"]).all() or err > F32_REL:
+        raise AssertionError("the exported model is not served right")
+
+    # a run cut short: the same directory, more steps asked for
+    config["train"]["train_steps"] = MANAGER_RESUMED_STEPS
+    dump_toml(config, work / "input.toml")
+    again = TrainingManager(str(work / "input.toml"))
+    resumed_rows = []
+    _count_step_launches(again.trainer, kernels, resumed_rows)
+    out = again.train_and_evaluate(verbose=False)
+    first = resumed_rows[0][0] if resumed_rows else None
+    print(f"  a second train_and_evaluate asked for "
+          f"{MANAGER_RESUMED_STEPS} steps: resumed at step {first}, took "
+          f"{len(resumed_rows)} steps, ended at {out['state']['step']}")
+    if first != MANAGER_EVAL_STEPS or int(out["state"]["step"]) \
+            != MANAGER_RESUMED_STEPS or len(resumed_rows) \
+            != MANAGER_RESUMED_STEPS - MANAGER_EVAL_STEPS:
+        raise AssertionError(f"manager_{name}: the run did not resume "
+                             "from its newest checkpoint")
+    launches = dict(fused.launch_counts)
+    return ({k: launches[k] for k in kernels},
+            {"build_s": build_s, "fit_s": fit_s,
+             "structures_per_s": result["throughput"]})
+
+
+def manage(card):
+    """The experiment path: both experiment files."""
+    phase("manager")
+    measured, launches = {}, {}
+    with tempfile.TemporaryDirectory() as workdir:
+        for name in TRAIN_CONFIGS:
+            counts, measured[name] = manager_path(name, workdir, card)
+            for k, v in counts.items():
+                launches[k] = launches.get(k, 0) + v
+    return measured, launches
 
 
 def _median_ms(fn, reps: int, warmup: int = 3) -> float:
@@ -1116,11 +1457,14 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     build()
+    check_native(card)
     check_kernels()
     served, launches = serve()
     measured, per_step = train(card)
-    for m in measured.values():
-        for k, v in m["launches"].items():
+    managed, manager_launches = manage(card)
+    for counts in [m["launches"] for m in measured.values()] \
+            + [manager_launches]:
+        for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v
     rows = time_path(card, served, launches)
     for row in rows:

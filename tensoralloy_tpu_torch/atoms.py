@@ -193,3 +193,10 @@ def full_3x3_to_voigt(s: np.ndarray) -> np.ndarray:
                      0.5 * (s[1, 2] + s[2, 1]),
                      0.5 * (s[0, 2] + s[2, 0]),
                      0.5 * (s[0, 1] + s[1, 0])])
+
+
+def voigt_to_full_3x3(v: np.ndarray) -> np.ndarray:
+    v = np.asarray(v)
+    return np.array([[v[0], v[5], v[4]],
+                     [v[5], v[1], v[3]],
+                     [v[4], v[3], v[2]]])

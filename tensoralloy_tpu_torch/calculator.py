@@ -55,22 +55,30 @@ class TensorAlloyCalculator:
     `dtype` is 'high' (float64), 'medium' (float32) or a torch float
     dtype; `backend` overrides the saved descriptor backend ('dense' =
     plain PyTorch, 'pallas' = the CUDA kernels) when loading from a
-    path."""
+    path. `chunked`, `device_nl` and `fast_efs` take the reference's
+    values; "auto" and False evaluate on the host-built lists in one
+    piece, True raises until those paths are ported."""
 
     implemented_properties = ("energy", "free_energy", "forces", "stress",
                               "pressure", "atomic_energies")
 
     def __init__(self, model_or_path, *, device="cuda", dtype="high",
                  backend: Optional[str] = None,
-                 chunked: bool = False, device_nl: bool = False,
-                 fast_efs: bool = False):
-        if chunked:
-            raise _not_ported("chunked evaluation",
-                              "the large-cell slice")
-        if device_nl:
-            raise _not_ported("device_nl", "the EAM/MD slice (slice 3)")
-        if fast_efs:
-            raise _not_ported("fast_efs", "the EAM/MD slice (slice 3)")
+                 chunked: "bool | str" = "auto",
+                 device_nl: "bool | str" = "auto",
+                 fast_efs: "bool | str" = "auto"):
+        # "auto" (the reference's default) and False take the monolithic
+        # host-list path, the only one ported; True asks for a path that
+        # is not there yet
+        for mode, value, slice_name in (
+                ("chunked evaluation", chunked, "the large-cell slice"),
+                ("device_nl", device_nl, "the EAM/MD slice (slice 3)"),
+                ("fast_efs", fast_efs, "the EAM/MD slice (slice 3)")):
+            if value is True:
+                raise _not_ported(mode, slice_name)
+            if value is not False and value != "auto":
+                raise ValueError(f"{mode}: expected True, False or "
+                                 f"'auto', got {value!r}")
         self.device = resolve_device(device)
         self.dtype = resolve_dtype(dtype)
         if isinstance(model_or_path, str):

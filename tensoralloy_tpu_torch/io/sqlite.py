@@ -12,8 +12,6 @@ first computed):
                             {nij_max, nnl_max, nijk_max}
   * ``atomic_static_energy`` least-squares per-element reference
                             energies
-
-Not carried over: `read_file` (extxyz ingestion; it comes with the CLI).
 """
 from __future__ import annotations
 
@@ -360,3 +358,46 @@ def _nbr_size_worker(args):
 
 def connect(filename: str) -> CoreDatabase:
     return CoreDatabase(filename)
+
+
+def read_file(path: str, db_path: Optional[str] = None,
+              unit_energy: float = 1.0, unit_forces: float = 1.0,
+              unit_stress: float = 1.0, fmax_limit: Optional[float] = None,
+              vacuum: float = 20.0) -> CoreDatabase:
+    """Ingest extxyz/xyz/db into a `CoreDatabase`."""
+    if path.endswith(".db"):
+        return connect(path)
+    from .extxyz import iread_extxyz
+    if db_path is None:
+        base = os.path.splitext(os.path.basename(path))[0]
+        db_path = os.path.join(os.path.dirname(path), base + ".db")
+    if os.path.exists(db_path):
+        os.remove(db_path)
+    db = connect(db_path)
+    for s in iread_extxyz(path):
+        if fmax_limit is not None and s.forces is not None and \
+                np.abs(s.forces).max() > fmax_limit:
+            continue
+        if s.volume < 1e-8:
+            s = s.ensure_cell(vacuum)
+        info = s.info
+        if unit_energy != 1.0:
+            # every energy-like label shares the energy unit:
+            # free_energy/eentropy (stored as eV, docstring atoms.py)
+            # and etemperature (kT in eV) must convert WITH energy or
+            # finite-temperature training sees mixed units
+            for key in ("energy", "free_energy", "eentropy",
+                        "etemperature"):
+                if key in info:
+                    info[key] = info[key] * unit_energy
+        if "forces" in info and unit_forces != 1.0:
+            info["forces"] = np.asarray(info["forces"]) * unit_forces
+        if "stress" in info and unit_stress != 1.0:
+            info["stress"] = np.asarray(info["stress"]) * unit_stress
+        db.write(s, commit=False)
+    db._con.commit()
+    db.max_occurs  # trigger metadata computation
+    db._update_metadata(unit_conversion={"energy": unit_energy,
+                                         "forces": unit_forces,
+                                         "stress": unit_stress})
+    return db

@@ -11,11 +11,14 @@ and (j, i, -S) appear; the self-pair (i, i, 0) is excluded.
 These bounds size the dense per-atom neighbor and triple layouts that
 the device path consumes.
 
-This is the scipy ``cKDTree`` path of ``tensoralloy_tpu.neighbor``; the
-native C++ cell list is not carried over.
+The pairs come from the native C++ cell list (`native/`) where it can be
+built, else from scipy's ``cKDTree``; both paths return the same list,
+sorted by (i, j, shift). Setting ``TENSORALLOY_TPU_NO_NATIVE`` selects
+the ``cKDTree`` path.
 """
 from __future__ import annotations
 
+import os
 from collections import Counter
 from dataclasses import dataclass
 from typing import Tuple
@@ -39,7 +42,8 @@ def _cell_heights(cell: np.ndarray) -> np.ndarray:
     return vol / np.maximum(areas, 1e-300)
 
 
-def neighbor_list(structure: Structure, cutoff: float
+def neighbor_list(structure: Structure, cutoff: float,
+                  use_native: bool = True
                   ) -> Tuple[np.ndarray, np.ndarray, np.ndarray,
                              np.ndarray, np.ndarray]:
     """Build the full periodic neighbor list.
@@ -102,6 +106,16 @@ def neighbor_list(structure: Structure, cutoff: float
         if wrap_off is not None:
             shift = shift + wrap_off[ii] - wrap_off[jj]
         return ii, jj, shift, d, vec
+
+    if use_native and not os.environ.get("TENSORALLOY_TPU_NO_NATIVE"):
+        from .native import native_neighbor_list
+        got = native_neighbor_list(pos, cell, pbc, cutoff)
+        if got is not None:
+            ii, jj, shift, d, vec = _unwrap(*got)
+            order = np.lexsort((shift[:, 2], shift[:, 1], shift[:, 0],
+                                jj, ii))
+            return (ii[order], jj[order], shift[order], d[order],
+                    vec[order])
 
     heights = _cell_heights(cell)
     reps = np.where(pbc, np.ceil(cutoff / heights).astype(np.int64), 0)

@@ -12,9 +12,10 @@ from __future__ import annotations
 
 from typing import Callable, Dict
 
+import numpy as np
 import torch
 
-from ..transform.featurizer import SIMG_BASE, SIMG_OFF
+from ..transform.featurizer import SIMG_BASE, SIMG_OFF, encode_simg_np
 from ..nn.fields import stress_outputs
 
 
@@ -25,6 +26,18 @@ def decode_simg(simg: torch.Tensor, dtype: torch.dtype):
     sy = rest % SIMG_BASE - SIMG_OFF
     sz = rest // SIMG_BASE - SIMG_OFF
     return (sx.to(dtype), sy.to(dtype), sz.to(dtype))
+
+
+def convert_legacy_shifts(feats: dict) -> dict:
+    """Host-side upgrade of a feature dict or cache from before the
+    packed images: float [A, N, 3] shift arrays -> packed int32 [A, N]
+    (`*_simg_*`). No-op when the packed keys already exist."""
+    for old, new in (("pair_shift_d", "pair_simg_d"),
+                     ("trip_shift_j_d", "trip_simg_j_d"),
+                     ("trip_shift_k_d", "trip_simg_k_d")):
+        if old in feats and new not in feats:
+            feats[new] = encode_simg_np(np.asarray(feats.pop(old)))
+    return feats
 
 
 def shift_dot_cell(simg: torch.Tensor, cell: torch.Tensor, dtype):

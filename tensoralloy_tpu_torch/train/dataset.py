@@ -9,10 +9,15 @@ Labels are VAP-mapped on the host so the device loss is pure array math.
 
 The cache schema (``f_<feature>``, ``l_<label>``), the split permutation
 (`RandomState(seed)`, test rows first) and the batch order are shared
-with the JAX package: a cache written by either is read by the other.
+with the JAX package. The layout is part of the file name, and the
+defaults differ: this package writes ``...-dense-...`` files, the JAX
+`Dataset` (``layout="both"``) files without a layout tag. A ``-dense``
+file written by either package is read by the other; where it is
+absent, `build` reads the JAX default's ``both`` file and keeps its
+dense (``_d``) keys. A cache that predates the packed periodic images
+is upgraded and rewritten on load (`ops.dense.convert_legacy_shifts`).
 
-Not carried over: the upgrade of caches that predate the packed periodic
-images (`convert_legacy_shifts`), and the 'segment' / 'both' layouts.
+Not carried over: the 'segment' / 'both' layouts themselves.
 """
 from __future__ import annotations
 
@@ -24,6 +29,7 @@ import numpy as np
 from ..atoms import Structure
 from ..io.sqlite import CoreDatabase
 from ..neighbor import NeighborSize
+from ..ops.dense import convert_legacy_shifts
 from ..transform.featurizer import Featurizer, batch_features
 
 Arrays = Dict[str, np.ndarray]
@@ -131,9 +137,15 @@ class Dataset:
               serial: bool = True) -> Tuple[Arrays, Arrays]:
         """Featurize the whole database (cached to .npz); `serial=False`
         fans out over processes."""
-        if not force and os.path.exists(self.cache_path):
-            with np.load(self.cache_path) as z:
+        cached = None if force else self._existing_cache()
+        if cached is not None:
+            with np.load(cached) as z:
                 data = {k: z[k] for k in z.files}
+            if cached != self.cache_path:
+                # the flat pair/triple arrays of a 'both' file go unread
+                data = {k: v for k, v in data.items()
+                        if not (k.startswith(("f_pair_", "f_trip_"))
+                                and not k.endswith("_d"))}
         else:
             structures = list(self.db)
             n_jobs = 0 if serial else (os.cpu_count() or 1)
@@ -142,6 +154,9 @@ class Dataset:
                 # CUDA context, which a forked child must not inherit
                 import multiprocessing
                 from concurrent.futures import ProcessPoolExecutor
+
+                from ..native import get_lib
+                get_lib()   # built here once, not raced by the workers
                 with ProcessPoolExecutor(
                         max_workers=n_jobs,
                         mp_context=multiprocessing.get_context("spawn")
@@ -165,7 +180,48 @@ class Dataset:
             np.savez_compressed(self.cache_path, **data)
         feats = {k[2:]: v for k, v in data.items() if k.startswith("f_")}
         labels = {k[2:]: v for k, v in data.items() if k.startswith("l_")}
+        # caches from before the packed images stored float [B, A, N, 3]
+        # shift arrays; convert, then rewrite the file so that the
+        # conversion and the larger arrays are paid for once
+        legacy = [k for k in feats
+                  if k in ("pair_shift_d", "trip_shift_j_d",
+                           "trip_shift_k_d")]
+        feats = convert_legacy_shifts(feats)
+        if legacy:
+            try:
+                np.savez_compressed(
+                    cached, **{f"f_{k}": v for k, v in feats.items()},
+                    **{f"l_{k}": v for k, v in labels.items()})
+            except OSError:
+                pass        # read-only cache dir: converted copy stays
         return feats, labels
+
+    def _existing_cache(self):
+        """The cache file to read: this layout's, else the file that the
+        JAX package's default layout ('both') writes; None if neither
+        exists."""
+        if os.path.exists(self.cache_path):
+            return self.cache_path
+        both = os.path.join(
+            self.cache_dir,
+            self.signature.replace(f"-{self.layout}", "", 1) + ".npz")
+        return both if os.path.exists(both) else None
+
+    def input_fn(self, batch_size: int, mode: str = "train",
+                 repeat: bool = True):
+        """-> a () -> iterator closure over (features, labels) batches of
+        the train or the test split."""
+        feats, labels = self.build()
+        tf_, tl_, ef_, el_ = self.split(feats, labels)
+        f, l = (tf_, tl_) if mode == "train" else (ef_, el_)
+
+        def input_fn():
+            return batches(f, l, batch_size, seed=self.seed, repeat=repeat,
+                           shuffle=(mode == "train"))
+        return input_fn
+
+    def next_batch(self, batch_size: int, mode: str = "train"):
+        return next(self.input_fn(batch_size, mode)())
 
     # ------------------------------------------------------------------
     def split_indices(self, n: int) -> Tuple[np.ndarray, np.ndarray]:

@@ -72,7 +72,8 @@ class TrainParameters:
     # Precision annealing: the LAST N optimizer steps run with TF32 off
     # (`set_tf32(False)`), whatever the global setting was until then,
     # so the exported weights are adapted to full-precision matmuls.
-    # 0 = off.
+    # With scan_steps > 1 the switch comes at the first block that starts
+    # at or after train_steps - N. 0 = off.
     final_f32_steps: int = 0
     # How a step assembles forces and stress from the energy:
     #   'autodiff' — differentiate w.r.t. positions and cell
@@ -177,6 +178,8 @@ class Trainer:
         self.minimize = tuple(minimize_properties)
         self._opt_init, self._opt_update = make_optimizer(opt_parameters)
         self.state: Optional[dict] = None
+        # step at which the last `fit` switched to full-precision matmuls
+        self.annealed_at: Optional[int] = None
 
     # ------------------------------------------------------------------
     def _to_device(self, arrays) -> Dict[str, torch.Tensor]:
@@ -534,12 +537,21 @@ class Trainer:
         history = []
         t0 = time.time()
         examples = 0
+        # precision annealing switches by the block, as the JAX package:
+        # at the first block whose start has reached the threshold
         f32_after = tp.train_steps - int(tp.final_f32_steps or 0)
+        annealing = f32_after < tp.train_steps
+        self.annealed_at = None
         for step in range(start, tp.train_steps, k):
             n_fused = min(k, tp.train_steps - step)
-            for i in range(n_fused):
-                anneal = step + i >= f32_after and f32_after < tp.train_steps
-                with _tf32(False if anneal else None):
+            anneal = annealing and step >= f32_after
+            if anneal and self.annealed_at is None:
+                self.annealed_at = step
+                if verbose:
+                    print(f"precision annealing at step {step}: "
+                          "switching matmuls to f32", flush=True)
+            with _tf32(False if anneal else None):
+                for _ in range(n_fused):
                     state, metrics = self.train_step(state, *next_batch())
             examples += bs * n_fused
             step_now = step + n_fused - 1

@@ -1,6 +1,8 @@
 """Featurization: structures -> the dense per-atom layout, on the host.
 
-numpy only. This is the ``layout="dense"`` half of
+numpy, with the triples enumerated by the native C++ list where it can
+be built (`native/`; the Python loop otherwise, in the same order). This
+is the ``layout="dense"`` half of
 ``tensoralloy_tpu.transform.featurizer``; it emits the same keys with the
 same values, so both packages read one feature contract. The flat
 pair/triple ('segment') layout is not carried over.
@@ -25,6 +27,7 @@ Shape contract (`Features` dict; A = n_vap rows, N = nnl, Nt = ntl):
 """
 from __future__ import annotations
 
+import os
 from collections import Counter
 from typing import Dict, List, Optional
 
@@ -236,32 +239,42 @@ class Featurizer:
         order = np.argsort(ii, kind="stable")
         ii, jj, ss = ii[order], jj[order], ss[order]
 
-        counts = np.bincount(ii, minlength=len(structure))
-        offsets = np.concatenate([[0], np.cumsum(counts)])
-        t_i, t_j, t_k, t_sj, t_sk = [], [], [], [], []
-        for a in range(len(structure)):
-            lo, hi = offsets[a], offsets[a + 1]
-            m = hi - lo
-            if m < 2:
-                continue
-            p, q = np.triu_indices(m, k=1)
-            t_i.append(np.full(len(p), a, dtype=np.int64))
-            t_j.append(jj[lo + p])
-            t_k.append(jj[lo + q])
-            t_sj.append(ss[lo + p])
-            t_sk.append(ss[lo + q])
-        if t_i:
-            t_i = np.concatenate(t_i)
-            t_j = np.concatenate(t_j)
-            t_k = np.concatenate(t_k)
-            t_sj = np.concatenate(t_sj)
-            t_sk = np.concatenate(t_sk)
+        pq = None
+        if not os.environ.get("TENSORALLOY_TPU_NO_NATIVE"):
+            from ..native import native_triple_list
+            pq = native_triple_list(ii, len(structure))
+        if pq is not None:
+            p, q = pq
+            t_i = ii[p].astype(np.int64)
+            t_j, t_k = jj[p], jj[q]
+            t_sj, t_sk = ss[p], ss[q]
         else:
-            t_i = np.zeros(0, np.int64)
-            t_j = np.zeros(0, np.int64)
-            t_k = np.zeros(0, np.int64)
-            t_sj = np.zeros((0, 3))
-            t_sk = np.zeros((0, 3))
+            counts = np.bincount(ii, minlength=len(structure))
+            offsets = np.concatenate([[0], np.cumsum(counts)])
+            t_i, t_j, t_k, t_sj, t_sk = [], [], [], [], []
+            for a in range(len(structure)):
+                lo, hi = offsets[a], offsets[a + 1]
+                m = hi - lo
+                if m < 2:
+                    continue
+                p, q = np.triu_indices(m, k=1)
+                t_i.append(np.full(len(p), a, dtype=np.int64))
+                t_j.append(jj[lo + p])
+                t_k.append(jj[lo + q])
+                t_sj.append(ss[lo + p])
+                t_sk.append(ss[lo + q])
+            if t_i:
+                t_i = np.concatenate(t_i)
+                t_j = np.concatenate(t_j)
+                t_k = np.concatenate(t_k)
+                t_sj = np.concatenate(t_sj)
+                t_sk = np.concatenate(t_sk)
+            else:
+                t_i = np.zeros(0, np.int64)
+                t_j = np.zeros(0, np.int64)
+                t_k = np.zeros(0, np.int64)
+                t_sj = np.zeros((0, 3))
+                t_sk = np.zeros((0, 3))
         ci = elem_idx_local[t_i]
         cj = elem_idx_local[t_j]
         ck = elem_idx_local[t_k]

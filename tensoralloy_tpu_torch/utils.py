@@ -13,6 +13,16 @@ from typing import Dict, List, Tuple
 import numpy as np
 
 
+class ModeKeys:
+    TRAIN = "train"
+    EVAL = "eval"
+    PREDICT = "infer"
+
+    @staticmethod
+    def for_prediction(mode: str) -> bool:
+        return mode == ModeKeys.PREDICT
+
+
 class Defaults:
     """Default hyperparameters (reference `utils.py:393-420`)."""
     rc = 6.5
@@ -90,6 +100,24 @@ def get_kbody_terms(elements: List[str], angular: bool = False,
                         per_element[e].append(e + elements[j] + elements[k])
     all_terms = list(chain(*[per_element[e] for e in elements]))
     return all_terms, per_element, elements
+
+
+def nested_get(d: dict, keypath: str, default=None):
+    """`nested_get(cfg, 'nn.atomic.sf.eta')` dotted access."""
+    obj = d
+    for key in keypath.split("."):
+        if not isinstance(obj, dict) or key not in obj:
+            return default
+        obj = obj[key]
+    return obj
+
+
+def nested_set(d: dict, keypath: str, value):
+    keys = keypath.split(".")
+    obj = d
+    for key in keys[:-1]:
+        obj = obj.setdefault(key, {})
+    obj[keys[-1]] = value
 
 
 # ----------------------------------------------------------------------

@@ -134,6 +134,25 @@ def test_request_evaluates_descriptors_once():
                                calc.results["energy"], rtol=1e-12)
 
 
+def test_auto_and_false_take_the_host_list_path():
+    """The reference's defaults ("auto") and False evaluate on the
+    host-built lists in one piece; only True asks for a path that is
+    not ported."""
+    import inspect
+    _, s = _structures(1)
+    want = TensorAlloyCalculator(MODEL, device="cpu").calculate(s)
+    for value in ("auto", False):
+        calc = TensorAlloyCalculator(MODEL, device="cpu", chunked=value,
+                                     device_nl=value, fast_efs=value)
+        assert calc.calculate(s)["energy"] == want["energy"]
+    defaults = inspect.signature(TensorAlloyCalculator).parameters
+    jax_defaults = inspect.signature(JaxCalculator).parameters
+    for name in ("chunked", "device_nl", "fast_efs"):
+        assert defaults[name].default == jax_defaults[name].default == "auto"
+    with pytest.raises(ValueError, match="'auto'"):
+        TensorAlloyCalculator(MODEL, device="cpu", chunked="always")
+
+
 def test_deferred_modes_raise():
     with pytest.raises(NotImplementedError, match="slice"):
         TensorAlloyCalculator(MODEL, device="cpu", device_nl=True)
@@ -207,9 +226,17 @@ def test_kernel_bounds_count_real_geometry():
 
 def test_port_imports_without_jax():
     code = ("import sys; sys.modules['jax'] = None; "
+            "sys.modules['optax'] = None; "
             "import tensoralloy_tpu_torch.calculator, "
             "tensoralloy_tpu_torch.io.model, "
-            "tensoralloy_tpu_torch.ops.fused; print('ok')")
+            "tensoralloy_tpu_torch.ops.fused, "
+            "tensoralloy_tpu_torch.native, "
+            "tensoralloy_tpu_torch.io.extxyz, "
+            "tensoralloy_tpu_torch.io.xyz, "
+            "tensoralloy_tpu_torch.linear.preset, "
+            "tensoralloy_tpu_torch.train.manager, "
+            "tensoralloy_tpu_torch.train.evaluation; "
+            "assert 'tensoralloy_tpu' not in sys.modules; print('ok')")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr

@@ -10,11 +10,15 @@ import pytest
 import torch
 
 from tensoralloy_tpu.atoms import Structure as JaxStructure
+from tensoralloy_tpu.calculator import (
+    TensorAlloyCalculator as JaxCalculator)
 from tensoralloy_tpu.io.model import load_model as jax_load_model
 from tensoralloy_tpu.nn.atomic import AtomicNN as JaxAtomicNN
 from tensoralloy_tpu.nn.sf import SymmetryFunction as JaxSF
 from tensoralloy_tpu.ops.dense import make_dense_efs_fn as jax_dense_efs
 from tensoralloy_tpu.transform import Featurizer as JaxFeaturizer
+from tensoralloy_tpu_torch.atoms import Structure
+from tensoralloy_tpu_torch.calculator import TensorAlloyCalculator
 from tensoralloy_tpu_torch.io.model import (load_model, model_from_dict,
                                             params_from_jax, params_to_jax,
                                             save_model)
@@ -25,6 +29,20 @@ from test_torch_host import fcc_ni, mo_ni
 
 MODEL = "artifacts/snap_ni_sfa/model/snap_Ni_sfa.npz"
 REL = 1e-10
+# the saved symmetry-function models with other grids than MODEL's
+# (10 eta x 2 omega, rcut 6.5, hidden [128, 64, 32]; Mo and Ni)
+SF_FILES = {
+    run: f"artifacts/{run}/model/{name}.npz" for run, name in (
+        ("snap_mo_ref11", "snap_Mo_refsf"),
+        ("snap_mo_refsf_cont", "snap_Mo_refsf"),
+        ("snap_mo_refsf_cpu", "snap_Mo_refsf"),
+        ("snap_mo_refsf_f15", "snap_Mo_refsf"),
+        ("snap_mo_refsf_l2", "snap_Mo_refsf"),
+        ("snap_mo_refsf_rrmse", "snap_Mo_refsf"),
+        ("snap_mo_refsf_s30", "snap_Mo_refsf"),
+        ("snap_mo_y15", "snap_Mo_y15"),
+        ("snap_ni_refsf", "snap_Ni_refsf"),
+        ("snap_ni_refsf_readapt", "snap_Ni_refsf"))}
 
 
 def _rel(a, b):
@@ -125,6 +143,34 @@ def test_params_and_npz_round_trip(tmp_path):
     for a, b in zip(jax.tree_util.tree_leaves(jax_params),
                     jax.tree_util.tree_leaves(params)):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
+@pytest.mark.parametrize("run", sorted(SF_FILES))
+def test_saved_sf_models_load_and_serve_as_in_jax(run, monkeypatch):
+    """Every other saved symmetry-function model: the JAX loader's
+    weights bit for bit, and one E/F/S request of 32 jittered atoms
+    against the JAX calculator at float64."""
+    monkeypatch.setenv("TENSORALLOY_TPU_NO_NATIVE", "1")
+    path = SF_FILES[run]
+    _, params, config = jax_load_model(path)
+    model, _ = load_model(path, device="cpu", dtype="medium")
+    assert model.as_dict() == config["model"]
+    state, want = model.state_dict(), params_from_jax(params)
+    assert set(state) == set(want)
+    for key, value in want.items():
+        assert torch.equal(state[key], value), key
+
+    element = config["model"]["featurizer"]["elements"][0]
+    _, pos, cell = fcc_ni(2, seed=7)
+    scale = 3.15 / 3.52 if element == "Mo" else 1.0
+    args = ([element] * len(pos), pos * scale, cell * scale)
+    res = TensorAlloyCalculator(path, device="cpu", dtype="high").calculate(
+        Structure.from_symbols(*args, pbc=[True] * 3))
+    jax_s = JaxStructure.from_symbols(*args, pbc=[True] * 3)
+    calc = JaxCalculator(path)
+    assert _rel(res["energy"], calc.get_potential_energy(jax_s)) <= REL
+    assert _rel(res["forces"], calc.get_forces(jax_s)) <= REL
+    assert _rel(res["stress"], calc.get_stress(jax_s)) <= REL
 
 
 def test_segment_backend_is_deferred():

@@ -14,7 +14,6 @@ fill them take a few minutes on the CPU.
 """
 import json
 import os
-import shutil
 import sys
 from pathlib import Path
 
@@ -57,6 +56,7 @@ from tensoralloy_tpu_torch.utils import tree_flatten, tree_map
 ROOT = Path(__file__).resolve().parent.parent
 NI_DB = ROOT / "artifacts" / "snap_ni" / "snap-Ni.db"
 BE_DB = ROOT / "artifacts" / "td_be" / "td-Be.db"
+MONI_DB = ROOT / "artifacts" / "snap_moni" / "snap-MoNi.db"
 DATA = ROOT / "tests" / "data"
 SF_KW = dict(eta=[0.1, 1.0, 4.0], omega=[0.0], beta=[0.005],
              gamma=[1.0, -1.0], zeta=[1.0, 4.0])
@@ -101,6 +101,9 @@ CASES = {
     "grap_012": ("ni", "grap012", "pallas", "auto"),
     "grap_05": ("ni", "grap05", "pallas", "auto"),
     "td": ("be", "td", "pallas", "auto"),
+    # two elements, each absent from some structures (the database's
+    # small cells are pure Mo or pure Ni)
+    "moni_grap": ("moni", "grap012", "pallas", "auto"),
 }
 
 
@@ -146,6 +149,8 @@ class Case:
         tmp.mkdir(parents=True, exist_ok=True)
         if which == "ni":
             self.db = small_db(NI_DB, tmp / "ni.db", 12, 32)
+        elif which == "moni":
+            self.db = small_db(MONI_DB, tmp / "moni.db", 12, 32)
         else:
             self.db = small_db(BE_DB, tmp / "be.db", 8, 36)
         path = self.db.filename
@@ -264,6 +269,159 @@ def test_loss_metrics_and_gradients_match_jax(case):
     _assert_trees_close(grads, want_grads, 1e-9, "gradient")
     # the force term reaches the parameters through the second backward
     assert float(metrics["loss/forces"]) > 0
+
+
+@pytest.mark.parametrize("case", ["moni_grap"], indirect=True)
+def test_two_element_batches_and_norm_stats_match_jax(case):
+    """S = 2 with an element absent from some structures: the per-element
+    row slices of the batched forward (predictions of a mixed batch), and
+    `update_norm_stats` accumulated over chunks of which one holds no Mo
+    atom at all, against the JAX sweep over the whole set."""
+    tf_, tl_ = case.arrays[0], case.arrays[1]
+    n_mo = case.jax_model.max_occurs["Mo"]
+    mo_rows = slice(1, 1 + n_mo)        # the VAP puts Mo before Ni
+    has_mo = tf_["atom_masks"][:, mo_rows].sum(axis=1) > 0
+    assert has_mo.any() and (~has_mo).any()
+    jt, t = case.trainers()
+    jf = {k: jnp.asarray(v) for k, v in tf_.items()}
+    want = jax.jit(jt.batched_predictions)(case.params, jf)
+    got = t.batched_predictions(case.torch_params(), t._to_device(tf_))
+    for key in ("energy", "forces", "stress_voigt"):
+        assert _rel(got[key].numpy(), want[key]) <= 1e-10, key
+
+    fresh = case.jax_model.init_params(jax.random.PRNGKey(1))
+    want_norm = case.jax_model.update_norm_stats(fresh, jf)
+    params = tree_map(lambda x: torch.as_tensor(np.array(x)), fresh)
+    order = np.concatenate([np.nonzero(~has_mo)[0], np.nonzero(has_mo)[0]])
+    n_first = int((~has_mo).sum())
+    for rows in (order[:n_first], order[n_first:]):
+        params = case.model.update_norm_stats(
+            params, t._to_device({k: v[rows] for k, v in tf_.items()}))
+    for element in ("Mo", "Ni"):
+        for key in ("xlo", "xhi"):
+            np.testing.assert_allclose(
+                params[element]["norm"][key].numpy(),
+                np.asarray(want_norm[element]["norm"][key]), rtol=1e-12,
+                atol=1e-12, err_msg=f"{element} {key}")
+
+
+@pytest.mark.parametrize("case", ["grap_012"], indirect=True)
+def test_precision_annealing_switches_at_the_jax_block(case, capsys):
+    """`final_f32_steps` with `scan_steps` > 1: both trainers switch at
+    the first block that starts at or after train_steps - N (step 6 of
+    7 in blocks of 3 with N = 3; a per-step rule would give 4), and the
+    port runs exactly those steps with TF32 off."""
+    import re
+    from tensoralloy_tpu_torch.precision import set_tf32
+    kw = dict(train_steps=7, scan_steps=3, final_f32_steps=3)
+    jt, t = case.trainers(**kw)
+    jt.fit(case.arrays[0], case.arrays[1], params=case.params, verbose=True)
+    printed = capsys.readouterr().out
+    jax_step = int(re.search(r"precision annealing at step (\d+)",
+                             printed).group(1))
+    flags = []
+    step_fn = t.train_step
+    t.train_step = lambda *a: (flags.append(
+        torch.backends.cuda.matmul.allow_tf32), step_fn(*a))[1]
+    set_tf32(True)
+    try:
+        t.fit(case.arrays[0], case.arrays[1], params=case.torch_params(),
+              verbose=True)
+        assert torch.backends.cuda.matmul.allow_tf32 is True
+    finally:
+        set_tf32(False)
+    port_step = int(re.search(r"precision annealing at step (\d+)",
+                              capsys.readouterr().out).group(1))
+    assert jax_step == port_step == t.annealed_at == 6
+    assert flags == [True] * 6 + [False]
+    # no annealing asked for: no switch
+    _, plain = case.trainers(train_steps=2)
+    plain.fit(case.arrays[0], case.arrays[1], params=case.torch_params(),
+              verbose=False)
+    assert plain.annealed_at is None
+
+
+def test_dataset_reads_the_jax_default_cache_and_upgrades_old_ones(
+        tmp_path, monkeypatch):
+    """With no `-dense` cache file the port reads the file that the JAX
+    `Dataset` writes by default (layout 'both') and keeps its dense
+    keys; a cache from before the packed images is converted and
+    rewritten; `input_fn` and `next_batch` give the JAX batches."""
+    from tensoralloy_tpu_torch.ops.dense import convert_legacy_shifts
+    from tensoralloy_tpu_torch.train.dataset import Dataset
+    from tensoralloy_tpu_torch.transform.featurizer import SIMG_BASE, SIMG_OFF
+    monkeypatch.setenv("TENSORALLOY_TPU_NO_NATIVE", "1")
+    db = small_db(NI_DB, tmp_path / "ni.db", 8, 32)
+    jax_db = jax_connect(db.filename)
+    kw = dict(rcut=4.5, acut=3.5, angular=True)
+    shared = dict(name="ni", test_size=2, dtype=np.float64)
+    jds = JaxDataset(jax_db, JaxFeaturizer(jax_db.elements, **kw),
+                     cache_dir=str(tmp_path / "cache"), transpose=True,
+                     **shared)
+    assert jds.layout == "both" and "dense" not in jds.signature
+    jfeats, jlabels = jds.build()
+    ds = Dataset(db, Featurizer(db.elements, **kw),
+                 cache_dir=str(tmp_path / "cache"), transpose=True, **shared)
+    assert ds.signature == jds.signature.replace("-tr-", "-dense-tr-")
+    assert not Path(ds.cache_path).exists()
+    own = Dataset(db, Featurizer(db.elements, **kw),
+                  cache_dir=str(tmp_path / "own"), transpose=True,
+                  **shared).build()
+    monkeypatch.setattr(Dataset, "_featurize_one", None)   # must not run
+    feats, labels = ds.build()
+    assert sorted(feats) == sorted(own[0]) and "pair_i" not in feats
+    for key in feats:
+        np.testing.assert_array_equal(feats[key], own[0][key], err_msg=key)
+        np.testing.assert_array_equal(feats[key], jfeats[key], err_msg=key)
+    for key in labels:
+        np.testing.assert_array_equal(labels[key], own[1][key], err_msg=key)
+    assert not Path(ds.cache_path).exists()      # nothing was written
+
+    # a cache with float [B, A, N, 3] shift arrays in place of the codes
+    def decode(simg):
+        return np.stack([simg % SIMG_BASE - SIMG_OFF,
+                         simg // SIMG_BASE % SIMG_BASE - SIMG_OFF,
+                         simg // SIMG_BASE ** 2 - SIMG_OFF],
+                        axis=-1).astype(np.float64)
+    old = {f"l_{k}": v for k, v in own[1].items()}
+    for k, v in own[0].items():
+        if "simg" in k:
+            old[f"f_{k.replace('simg', 'shift')}"] = decode(v)
+        else:
+            old[f"f_{k}"] = v
+    legacy = Dataset(db, Featurizer(db.elements, **kw),
+                     cache_dir=str(tmp_path / "legacy"), transpose=True,
+                     **shared)
+    Path(legacy.cache_path).parent.mkdir()
+    np.savez_compressed(legacy.cache_path, **old)
+    upgraded, _ = legacy.build()
+    for key in own[0]:
+        np.testing.assert_array_equal(upgraded[key], own[0][key],
+                                      err_msg=key)
+    with np.load(legacy.cache_path) as z:
+        assert "f_pair_simg_d" in z.files and "f_trip_simg_k_d" in z.files
+        assert not [k for k in z.files if "shift" in k]
+    from tensoralloy_tpu.ops.dense import (
+        convert_legacy_shifts as jax_convert)
+    one = {"pair_shift_d": decode(own[0]["pair_simg_d"][0])}
+    np.testing.assert_array_equal(
+        convert_legacy_shifts(dict(one))["pair_simg_d"],
+        jax_convert(dict(one))["pair_simg_d"])
+
+    # input_fn / next_batch: the JAX package's batches
+    for mode in ("train", "eval"):
+        want_it = jds.input_fn(3, mode)()
+        got_it = ds.input_fn(3, mode)()
+        for _ in range(3):
+            (wf, wl), (gf, gl) = next(want_it), next(got_it)
+            for key in gf:
+                np.testing.assert_array_equal(gf[key], wf[key])
+            for key in gl:
+                np.testing.assert_array_equal(gl[key], wl[key])
+    bf, bl = ds.next_batch(4)
+    wf, wl = jds.next_batch(4)
+    assert bf["positions"].shape[0] == 4
+    np.testing.assert_array_equal(bl["energy"], wl["energy"])
 
 
 @pytest.mark.parametrize("case", ["sf_pallas"], indirect=True)
@@ -567,39 +725,39 @@ def _full_width_record(name: str, workdir: Path) -> dict:
     of chip_smoke's training configurations -> the numbers its train
     phase compares with."""
     import chip_smoke
+    from tensoralloy_tpu.train.manager import (
+        TrainingManager as JaxTrainingManager)
     cfg = chip_smoke.TRAIN_CONFIGS[name]
     workdir.mkdir(parents=True, exist_ok=True)
-    db_path = workdir / "snap-Ni.db"
-    shutil.copy(NI_DB, db_path)
-    db = jax_connect(str(db_path))
+    steps = cfg["fixture_steps"]
+    # the run's input.toml as chip_smoke's train phase changes it, read
+    # by the JAX manager: loss, optimizer, batch size, seed and split
+    # are the file's
+    manager = JaxTrainingManager(chip_smoke.experiment_config(
+        cfg["run"], workdir, {
+            "precision": "high",
+            f"nn.atomic.{cfg['descriptor']}.backend": "dense",
+            "train.train_steps": steps, "train.scan_steps": 1,
+            "train.eval_steps": 10 ** 6, "train.log_steps": 10 ** 6,
+            "train.force_assembly": "dense", "train.final_f32_steps": 0},
+        database=NI_DB))
+    trainer, ds = manager.trainer, manager.dataset
+    batch_size, seed = (manager.train_parameters.batch_size,
+                        manager.train_parameters.seed)
     model, saved, _ = jax_load_model(str(ROOT / cfg["model"]))
-    model.descriptor.backend = "dense"
     saved = jax.tree_util.tree_map(lambda x: jnp.asarray(x, jnp.float64),
                                    saved)
-    ds = JaxDataset(db, model.featurizer, name=cfg["name"],
-                    test_size=cfg["test_size"], seed=cfg["seed"],
-                    dtype=np.float64, cache_dir=str(workdir),
-                    layout="dense", transpose=True)
     feats, labels = ds.build()
     tf_, tl_, ef_, el_ = ds.split(feats, labels)
     assert ds.max_occurs == model.max_occurs
+    assert manager.model.as_dict() == model.as_dict()
     if cfg["warm_start"]:
         params0 = saved
     else:
         params0 = chip_smoke.seeded_params(
-            jax.tree_util.tree_map(np.asarray, saved), cfg["seed"])
-    lp = JL.LossParameters(
-        energy=JL.LossOptions(weight=20.0, per_atom_loss=True),
-        forces=JL.LossOptions(weight=1.0))
-    steps = cfg["fixture_steps"]
-    trainer = JaxTrainer(
-        model, lp, JaxOpt(**cfg["opt"]),
-        JaxTP(batch_size=cfg["batch_size"], train_steps=steps,
-              eval_steps=10 ** 6, log_steps=10 ** 6, seed=cfg["seed"]),
-        minimize_properties=("energy", "forces"), n_devices=1)
+            jax.tree_util.tree_map(np.asarray, saved), seed)
     from tensoralloy_tpu.train.dataset import batches as jax_batches
-    first = next(jax_batches(tf_, tl_, cfg["batch_size"], seed=cfg["seed"],
-                             repeat=True))
+    first = next(jax_batches(tf_, tl_, batch_size, seed=seed, repeat=True))
     (_, _), grads = jax.jit(jax.value_and_grad(
         trainer.total_loss, has_aux=True))(
             params0, {k: jnp.asarray(v) for k, v in first[0].items()},
@@ -611,7 +769,7 @@ def _full_width_record(name: str, workdir: Path) -> dict:
                 callback=lambda s, st, m: losses.append(
                     float(m["loss/total"])))
     record = {"config": name, "precision": "float64",
-              "batch_size": cfg["batch_size"], "steps": steps,
+              "batch_size": batch_size, "steps": steps,
               "losses": losses, "grad_norm_first_step": grad_norm,
               "n_train": int(len(tl_["energy"])),
               "n_test": int(len(el_["energy"]))}
