@@ -77,7 +77,26 @@ failure ends the run with a non-zero exit and no result line:
              evaluation of the same checkpoint, and a second
              train_and_evaluate with more steps must resume from the
              newest checkpoint
-  8. time    median time per request and its device E/F/S part,
+  8. eam     the EAM/ADP family, on its default device (cuda): the
+             saved mleam_ni (EamAlloyNN, jittered fcc Ni of 108, 4000
+             and 32000 atoms) and mladp_mo_v5 (AdpNN, jittered bcc Mo of
+             128, 4394 and 31250 atoms) models served in float32 through
+             both routes of the calculator, the analytic EFS on the dense
+             layout (fast_efs=True) and autograd on the flat pair layout
+             (fast_efs=False), held against each other to 1e-4 in E, F
+             and S; both routes in float64 on the small cells against
+             the JAX fixtures (1e-10); each request's median time split
+             into host featurize + copy and device E/F/S. Then both runs'
+             input.toml as they stand but for depth (30 steps, the
+             'rose' and 'elastic' constraints on): TrainingManager ->
+             train_and_evaluate -> export (.npz and setfl) ->
+             evaluate_run -> the exported model served, and a second run
+             that resumes at step 20 and ends bit for bit where a run of
+             40 steps made in one go ends (deterministic algorithms on).
+             Prints each constraint's loss at the first and last step,
+             structures/s and the median step. No descriptor kernel may
+             launch in this phase
+  9. time    median time per request and its device E/F/S part,
              kernels vs twins; each kernel vs its twin at the
              32000-atom request's shapes (`ms`: the median of single
              CUDA-event-timed launches, as since the first slice;
@@ -162,6 +181,17 @@ TRAIN_CONFIGS = {
         model="artifacts/snap_ni_v5_readapt/model/snap_Ni.npz",
         warm_start=True, fixture_steps=3, steps=10, evaluate=False,
         kernels=("grap",)),
+}
+# the eam phase: model, lattice, element, lattice constant (Angstrom),
+# repeats of the cells served (the first is the JAX fixture's cell), and
+# the fixture
+EAM_PATHS = {
+    "mleam_ni": (MODELS / "mleam_ni" / "model" / "snap_Ni_mleam.npz", "fcc",
+                 "Ni", 3.52, (3, 10, 20),
+                 DATA / "torch_port_ref_eam_mleam_ni.json"),
+    "mladp_mo_v5": (MODELS / "mladp_mo_v5" / "model" / "snap_Mo_mladp_gw.npz",
+                    "bcc", "Mo", 3.16, (4, 13, 25),
+                    DATA / "torch_port_ref_eam_mladp_mo_v5.json"),
 }
 # the manager phase: steps of the first run (one evaluation and one
 # periodic checkpoint at EVAL_STEPS) and of the run that resumes it
@@ -1255,6 +1285,298 @@ def manage(card):
     return measured, launches
 
 
+# ----------------------------------------------------------------------
+# eam
+# ----------------------------------------------------------------------
+
+def jittered_lattice(kind: str, reps: int, a: float, seed: int = SEED,
+                     sigma: float = SIGMA):
+    """Periodic fcc or bcc supercell of reps^3 cells, every coordinate
+    jittered by N(0, sigma) from a seeded numpy generator.
+    -> (positions [n, 3], cell [3, 3])."""
+    if kind == "fcc":
+        return jittered_fcc(reps, seed, a, sigma)
+    grid = np.array([(i, j, k) for i in range(reps) for j in range(reps)
+                     for k in range(reps)], dtype=np.float64)
+    basis = np.array([[0.0, 0.0, 0.0], [0.5, 0.5, 0.5]])
+    pos = ((grid[:, None, :] + basis[None]) * a).reshape(-1, 3)
+    pos = pos + np.random.default_rng(seed).normal(0.0, sigma, pos.shape)
+    return pos, np.eye(3) * a * reps
+
+
+def _eam_requests(name):
+    """The fixture's cell, then the jittered cells of the larger sizes."""
+    from tensoralloy_tpu_torch.atoms import Structure
+    path, kind, element, a, sizes, fixture = EAM_PATHS[name]
+    s, _ = _fixture((fixture, element))
+    out = [s]
+    for reps in sizes[1:]:
+        pos, cell = jittered_lattice(kind, reps, a)
+        out.append(Structure.from_symbols([element] * len(pos), pos, cell,
+                                          pbc=[True] * 3))
+    return out
+
+
+def _timed_request(calc, s, reps):
+    """-> medians (ms) of the whole request, of the host featurize +
+    copy, and of the device E/F/S on the copied features."""
+    vap = calc._get_vap(s)
+    t_req = _median_host_ms(lambda: calc.calculate(s), reps)
+    t_feat = _median_host_ms(lambda: calc.featurize(s, vap), reps)
+    feats = calc.featurize(s, vap)
+    efs = calc._get_efs(s)
+    t_dev = _median_host_ms(lambda: efs(feats), max(reps, 5))
+    return t_req, t_feat, t_dev
+
+
+def serve_eam(name, card):
+    """One saved EAM-family model through both routes of the calculator
+    in float32 on its default device (which must be cuda): the analytic
+    EFS on the dense layout (fast_efs=True) and autograd on the flat pair
+    layout (fast_efs=False), held against each other on every request;
+    both routes in float64 on the fixture's cell against the JAX
+    fixture; then each request timed and split."""
+    from tensoralloy_tpu_torch.calculator import TensorAlloyCalculator
+    path, _, _, _, _, fixture = EAM_PATHS[name]
+    print(f"  -- {name}: {path.relative_to(ROOT)}")
+    routes = {"fast": True, "autograd": False}
+    calcs = {r: TensorAlloyCalculator(str(path), dtype="medium",
+                                      fast_efs=f) for r, f in routes.items()}
+    for route, calc in calcs.items():
+        devices = {calc.device.type} | {p.device.type
+                                        for p in calc.model.parameters()}
+        if devices != {"cuda"}:
+            raise AssertionError(f"the default device is {devices}")
+        print(f"  {route}: layout {calc.layout}")
+    structures = _eam_requests(name)
+    for s in structures:
+        res = {r: c.calculate(s) for r, c in calcs.items()}
+        errs = efs_errors(res["fast"], res["autograd"])
+        fsum = float(np.max(np.abs(res["fast"]["forces"].sum(axis=0))))
+        fmax = float(np.max(np.abs(res["fast"]["forces"])))
+        print(f"  {len(s)} atoms: E {res['fast']['energy']:.6f} eV, "
+              f"max|F| {fmax:.4f} eV/A, |sum F| {fsum:.2e}; fast vs "
+              f"autograd {json.dumps(errs)}")
+        if max(errs.values()) > F32_REL:
+            raise AssertionError(f"{name}: the two routes disagree: {errs}")
+        if fsum > 1e-5 * fmax * np.sqrt(len(s)):
+            raise AssertionError(f"|sum F| = {fsum} is not ~0")
+    s, ref = _fixture((fixture, EAM_PATHS[name][2]))
+    for route, fast in routes.items():
+        calc64 = TensorAlloyCalculator(str(path), dtype="high",
+                                       fast_efs=fast)
+        errs = efs_errors(calc64.calculate(s), ref)
+        print(f"  {len(s)} atoms, float64, {route} vs the JAX fixture: "
+              f"{json.dumps(errs)}")
+        if max(errs.values()) > F64_REL:
+            raise AssertionError(f"{name} {route} disagrees with the JAX "
+                                 "fixture")
+    times = {}
+    for s in structures:
+        reps = 5 if len(s) < 10000 else 3
+        for route, calc in calcs.items():
+            t_req, t_feat, t_dev = _timed_request(calc, s, reps)
+            times[(route, len(s))] = (t_req, t_feat, t_dev)
+            print(f"  {name} {route} request {len(s)} atoms: {t_req:.2f} ms, "
+                  f"of which host featurize + copy {t_feat:.2f} ms, device "
+                  f"E/F/S {t_dev:.2f} ms (medians of {reps}; {card})")
+    return times
+
+
+def _record_steps(trainer, rows):
+    """Have `trainer.train_step` append (step, seconds with the device
+    waited for, metrics) to `rows`."""
+    step_fn = trainer.train_step
+
+    def recorded(state, feats, labels):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step_fn(state, feats, labels)
+        torch.cuda.synchronize()
+        rows.append((int(state["step"]), time.perf_counter() - t0,
+                     {k: float(v) for k, v in out[1].items()}))
+        return out
+
+    trainer.train_step = recorded
+
+
+def _eam_step_split(manager, params, card):
+    """The split of a train step's loss and gradient: the energy and
+    force terms of one batch, then each constraint alone; medians of 3,
+    the device waited for."""
+    from tensoralloy_tpu_torch.utils import tree_flatten, tree_unflatten
+    trainer = manager.trainer
+    feats, labels = manager.dataset.build()
+    bs = trainer.train_parameters.batch_size
+    bf = trainer._to_device({k: v[:bs] for k, v in feats.items()})
+    bl = trainer._to_device({k: v[:bs] for k, v in labels.items()})
+    constraints, trainer.constraints = trainer.constraints, []
+    try:
+        parts = {"energy + forces": _median_host_ms(
+            lambda: trainer.loss_and_grads(params, bf, bl, 0), 3)}
+    finally:
+        trainer.constraints = constraints
+    flat = tree_flatten(params)
+    for c in constraints:
+        def loss_and_grad(c=c):
+            leaves = {k: v.detach().requires_grad_() for k, v in flat.items()}
+            with torch.enable_grad():
+                torch.autograd.grad(c.loss(tree_unflatten(leaves)),
+                                    list(leaves.values()), allow_unused=True)
+        parts[c.name] = _median_host_ms(loss_and_grad, 3)
+    print("  a step's loss + gradient, split: " + ", ".join(
+        f"{k} {v:.1f} ms" for k, v in parts.items())
+        + f" (medians of 3, the device waited for; {card})")
+
+
+def manager_eam(name, workdir, card):
+    """An EAM/ADP experiment file at full width, cut to MANAGER_STEPS
+    steps, with its 'rose' and 'elastic' constraints: TrainingManager ->
+    train_and_evaluate -> export (.npz and setfl) -> evaluate_run -> the
+    exported model served, then a second run that resumes at the newest
+    checkpoint, held bit for bit against a run of as many steps made in
+    one go (under torch.use_deterministic_algorithms)."""
+    from tensoralloy_tpu_torch.calculator import TensorAlloyCalculator
+    from tensoralloy_tpu_torch.io.lammps import read_eam_alloy_setfl
+    from tensoralloy_tpu_torch.train.evaluation import evaluate_run
+    from tensoralloy_tpu_torch.train.manager import TrainingManager
+    from tensoralloy_tpu_torch.utils import tree_flatten
+    work = Path(workdir) / f"eam_{name}"
+    work.mkdir()
+    overrides = {"train.train_steps": MANAGER_STEPS,
+                 "train.eval_steps": MANAGER_EVAL_STEPS,
+                 "train.log_steps": MANAGER_EVAL_STEPS,
+                 "train.summary_steps": 10}
+    config = experiment_config(name, work, overrides)
+    dump_toml(config, work / "input.toml")
+    manager = TrainingManager(str(work / "input.toml"))
+    trainer = manager.trainer
+    names = [c.name for c in manager.constraints]
+    print(f"  -- manager {name}: artifacts/{name}/input.toml "
+          f"({config['pair_style']}), {MANAGER_STEPS} steps, batch "
+          f"{config['train']['batch_size']}, constraints {names}")
+    if trainer.device.type != "cuda" or trainer.dtype != torch.float32 \
+            or sorted(names) != ["elastic", "rose"]:
+        raise AssertionError(f"{name}: device {trainer.device}, dtype "
+                             f"{trainer.dtype}, constraints {names}")
+    t0 = time.perf_counter()
+    manager.dataset.build()
+    build_s = time.perf_counter() - t0
+    print(f"  dataset: {len(manager.db)} structures, flat pair layout "
+          f"(nij_max {manager.dataset.nij_max}), featurized on the host in "
+          f"{build_s:.1f} s ({card})")
+    rows = []
+    _record_steps(trainer, rows)
+    t0 = time.perf_counter()
+    result = manager.train_and_evaluate(verbose=False)
+    fit_s = time.perf_counter() - t0
+    exported = Path(manager.export())
+    style = manager.pair_style.model
+    setfl = exported.with_name(exported.stem + (
+        ".adp" if style == "adp" else f".{style}.eam"))
+    table = read_eam_alloy_setfl(str(setfl), is_adp=style == "adp")
+    if len(rows) != MANAGER_STEPS or not exported.exists() \
+            or not all(np.isfinite(r[2]["loss/total"]) for r in rows):
+        raise AssertionError(f"{name}: {len(rows)} steps, exported "
+                             f"{exported}")
+    step_ms = float(np.median([r[1] for r in rows[2:]])) * 1e3
+    first, last = rows[0][2], rows[-1][2]
+    terms = ("loss/total", "loss/energy", "loss/forces", "loss/rose",
+             "loss/elastic")
+    print(f"  train_and_evaluate: {MANAGER_STEPS} steps in {fit_s:.1f} s "
+          f"(one evaluation, the checkpoints included), "
+          f"{result['throughput']:.1f} structures/s; a step {step_ms:.1f} "
+          f"ms (median, the device waited for; {card})")
+    print("  losses at the first and the last step: " + ", ".join(
+        f"{k[5:]} {first[k]:.6g} -> {last[k]:.6g}" for k in terms))
+    _eam_step_split(manager, result["state"]["params"], card)
+    print(f"  exported {exported.name} and {setfl.name} "
+          f"({table.nr} r x {table.nrho} rho points, elements "
+          f"{table.elements})")
+
+    report = evaluate_run(str(work), per_group=True, verbose=False)
+    history = json.loads((Path(manager.model_dir)
+                          / "history.json").read_text())
+    overall = report["splits"]["test"]["overall"]
+    err = abs(overall["energy_meV_per_atom"]
+              - 1000 * history[0]["energy/mae/atom"]) \
+        / (1000 * history[0]["energy/mae/atom"])
+    print(f"  evaluate_run at step {report['step']}: test overall "
+          f"{overall['energy_meV_per_atom']:.3f} meV/atom, "
+          f"{overall['force_eV_A']:.4f} eV/A over {overall['n']} "
+          f"structures; rel err vs the trainer's evaluation {err:.2e}")
+    if report["step"] != MANAGER_EVAL_STEPS or err > 1e-6:
+        raise AssertionError(f"{name}: evaluate_run disagrees")
+
+    calc = TensorAlloyCalculator(str(exported), dtype="medium")
+    feats, _ = manager.dataset.build()
+    test_row = int(manager.dataset.split_indices(len(manager.db))[1][0])
+    structure = manager.db.get(test_row + 1)
+    res = calc.calculate(structure)
+    pred = trainer.batched_predictions(
+        result["state"]["ema_params"], trainer._to_device(
+            {k: v[test_row:test_row + 1] for k, v in feats.items()}))
+    err = abs(res["energy"] - float(pred["energy"][0])) \
+        / abs(float(pred["energy"][0]))
+    print(f"  the exported model serves test structure {test_row + 1} "
+          f"({len(structure)} atoms, fast EFS): E {res['energy']:.6f} eV, "
+          f"rel err vs the trainer's prediction {err:.2e}")
+    if err > F32_REL or not np.isfinite(res["forces"]).all():
+        raise AssertionError(f"{name}: the exported model is not served "
+                             "right")
+
+    # a run cut short resumes at its newest checkpoint and ends where a
+    # run of as many steps made in one go ends
+    config["train"]["train_steps"] = MANAGER_RESUMED_STEPS
+    dump_toml(config, work / "input.toml")
+    again = TrainingManager(str(work / "input.toml"))
+    resumed = []
+    _record_steps(again.trainer, resumed)
+    out = again.train_and_evaluate(verbose=False)
+    straight_cfg = experiment_config(name, work, {
+        **overrides, "train.train_steps": MANAGER_RESUMED_STEPS,
+        "train.model_dir": str(work / "straight")})
+    straight = TrainingManager(straight_cfg).train_and_evaluate(
+        verbose=False)
+    a = tree_flatten(out["state"]["params"])
+    b = tree_flatten(straight["state"]["params"])
+    same = all(torch.equal(a[k], b[k]) for k in b)
+    print(f"  resumed at step {resumed[0][0] if resumed else None}, "
+          f"{len(resumed)} steps to {out['state']['step']}; bit for bit "
+          f"the run made in one go: {same} (deterministic algorithms on)")
+    if not resumed or resumed[0][0] != MANAGER_EVAL_STEPS or not same:
+        raise AssertionError(f"{name}: the run did not resume exactly")
+    return {"build_s": build_s, "fit_s": fit_s, "step_ms": step_ms,
+            "structures_per_s": result["throughput"]}
+
+
+def eam(card):
+    """The EAM family: both saved models served through both routes, and
+    both experiment files through the manager. No descriptor kernel lies
+    on this path: the launch counts are reset before it and must read 0
+    after it."""
+    from tensoralloy_tpu_torch.ops import fused
+    phase("eam")
+    t0 = time.perf_counter()
+    fused.reset_launch_counts()
+    served = {name: serve_eam(name, card) for name in EAM_PATHS}
+    deterministic = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        with tempfile.TemporaryDirectory() as workdir:
+            managed = {name: manager_eam(name, workdir, card)
+                       for name in EAM_PATHS}
+    finally:
+        torch.use_deterministic_algorithms(deterministic)
+    launches = {k: v for k, v in fused.launch_counts.items() if v}
+    print(f"  descriptor kernel launches over the eam phase: "
+          f"{launches or 0} (none on this path)")
+    if launches:
+        raise AssertionError("the EAM path launched a descriptor kernel")
+    print(f"  eam phase {time.perf_counter() - t0:.1f} s")
+    return served, managed
+
+
 def _median_ms(fn, reps: int, warmup: int = 3) -> float:
     """Median of `reps` CUDA-event times of single calls: the event pair
     also spans the host's enqueue when the device waits on it."""
@@ -1462,6 +1784,7 @@ def main() -> int:
     served, launches = serve()
     measured, per_step = train(card)
     managed, manager_launches = manage(card)
+    eam(card)
     for counts in [m["launches"] for m in measured.values()] \
             + [manager_launches]:
         for k, v in counts.items():

@@ -1,22 +1,29 @@
 """Inference calculator over a saved model (port of the host-neighbor-list
-dense path of `tensoralloy_tpu/calculator.py`).
+path of `tensoralloy_tpu/calculator.py`).
 
-Structures are featurized on the host (numpy) into the dense per-atom
-layout, moved to `device`, and energy, forces and stress come from the
-scatter-free `ops.dense.make_dense_efs_fn`: forces and stress
-differentiate the model's variational energy (the free energy F = U - TS
-of a finite-temperature model, at the electron temperature the
-featurizer reads from `structure.info["etemperature"]`), and the atomic
-energies and finite-temperature heads come out of the same pass
-(`model.energy_and_aux`): a request evaluates its descriptors once. Per-element
-counts are rounded up to powers of two and the dense row widths are
-bucketed (`nnl` from 32, `ntl` from 64), so a stream of structures
-reuses a few layouts; each layout gets a re-laid-out model clone from a
-cache.
+Structures are featurized on the host (numpy), moved to `device`, and
+energy, forces and stress come from one of three routes, by model:
 
-Not ported yet: the on-device neighbor list (`device_nl`), the
-row-chunked large-cell path (`chunked`), the analytic EAM EFS
-(`fast_efs`) and `get_hessian`.
+  * descriptor models (SF, GRAP, finite temperature) read the dense
+    per-atom layout through the scatter-free `ops.dense.make_dense_efs_fn`:
+    forces and stress differentiate the variational energy (the free
+    energy F = U - TS of a finite-temperature model, at the electron
+    temperature the featurizer reads from `structure.info
+    ["etemperature"]`), and the atomic energies and finite-temperature
+    heads come out of the same pass (`model.energy_and_aux`);
+  * the EAM family with `fast_efs` (the default, "auto"): the analytic
+    energy, forces and stress of `nn.eam.fast_efs` on the dense layout;
+  * the EAM family with `fast_efs=False`: autograd of the energy on the
+    flat pair ('segment') layout (`nn.fields.make_efs_fn`), whose
+    per-atom sums are `index_add`s.
+
+Per-element counts are rounded up to powers of two and the widths are
+bucketed (flat pairs from 256, `nnl` from 32, `ntl` from 64), so a
+stream of structures reuses a few layouts; each layout gets a
+re-laid-out model clone from a cache.
+
+Not ported yet: the on-device neighbor list (`device_nl=True`), the
+chunked large-cell path (`chunked=True`) and `get_hessian`.
 """
 from __future__ import annotations
 
@@ -27,9 +34,32 @@ import numpy as np
 import torch
 
 from .atoms import Structure
+from .nn.fields import make_efs_fn
 from .ops.dense import make_dense_efs_fn
 from .precision import resolve_device, resolve_dtype
 from .vap import VirtualAtomMap
+
+
+def is_eam_family(model) -> bool:
+    """True only for CONCRETE EamNN models whose variational energy is
+    the plain EAM energy, which the analytic fast path reimplements; a
+    wrapper that changes the energy never takes that path."""
+    from .nn.eam.models import EamNN
+    if not isinstance(model, EamNN):
+        return False
+    return getattr(type(model), "variational_energy", None) \
+        is EamNN.variational_energy
+
+
+def model_feature_layout(model, fast: bool = False) -> str:
+    """The feature layout a model reads: 'segment' for the EAM family,
+    'dense' for the descriptor models; `fast=True` selects the dense
+    layout for the EAM family too (the analytic fast EFS reads it)."""
+    if fast and is_eam_family(model):
+        return "dense"
+    descriptor = getattr(model, "descriptor", None)
+    backend = getattr(descriptor, "backend", "segment")
+    return "segment" if backend == "segment" else "dense"
 
 
 def _bucket(n: int, minimum: int = 256) -> int:
@@ -48,16 +78,20 @@ def _not_ported(mode: str, slice_name: str):
 class TensorAlloyCalculator:
     """Evaluate energy/forces/stress of arbitrary structures.
 
-    `model_or_path`: a saved `.npz` or an `AtomicNN` (or a
-    finite-temperature subclass), already on `device` in `dtype`.
+    `model_or_path`: a saved `.npz`, or an `AtomicNN` (or a
+    finite-temperature subclass) or an EAM-family model already on
+    `device` in `dtype`.
     `device` is the card unless the caller passes "cpu"; "cuda" without
     a card raises.
     `dtype` is 'high' (float64), 'medium' (float32) or a torch float
     dtype; `backend` overrides the saved descriptor backend ('dense' =
     plain PyTorch, 'pallas' = the CUDA kernels) when loading from a
     path. `chunked`, `device_nl` and `fast_efs` take the reference's
-    values; "auto" and False evaluate on the host-built lists in one
-    piece, True raises until those paths are ported."""
+    values. `fast_efs`: "auto" (the default) and True serve the EAM
+    family through the analytic EFS on the dense layout, False through
+    autograd on the flat pair layout; other models ignore it. `chunked`
+    and `device_nl`: "auto" and False evaluate on the host-built lists in
+    one piece, True raises until those paths are ported."""
 
     implemented_properties = ("energy", "free_energy", "forces", "stress",
                               "pressure", "atomic_energies")
@@ -67,18 +101,17 @@ class TensorAlloyCalculator:
                  chunked: "bool | str" = "auto",
                  device_nl: "bool | str" = "auto",
                  fast_efs: "bool | str" = "auto"):
-        # "auto" (the reference's default) and False take the monolithic
-        # host-list path, the only one ported; True asks for a path that
-        # is not there yet
-        for mode, value, slice_name in (
-                ("chunked evaluation", chunked, "the large-cell slice"),
-                ("device_nl", device_nl, "the EAM/MD slice (slice 3)"),
-                ("fast_efs", fast_efs, "the EAM/MD slice (slice 3)")):
-            if value is True:
-                raise _not_ported(mode, slice_name)
-            if value is not False and value != "auto":
+        for mode, value in (("chunked", chunked), ("device_nl", device_nl),
+                            ("fast_efs", fast_efs)):
+            if value is not True and value is not False and value != "auto":
                 raise ValueError(f"{mode}: expected True, False or "
                                  f"'auto', got {value!r}")
+        # "auto" (the reference's default) and False take the monolithic
+        # host-list path; True asks for a path that is not there yet
+        if chunked is True:
+            raise _not_ported("chunked evaluation", "the large-cell slice")
+        if device_nl is True:
+            raise _not_ported("device_nl", "the MD slice (slice 3b)")
         self.device = resolve_device(device)
         self.dtype = resolve_dtype(dtype)
         if isinstance(model_or_path, str):
@@ -93,6 +126,10 @@ class TensorAlloyCalculator:
             self.model, self.config = model_or_path, {}
         # serving differentiates w.r.t. geometry only
         self.model.requires_grad_(False)
+        # the analytic EFS where the model supports it: "auto" and True
+        # alike (the reference's rule, with chunked=True never taken)
+        self.fast_efs = fast_efs is not False and is_eam_family(self.model)
+        self.layout = model_feature_layout(self.model, fast=self.fast_efs)
         self.featurizer = self.model.featurizer
         self._efs_cache: Dict[tuple, Callable] = {}
         self._vap_cache: Dict[tuple, VirtualAtomMap] = {}
@@ -127,7 +164,13 @@ class TensorAlloyCalculator:
         efs = self._efs_cache.get(key)
         if efs is None:
             model = self.model.clone_for(Counter(dict(key)))
-            efs = make_dense_efs_fn(model.energy_and_aux)
+            if self.fast_efs:
+                from .nn.eam.fast_efs import make_fast_efs_fn
+                efs = make_fast_efs_fn(model)
+            elif self.layout == "segment":
+                efs = make_efs_fn(model.energy_and_aux)
+            else:
+                efs = make_dense_efs_fn(model.energy_and_aux)
             self._efs_cache[key] = efs
         return efs
 
@@ -147,12 +190,15 @@ class TensorAlloyCalculator:
         """Host featurization -> tensors on the calculator's device."""
         np_dtype = np.float64 if self.dtype == torch.float64 else np.float32
         feats = self.featurizer.featurize(
-            structure, vap,
+            structure, vap, layout=self.layout,
+            pair_bucket=lambda n: _bucket(max(n, 1)),
             # per-atom neighbor/triple WIDTHS are far smaller than flat
             # counts: a 256-minimum bucket would pad every row 2-8x
             nnl_bucket=lambda n: _bucket(max(n, 1), minimum=32),
             ntl_bucket=lambda n: _bucket(max(n, 1), minimum=64),
-            dtype=np_dtype, transpose=True)
+            dtype=np_dtype,
+            # the transpose tables feed the dense descriptor EFS only
+            transpose=self.layout == "dense" and not self.fast_efs)
         return {k: torch.as_tensor(v, device=self.device)
                 for k, v in feats.items()}
 
@@ -236,4 +282,5 @@ class TensorAlloyCalculator:
 
     def get_hessian(self, structure: Structure,
                     phonopy_format: bool = False) -> np.ndarray:
-        raise _not_ported("get_hessian", "the analysis slice (slice 4)")
+        raise _not_ported("get_hessian", "the large-cell and Hessian "
+                          "slice (ROADMAP queue 1, item 7)")

@@ -1,11 +1,13 @@
 """Saved-model files (port of `tensoralloy_tpu/io/model.py`).
 
 A saved model is one ``.npz``: the flat parameter arrays under keys
-``p/<path>`` (``p/Ni/mlp/layers/0/w``) plus ``__config__``, a JSON
-string with the model class, featurizer, descriptor and max_occurs.
-The port reads and writes the same files as the JAX package. Loading
-needs no init template: a flat key maps straight onto a state-dict key
-(``params.Ni.mlp.layers.0.w``).
+``p/<path>`` (``p/Ni/mlp/layers/0/w``, ``p/zjw04xc/Ni/A``,
+``p/nn/Ni.rho/layers/0/w``) plus ``__config__``, a JSON string with the
+model class, featurizer, descriptor (or analytic potentials) and
+max_occurs. The port reads and writes the same files as the JAX
+package. Loading needs no init template: the flat keys are the
+parameter tree (`utils.tree_unflatten`), which the model takes with
+`load_param_tree`.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ import numpy as np
 import torch
 
 from ..precision import resolve_device, resolve_dtype
+from ..utils import tree_flatten, tree_unflatten
 
 API_VERSION = "1.1"
 _PREFIX = "p/"
@@ -78,20 +81,22 @@ def save_model(path: str, model, params=None,
     and the JAX package's calculators both load. `params` is a parameter
     tree to write in place of the module's own weights (the trainer's
     EMA parameters, as the JAX `save_model(path, model, params)`)."""
-    state = (model.state_dict() if params is None
-             else params_from_jax(params))
-    first = next(iter(state.values()))
+    tree = model.param_tree() if params is None else params
+    flat = {k: (v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
+                else np.asarray(v))
+            for k, v in tree_flatten(tree, _PREFIX[:-1]).items()}
+    anchor = next(iter(flat.values()), None)
+    if anchor is None:          # a model without parameters
+        anchor = model._anchor.detach().cpu().numpy()
     config = {
         "model": model.as_dict(),
         "api_version": API_VERSION,
         "timestamp": time.strftime("%Y-%m-%d %H:%M:%S"),
         "framework": "tensoralloy_tpu_torch",
-        "precision": str(first.detach().cpu().numpy().dtype),
+        "precision": str(anchor.dtype),
     }
     if extra_metadata:
         config.update(extra_metadata)
-    flat = {_PREFIX + k[len(_STATE_PREFIX):].replace(".", "/"):
-            v.detach().cpu().numpy() for k, v in state.items()}
     flat["__config__"] = np.frombuffer(
         json.dumps(config).encode(), dtype=np.uint8)
     np.savez(path, **flat)
@@ -111,27 +116,31 @@ def load_model(path: str, *, device="cuda", dtype="high",
     config = json.loads(bytes(flat.pop("__config__")).decode())
     model_cfg = dict(config["model"])
     if backend is not None:
+        if "descriptor" not in model_cfg:
+            raise ValueError(f"backend={backend!r}: a {model_cfg['class']} "
+                             "has no descriptor")
         model_cfg["descriptor"] = dict(model_cfg["descriptor"],
                                        backend=backend)
     model = model_from_dict(model_cfg, device=device,
                             dtype=resolve_dtype(dtype))
-    state = {_STATE_PREFIX + k[len(_PREFIX):].replace("/", "."):
-             torch.from_numpy(v) for k, v in flat.items()}
-    model.load_state_dict(state)
+    model.load_param_tree(tree_unflatten(flat, _PREFIX[:-1]))
     return model, config
+
+
+EAM_CLASSES = ("EamAlloyNN", "EamFsNN", "AdpNN")
 
 
 def model_from_dict(d: dict, *, device=None, dtype=None):
     """Model factory: AtomicNN and the finite-temperature
     TemperatureDependentAtomicNN and BeNN, with SymmetryFunction or GRAP
-    descriptors."""
+    descriptors, and the EAM family (EamAlloyNN, EamFsNN, AdpNN)."""
     from ..transform.featurizer import Featurizer
     cls = d["class"]
+    if cls in EAM_CLASSES:
+        from ..nn.eam.models import model_from_dict as eam_from_dict
+        return eam_from_dict(d, device=device, dtype=dtype)
     if cls not in ("AtomicNN", "TemperatureDependentAtomicNN", "BeNN"):
-        raise NotImplementedError(
-            f"model class {cls!r} is not ported yet (the serving slices "
-            f"carry AtomicNN and the finite-temperature models; the "
-            f"EAM/ADP family comes with slice 3)")
+        raise ValueError(f"unknown model class {cls!r}")
     kwargs = dict(
         hidden_sizes=d.get("hidden_sizes"),
         activation=d.get("activation", "softplus"),

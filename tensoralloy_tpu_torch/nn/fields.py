@@ -6,9 +6,12 @@
   stress  sigma = W / V (eV/A^3), Voigt order [xx, yy, zz, yz, xz, xy]
   total pressure P = -tr(sigma)/3 in GPa
 
-`make_efs_fn` differentiates w.r.t. positions and cell; the calculator
-serves through the scatter-free `ops.dense.make_dense_efs_fn`, and the
-tests hold the two against each other.
+`make_efs_fn` differentiates w.r.t. positions and cell (the EAM family's
+route on the flat pair layout, and the trainer's where a batch carries
+no transpose tables); the calculator serves descriptor models through
+the scatter-free `ops.dense.make_dense_efs_fn`, and the tests hold the
+two against each other. `make_hessian_fn` gives the force constants
+that `nn.constraints.ForceConstantsConstraint` fits.
 """
 from __future__ import annotations
 
@@ -70,3 +73,27 @@ def make_efs_fn(energy_fn: Callable, create_graph: bool = False
         return out
 
     return efs
+
+
+def make_hessian_fn(energy_fn: Callable, create_graph: bool = False
+                    ) -> Callable:
+    """`energy_fn(features) -> (energy, aux)` of one structure ->
+    fn(features) -> the Hessian d^2E/dpos^2 [A, 3, A, 3] (the JAX
+    `make_hessian_fn`), one backward pass per row. With `create_graph`
+    it stays in the autograd graph (a loss on it can be differentiated
+    w.r.t. the model's parameters)."""
+
+    def hess(features) -> torch.Tensor:
+        pos = features["positions"].detach().requires_grad_()
+        f = dict(features, positions=pos)
+        with torch.enable_grad():
+            energy, _ = energy_fn(f)
+            grad, = torch.autograd.grad(energy, pos, create_graph=True)
+            flat = grad.reshape(-1)
+            rows = [torch.autograd.grad(flat[i], pos, retain_graph=True,
+                                        create_graph=create_graph)[0]
+                    for i in range(flat.numel())]
+        h = torch.stack(rows).reshape(pos.shape + pos.shape)
+        return h if create_graph else h.detach()
+
+    return hess

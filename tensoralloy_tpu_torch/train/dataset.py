@@ -1,23 +1,26 @@
 """Dataset pipeline: database -> featurized, padded, batched arrays (port
 of `tensoralloy_tpu/train/dataset.py`; numpy only).
 
-Structures are featurized once into fixed-shape numpy arrays in the dense
-per-atom layout and cached as a compressed ``.npz`` in a directory the
-caller names (the file name carries the signature: name, k_max, rc,
-layout, precision, count); batches are index selections of those arrays.
-Labels are VAP-mapped on the host so the device loss is pure array math.
+Structures are featurized once into fixed-shape numpy arrays and cached
+as a compressed ``.npz`` in a directory the caller names (the file name
+carries the signature: name, k_max, rc, layout, precision, count);
+batches are index selections of those arrays. Labels are VAP-mapped on
+the host so the device loss is pure array math. The layout is the one
+the model reads: 'dense' (per-atom rows, the descriptor models),
+'segment' (flat pair arrays padded to the database's largest pair
+count, the EAM family) or 'both'; the flat triple arrays are not
+ported, so an angular featurizer takes 'dense' only.
 
 The cache schema (``f_<feature>``, ``l_<label>``), the split permutation
 (`RandomState(seed)`, test rows first) and the batch order are shared
 with the JAX package. The layout is part of the file name, and the
-defaults differ: this package writes ``...-dense-...`` files, the JAX
-`Dataset` (``layout="both"``) files without a layout tag. A ``-dense``
-file written by either package is read by the other; where it is
-absent, `build` reads the JAX default's ``both`` file and keeps its
-dense (``_d``) keys. A cache that predates the packed periodic images
-is upgraded and rewritten on load (`ops.dense.convert_legacy_shifts`).
-
-Not carried over: the 'segment' / 'both' layouts themselves.
+defaults differ: this package's default writes ``...-dense-...`` files,
+the JAX `Dataset` (``layout="both"``) files without a layout tag. A
+``-dense`` or ``-segment`` file written by either package is read by the
+other; where it is absent, `build` reads the JAX default's ``both`` file
+and keeps the keys of its own layout. A cache that predates the packed
+periodic images is upgraded and rewritten on load
+(`ops.dense.convert_legacy_shifts`).
 """
 from __future__ import annotations
 
@@ -52,11 +55,13 @@ class Dataset:
         # the cache is written where the caller says, never next to the
         # database by default
         self.cache_dir = str(cache_dir)
-        if layout != "dense":
+        if layout not in ("dense", "segment", "both"):
+            raise ValueError(f"unknown layout {layout!r}")
+        if layout != "dense" and featurizer.angular:
             raise NotImplementedError(
-                f"layout={layout!r}: only the dense per-atom layout is "
-                "ported (the flat 'segment' layout comes with the "
-                "'segment' descriptor backends)")
+                f"layout={layout!r} with an angular featurizer: the flat "
+                "'segment' triple arrays are not ported yet (they come "
+                "with the 'segment' descriptor backends)")
         self.layout = layout
         # also emit the host-built transpose tables so the trainer can
         # assemble forces scatter-free (`force_assembly='dense'`)
@@ -99,7 +104,7 @@ class Dataset:
     def _featurize_one(self, s: Structure) -> Tuple[Arrays, Arrays]:
         fz = self.featurizer
         vap = fz.make_vap(s, self.max_occurs)
-        feats = fz.featurize(s, vap,
+        feats = fz.featurize(s, vap, nij_max=self.nij_max,
                              nnl_max=self.nnl_max or None,
                              ntl_max=self.ntl_max or None,
                              dtype=self.dtype, layout=self.layout,
@@ -142,10 +147,12 @@ class Dataset:
             with np.load(cached) as z:
                 data = {k: z[k] for k in z.files}
             if cached != self.cache_path:
-                # the flat pair/triple arrays of a 'both' file go unread
+                # a 'both' file: the other layout's arrays go unread
+                drop = (lambda k: not k.endswith("_d")) \
+                    if self.layout == "dense" else (lambda k: k.endswith("_d"))
                 data = {k: v for k, v in data.items()
                         if not (k.startswith(("f_pair_", "f_trip_"))
-                                and not k.endswith("_d"))}
+                                and drop(k))}
         else:
             structures = list(self.db)
             n_jobs = 0 if serial else (os.cpu_count() or 1)

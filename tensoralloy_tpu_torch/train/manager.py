@@ -6,10 +6,14 @@ defaults. What differs follows from PyTorch: the file's `precision`
 ('high' | 'medium') becomes the explicit dtype of the dataset, the model
 and the trainer (no global is set), the device is the `device` argument
 (the card unless the caller passes "cpu"), and a fresh start draws its
-parameters from a `torch.Generator` seeded with `seed`. A request for
-something that is not ported yet (the EAM/ADP family, loss constraints,
-several devices, the 'segment' backend, legacy-mode GRAP, the learned
-'nn' filter) raises `NotImplementedError` when the manager is built.
+parameters from a `torch.Generator` seeded with `seed`. The descriptor
+models read the dense layout, the EAM family the flat pair layout; the
+constraint losses named under `nn.minimize` are built as the JAX manager
+builds them, and `export` writes the EAM family's setfl file beside the
+`.npz`. A request for something that is not ported yet (several
+devices, the descriptors' 'segment' backend, legacy-mode GRAP, the
+learned 'nn' filter) raises `NotImplementedError` when the manager is
+built.
 """
 from __future__ import annotations
 
@@ -28,15 +32,6 @@ from ..transform.featurizer import Featurizer
 from . import hooks as hook_ops
 from .dataset import Dataset
 from .trainer import OptParameters, TrainParameters, Trainer
-
-# names in `nn.minimize` that ask for a constraint loss
-_CONSTRAINTS = {"elastic": "nn.loss.elastic.crystals",
-                "rose": "nn.loss.rose.crystals",
-                "ediff": "nn.loss.ediff.crystals",
-                "eentropy/c": "nn.loss.eentropy_constraint.crystals",
-                "hessian/c": "nn.loss.hessian_constraint.crystals",
-                "extra/c": "nn.loss.extra_constraint.filename"}
-
 
 def _not_ported(what: str, slice_name: str) -> NotImplementedError:
     return NotImplementedError(
@@ -75,12 +70,10 @@ class TrainingManager:
         r = self.reader
         self.precision = r["precision"]
         self.pair_style = PairStyle.parse(r["pair_style"])
-        if self.pair_style.category == "eam":
-            raise _not_ported(f"pair_style {r['pair_style']!r}",
-                              "the EAM/ADP slice (nn/eam)")
+        eam = self.pair_style.category == "eam"
         backend = r.get(f"nn.atomic.{self.pair_style.model}.backend",
                         "dense") or "dense"
-        if backend == "segment":
+        if backend == "segment" and not eam:
             raise _not_ported("the 'segment' descriptor backend",
                               "the segment-layout slice")
         n_devices = r.get("distribute.num_devices", 0) or None
@@ -98,19 +91,26 @@ class TrainingManager:
             acut=r["acut"] if angular else None, angular=angular)
 
         dtype = np.float64 if self.precision == "high" else np.float32
+        # the EAM family computes its geometry from the flat pair arrays
+        layout = "segment" if eam else "dense"
         # the transpose tables for the scatter-free force assembly are
         # emitted only when the file asks for `force_assembly = 'dense'`
         # (they change the cache schema); 'auto' then resolves to the
         # dense path in the trainer because the tables exist
         fa = str(r.get("train.force_assembly", "auto") or "auto")
+        if fa == "dense" and layout != "dense":
+            raise ValueError(
+                "train.force_assembly='dense' requires a dense/pallas "
+                f"descriptor backend (pair_style {r['pair_style']!r} "
+                "uses the flat segment layout)")
         self.dataset = Dataset(
             self.db, self.featurizer, name=r["dataset.name"],
             test_size=r["dataset.test_size"], seed=r["seed"], dtype=dtype,
-            cache_dir=r["dataset.tfrecords_dir"], layout="dense",
+            cache_dir=r["dataset.tfrecords_dir"], layout=layout,
             transpose=(fa == "dense"))
 
-        self.constraints = self._build_constraints()
         self.model = self._build_model()
+        self.constraints = self._build_constraints()
         self.loss_parameters = self._build_loss_parameters()
         self.opt_parameters = self._build_opt_parameters()
         self.train_parameters = self._build_train_parameters()
@@ -126,21 +126,76 @@ class TrainingManager:
         self._last_state: Optional[dict] = None
 
     def _build_constraints(self) -> list:
-        """The constraint losses named in `nn.minimize`: none is ported,
-        so a file that asks for one is refused."""
+        """The constraint losses named in `nn.minimize`, each with its
+        section's options; crystal files resolve against the database's
+        directory."""
+        from ..nn import constraints as C
         r = self.reader
-        asked = [name for name, key in _CONSTRAINTS.items()
-                 if name in r["nn.minimize"] and r.get(key)
-                 and (name != "extra/c" or os.path.exists(r[key]))]
-        if asked:
-            raise _not_ported(f"the loss constraint(s) {asked}",
-                              "the nn/constraints.py slice")
-        return []
+        base_dir = os.path.dirname(os.path.abspath(r["dataset.sqlite3"]))
+        minimize = r["nn.minimize"]
+        out = []
+        if "elastic" in minimize and r.get("nn.loss.elastic.crystals"):
+            ec = r.get("nn.loss.elastic.constraint", {})
+            out.append(C.ElasticConstraint(
+                self.model, r["nn.loss.elastic.crystals"],
+                weight=r.get("nn.loss.elastic.weight", 0.1),
+                options=C.ElasticConstraintOptions(
+                    use_kbar=ec.get("use_kbar", True),
+                    forces_weight=ec.get("forces_weight", 1.0),
+                    stress_weight=ec.get("stress_weight", 0.1),
+                    tau=ec.get("tau", 1.0)),
+                base_dir=base_dir))
+        if "rose" in minimize and r.get("nn.loss.rose.crystals"):
+            out.append(C.RoseConstraint(
+                self.model, C.RoseConstraintOptions(
+                    crystals=r["nn.loss.rose.crystals"],
+                    weight=r.get("nn.loss.rose.weight", 1.0),
+                    beta=r.get("nn.loss.rose.beta", []),
+                    dx=r.get("nn.loss.rose.dx", 0.01),
+                    xlo=r.get("nn.loss.rose.xlo", 0.90),
+                    xhi=r.get("nn.loss.rose.xhi", 1.02),
+                    p_target=r.get("nn.loss.rose.p_target", []),
+                    E_target=r.get("nn.loss.rose.E_target", [])),
+                base_dir=base_dir))
+        if "ediff" in minimize and r.get("nn.loss.ediff.crystals"):
+            out.append(C.EnergyDifferenceConstraint(
+                self.model,
+                references=r.get("nn.loss.ediff.references", []),
+                crystals=r.get("nn.loss.ediff.crystals", []),
+                diffs=r.get("nn.loss.ediff.diff", []),
+                weight=r.get("nn.loss.ediff.weight", 1.0),
+                method=r.get("nn.loss.ediff.method", "mae"),
+                base_dir=base_dir))
+        if "eentropy/c" in minimize and \
+                r.get("nn.loss.eentropy_constraint.crystals"):
+            out.append(C.EntropyConstraint(
+                self.model, r["nn.loss.eentropy_constraint.crystals"],
+                weight=r.get("nn.loss.eentropy_constraint.weight", 1.0),
+                base_dir=base_dir))
+        if "hessian/c" in minimize and \
+                r.get("nn.loss.hessian_constraint.crystals"):
+            out.append(C.ForceConstantsConstraint(
+                self.model, r["nn.loss.hessian_constraint.crystals"],
+                weight=r.get("nn.loss.hessian_constraint.weight", 1.0),
+                forces_weight=r.get(
+                    "nn.loss.hessian_constraint.forces_weight", 1.0),
+                base_dir=base_dir))
+        if "extra/c" in minimize and \
+                r.get("nn.loss.extra_constraint.filename") and \
+                os.path.exists(r["nn.loss.extra_constraint.filename"]):
+            out.append(C.ExtraDatabaseConstraint(
+                self.model, r["nn.loss.extra_constraint.filename"],
+                weight=r.get("nn.loss.extra_constraint.weight", 1.0),
+                minimize=r.get("nn.loss.extra_constraint.minimize",
+                               ["energy"])))
+        return out
 
     # ------------------------------------------------------------------
     def _build_model(self):
         r = self.reader
         ps = self.pair_style
+        if ps.category == "eam":
+            return self._build_eam_model()
         if ps.model == "sf":
             from ..nn.sf import SymmetryFunction
             sf = r.get("nn.atomic.sf", {})
@@ -194,6 +249,27 @@ class TrainingManager:
         from ..nn.atomic import AtomicNN
         return AtomicNN(self.featurizer, self.dataset.max_occurs,
                         descriptor, **kwargs)
+
+    def _build_eam_model(self):
+        from ..nn.eam import AdpNN, EamAlloyNN, EamFsNN
+        r = self.reader
+        cls = {"alloy": EamAlloyNN, "fs": EamFsNN, "adp": AdpNN}[
+            self.pair_style.model]
+        custom, hidden = {}, {}
+        for fkey in ("rho", "embed", "phi", "dipole", "quadrupole"):
+            table = r.get(f"nn.eam.{fkey}", {}) or {}
+            for section, value in table.items():
+                if isinstance(value, list):
+                    custom.setdefault(section, {})[fkey] = "nn"
+                    hidden.setdefault(section, {})[fkey] = list(value)
+                else:
+                    custom.setdefault(section, {})[fkey] = value
+        return cls(self.featurizer, self.dataset.max_occurs,
+                   custom_potentials=custom or None,
+                   hidden_sizes=hidden or None,
+                   activation=r["nn.atomic.activation"],
+                   fixed_functions=r.get("nn.eam.fixed_functions", []),
+                   use_resnet_dt=False)
 
     # ------------------------------------------------------------------
     def _loss_options(self, section: str) -> loss_ops.LossOptions:
@@ -358,13 +434,24 @@ class TrainingManager:
 
     def export(self, state: Optional[dict] = None,
                use_ema: bool = True) -> str:
-        """Save the deployable model; -> its path."""
+        """Save the deployable model (and, for the EAM family, its LAMMPS
+        setfl file beside it); -> the `.npz` path."""
         from ..io.model import save_model
         state = state or self._last_state
         if state is None:
             raise RuntimeError("nothing trained yet")
         params = state["ema_params"] if use_ema else state["params"]
-        path = os.path.join(self.model_dir,
-                            f"{self.reader['dataset.name']}.npz")
+        name = self.reader["dataset.name"]
+        path = os.path.join(self.model_dir, f"{name}.npz")
         save_model(path, self.model, params)
+        if self.pair_style.category == "eam":
+            r = self.reader
+            style = self.pair_style.model
+            setfl = os.path.join(
+                self.model_dir,
+                f"{name}.adp" if style == "adp" else f"{name}.{style}.eam")
+            nrho = r.get("nn.eam.setfl.nrho", 2000)
+            self.model.export_to_setfl(
+                setfl, params, nr=r.get("nn.eam.setfl.nr", 2000), nrho=nrho,
+                rho_max=nrho * r.get("nn.eam.setfl.drho", 0.05))
         return path

@@ -6,8 +6,10 @@ The state is a dict of parameter trees shaped like the JAX package's:
     {"params": tree, "opt_state": dict, "ema_params": tree, "step": int}
 
 A train step evaluates the batch in one pass ([B, A, ...] features: one
-launch of each descriptor kernel), takes forces and stress from
-`torch.autograd.grad(..., create_graph=True)`, and differentiates the
+launch of each descriptor kernel; the EAM family's flat [B, nij] pair
+arrays), takes forces and stress from
+`torch.autograd.grad(..., create_graph=True)`, adds the loss of every
+constraint (`nn.constraints`) under its name, and differentiates the
 loss w.r.t. the parameters only (a second backward through the first).
 Flat `.npz` checkpoints use the JAX package's keys (`params/...`,
 `ema/...`, `opt/...`, `step`), so either package resumes from the
@@ -78,7 +80,8 @@ class TrainParameters:
     # How a step assembles forces and stress from the energy:
     #   'autodiff' — differentiate w.r.t. positions and cell
     #       (`nn.fields.make_efs_fn`); the backward of every
-    #       positions[pair_j_d] gather is a scatter-add.
+    #       positions[pair_j_d] gather is a scatter-add. The EAM family's
+    #       flat pair layout always takes this path.
     #   'dense'    — differentiate w.r.t. the dense pair/triple VECTORS
     #       and assemble forces through the featurizer's transpose
     #       tables (`ops.dense.make_dense_efs_fn`, gathers only). Needs
@@ -151,8 +154,9 @@ class Trainer:
 
     `device` is the card unless the caller passes "cpu" ("cuda" without
     a card raises); `dtype` is 'high' (float64), 'medium' (float32) or a
-    torch float dtype. The model is moved there. Data-parallel training
-    (`n_devices` > 1) and loss constraints are not ported yet."""
+    torch float dtype. The model, and the constant features of the
+    `constraints`, are moved there. Data-parallel training (`n_devices`
+    > 1) is not ported yet."""
 
     def __init__(self, model, loss_parameters: loss_ops.LossParameters,
                  opt_parameters: OptParameters,
@@ -165,13 +169,11 @@ class Trainer:
             raise NotImplementedError(
                 f"n_devices={n_devices}: data-parallel training is not "
                 "ported yet; it comes with the parallel/ slice")
-        if constraints:
-            raise NotImplementedError(
-                "loss constraints are not ported yet; they come with "
-                "the nn/constraints.py slice")
         self.device = resolve_device(device)
         self.dtype = resolve_dtype(dtype)
         self.model = model.to(device=self.device, dtype=self.dtype)
+        self.constraints = [c.to(self.device, self.dtype)
+                            for c in constraints or []]
         self.loss_parameters = loss_parameters
         self.opt_parameters = opt_parameters
         self.train_parameters = train_parameters
@@ -308,6 +310,9 @@ class Trainer:
                 w = float(np.float32(w) * np.float32(lp.l2.decay_rate) ** (
                     np.float32(step) / np.float32(lp.l2.decay_steps)))
             out["l2"] = self.model.l2_loss(params) * w
+
+        for constraint in self.constraints:
+            out[constraint.name] = constraint.loss(params)
 
         total = sum(out.values())
         metrics.update({f"loss/{k}": v for k, v in out.items()})

@@ -1,11 +1,14 @@
-"""Featurization: structures -> the dense per-atom layout, on the host.
+"""Featurization: structures -> fixed-shape arrays, on the host (port of
+`tensoralloy_tpu/transform/featurizer.py`).
 
 numpy, with the triples enumerated by the native C++ list where it can
-be built (`native/`; the Python loop otherwise, in the same order). This
-is the ``layout="dense"`` half of
-``tensoralloy_tpu.transform.featurizer``; it emits the same keys with the
-same values, so both packages read one feature contract. The flat
-pair/triple ('segment') layout is not carried over.
+be built (`native/`; the Python loop otherwise, in the same order). It
+emits the same keys with the same values as the JAX featurizer, so both
+packages read one feature contract. Two layouts: the dense per-atom
+rows that the descriptor models read, and the flat pair arrays
+('segment') that the EAM family reads; 'both' emits the two. The flat
+triple arrays are not carried over: a segment layout on an angular
+featurizer raises.
 
 Shape contract (`Features` dict; A = n_vap rows, N = nnl, Nt = ntl):
   positions     [A, 3]    VAP layout, row 0 = virtual atom
@@ -13,6 +16,13 @@ Shape contract (`Features` dict; A = n_vap rows, N = nnl, Nt = ntl):
   atom_masks    [A]       1.0 for real atoms
   n_atoms       []        number of real atoms (int32)
   etemperature  []        electron temperature (eV)
+  (layout 'segment' or 'both'; nij = padded pair count)
+  pair_i / pair_j [nij]   int32 VAP rows (0 for padding)
+  pair_shift    [nij, 3]  integer cell shifts (float dtype)
+  pair_islot    [nij]     int32 radial slot within the center's terms
+  pair_term     [nij]     int32 global radial k-body term id
+  pair_mask     [nij]     1.0 for real pairs
+  (layout 'dense' or 'both')
   pair_j_d      [A, N]    int32 VAP row of each neighbor
   pair_simg_d   [A, N]    int32 packed periodic image (`encode_simg_np`)
   pair_mask_d   [A, N]    1.0 for real pairs
@@ -35,7 +45,7 @@ import numpy as np
 
 from ..atoms import Structure
 from ..elements import atomic_numbers
-from ..neighbor import neighbor_list
+from ..neighbor import NeighborSize, find_neighbor_size_of_atoms, neighbor_list
 from ..utils import get_kbody_terms
 from ..vap import VirtualAtomMap
 
@@ -94,10 +104,13 @@ class Featurizer:
         self.n_angular_slots = (n * (n + 1) // 2) if symmetric else n * n
 
         # (center_idx, neighbor_idx) -> slot within center's radial terms
+        # and -> global term id
         self._rslot = np.zeros((n, n), dtype=np.int32)
+        self._rterm = np.zeros((n, n), dtype=np.int32)
         for ci, ce in enumerate(elements):
             for ni, ne in enumerate(elements):
                 self._rslot[ci, ni] = terms_per_elem[ce].index(ce + ne)
+                self._rterm[ci, ni] = all_terms.index(ce + ne)
         if angular:
             self._aslot = np.zeros((n, n, n), dtype=np.int32)
             for ci, ce in enumerate(elements):
@@ -116,6 +129,11 @@ class Featurizer:
     def max_cutoff(self) -> float:
         return max(self.rcut, self.acut)
 
+    def neighbor_size(self, structure: Structure) -> NeighborSize:
+        return find_neighbor_size_of_atoms(
+            structure, self.rcut, angular=self.angular,
+            acut=self.acut if self.angular else None)
+
     def make_vap(self, structure: Structure,
                  max_occurs: Optional[Counter] = None) -> VirtualAtomMap:
         if max_occurs is None:
@@ -131,25 +149,32 @@ class Featurizer:
                   nnl_bucket=None, ntl_bucket=None,
                   layout: str = "dense",
                   transpose: bool = False,
-                  ttrans_max: Optional[int] = None) -> Features:
-        """Build the dense feature arrays for one structure.
+                  ttrans_max: Optional[int] = None,
+                  nij_max: Optional[int] = None,
+                  pair_bucket=None) -> Features:
+        """Build the feature arrays for one structure.
 
+        `layout` is 'dense' (the per-atom rows), 'segment' (the flat
+        pair arrays) or 'both'. `nij_max` fixes the padded length of the
+        flat pair arrays; by default it is this structure's pair count,
+        rounded up by `pair_bucket` when given.
         `nnl_max`/`ntl_max` fix the widths of the per-atom neighbor and
         triple rows; by default they are this structure's own maxima,
-        rounded up by `nnl_bucket`/`ntl_bucket` when given (bounded
-        shape variety for serving). `transpose=True` adds the transpose
-        tables that `ops.dense.make_dense_efs_fn` assembles forces
-        with; `ttrans_max` fixes the width of the triple tables (pass
-        the dataset's `NeighborSize.ttrans` so that structures stack).
-        `layout` is 'dense'; the flat 'segment' layout (and 'both') is
-        not ported."""
-        if layout != "dense":
-            if layout in ("both", "segment"):
-                raise NotImplementedError(
-                    f"layout={layout!r}: the flat 'segment' feature "
-                    "layout is not ported yet (it comes with the "
-                    "'segment' descriptor backends); use layout='dense'")
+        rounded up by `nnl_bucket`/`ntl_bucket` (or `pair_bucket`) when
+        given (bounded shape variety for serving). `transpose=True` adds
+        the transpose tables that `ops.dense.make_dense_efs_fn`
+        assembles forces with; `ttrans_max` fixes the width of the
+        triple tables (pass the dataset's `NeighborSize.ttrans` so that
+        structures stack). The flat triple arrays are not ported: an
+        angular featurizer takes layout 'dense' only."""
+        if layout not in ("both", "segment", "dense"):
             raise ValueError(f"unknown layout {layout!r}")
+        if layout != "dense" and self.angular:
+            raise NotImplementedError(
+                f"layout={layout!r} on an angular featurizer: the flat "
+                "'segment' triple arrays are not ported yet (they come "
+                "with the 'segment' descriptor backends); use "
+                "layout='dense'")
         structure = structure.ensure_cell()
         if vap is None:
             vap = self.make_vap(structure)
@@ -184,14 +209,32 @@ class Featurizer:
 
         ci = elem_idx_local[ilist]
         cj = elem_idx_local[jlist]
+        if layout in ("both", "segment"):
+            nij = len(ilist)
+            if nij_max is None:
+                nij_max = pair_bucket(nij) if pair_bucket else nij
+            pad = nij_max - nij
+            if pad < 0:
+                raise ValueError(f"nij={nij} exceeds nij_max={nij_max}")
+            feats["pair_i"] = _pad(vap.local_to_vap[ilist], nij_max, 0)
+            feats["pair_j"] = _pad(vap.local_to_vap[jlist], nij_max, 0)
+            feats["pair_shift"] = np.concatenate(
+                [shift, np.zeros((pad, 3))], axis=0).astype(dtype)
+            feats["pair_islot"] = _pad(self._rslot[ci, cj], nij_max, 0)
+            feats["pair_term"] = _pad(self._rterm[ci, cj], nij_max, 0)
+            feats["pair_mask"] = np.concatenate(
+                [np.ones(nij), np.zeros(pad)]).astype(dtype)
+            if layout == "segment":
+                return feats
+
         # Row = VAP index of the center, column = neighbor counter.
         cols, nnl = _columns_of(ilist, len(structure))
         if nnl_max is not None:
             if nnl > nnl_max:
                 raise ValueError(f"nnl={nnl} exceeds nnl_max={nnl_max}")
             nnl = int(nnl_max)
-        elif nnl_bucket is not None:
-            nnl = int(nnl_bucket(nnl))
+        elif nnl_bucket is not None or pair_bucket is not None:
+            nnl = int((nnl_bucket or pair_bucket)(nnl))
         nnl = max(nnl, 1)
         n_vap = vap.n_atoms_vap
         rows = vap.local_to_vap[ilist]

@@ -158,9 +158,13 @@ def test_deferred_modes_raise():
         TensorAlloyCalculator(MODEL, device="cpu", device_nl=True)
     with pytest.raises(NotImplementedError, match="slice"):
         TensorAlloyCalculator(MODEL, device="cpu", chunked=True)
-    with pytest.raises(NotImplementedError, match="slice"):
-        TensorAlloyCalculator(MODEL, device="cpu", fast_efs=True)
     _, s = _structures(1)
+    # fast_efs=True asks for the EAM family's analytic route: another
+    # model serves as without it, as in the JAX calculator
+    calc = TensorAlloyCalculator(MODEL, device="cpu", fast_efs=True)
+    assert calc.fast_efs is False and calc.layout == "dense"
+    assert calc.calculate(s)["energy"] == TensorAlloyCalculator(
+        MODEL, device="cpu").calculate(s)["energy"]
     calc = TensorAlloyCalculator(MODEL, device="cpu")
     with pytest.raises(NotImplementedError, match="slice"):
         calc.get_hessian(s)
@@ -235,7 +239,13 @@ def test_port_imports_without_jax():
             "tensoralloy_tpu_torch.io.xyz, "
             "tensoralloy_tpu_torch.linear.preset, "
             "tensoralloy_tpu_torch.train.manager, "
-            "tensoralloy_tpu_torch.train.evaluation; "
+            "tensoralloy_tpu_torch.train.evaluation, "
+            "tensoralloy_tpu_torch.nn.eam.fast_efs, "
+            "tensoralloy_tpu_torch.nn.constraints, "
+            "tensoralloy_tpu_torch.data.crystals, "
+            "tensoralloy_tpu_torch.io.lammps, "
+            "tensoralloy_tpu_torch.ops.safe, "
+            "tensoralloy_tpu_torch.ops.spline; "
             "assert 'tensoralloy_tpu' not in sys.modules; print('ok')")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)

@@ -37,6 +37,11 @@ ARTIFACTS = ROOT / "artifacts"
 # run -> (structures kept, most atoms of a kept structure)
 RUNS = {"snap_ni_sfa": (14, 32), "snap_ni_v5_readapt": (14, 32),
         "snap_moni": (14, 32), "td_be": (10, 36)}
+# the six EAM/ADP experiment files (pair_style eam/*, with the 'rose' and
+# 'elastic' constraints)
+EAM_RUNS = {"mleam_ni": (14, 32), "mladp_mo": (14, 54),
+            "mladp_mo_v2": (14, 54), "mladp_mo_v3": (14, 54),
+            "mladp_mo_v4": (14, 54), "mladp_mo_v5": (14, 54)}
 CUT = {"precision": "high", "dataset.test_size": 3, "train.batch_size": 4}
 
 
@@ -69,7 +74,7 @@ def cut_config(run: str, tmp: Path, overrides=None) -> dict:
     small = tmp / "cut" / Path(full).name
     small.parent.mkdir(parents=True, exist_ok=True)
     if not small.exists():
-        cut_database(full, small, *RUNS[run])
+        cut_database(full, small, *{**RUNS, **EAM_RUNS}[run])
     return experiment_config(run, tmp, {**CUT, **(overrides or {})},
                              database=small)
 
@@ -138,11 +143,12 @@ def _jax_start(manager, feats):
     return params
 
 
-@pytest.mark.parametrize("run", sorted(RUNS))
+@pytest.mark.parametrize("run", sorted(RUNS) + ["mladp_mo_v5", "mleam_ni"])
 def test_three_steps_from_carried_over_parameters_match_jax(run, tmp_path):
     """Three optimizer steps at float64, each package on its own dataset
     build, from the JAX manager's initial parameters: the loss of every
-    step to 1e-8, the parameters after the last to 1e-8."""
+    step and each of its terms (the constraint losses of the EAM files
+    included) to 1e-8, the parameters after the last to 1e-8."""
     config = cut_config(run, tmp_path, {
         "train.train_steps": 3, "train.scan_steps": 1,
         "train.eval_steps": 100, "train.log_steps": 100})
@@ -156,7 +162,7 @@ def test_three_steps_from_carried_over_parameters_match_jax(run, tmp_path):
     want = want_mgr.trainer.fit(
         tf_, tl_, params=params, verbose=False,
         callback=lambda s, st, m: want_losses.append(
-            float(m["loss/total"])))
+            {k: float(v) for k, v in m.items() if k.startswith("loss/")}))
 
     manager = TrainingManager(config, device="cpu")
     feats, labels = manager.dataset.build()
@@ -165,9 +171,16 @@ def test_three_steps_from_carried_over_parameters_match_jax(run, tmp_path):
     got = manager.trainer.fit(
         tf_, tl_, verbose=False,
         params=tree_map(lambda x: torch.as_tensor(np.array(x)), params),
-        callback=lambda s, st, m: losses.append(float(m["loss/total"])))
-    assert len(losses) == 3 and np.isfinite(losses).all()
-    np.testing.assert_allclose(losses, want_losses, rtol=1e-8)
+        callback=lambda s, st, m: losses.append(
+            {k: float(v) for k, v in m.items() if k.startswith("loss/")}))
+    assert len(losses) == 3
+    if run in EAM_RUNS:
+        assert {"loss/rose", "loss/elastic"} <= set(want_losses[0])
+    for a, b in zip(losses, want_losses):
+        assert set(a) == set(b)
+        for k in b:
+            assert np.isfinite(a[k])
+            np.testing.assert_allclose(a[k], b[k], rtol=1e-8, err_msg=k)
     a = tree_flatten(got["state"]["params"])
     b = tree_flatten(jax.device_get(want["state"]["params"]))
     assert set(a) == set(b)
@@ -182,11 +195,12 @@ RUN_FILES = ("input.json", "run.pid", "ckpt-4.npz", "ckpt-best.npz",
              "history.json")
 
 
-@pytest.mark.parametrize("run", ["snap_ni_sfa", "td_be"])
+@pytest.mark.parametrize("run", ["snap_ni_sfa", "td_be", "mleam_ni"])
 def test_experiment_from_a_file_to_a_served_model(run, tmp_path):
     """input.toml -> TrainingManager -> train_and_evaluate -> export ->
     evaluate_run -> calculator, then the auto-resume of a run cut
-    short."""
+    short. An EAM file trains with its constraints and exports its setfl
+    file too, which reads as the JAX export of the same parameters."""
     config = cut_config(run, tmp_path, {
         "train.train_steps": 6, "train.scan_steps": 2,
         "train.eval_steps": 4, "train.log_steps": 4,
@@ -217,6 +231,10 @@ def test_experiment_from_a_file_to_a_served_model(run, tmp_path):
 
     exported = manager.export()
     assert exported == str(model_dir / f"{config['dataset']['name']}.npz")
+    if run in EAM_RUNS:
+        assert {c.name for c in manager.constraints} == {"rose", "elastic"}
+        assert {"loss/rose", "loss/elastic"} <= set(rows[0])
+        _assert_setfl_is_the_jax_export(manager, result["state"], tmp_path)
     calc = TensorAlloyCalculator(exported, device="cpu", dtype="high")
     structure = manager.db.get(1)
     if manager.pair_style.finite_temperature:
@@ -278,6 +296,39 @@ def test_experiment_from_a_file_to_a_served_model(run, tmp_path):
     assert TrainingManager(done, device="cpu")._initial_state() is None
 
 
+def _assert_setfl_is_the_jax_export(manager, state, tmp_path):
+    """The setfl file beside the exported .npz, read by the port's
+    reader, equals the JAX model's export of the same EMA parameters
+    <= 1e-10."""
+    from tensoralloy_tpu.nn.eam import model_from_dict as jax_eam_model
+    from tensoralloy_tpu.transform import Featurizer as JaxFeaturizer
+    from tensoralloy_tpu_torch.io.lammps import read_eam_alloy_setfl
+    name = manager.reader["dataset.name"]
+    style = manager.pair_style.model
+    got_path = Path(manager.model_dir) / (
+        f"{name}.adp" if style == "adp" else f"{name}.{style}.eam")
+    d = manager.model.as_dict()
+    jax_model = jax_eam_model(d, JaxFeaturizer.from_dict(d["featurizer"]),
+                              manager.model.max_occurs)
+    params = tree_map(lambda v: np.asarray(v.detach()),
+                      state["ema_params"])
+    want_path = tmp_path / "jax_export.eam"
+    r = manager.reader
+    nrho = r.get("nn.eam.setfl.nrho", 2000)
+    jax_model.export_to_setfl(
+        str(want_path), params, nr=r.get("nn.eam.setfl.nr", 2000),
+        nrho=nrho, rho_max=nrho * r.get("nn.eam.setfl.drho", 0.05))
+    got = read_eam_alloy_setfl(str(got_path), is_adp=style == "adp")
+    want = read_eam_alloy_setfl(str(want_path), is_adp=style == "adp")
+    assert (got.nr, got.nrho, got.elements) == (want.nr, want.nrho,
+                                                want.elements)
+    for table in ("frho", "rho", "phi"):
+        for key, value in getattr(want, table).items():
+            a = getattr(got, table)[key]
+            assert np.max(np.abs(a - value)) <= 1e-10 * np.max(
+                np.abs(value)), (table, key)
+
+
 def test_warm_start_from_the_file_named_in_the_toml(tmp_path):
     """`train.ckpt.checkpoint_filename`: an existing file is restored
     with the file's switches (EMA weights, fresh optimizer, step kept or
@@ -303,15 +354,29 @@ def test_warm_start_from_the_file_named_in_the_toml(tmp_path):
     assert TrainingManager(warm, device="cpu")._initial_state()["step"] == 0
 
 
+EAM_MODEL = str(ARTIFACTS / "mleam_ni/model/snap_Ni_mleam.npz")
+
+
+def _ni_cell():
+    from chip_smoke import jittered_fcc
+    pos, cell = jittered_fcc(2)
+    return Structure.from_symbols(["Ni"] * len(pos), pos, cell,
+                                  pbc=[True] * 3)
+
+
+def _calculator(**kw):
+    return TensorAlloyCalculator(EAM_MODEL, device="cpu", **kw)
+
+
+def _eam_model():
+    from tensoralloy_tpu_torch.io.model import load_model
+    return load_model(EAM_MODEL, device="cpu")[0]
+
+
+# what still raises NotImplementedError, each by its name: the manager's
+# refusals (run, overrides, match) and the other entry points (a callable
+# and match)
 NOT_PORTED = {
-    "eam": ("mladp_mo", {}, "EAM/ADP"),
-    "eam_alloy": ("mleam_ni", {}, "EAM/ADP"),
-    "rose": ("snap_ni_sfa", {"nn.minimize": ["energy", "forces", "rose"],
-                             "nn.loss.rose.crystals": ["Ni"]},
-             "constraints"),
-    "elastic": ("snap_ni_sfa", {"nn.minimize": ["energy", "elastic"],
-                                "nn.loss.elastic.crystals": ["Ni"]},
-                "constraints"),
     "devices": ("snap_ni_sfa", {"distribute.strategy": "mirrored",
                                 "distribute.num_devices": 4}, "parallel"),
     "segment": ("snap_ni_sfa", {"nn.atomic.sf.backend": "segment"},
@@ -320,11 +385,32 @@ NOT_PORTED = {
                {"nn.atomic.grap.legacy_mode": True}, "legacy"),
     "nn_filter": ("snap_ni_v5_readapt",
                   {"nn.atomic.grap.algorithm": "nn"}, "'nn'"),
+    "chunked": (lambda: _calculator(chunked=True), "chunked"),
+    "device_nl": (lambda: _calculator(device_nl=True), "device_nl"),
+    "get_hessian": (lambda: _calculator().get_hessian(_ni_cell()),
+                    "get_hessian"),
+    "energy_chunked": (lambda: _eam_model().energy_chunked({}),
+                       "energy_chunked"),
+    "heat_flux": (lambda: __import__(
+        "tensoralloy_tpu_torch.nn.eam.fast_efs", fromlist=["x"]
+    ).make_fast_heat_flux_fn(_eam_model()), "heat flux"),
+    "segment_triples": (lambda: __import__(
+        "tensoralloy_tpu_torch.transform.featurizer", fromlist=["x"]
+    ).Featurizer(["Ni"], 4.0, angular=True).featurize(
+        _ni_cell(), layout="segment"), "triple"),
+    "lammps_files": (lambda: __import__(
+        "tensoralloy_tpu_torch.io.lammps", fromlist=["x"]
+    ).read_tersoff_file("Ni.tersoff"), "Tersoff"),
 }
 
 
 @pytest.mark.parametrize("case", sorted(NOT_PORTED))
 def test_what_is_not_ported_raises_by_name(case, tmp_path):
+    if callable(NOT_PORTED[case][0]):
+        fn, match = NOT_PORTED[case]
+        with pytest.raises(NotImplementedError, match=match):
+            fn()
+        return
     run, overrides, match = NOT_PORTED[case]
     if run in RUNS:
         config = cut_config(run, tmp_path, overrides)
@@ -336,8 +422,9 @@ def test_what_is_not_ported_raises_by_name(case, tmp_path):
 
 def test_rose_and_elastic_files_in_the_repo_are_refused(tmp_path):
     """The six files that list 'rose' and 'elastic' are the EAM/ADP
-    ones; a descriptor file that asked for them is refused too, so none
-    trains quietly without its constraints."""
+    ones. Until the constraints were ported every one was refused; now
+    none is, and none trains without its constraints (each builds both,
+    `test_eam_files_build_their_constraints_as_in_jax`)."""
     asked = []
     for path in sorted(ARTIFACTS.glob("*/input.toml")):
         with open(path, "rb") as fh:
@@ -345,7 +432,41 @@ def test_rose_and_elastic_files_in_the_repo_are_refused(tmp_path):
         if {"rose", "elastic"} & set(cfg.get("nn", {}).get("minimize", [])):
             asked.append(path.parent.name)
             assert cfg["pair_style"].startswith("eam/")
-    assert len(asked) == 6
+    assert sorted(asked) == sorted(EAM_RUNS)
+
+
+@pytest.mark.parametrize("run", sorted(EAM_RUNS))
+def test_eam_files_build_their_constraints_as_in_jax(run, tmp_path):
+    """Each eam/* input.toml (on a cut copy of its database) builds the
+    model, the flat-layout dataset and the 'rose' and 'elastic'
+    constraints that the JAX manager builds."""
+    config = cut_config(run, tmp_path)
+    want = JaxTrainingManager(dict(config, dataset=dict(
+        config["dataset"], tfrecords_dir=str(tmp_path / "jax_cache"))))
+    got = TrainingManager(config, device="cpu")
+    assert got.model.as_dict() == want.model.as_dict()
+    assert type(got.model).__name__ == type(want.model).__name__
+    assert got.dataset.layout == want.dataset.layout == "segment"
+    assert got.dataset.signature == want.dataset.signature
+    assert [c.name for c in got.constraints] == \
+        [c.name for c in want.constraints] == ["elastic", "rose"]
+    assert got.trainer.constraints == got.constraints
+    elastic, rose = got.constraints
+    j_elastic, j_rose = want.constraints
+    assert elastic.weight == j_elastic.weight
+    assert dataclasses.asdict(elastic.options) == dataclasses.asdict(
+        j_elastic.options)
+    assert dataclasses.asdict(rose.options) == dataclasses.asdict(
+        j_rose.options)
+    for (_, _, eq, batch, scales, *rest), (_, _, j_eq, j_batch, j_x,
+                                           *j_rest) in zip(rose.entries,
+                                                           j_rose.entries):
+        np.testing.assert_allclose(scales["x"].numpy(), np.asarray(j_x),
+                                   rtol=0, atol=0)
+        assert rest == j_rest
+        for key, value in batch.items():
+            np.testing.assert_array_equal(value.numpy(), np.asarray(
+                j_batch[key]), err_msg=key)
 
 
 def test_manager_defaults_to_the_card(monkeypatch, tmp_path):
@@ -358,20 +479,24 @@ def test_manager_defaults_to_the_card(monkeypatch, tmp_path):
         evaluate_run(str(tmp_path), verbose=False)
 
 
+# checkpoint -> its number of keys
 CHECKPOINTS = {
-    "dlite": "snap_mo_refsf_dlite/model/ckpt-15000.npz",
-    "l2ft": "snap_mo_refsf_l2ft/model/ckpt-15000.npz",
-    "rrmse": "snap_mo_refsf_rrmse/model/ckpt-5000.npz",
+    "dlite": ("snap_mo_refsf_dlite/model/ckpt-15000.npz", 43),
+    "l2ft": ("snap_mo_refsf_l2ft/model/ckpt-15000.npz", 43),
+    "rrmse": ("snap_mo_refsf_rrmse/model/ckpt-5000.npz", 43),
+    "mleam": ("mleam_ni/model/ckpt-30000.npz", 83),
 }
 
 
 @pytest.mark.parametrize("name", sorted(CHECKPOINTS))
 def test_jax_checkpoints_in_the_repo_restore_as_in_jax(name, tmp_path):
     """`restore_state` on a checkpoint that a JAX run wrote, with the
-    model that the run's input.toml builds: all 43 keys are consumed,
-    and parameters, EMA, adam moments, count and step equal what the JAX
-    `Trainer.restore_state` returns, exactly."""
-    path = ARTIFACTS / CHECKPOINTS[name]
+    model that the run's input.toml builds: every key is consumed, and
+    parameters, EMA, adam moments, count and step equal what the JAX
+    `Trainer.restore_state` returns, exactly (the EAM file's fixed r_eq
+    and its zero moments included)."""
+    path, n_keys = CHECKPOINTS[name]
+    path = ARTIFACTS / path
     run = path.parent.parent.name
     config = experiment_config(run, tmp_path, {"precision": "high"})
     manager = TrainingManager(config, device="cpu")
@@ -380,7 +505,7 @@ def test_jax_checkpoints_in_the_repo_restore_as_in_jax(name, tmp_path):
     template = jax_manager.model.init_params(jax.random.PRNGKey(0))
     with np.load(path) as z:
         flat = {k: z[k] for k in z.files}
-    assert len(flat) == 43
+    assert len(flat) == n_keys
     for kw in (dict(), dict(use_ema_variables=True,
                             restore_optimizer_variables=False,
                             reset_global_step=True)):

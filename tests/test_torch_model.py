@@ -176,3 +176,60 @@ def test_saved_sf_models_load_and_serve_as_in_jax(run, monkeypatch):
 def test_segment_backend_is_deferred():
     with pytest.raises(NotImplementedError, match="later slice"):
         load_model(MODEL, device="cpu", backend="segment")
+
+
+# the six saved EAM-family models: an EamAlloyNN (Ni) and five AdpNNs (Mo)
+EAM_FILES = {
+    run: f"artifacts/{run}/model/{name}.npz" for run, name in (
+        ("mleam_ni", "snap_Ni_mleam"), ("mladp_mo", "snap_Mo_mladp"),
+        ("mladp_mo_v2", "snap_Mo_mladp"), ("mladp_mo_v3", "snap_Mo_mladp"),
+        ("mladp_mo_v4", "snap_Mo_mladp"),
+        ("mladp_mo_v5", "snap_Mo_mladp_gw"))}
+
+
+@pytest.mark.parametrize("run", sorted(EAM_FILES))
+def test_saved_eam_models_load_and_serve_as_in_jax(run, tmp_path):
+    """Every saved EAM/ADP model: the file's weights bit for bit (and
+    written back to the same keys and values), and one E/F/S request of
+    a jittered cell against the JAX calculator at float64 (the JAX
+    parameters upcast), through both routes of the port's calculator:
+    the analytic EFS on the dense layout and autograd on the flat pair
+    layout."""
+    from tensoralloy_tpu_torch.utils import tree_flatten
+    path = EAM_FILES[run]
+    jax_model, params, config = jax_load_model(path)
+    model, _ = load_model(path, device="cpu", dtype="medium")
+    assert model.as_dict() == config["model"]
+    with np.load(path) as z:
+        flat = {k: z[k] for k in z.files if k != "__config__"}
+    got = tree_flatten(model.param_tree(), "p")
+    assert set(got) == set(flat)
+    for key, value in flat.items():
+        assert torch.equal(got[key], torch.from_numpy(value)), key
+    out = tmp_path / "resaved.npz"
+    save_model(str(out), model)
+    with np.load(out) as z:
+        assert set(z.files) == set(flat) | {"__config__"}
+        for key, value in flat.items():
+            np.testing.assert_array_equal(z[key], value)
+
+    element = config["model"]["featurizer"]["elements"][0]
+    _, pos, cell = fcc_ni(2, seed=7)
+    if element == "Mo":   # bcc Mo, 54 atoms
+        grid = np.array([(i, j, k) for i in range(3) for j in range(3)
+                         for k in range(3)], float)
+        pos = ((grid[:, None] + np.array([[0, 0, 0], [.5, .5, .5]])[None])
+               * 3.16).reshape(-1, 3)
+        pos = pos + np.random.default_rng(7).normal(0.0, 0.05, pos.shape)
+        cell = np.eye(3) * 3 * 3.16
+    args = ([element] * len(pos), pos, cell)
+    jax_s = JaxStructure.from_symbols(*args, pbc=[True] * 3)
+    params64 = jax.tree_util.tree_map(lambda x: np.asarray(x, np.float64),
+                                      params)
+    want = JaxCalculator(jax_model, params=params64).calculate(jax_s)
+    for fast in (True, False):
+        calc = TensorAlloyCalculator(path, device="cpu", dtype="high",
+                                     fast_efs=fast)
+        res = calc.calculate(Structure.from_symbols(*args, pbc=[True] * 3))
+        for key in ("energy", "forces", "stress", "atomic_energies"):
+            assert _rel(res[key], want[key]) <= REL, (fast, key)

@@ -705,8 +705,20 @@ def test_trainer_defaults_to_the_card_and_names_what_waits(monkeypatch,
             TrainParameters())
     with pytest.raises(NotImplementedError, match="parallel/"):
         Trainer(*args, n_devices=4, device="cpu")
-    with pytest.raises(NotImplementedError, match="constraints"):
-        Trainer(*args, constraints=[object()], device="cpu")
+    # a constraint is moved to the trainer's device and dtype, and its
+    # loss joins the total under its name (nn/constraints.py)
+
+    class Pin:
+        name = "pin"
+
+        def to(self, device, dtype):
+            self.moved = (device, dtype)
+            return self
+
+    pin = Pin()
+    assert Trainer(*args, constraints=[pin], device="cpu").constraints \
+        == [pin]
+    assert pin.moved == (torch.device("cpu"), torch.float32)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match='device="cpu"'):
         Trainer(*args)
