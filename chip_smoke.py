@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths once on one NVIDIA
-GPU.
+"""Drive the PyTorch port's serving, training and dynamics paths once on
+one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -86,7 +86,9 @@ failure ends the run with a non-zero exit and no result line:
              (fast_efs=False), held against each other to 1e-4 in E, F
              and S; both routes in float64 on the small cells against
              the JAX fixtures (1e-10); each request's median time split
-             into host featurize + copy and device E/F/S. Then both runs'
+             into host featurize + copy and device E/F/S (map + copy,
+             build and E/F/S where "auto" takes the device builder: the
+             32000-atom cells). Then both runs'
              input.toml as they stand but for depth (30 steps, the
              'rose' and 'elastic' constraints on): TrainingManager ->
              train_and_evaluate -> export (.npz and setfl) ->
@@ -96,8 +98,36 @@ failure ends the run with a non-zero exit and no result line:
              Prints each constraint's loss at the first and last step,
              structures/s and the median step. No descriptor kernel may
              launch in this phase
-  9. time    median time per request and its device E/F/S part,
-             kernels vs twins; each kernel vs its twin at the
+  9. large   the device-list, chunked and Hessian routes, float32 on the
+             default device (cuda): grap 32000 (snap_Ni.npz, kernels),
+             EAM Ni 32000 and ADP Mo 31250 (fast EFS) and Ni 32000 on
+             the flat route (fast_efs=False) through the default
+             calculator, which must take the device builder (one cached
+             builder; the flat route also the chunked variant), held
+             against the same model on the host lists in one piece (E, F,
+             S to 1e-4, |sum F| ~ 0), each request's median split into
+             map + copy of the positions, build and E/F/S; SF 4000 with
+             device_nl=True (triples on the card) with its peak memory;
+             SF and GRAP 32000 with chunked=True, chunk_size=4096 against
+             the monolithic route, two launches of each kernel a block;
+             get_hessian of the 108-atom Ni cell (mleam_ni, snap_ni_sfa)
+             in float64 against the JAX fixtures
+             `tests/data/torch_port_ref_hessian_*.json` (1e-10),
+             symmetric
+ 10. md      the dynamics on the default device (cuda): (a) float64 NVE
+             of mleam_ni on the 32-atom cell, both EFS routes on host and
+             device lists, against `tests/data/torch_port_ref_md_*.json`
+             (positions 1e-9, totals 1e-10); (b) float32 NVE of EAM Ni
+             4000 on device lists, 200 steps of 1 fs from 300 K with the
+             heat flux: the drift of the total under 0.5 meV/atom, the
+             analytic and autograd fluxes of the last state to 1e-4; (c)
+             GRAP MD of Ni 4000 on device lists, 50 steps: grap_kernel
+             once a step and twice a chunk; (d) BAOAB NVT and Berendsen
+             NPT of ADP Mo 4394, 100 steps each. Each run prints steps/s,
+             atom-steps/s, the chunk-end sync time and the regrows
+ 11. time    median time per request and its device E/F/S part,
+             kernels vs twins (the grap 32000 request on device lists, as
+             "auto" routes it); each kernel vs its twin at the
              32000-atom request's shapes (`ms`: the median of single
              CUDA-event-timed launches, as since the first slice;
              `ms_queued`: the device time of calls queued behind a
@@ -110,7 +140,8 @@ failure ends the run with a non-zero exit and no result line:
              useful FLOP at the FP32 67 TFLOP/s
 
 The line before the last is a JSON object of per-kernel results (the
-launches of the serve, train and manager phases, each counted from 0);
+launches of the serve, train, manager, large and md phases, each counted
+from 0);
 the last is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -1318,15 +1349,20 @@ def _eam_requests(name):
 
 
 def _timed_request(calc, s, reps):
-    """-> medians (ms) of the whole request, of the host featurize +
-    copy, and of the device E/F/S on the copied features."""
+    """-> (median request ms, the split as text, median device E/F/S ms):
+    host featurize + copy on the host lists, or map + copy and the build
+    where the calculator routes the request to the device builder."""
+    if calc._use_device_nl(s):
+        t_req, t_copy, t_build, t_dev = _device_split(calc, s, reps)
+        return (t_req, f"on device lists: map + copy {t_copy:.2f} ms, "
+                f"build {t_build:.2f} ms", t_dev)
     vap = calc._get_vap(s)
     t_req = _median_host_ms(lambda: calc.calculate(s), reps)
     t_feat = _median_host_ms(lambda: calc.featurize(s, vap), reps)
     feats = calc.featurize(s, vap)
-    efs = calc._get_efs(s)
+    efs = calc._get_variant(s)[1]
     t_dev = _median_host_ms(lambda: efs(feats), max(reps, 5))
-    return t_req, t_feat, t_dev
+    return t_req, f"of which host featurize + copy {t_feat:.2f} ms", t_dev
 
 
 def serve_eam(name, card):
@@ -1375,11 +1411,11 @@ def serve_eam(name, card):
     for s in structures:
         reps = 5 if len(s) < 10000 else 3
         for route, calc in calcs.items():
-            t_req, t_feat, t_dev = _timed_request(calc, s, reps)
-            times[(route, len(s))] = (t_req, t_feat, t_dev)
+            t_req, split, t_dev = _timed_request(calc, s, reps)
+            times[(route, len(s))] = (t_req, t_dev)
             print(f"  {name} {route} request {len(s)} atoms: {t_req:.2f} ms, "
-                  f"of which host featurize + copy {t_feat:.2f} ms, device "
-                  f"E/F/S {t_dev:.2f} ms (medians of {reps}; {card})")
+                  f"{split}, device E/F/S {t_dev:.2f} ms (medians of "
+                  f"{reps}; {card})")
     return times
 
 
@@ -1577,6 +1613,388 @@ def eam(card):
     return served, managed
 
 
+# ----------------------------------------------------------------------
+# large: the device neighbor list, chunked requests and the Hessian
+# ----------------------------------------------------------------------
+
+# (name, model, lattice, element, a, repeats, calculator options, the
+# kernel every request launches or None): requests that "auto" sends
+# through the device builder
+DEVICE_NL_REQUESTS = (
+    ("grap 32000", PATHS["grap"][0], "fcc", "Ni", LATTICE, 20,
+     dict(backend="pallas"), "grap"),
+    ("eam Ni 32000 fast", EAM_PATHS["mleam_ni"][0], "fcc", "Ni", 3.52, 20,
+     {}, None),
+    ("adp Mo 31250 fast", EAM_PATHS["mladp_mo_v5"][0], "bcc", "Mo", 3.16,
+     25, {}, None),
+    ("eam Ni 32000 flat", EAM_PATHS["mleam_ni"][0], "fcc", "Ni", 3.52, 20,
+     dict(fast_efs=False), None),
+)
+CHUNK_ROWS = 4096          # chunk_size of the chunked requests
+HESSIAN_MODELS = {"mleam_ni": EAM_PATHS["mleam_ni"][0],
+                  "snap_ni_sfa": PATHS["sf"][0]}
+
+
+def _lattice_structure(kind, element, a, reps):
+    from tensoralloy_tpu_torch.atoms import Structure
+    pos, cell = jittered_lattice(kind, reps, a)
+    return Structure.from_symbols([element] * len(pos), pos, cell,
+                                  pbc=[True] * 3)
+
+
+def _check_request(name, res, ref):
+    """E/F/S of `res` against `ref` to F32_REL, and |sum F| ~ 0."""
+    errs = efs_errors(res, ref)
+    fsum = float(np.max(np.abs(res["forces"].sum(axis=0))))
+    fmax = float(np.max(np.abs(res["forces"])))
+    print(f"  {name}: E {res['energy']:.6f} eV, max|F| {fmax:.4f} eV/A, "
+          f"|sum F| {fsum:.2e}; vs the host lists in one piece "
+          f"{json.dumps(errs)}")
+    if max(errs.values()) > F32_REL:
+        raise AssertionError(f"{name}: disagrees with the host route: "
+                             f"{errs}")
+    if fsum > 1e-5 * fmax * np.sqrt(len(res["forces"])):
+        raise AssertionError(f"{name}: |sum F| = {fsum} is not ~0")
+
+
+def _device_split(calc, s, reps):
+    """-> medians (ms) of the request, of mapping and copying the
+    positions, of the build (diagnostics read) and of the E/F/S."""
+    from tensoralloy_tpu_torch.transform.device_nl import diag_to_host
+    vap = calc._get_vap(s)
+    efs = calc._get_variant(s, True)[1]
+    b = calc.device_builder(s, vap)
+
+    def copy():
+        return (torch.as_tensor(vap.map_positions(s.positions),
+                                dtype=calc.dtype, device=calc.device),
+                torch.as_tensor(s.cell, dtype=calc.dtype,
+                                device=calc.device))
+
+    pos, cell = copy()
+
+    def build():
+        feats, diag = b.build(pos, cell)
+        b.check(diag_to_host(diag))
+        return feats
+
+    feats = build()
+    return (_median_host_ms(lambda: calc.calculate(s), reps),
+            _median_host_ms(copy, reps), _median_host_ms(build, reps),
+            _median_host_ms(lambda: efs(feats), reps))
+
+
+def device_nl_requests(card):
+    """Each request through the default calculator ("auto"): it must take
+    the device builder (one cached builder; the flat route also the
+    chunked variant) and hold the same model on the host lists in one
+    piece."""
+    from tensoralloy_tpu_torch.calculator import TensorAlloyCalculator
+    from tensoralloy_tpu_torch.ops import fused
+    out = {}
+    for name, path, kind, element, a, reps, opts, kernel \
+            in DEVICE_NL_REQUESTS:
+        s = _lattice_structure(kind, element, a, reps)
+        calc = TensorAlloyCalculator(str(path), dtype="medium", **opts)
+        host = TensorAlloyCalculator(str(path), dtype="medium",
+                                     device_nl=False, chunked=False, **opts)
+        before = dict(fused.launch_counts)
+        res = calc.calculate(s)
+        if kernel is not None and \
+                fused.launch_counts[kernel] != before[kernel] + 1:
+            raise AssertionError(f"{name}: {kernel} not launched once")
+        if len(calc._nl_cache) != 1:
+            raise AssertionError(f"{name}: 'auto' did not take the device "
+                                 "builder")
+        chunked = "atomic_energies" not in res
+        if chunked != (calc.layout == "segment"):
+            raise AssertionError(f"{name}: chunked route {chunked} "
+                                 f"for layout {calc.layout}")
+        _check_request(name, res, host.calculate(s))
+        (b,) = calc._nl_cache.values()
+        t = _device_split(calc, s, 3)
+        if kernel is not None:
+            print(f"  {name}: {kernel}_kernel launches a request: 1")
+        print(f"  {name} ({len(s)} atoms, builder grid {b.grid}, "
+              f"nnl_cap {b.nnl_cap}, cell_cap {b.cell_cap}, layout "
+              f"{b.layout}{', chunked' if chunked else ''}): request "
+              f"{t[0]:.2f} ms, of which map + copy {t[1]:.2f} ms, build "
+              f"{t[2]:.2f} ms, E/F/S {t[3]:.2f} ms (medians of 3); host "
+              f"lists: request {_median_host_ms(lambda: host.calculate(s), 3):.2f}"
+              f" ms ({card})")
+        out[name] = t
+    # an angular model with device_nl=True: triples built on the card
+    s = _structure(REQUEST_REPS[1])
+    calc = TensorAlloyCalculator(str(PATHS["sf"][0]), dtype="medium",
+                                 backend="pallas", device_nl=True)
+    host = TensorAlloyCalculator(str(PATHS["sf"][0]), dtype="medium",
+                                 backend="pallas", device_nl=False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = dict(fused.launch_counts)
+    res = calc.calculate(s)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    if any(fused.launch_counts[k] != before[k] + 1 for k in ("g2", "g4")):
+        raise AssertionError("sf device_nl: g2/g4 not launched once")
+    _check_request("sf 4000 device_nl=True", res, host.calculate(s))
+    (b,) = calc._nl_cache.values()
+    t = _device_split(calc, s, 3)
+    print(f"  sf 4000 device_nl=True (exact census, nnl_cap {b.nnl_cap}, "
+          f"ntl_cap {b.ntl_cap}): request {t[0]:.2f} ms, map + copy "
+          f"{t[1]:.2f} ms, build {t[2]:.2f} ms, E/F/S {t[3]:.2f} ms; peak "
+          f"memory allocated {peak:.1f} MiB ({card})")
+    out["sf 4000 device_nl"] = t
+    return out
+
+
+def chunked_requests(card):
+    """SF and GRAP 32000 with chunked=True, chunk_size=CHUNK_ROWS, against
+    the monolithic route; each block launches its kernels twice (the
+    forward, and the recomputation in the backward)."""
+    from tensoralloy_tpu_torch.calculator import TensorAlloyCalculator
+    from tensoralloy_tpu_torch.ops import fused
+    s = _structure(TIMED_REPS)
+    for name in ("sf", "grap"):
+        model, kernels, _ = PATHS[name]
+        calc = TensorAlloyCalculator(str(model), dtype="medium",
+                                     backend="pallas", chunked=True,
+                                     chunk_size=CHUNK_ROWS)
+        mono = TensorAlloyCalculator(str(model), dtype="medium",
+                                     backend="pallas", chunked=False)
+        before = dict(fused.launch_counts)
+        t0 = time.perf_counter()
+        res = calc.calculate(s)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        blocks = -(-calc._get_vap(s).n_atoms_vap // CHUNK_ROWS)
+        counts = {k: fused.launch_counts[k] - before[k] for k in kernels}
+        print(f"  {name} 32000 chunked ({blocks} blocks of {CHUNK_ROWS} "
+              f"rows, {'device' if calc._nl_cache else 'host'} lists): "
+              f"launches a request {counts} (2 a block), request "
+              f"{ms:.1f} ms ({card})")
+        if any(v != 2 * blocks for v in counts.values()):
+            raise AssertionError(f"{name} chunked: launches {counts}, "
+                                 f"expected {2 * blocks} each")
+        if "atomic_energies" in res:
+            raise AssertionError(f"{name}: chunked=True served monolithic")
+        _check_request(f"{name} 32000 chunked", res, mono.calculate(s))
+
+
+def hessians(card):
+    """get_hessian of the 108-atom Ni cell at float64 against the JAX
+    fixtures (1e-10), and symmetric."""
+    from tensoralloy_tpu_torch.calculator import TensorAlloyCalculator
+    for name, path in HESSIAN_MODELS.items():
+        ref = json.loads((DATA / f"torch_port_ref_hessian_{name}.json")
+                         .read_text())
+        s, _ = _fixture((DATA / f"torch_port_ref_hessian_{name}.json",
+                         "Ni"))
+        calc = TensorAlloyCalculator(str(path), dtype="high",
+                                     backend="pallas" if name ==
+                                     "snap_ni_sfa" else None)
+        t0 = time.perf_counter()
+        h = calc.get_hessian(s)
+        ms = (time.perf_counter() - t0) * 1e3
+        err = rel_err(h, ref["hessian"])
+        asym = float(np.max(np.abs(h - h.T)) / np.max(np.abs(h)))
+        print(f"  hessian {name} {h.shape}: vs the JAX fixture {err:.2e}, "
+              f"asymmetry {asym:.2e}, {ms:.0f} ms ({card})")
+        if err > F64_REL or asym > F64_REL:
+            raise AssertionError(f"hessian {name}: {err}, {asym}")
+
+
+def large(card):
+    """The device-list, chunked and Hessian routes on the default device
+    (cuda). -> their launches by kernel."""
+    from tensoralloy_tpu_torch.ops import fused
+    phase("large")
+    t0 = time.perf_counter()
+    fused.reset_launch_counts()
+    times = device_nl_requests(card)
+    chunked_requests(card)
+    hessians(card)
+    launches = dict(fused.launch_counts)
+    print(f"  launches over the large phase: {launches}")
+    for k in ("g2", "g4", "grap"):
+        if not launches[k]:
+            raise AssertionError(f"the large phase launched no {k}")
+    print(f"  large phase {time.perf_counter() - t0:.1f} s")
+    return times, launches
+
+
+# ----------------------------------------------------------------------
+# md: the dynamics
+# ----------------------------------------------------------------------
+
+MD_NVE_MODEL = EAM_PATHS["mleam_ni"][0]
+MD_FIXTURE_RUN = dict(timestep=1.0, chunk_size=5, temperature=400.0, seed=5)
+NVE_DRIFT_LIMIT = 0.5       # meV/atom, tests/test_dynamics.py
+MD_MO_REPS = 13             # bcc Mo 13^3: 4394 atoms
+
+
+def _timed_run(md, steps, label, card, **kw):
+    """Run `md`, timing each chunk end's read-back; print steps/s,
+    atom-steps/s, the sync time and the regrows. -> history."""
+    syncs = []
+    record = md._record
+
+    def timed(*args):
+        t0 = time.perf_counter()
+        record(*args)
+        syncs.append(time.perf_counter() - t0)
+
+    md._record = timed
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hist = md.run(steps, **kw)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    md._record = record
+    n = len(md.structure)
+    print(f"  {label}: {steps} steps of {n} atoms in {sec:.2f} s, "
+          f"{steps / sec:.1f} steps/s, {steps * n / sec:.3e} atom-steps/s; "
+          f"chunk-end sync {1e3 * sum(syncs):.1f} ms over {len(syncs)} "
+          f"chunks; regrows {md.regrows} ({card})")
+    return hist
+
+
+def md_fixtures(card):
+    """(a) float64 NVE of the saved mleam_ni model on the 32-atom cell,
+    both EFS routes on both lists, against the JAX fixtures."""
+    from tensoralloy_tpu_torch.atoms import Structure
+    from tensoralloy_tpu_torch.dynamics import VelocityVerlet
+    from tensoralloy_tpu_torch.io.model import load_model
+    for route in ("fast", "autograd"):
+        for device_nl in (False, True):
+            path = DATA / (f"torch_port_ref_md_{route}_"
+                           f"{'device' if device_nl else 'host'}.json")
+            ref = json.loads(path.read_text())
+            model, _ = load_model(str(MD_NVE_MODEL), dtype="high")
+            s = Structure.from_symbols(
+                ["Ni"] * len(ref["positions0"]), ref["positions0"],
+                ref["cell"], pbc=[True] * 3)
+            md = VelocityVerlet(model, s, fast_efs=route == "fast",
+                                device_nl=device_nl, **MD_FIXTURE_RUN)
+            hist = _timed_run(md, ref["steps"],
+                              f"float64 NVE {route} "
+                              f"{'device' if device_nl else 'host'} lists",
+                              card, record_trajectory=True)
+            dpos = float(np.max(np.abs(np.asarray(hist["positions"])
+                                       - np.asarray(ref["positions"]))))
+            dtot = rel_err(hist["total"], ref["total"])
+            print(f"    vs the JAX fixture: positions {dpos:.2e} A, "
+                  f"totals {dtot:.2e}")
+            if dpos > 1e-9 or dtot > 1e-10:
+                raise AssertionError(f"md {route} {device_nl}: {dpos}, "
+                                     f"{dtot}")
+
+
+def md_nve_flux(card):
+    """(b) float32 NVE of EAM Ni 4000 on device lists with the heat flux
+    recorded: the drift of the total, and the analytic flux against the
+    autograd flux at the last state."""
+    from tensoralloy_tpu_torch.analysis.heatflux import make_heat_flux_fn
+    from tensoralloy_tpu_torch.dynamics import VelocityVerlet
+    from tensoralloy_tpu_torch.io.model import load_model
+    from tensoralloy_tpu_torch.nn.eam.fast_efs import make_fast_heat_flux_fn
+    from tensoralloy_tpu_torch.transform.device_nl import DeviceNeighborList
+    model, _ = load_model(str(MD_NVE_MODEL), dtype="medium")
+    s = _structure(REQUEST_REPS[1])
+    md = VelocityVerlet(model, s, timestep=1.0, temperature=300.0, seed=3,
+                        device_nl=True, record_heat_flux=True)
+    hist = _timed_run(md, 200, "float32 NVE eam Ni 4000, device lists, "
+                      "heat flux", card)
+    tot = np.asarray(hist["total"])
+    drift = abs(tot[-1] - tot[0]) / len(s) * 1e3
+    print(f"    drift of the total energy {drift:.4f} meV/atom over 200 fs "
+          f"(limit {NVE_DRIFT_LIMIT}); T {hist['temperature'][-1]:.1f} K")
+    if not drift < NVE_DRIFT_LIMIT:
+        raise AssertionError(f"NVE drift {drift} meV/atom")
+    if not np.all(np.isfinite(hist["heat_flux"])):
+        raise AssertionError("non-finite heat flux")
+    b = DeviceNeighborList(md.fz, md.vap, md.structure, layout="both")
+    pos = md._tensor(md.vap.map_positions(md.structure.positions))
+    feats, diag = b.build(pos, md._tensor(md.structure.cell))
+    b.check(diag)
+    vel = md._tensor(md.velocities_vap)
+    fast = make_fast_heat_flux_fn(md.model)(feats, vel, md._masses[:, 0])
+    auto = make_heat_flux_fn(md.model)(feats, vel, md._masses[:, 0])
+    err = rel_err(fast["J"].cpu().numpy(), auto["J"].cpu().numpy())
+    print(f"    flux at the last state: analytic {fast['J'].tolist()}, "
+          f"autograd vs analytic {err:.2e}")
+    if err > F32_REL:
+        raise AssertionError(f"the two heat fluxes disagree: {err}")
+
+
+def md_grap(card):
+    """(c) GRAP MD at 4000 atoms on device lists: grap_kernel once a step
+    and once at each chunk's start and end."""
+    from tensoralloy_tpu_torch.dynamics import VelocityVerlet
+    from tensoralloy_tpu_torch.io.model import load_model
+    from tensoralloy_tpu_torch.ops import fused
+    model, _ = load_model(str(PATHS["grap"][0]), dtype="medium",
+                          backend="pallas")
+    s = _structure(REQUEST_REPS[1])
+    md = VelocityVerlet(model, s, timestep=1.0, temperature=300.0, seed=4,
+                        chunk_size=25, device_nl=True)
+    steps = 50
+    before = fused.launch_counts["grap"]
+    hist = _timed_run(md, steps, "float32 NVE grap Ni 4000, device lists",
+                      card)
+    launched = fused.launch_counts["grap"] - before
+    # a chunk: the start's forces, one evaluation a step, the end's
+    # observables; a chunk run again after a regrow counts again
+    chunks = steps // md.chunk_size + md.regrows
+    want = chunks * (md.chunk_size + 2)
+    print(f"    grap_kernel launches {launched} ({chunks} chunks x "
+          f"({md.chunk_size} steps + 2) = {want}); T "
+          f"{hist['temperature'][-1]:.1f} K")
+    if launched != want or not np.all(np.isfinite(hist["total"])):
+        raise AssertionError(f"grap MD launched {launched}, expected {want}")
+
+
+def md_thermostats(card):
+    """(d) BAOAB NVT and Berendsen NPT, 100 steps each, of ADP Mo
+    (MD_MO_REPS^3 cells) on device lists."""
+    from tensoralloy_tpu_torch.dynamics import VelocityVerlet
+    from tensoralloy_tpu_torch.io.model import load_model
+    path = EAM_PATHS["mladp_mo_v5"][0]
+    model, _ = load_model(str(path), dtype="medium")
+    s = _lattice_structure("bcc", "Mo", 3.16, MD_MO_REPS)
+    for label, kw in (("NVT", {}), ("NPT", dict(target_pressure=0.0,
+                                                pressure_tau=200.0))):
+        md = VelocityVerlet(model, s, timestep=1.0, temperature=300.0,
+                            seed=6, target_temperature=300.0, friction=0.01,
+                            device_nl=True, **kw)
+        hist = _timed_run(md, 100, f"float32 {label} adp Mo {len(s)}",
+                          card)
+        extra = (f", P {hist['pressure'][-1]:.3f} GPa, V "
+                 f"{hist['volume'][0]:.1f} -> {hist['volume'][-1]:.1f} A^3"
+                 if "pressure" in hist else "")
+        print(f"    T {hist['temperature'][0]:.1f} -> "
+              f"{hist['temperature'][-1]:.1f} K{extra}")
+        if not np.all(np.isfinite(hist["total"])):
+            raise AssertionError(f"{label}: non-finite energies")
+
+
+def md(card):
+    """The dynamics on the default device (cuda). -> launches by kernel."""
+    from tensoralloy_tpu_torch.ops import fused
+    phase("md")
+    t0 = time.perf_counter()
+    fused.reset_launch_counts()
+    md_fixtures(card)
+    md_nve_flux(card)
+    md_grap(card)
+    md_thermostats(card)
+    launches = dict(fused.launch_counts)
+    print(f"  launches over the md phase: {launches}")
+    if not launches["grap"]:
+        raise AssertionError("the md phase launched no grap_kernel")
+    print(f"  md phase {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def _median_ms(fn, reps: int, warmup: int = 3) -> float:
     """Median of `reps` CUDA-event times of single calls: the event pair
     also spans the host's enqueue when the device waits on it."""
@@ -1672,15 +2090,16 @@ def time_path(card, served, launches):
         for s in structures:
             reps = 5 if len(s) < 10000 else 3
             vap = calc._get_vap(s)
-            t_req = _median_host_ms(lambda: calc.calculate(s), reps)
-            t_feat = _median_host_ms(lambda: calc.featurize(s, vap), reps)
-            feats = calc.featurize(s, vap)
-            t_k = _median_host_ms(lambda: calc._get_efs(s)(feats), reps)
-            t_t = _median_host_ms(lambda: twin._get_efs(s)(feats), reps)
-            print(f"  {name} request {len(s)} atoms: {t_req:.2f} ms, of "
-                  f"which host featurize + copy {t_feat:.2f} ms; device "
-                  f"E/F/S {t_k:.2f} ms through the kernels, {t_t:.2f} ms "
-                  f"through the twins (medians of {reps}; {card})")
+            device = calc._use_device_nl(s)
+            t_req, split, t_k = _timed_request(calc, s, reps)
+            feats = (calc.featurize_device(s, vap) if device
+                     else calc.featurize(s, vap))
+            t_t = _median_host_ms(
+                lambda: twin._get_variant(s, device)[1](feats), reps)
+            print(f"  {name} request {len(s)} atoms: {t_req:.2f} ms, "
+                  f"{split}; device E/F/S {t_k:.2f} ms through the "
+                  f"kernels, {t_t:.2f} ms through the twins (medians of "
+                  f"{reps}; {card})")
 
     # each kernel at the main path's shapes: its largest request
     cases = kernel_cases(served["sf"][0], largest,
@@ -1785,8 +2204,10 @@ def main() -> int:
     measured, per_step = train(card)
     managed, manager_launches = manage(card)
     eam(card)
+    _, large_launches = large(card)
+    md_launches = md(card)
     for counts in [m["launches"] for m in measured.values()] \
-            + [manager_launches]:
+            + [manager_launches, large_launches, md_launches]:
         for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v
     rows = time_path(card, served, launches)

@@ -2,9 +2,11 @@
 
 The serving path: a saved `.npz` model is loaded into
 `calculator.TensorAlloyCalculator`, structures are featurized on the
-host (numpy), and energy, forces and stress come back from PyTorch on
-the CPU or an NVIDIA GPU. Behler G2/G4 descriptors run in hand-written
-CUDA kernels on the GPU (`ops/fused.py`, `csrc/sf_kernels.cu`).
+host (numpy and C++) or on the device (`transform/device_nl.py`), and
+energy, forces, stress and the Hessian come back from PyTorch on the CPU
+or an NVIDIA GPU; `dynamics.py` runs MD on the same models. Training
+and experiments: `train/`. The G2, G4 and GRAP descriptors run in
+hand-written CUDA kernels on the GPU (`ops/fused.py`, `csrc/`).
 
 This package imports torch and never jax.
 """

@@ -1,29 +1,41 @@
-"""Inference calculator over a saved model (port of the host-neighbor-list
-path of `tensoralloy_tpu/calculator.py`).
+"""Inference calculator over a saved model (port of
+`tensoralloy_tpu/calculator.py`).
 
-Structures are featurized on the host (numpy), moved to `device`, and
-energy, forces and stress come from one of three routes, by model:
+Energy, forces and stress come from one of these routes, by model and
+request, as in the reference:
 
-  * descriptor models (SF, GRAP, finite temperature) read the dense
-    per-atom layout through the scatter-free `ops.dense.make_dense_efs_fn`:
-    forces and stress differentiate the variational energy (the free
-    energy F = U - TS of a finite-temperature model, at the electron
-    temperature the featurizer reads from `structure.info
-    ["etemperature"]`), and the atomic energies and finite-temperature
-    heads come out of the same pass (`model.energy_and_aux`);
-  * the EAM family with `fast_efs` (the default, "auto"): the analytic
-    energy, forces and stress of `nn.eam.fast_efs` on the dense layout;
-  * the EAM family with `fast_efs=False`: autograd of the energy on the
-    flat pair ('segment') layout (`nn.fields.make_efs_fn`), whose
-    per-atom sums are `index_add`s.
+  * descriptor models (SF, GRAP, finite temperature) on host-built lists
+    read the dense per-atom layout through the scatter-free
+    `ops.dense.make_dense_efs_fn`: forces and stress differentiate the
+    variational energy (the free energy F = U - TS of a
+    finite-temperature model, at the electron temperature of
+    `structure.info["etemperature"]`), and the atomic energies and
+    finite-temperature heads come out of the same pass
+    (`model.energy_and_aux`);
+  * the EAM family with `fast_efs` (the default, "auto", unless
+    `chunked=True`): the analytic energy, forces and stress of
+    `nn.eam.fast_efs` on the dense layout;
+  * otherwise autograd w.r.t. positions and cell (`nn.fields.make_efs_fn`):
+    the EAM family on the flat pair ('segment') layout, and a dense
+    descriptor model on device-built lists (which carry no transpose
+    tables);
+  * `chunked`: the energy in rematerialized blocks (`energy_chunked`:
+    atom rows of a descriptor model, flat pair blocks of the EAM family),
+    differentiated by autograd. "auto" takes it when a frame's padded
+    pairs exceed `chunk_auto_pairs` (8 times that on the dense layout).
 
-Per-element counts are rounded up to powers of two and the widths are
-bucketed (flat pairs from 256, `nnl` from 32, `ntl` from 64), so a
-stream of structures reuses a few layouts; each layout gets a
+`device_nl`: the neighbor list is built on the device
+(`transform.device_nl.DeviceNeighborList`) instead of the host. "auto"
+does so for a frame of `device_nl_auto_atoms` atoms or more when the
+featurizer is not angular, sizing the builder from the density census;
+True for every frame, with the exact census. Builders are cached per
+(symbols, pbc) and reused while their stencil covers the cell; an
+overflow grows and rebuilds up to 8 times, then raises.
+
+Per-element counts are rounded up to powers of two and the host lists'
+widths are bucketed (flat pairs from 256, `nnl` from 32, `ntl` from 64),
+so a stream of structures reuses a few layouts; each layout gets a
 re-laid-out model clone from a cache.
-
-Not ported yet: the on-device neighbor list (`device_nl=True`), the
-chunked large-cell path (`chunked=True`) and `get_hessian`.
 """
 from __future__ import annotations
 
@@ -34,7 +46,7 @@ import numpy as np
 import torch
 
 from .atoms import Structure
-from .nn.fields import make_efs_fn
+from .nn.fields import make_efs_fn, make_hessian_fn
 from .ops.dense import make_dense_efs_fn
 from .precision import resolve_device, resolve_dtype
 from .vap import VirtualAtomMap
@@ -69,14 +81,8 @@ def _bucket(n: int, minimum: int = 256) -> int:
     return size
 
 
-def _not_ported(mode: str, slice_name: str):
-    return NotImplementedError(
-        f"{mode} is not ported to tensoralloy_tpu_torch yet; it comes "
-        f"with {slice_name}")
-
-
 class TensorAlloyCalculator:
-    """Evaluate energy/forces/stress of arbitrary structures.
+    """Evaluate energy/forces/stress/Hessian of arbitrary structures.
 
     `model_or_path`: a saved `.npz`, or an `AtomicNN` (or a
     finite-temperature subclass) or an EAM-family model already on
@@ -86,32 +92,27 @@ class TensorAlloyCalculator:
     `dtype` is 'high' (float64), 'medium' (float32) or a torch float
     dtype; `backend` overrides the saved descriptor backend ('dense' =
     plain PyTorch, 'pallas' = the CUDA kernels) when loading from a
-    path. `chunked`, `device_nl` and `fast_efs` take the reference's
-    values. `fast_efs`: "auto" (the default) and True serve the EAM
-    family through the analytic EFS on the dense layout, False through
-    autograd on the flat pair layout; other models ignore it. `chunked`
-    and `device_nl`: "auto" and False evaluate on the host-built lists in
-    one piece, True raises until those paths are ported."""
+    path. `chunked`, `chunk_size`, `chunk_auto_pairs`, `device_nl`,
+    `device_nl_auto_atoms` and `fast_efs` are the reference's, with its
+    defaults (see the module docstring). `chunk_size`: pairs (EAM
+    family) or atom rows (descriptor models) per block, 0 for the
+    default (2^20 pairs, 4096 rows)."""
 
     implemented_properties = ("energy", "free_energy", "forces", "stress",
-                              "pressure", "atomic_energies")
+                              "pressure", "hessian", "atomic_energies")
 
     def __init__(self, model_or_path, *, device="cuda", dtype="high",
                  backend: Optional[str] = None,
-                 chunked: "bool | str" = "auto",
+                 chunked: "bool | str" = "auto", chunk_size: int = 0,
+                 chunk_auto_pairs: int = 3_000_000,
                  device_nl: "bool | str" = "auto",
+                 device_nl_auto_atoms: int = 8192,
                  fast_efs: "bool | str" = "auto"):
         for mode, value in (("chunked", chunked), ("device_nl", device_nl),
                             ("fast_efs", fast_efs)):
             if value is not True and value is not False and value != "auto":
                 raise ValueError(f"{mode}: expected True, False or "
                                  f"'auto', got {value!r}")
-        # "auto" (the reference's default) and False take the monolithic
-        # host-list path; True asks for a path that is not there yet
-        if chunked is True:
-            raise _not_ported("chunked evaluation", "the large-cell slice")
-        if device_nl is True:
-            raise _not_ported("device_nl", "the MD slice (slice 3b)")
         self.device = resolve_device(device)
         self.dtype = resolve_dtype(dtype)
         if isinstance(model_or_path, str):
@@ -126,13 +127,22 @@ class TensorAlloyCalculator:
             self.model, self.config = model_or_path, {}
         # serving differentiates w.r.t. geometry only
         self.model.requires_grad_(False)
-        # the analytic EFS where the model supports it: "auto" and True
-        # alike (the reference's rule, with chunked=True never taken)
-        self.fast_efs = fast_efs is not False and is_eam_family(self.model)
+        self.chunked = chunked
+        self.chunk_size = int(chunk_size)
+        self.chunk_auto_pairs = int(chunk_auto_pairs)
+        self.device_nl = device_nl
+        self.device_nl_auto_atoms = int(device_nl_auto_atoms)
+        # the analytic EFS where the model supports it; "auto" leaves it
+        # to an explicit chunked=True (the rematerialized autograd path)
+        if fast_efs == "auto":
+            self.fast_efs = is_eam_family(self.model) and chunked is not True
+        else:
+            self.fast_efs = fast_efs and is_eam_family(self.model)
         self.layout = model_feature_layout(self.model, fast=self.fast_efs)
         self.featurizer = self.model.featurizer
-        self._efs_cache: Dict[tuple, Callable] = {}
+        self._variant_cache: Dict[tuple, tuple] = {}
         self._vap_cache: Dict[tuple, VirtualAtomMap] = {}
+        self._nl_cache: Dict[tuple, object] = {}
         self.results: Dict[str, np.ndarray] = {}
         self._last = None
 
@@ -157,22 +167,65 @@ class TensorAlloyCalculator:
             out[e] = b
         return out
 
-    def _get_efs(self, structure: Structure) -> Callable:
-        """E/F/S function of the model re-laid-out for this structure's
-        bucketed stoichiometry (cached per layout)."""
-        key = tuple(sorted(self._bucketed_occurs(structure).items()))
-        efs = self._efs_cache.get(key)
-        if efs is None:
-            model = self.model.clone_for(Counter(dict(key)))
+    def _use_device_nl(self, structure: Structure) -> bool:
+        """Resolve the device_nl mode against this structure."""
+        if self.device_nl == "auto":
+            # dense-triple capacities need the exact (host) census, which
+            # costs what the auto route exists to avoid
+            return (len(structure) >= self.device_nl_auto_atoms
+                    and not getattr(self.featurizer, "angular", False))
+        return bool(self.device_nl)
+
+    def _get_variant(self, structure: Structure, use_device: bool = False):
+        """(model clone, E/F/S function, chunked E/F/S function or None)
+        for this structure's bucketed stoichiometry and list route."""
+        occurs = self._bucketed_occurs(structure)
+        key = (tuple(sorted(occurs.items())), bool(use_device))
+        hit = self._variant_cache.get(key)
+        if hit is None:
+            model = self.model.clone_for(Counter(dict(key[0])))
             if self.fast_efs:
                 from .nn.eam.fast_efs import make_fast_efs_fn
                 efs = make_fast_efs_fn(model)
-            elif self.layout == "segment":
-                efs = make_efs_fn(model.energy_and_aux)
-            else:
+            elif self.layout == "dense" and not use_device:
+                # the host lists carry the transpose tables of the
+                # scatter-free force assembly
                 efs = make_dense_efs_fn(model.energy_and_aux)
-            self._efs_cache[key] = efs
-        return efs
+            else:
+                efs = make_efs_fn(model.energy_and_aux)
+            efs_chunked = None
+            if self.chunked and not self.fast_efs:   # "auto" or True
+                chunk = self.chunk_size or (1 << 20 if self.layout ==
+                                            "segment" else 4096)
+                efs_chunked = make_efs_fn(self._chunked_energy(model, chunk))
+            hit = (model, efs, efs_chunked)
+            self._variant_cache[key] = hit
+        return hit
+
+    @staticmethod
+    def _chunked_energy(model, chunk: int) -> Callable:
+        """features -> (chunked variational energy, by-products): the
+        finite-temperature heads ride along; the atomic energies are
+        monolithic-only."""
+        if hasattr(model, "heads_chunked"):
+            def energy_fn(features):
+                heads = model.heads_chunked(features, atom_chunk=chunk)
+                return heads["free_energy"], heads
+            return energy_fn
+        e_fn = model.make_chunked_energy_fn(chunk)
+        return lambda features: (e_fn(features), {})
+
+    @staticmethod
+    def _padded_pairs(feats) -> int:
+        if "pair_j_d" in feats:
+            a, n = feats["pair_j_d"].shape
+            t = (feats["trip_j_d"].shape[0] * feats["trip_j_d"].shape[1]
+                 if "trip_j_d" in feats else 0)
+            return a * n + t
+        if "pair_i" in feats:
+            t = feats["trip_i"].shape[0] if "trip_i" in feats else 0
+            return int(feats["pair_i"].shape[0]) + t
+        return 0
 
     def _get_vap(self, structure: Structure) -> VirtualAtomMap:
         # keyed by the exact symbol sequence: the local->VAP index map
@@ -185,12 +238,13 @@ class TensorAlloyCalculator:
             self._vap_cache[key] = vap
         return vap
 
-    def featurize(self, structure: Structure, vap: VirtualAtomMap
-                  ) -> Dict[str, torch.Tensor]:
-        """Host featurization -> tensors on the calculator's device."""
+    def featurize(self, structure: Structure, vap: VirtualAtomMap,
+                  layout: Optional[str] = None) -> Dict[str, torch.Tensor]:
+        """Host featurization -> tensors on the calculator's device.
+        `layout` overrides the served layout (no transpose tables then)."""
         np_dtype = np.float64 if self.dtype == torch.float64 else np.float32
         feats = self.featurizer.featurize(
-            structure, vap, layout=self.layout,
+            structure, vap, layout=layout or self.layout,
             pair_bucket=lambda n: _bucket(max(n, 1)),
             # per-atom neighbor/triple WIDTHS are far smaller than flat
             # counts: a 256-minimum bucket would pad every row 2-8x
@@ -198,14 +252,72 @@ class TensorAlloyCalculator:
             ntl_bucket=lambda n: _bucket(max(n, 1), minimum=64),
             dtype=np_dtype,
             # the transpose tables feed the dense descriptor EFS only
-            transpose=self.layout == "dense" and not self.fast_efs)
+            transpose=(layout is None and self.layout == "dense"
+                       and not self.fast_efs))
         return {k: torch.as_tensor(v, device=self.device)
                 for k, v in feats.items()}
+
+    @staticmethod
+    def _nl_key(structure: Structure) -> tuple:
+        return tuple(structure.symbols), np.asarray(structure.pbc).tobytes()
+
+    def device_builder(self, structure: Structure, vap: VirtualAtomMap):
+        """The cached `DeviceNeighborList` of this structure's (symbols,
+        pbc), made anew when missing or when its stencil no longer
+        covers the cell."""
+        from .transform.device_nl import DeviceNeighborList
+        key = self._nl_key(structure)
+        b = self._nl_cache.get(key)
+        if b is None or not b.covers(structure.cell):
+            b = DeviceNeighborList(
+                self.featurizer, vap, structure, layout=self.layout,
+                # one-shot auto routing must not pay a host neighbor list
+                # to size the capacities; device_nl=True (trajectories)
+                # keeps the exact census that it amortizes
+                census="density" if self.device_nl == "auto" else "exact")
+            self._nl_cache[key] = b
+        return b
+
+    def featurize_device(self, structure: Structure, vap: VirtualAtomMap
+                         ) -> Dict[str, torch.Tensor]:
+        """Features built on the device: the positions are mapped and
+        copied, the cached builder runs, and its diagnostics are read
+        once; an overflow grows the builder (up to 8 times)."""
+        from .transform.device_nl import diag_to_host
+        b = self.device_builder(structure, vap)
+        pos = torch.as_tensor(vap.map_positions(structure.positions),
+                              dtype=self.dtype, device=self.device)
+        cell = torch.as_tensor(structure.cell, dtype=self.dtype,
+                               device=self.device)
+        etemp = float(structure.info.get("etemperature", 0.0) or 0.0)
+        for _ in range(8):
+            feats, diag = b.build(pos, cell, etemp)
+            diag = diag_to_host(diag)
+            try:
+                b.check(diag)
+                return feats
+            except RuntimeError:
+                if diag["simg_overflow"] > 0:
+                    raise
+                b = b.grow(diag)
+                self._nl_cache[self._nl_key(structure)] = b
+        b.check(diag)
+        return feats
 
     # ------------------------------------------------------------------
     def calculate(self, structure: Structure) -> Dict[str, np.ndarray]:
         vap = self._get_vap(structure)
-        out = self._get_efs(structure)(self.featurize(structure, vap))
+        use_device = self._use_device_nl(structure)
+        _, efs, efs_chunked = self._get_variant(structure, use_device)
+        feats = (self.featurize_device(structure, vap) if use_device
+                 else self.featurize(structure, vap))
+        # chunk_auto_pairs is sized for the flat layout's backward; the
+        # dense rows hold about 8x less a padded pair
+        auto_pairs = self.chunk_auto_pairs * (
+            8 if "pair_j_d" in feats else 1)
+        use_chunked = efs_chunked is not None and (
+            self.chunked is True or self._padded_pairs(feats) > auto_pairs)
+        out = (efs_chunked if use_chunked else efs)(feats)
         self.results = self._assemble(
             {k: v.detach().cpu().numpy() for k, v in out.items()}, vap)
         self._last = self._fingerprint(structure)
@@ -219,8 +331,10 @@ class TensorAlloyCalculator:
             "forces": vap.reverse_map(out["forces"]),
             "stress": np.asarray(out["stress_voigt"]),
             "pressure": float(out["total_pressure"]),
-            "atomic_energies": vap.reverse_map(out["atomic_energies"]),
         }
+        if "atomic_energies" in out:    # monolithic routes only
+            results["atomic_energies"] = vap.reverse_map(
+                out["atomic_energies"])
         if "eentropy" in out:        # finite-temperature heads
             results["eentropy"] = float(out["eentropy"])
         return results
@@ -265,7 +379,13 @@ class TensorAlloyCalculator:
 
     def get_atomic_energies(self, structure: Optional[Structure] = None
                             ) -> np.ndarray:
-        return self._maybe_calculate(structure)["atomic_energies"]
+        results = self._maybe_calculate(structure)
+        if "atomic_energies" not in results:
+            raise ValueError(
+                "per-atom energies are not computed on the chunked "
+                "large-cell path; construct the calculator with "
+                "chunked=False (needs the monolithic working set)")
+        return results["atomic_energies"]
 
     def get_electron_entropy(self, structure: Optional[Structure] = None
                              ) -> float:
@@ -282,5 +402,34 @@ class TensorAlloyCalculator:
 
     def get_hessian(self, structure: Structure,
                     phonopy_format: bool = False) -> np.ndarray:
-        raise _not_ported("get_hessian", "the large-cell and Hessian "
-                          "slice (ROADMAP queue 1, item 7)")
+        """d^2E/dR^2 [3N, 3N] (or phonopy's [N, N, 3, 3]) by autograd of
+        the variational energy, on host lists in the layout the model
+        reads (the flat pairs for the EAM family, even where the fast EFS
+        serves the first derivatives)."""
+        vap = self._get_vap(structure)
+        model = self._get_variant(structure)[0]
+        feats = self.featurize(structure, vap,
+                               layout=model_feature_layout(self.model))
+        h = make_hessian_fn(model.energy_and_aux)(feats)
+        return vap.reverse_map_hessian(h.cpu().numpy(),
+                                       phonopy_format=phonopy_format)
+
+    # ------------------------------------------------------------------
+    def as_ase_calculator(self):
+        """An ASE `Calculator` over this one (needs `ase`)."""
+        from ase.calculators.calculator import Calculator, all_changes
+
+        outer = self
+
+        class _Adapter(Calculator):
+            implemented_properties = ["energy", "free_energy", "forces",
+                                      "stress"]
+
+            def calculate(self, atoms=None, properties=("energy",),
+                          system_changes=all_changes):
+                super().calculate(atoms, properties, system_changes)
+                s = Structure(atoms.numbers, atoms.positions,
+                              np.asarray(atoms.cell), atoms.pbc)
+                self.results = dict(outer.calculate(s))
+
+        return _Adapter()

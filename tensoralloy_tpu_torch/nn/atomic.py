@@ -223,6 +223,70 @@ class AtomicNN(nn.Module):
         atomic = self.atomic_energies(features, params)
         return torch.sum(atomic, dim=-1), {"atomic_energies": atomic}
 
+    # ------------------------------------------------------------------
+    # Row-chunked evaluation of large cells: the dense layout in blocks of
+    # `atom_chunk` centre rows, each block's descriptors and MLPs under
+    # `torch.utils.checkpoint`, so the force and stress backward holds one
+    # block's intermediates instead of the whole cell's. Equal to the
+    # monolithic energy up to summation order. On the card each block
+    # launches the descriptor kernels twice: in the forward, and again
+    # when the backward recomputes the block.
+    def _chunk_head(self, net, x, features) -> tuple:
+        """Per-row outputs of one element's net on its descriptor rows x:
+        (atomic energy,)."""
+        layers = net["mlp"]["layers"]
+        if self.fixed_static_energy:
+            layers = freeze_output_bias(layers)
+        return (apply_dense_stack(layers, x, self.activation)[..., 0],)
+
+    def _chunked_totals(self, features, params, atom_chunk: int
+                        ) -> torch.Tensor:
+        """-> [n_heads] masked sums of `_chunk_head` over every row,
+        evaluated block by block."""
+        from torch.utils.checkpoint import checkpoint
+        if "pair_j_d" not in features:
+            raise KeyError("energy_chunked needs the dense layout "
+                           "('pair_j_d' ...)")
+        params = self.params if params is None else params
+        d_keys = [k for k in features if k.endswith("_d")]
+        base = {k: v for k, v in features.items() if k not in d_keys}
+        a_tot = features["pair_j_d"].shape[0]
+        chunk = max(1, int(min(atom_chunk, a_tot)))
+
+        def block(lo: int, hi: int) -> torch.Tensor:
+            f = dict(base, positions_rows=features["positions"][lo:hi])
+            f.update({k: features[k][lo:hi] for k in d_keys})
+            g = self.descriptors(f)                  # [hi - lo, D]
+            sums = []
+            for e in self.elements:
+                elo, cnt = self.layout[e]
+                a, b = max(lo, elo), min(hi, elo + cnt)
+                if a >= b:
+                    continue
+                net = params[e]
+                x = g[a - lo:b - lo]
+                if self.minmax_scale:
+                    x = minmax_normalize_apply(net["norm"], x)
+                m = features["atom_masks"][a:b]
+                sums.append(torch.stack([torch.sum(y * m) for y in
+                                         self._chunk_head(net, x, features)]))
+            return torch.stack(sums).sum(0)
+
+        return sum(checkpoint(block, lo, min(lo + chunk, a_tot),
+                              use_reentrant=False)
+                   for lo in range(0, a_tot, chunk))
+
+    def energy_chunked(self, features, params=None,
+                       atom_chunk: int = 4096) -> torch.Tensor:
+        """Total energy of one structure, evaluated in row blocks."""
+        return self._chunked_totals(features, params, atom_chunk)[0]
+
+    def make_chunked_energy_fn(self, atom_chunk: int = 4096):
+        """-> fn(features, params=None): the chunked variational energy
+        (what large-cell forces and stress differentiate)."""
+        return lambda features, params=None: self.energy_chunked(
+            features, params, atom_chunk)
+
     def _stacks(self, params):
         """Every dense stack that carries kernel weights."""
         return [params[e]["mlp"] for e in self.elements]

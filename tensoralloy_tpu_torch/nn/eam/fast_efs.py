@@ -23,7 +23,9 @@ picks between them (`calculator.TensorAlloyCalculator`).
 
 The only autograd here is elementwise: f'(r) of each function (one
 `autograd.grad` against ones) and the adjoints of the finalize. The
-results are detached: this is a serving path.
+results are detached: this is a serving path. The EFS and the heat flux
+share one pass (`_make_pass`), which also returns the per-slot
+cotangents ct_self and the vectors v that the flux contracts.
 """
 from __future__ import annotations
 
@@ -55,19 +57,20 @@ def _adjoint(fn: Callable, inputs, cotangent: torch.Tensor):
     return out.detach(), [g.detach() for g in grads]
 
 
-def make_fast_efs_fn(model) -> Callable:
-    """fn(features, params=None) -> energy, atomic_energies, forces,
-    virial, stress, stress_voigt and total_pressure (the `make_efs_fn`
-    contract), computed without autograd over pair arrays. Reads the
-    dense layout ('pair_j_d', 'pair_simg_d', 'pair_mask_d') of one
-    structure; raises KeyError otherwise."""
+def _make_pass(model) -> Callable:
+    """The analytic pass that the EFS and the heat flux share:
+    fn(features, params=None) -> energy, atomic_energies, forces, virial,
+    and the owner-anchored per-slot cotangents ct_self = dE/dv_kj through
+    row k's accumulators (three [A, N] components) with the vectors v
+    themselves. Reads the dense layout ('pair_j_d', 'pair_simg_d',
+    'pair_mask_d') of one structure; raises KeyError otherwise."""
     rcut = model.featurizer.rcut
     elements = model.elements
     is_adp = model.tag == "adp"
     is_fs = model.tag == "fs"
 
     @torch.no_grad()
-    def efs(features, params=None) -> Dict[str, torch.Tensor]:
+    def run(features, params=None) -> Dict[str, torch.Tensor]:
         params = model._params(params)
         pos = features["positions"]            # [A, 3]
         cell = features["cell"]
@@ -156,17 +159,61 @@ def make_fast_efs_fn(model) -> Callable:
             [torch.stack([torch.sum(ct_self[a] * v[b]) for b in range(3)])
              for a in range(3)])
         return {"energy": torch.sum(atomic_e), "atomic_energies": atomic_e,
-                "forces": torch.stack(forces_c, dim=-1),
-                **stress_outputs(virial, cell)}
+                "forces": torch.stack(forces_c, dim=-1), "virial": virial,
+                "ct_self": tuple(ct_self), "v": v}
+
+    return run
+
+
+def make_fast_efs_fn(model) -> Callable:
+    """fn(features, params=None) -> energy, atomic_energies, forces,
+    virial, stress, stress_voigt and total_pressure (the `make_efs_fn`
+    contract), computed without autograd over pair arrays. Reads the
+    dense layout ('pair_j_d', 'pair_simg_d', 'pair_mask_d') of one
+    structure; raises KeyError otherwise."""
+    run = _make_pass(model)
+
+    def efs(features, params=None) -> Dict[str, torch.Tensor]:
+        o = run(features, params)
+        return {"energy": o["energy"], "atomic_energies": o["atomic_energies"],
+                "forces": o["forces"],
+                **stress_outputs(o["virial"], features["cell"])}
 
     return efs
 
 
 def make_fast_heat_flux_fn(model) -> Callable:
-    raise NotImplementedError(
-        "make_fast_heat_flux_fn (the analytic EAM heat flux) is not "
-        "ported to tensoralloy_tpu_torch yet; it comes with the MD and "
-        "heat-flux slice")
+    """The analytic many-body heat flux on the dense layout: the operator
+    of `analysis.heatflux.make_heat_flux_fn`,
+
+        J = sum_i (E_i + K_i) v_i - sum_q d_q (g_q . v_n(q)),
+
+    with g_q = ct_self of the shared pass instead of autograd.
+
+    fn(features, velocities [A, 3], masses [A], params=None) ->
+    {"J", "J_convective", "J_virial" [3] (eV A/fs), "energy",
+    "atomic_energies"}."""
+    from ...dynamics import FORCE_TO_ACC
+    run = _make_pass(model)
+
+    def flux(features, velocities, masses, params=None):
+        o = run(features, params)
+        ae = o["atomic_energies"]
+        am = features["atom_masks"]
+        kin = 0.5 * masses * torch.sum(torch.square(velocities), dim=-1) \
+            / FORCE_TO_ACC
+        conv = torch.sum((ae + kin * am)[:, None] * velocities, dim=0)
+        # neighbour velocities by one row gather; ct . vel first, then
+        # dotted with v
+        vg = velocities[features["pair_j_d"].long()]     # [A, N, 3]
+        ct_dot_vel = sum(ct * vg[..., a]
+                         for a, ct in enumerate(o["ct_self"]))
+        jv = -torch.stack([torch.sum(o["v"][b] * ct_dot_vel)
+                           for b in range(3)])
+        return {"J": conv + jv, "J_convective": conv, "J_virial": jv,
+                "energy": o["energy"], "atomic_energies": ae}
+
+    return flux
 
 
 def _adp_terms(model, params, v, r, u, mask, ut, am, jd):

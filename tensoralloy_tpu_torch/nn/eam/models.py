@@ -390,12 +390,54 @@ class EamNN(nn.Module):
         atomic = self.atomic_energies(features, params)
         return torch.sum(atomic, dim=-1), {"atomic_energies": atomic}
 
+    # -- pair-chunked evaluation of large cells ------------------------
+    # Every pair adds linearly to per-atom accumulators (rho, phi and, for
+    # ADP, the dipole and quadrupole moments before squaring); only the
+    # finalize is nonlinear. Summing the accumulators of pair blocks, each
+    # under `torch.utils.checkpoint`, gives the monolithic energy up to
+    # summation order while the backward holds one block of per-pair
+    # intermediates instead of all of them.
+    def _pair_term_accumulators(self, params, features) -> dict:
+        """One flat pair block of one structure -> its linear per-atom
+        accumulators."""
+        _, r, mask, ei, ej, rows, n_rows, _ = self._pair_geometry(features)
+        return {"rho": self._rho_sum(params, r, mask, ei, ej, rows, n_rows),
+                "phi": self._phi_energy(params, r, mask, ei, ej, rows,
+                                        n_rows)}
+
+    def _finalize_accumulators(self, params, acc: dict, features):
+        embed = self._embed_energy(params, acc["rho"])
+        return (embed + acc["phi"]) * features["atom_masks"]
+
     def energy_chunked(self, features, params=None,
-                       pair_chunk: int = 1 << 20):
-        raise NotImplementedError(
-            "energy_chunked (the pair-block evaluation of large cells) "
-            "is not ported to tensoralloy_tpu_torch yet; it comes with "
-            "the large-cell slice")
+                       pair_chunk: int = 1 << 20) -> torch.Tensor:
+        """Total energy of one structure with the flat pair axis in blocks
+        of `pair_chunk` pairs."""
+        from torch.utils.checkpoint import checkpoint
+        params = self._params(params)
+        pair_keys = [k for k in features
+                     if (k.startswith("pair_") and not k.endswith("_d"))
+                     or k == "rij"]
+        base = {k: v for k, v in features.items() if k not in pair_keys}
+        nij = int(features["pair_i"].shape[0])
+        chunk = max(1, int(min(pair_chunk, nij)))
+
+        def block(lo: int, hi: int) -> dict:
+            return self._pair_term_accumulators(params, dict(
+                base, **{k: features[k][lo:hi] for k in pair_keys}))
+
+        acc = None
+        for lo in range(0, nij, chunk):
+            part = checkpoint(block, lo, min(lo + chunk, nij),
+                              use_reentrant=False)
+            acc = part if acc is None else {k: acc[k] + part[k]
+                                            for k in acc}
+        return torch.sum(self._finalize_accumulators(params, acc, features))
+
+    def make_chunked_energy_fn(self, pair_chunk: int = 1 << 20):
+        """-> fn(features, params=None): the pair-chunked energy."""
+        return lambda features, params=None: self.energy_chunked(
+            features, params, pair_chunk)
 
     def l2_loss(self, params=None) -> torch.Tensor:
         params = self._params(params)
@@ -585,6 +627,20 @@ class AdpNN(EamAlloyNN):
         if self.adp_per_term:
             e = e.reshape(n_rows, len(self.unique_kbody_terms)).sum(dim=1)
         return e
+
+    def _pair_term_accumulators(self, params, features) -> dict:
+        vec, r, mask, ei, ej, rows, n_rows, _ = self._pair_geometry(features)
+        mu, lam = self._adp_moments(params, vec, r, mask, ei, ej, rows,
+                                    n_rows)
+        return {"rho": self._rho_sum(params, r, mask, ei, ej, rows, n_rows),
+                "phi": self._phi_energy(params, r, mask, ei, ej, rows,
+                                        n_rows),
+                "mu": mu, "lam": lam}
+
+    def _finalize_accumulators(self, params, acc: dict, features):
+        embed = self._embed_energy(params, acc["rho"])
+        adp = self._adp_quadratic(acc["mu"], acc["lam"], acc["rho"].shape[0])
+        return (embed + acc["phi"] + adp) * features["atom_masks"]
 
     def atomic_energies(self, features, params=None) -> torch.Tensor:
         params = self._params(params)

@@ -11,7 +11,10 @@ route on the flat pair layout, and the trainer's where a batch carries
 no transpose tables); the calculator serves descriptor models through
 the scatter-free `ops.dense.make_dense_efs_fn`, and the tests hold the
 two against each other. `make_hessian_fn` gives the force constants
-that `nn.constraints.ForceConstantsConstraint` fits.
+that `nn.constraints.ForceConstantsConstraint` fits and the calculator's
+`get_hessian`. `make_rij_efs_fn` differentiates w.r.t. displacement
+vectors that the caller supplies (the contract of an external MD
+engine).
 """
 from __future__ import annotations
 
@@ -97,3 +100,50 @@ def make_hessian_fn(energy_fn: Callable, create_graph: bool = False
         return h if create_graph else h.detach()
 
     return hess
+
+
+def make_rij_efs_fn(energy_fn: Callable) -> Callable:
+    """rij-fed evaluation (the JAX `make_rij_efs_fn`): the caller supplies
+    the displacement vectors ("rij" [nij, 3] of the flat pair layout, and
+    "trip_rij" / "trip_rik" for angular models) and the energy is
+    differentiated w.r.t. them; positions and cell stay out of the graph.
+    `energy_fn(features) -> (energy, aux)` of one structure.
+
+    Returns fn(features) -> dict with energy, pair_forces dE/drij
+    [nij, 3] (what an engine accumulates itself), the forces [n_vap, 3]
+    assembled from them (F_i = sum over pairs centred at i - sum over
+    pairs pointing at i), the virial W = sum_p g_p (x) rij_p, stress and
+    stress_voigt; with triples also trip_rij_forces / trip_rik_forces.
+    """
+
+    def efs(features) -> Dict[str, torch.Tensor]:
+        keys = [k for k in ("rij", "trip_rij", "trip_rik") if k in features]
+        vecs = [features[k].detach().requires_grad_() for k in keys]
+        with torch.enable_grad():
+            energy, _ = energy_fn(dict(features, **dict(zip(keys, vecs))))
+            grads = dict(zip(keys, torch.autograd.grad(energy, vecs)))
+        n_vap = features["positions"].shape[0]
+
+        def seg(v, index_key):
+            out = v.new_zeros((n_vap, 3))
+            return out.index_add(0, features[index_key].long(), v)
+
+        g = grads["rij"]
+        forces = seg(g, "pair_i") - seg(g, "pair_j")
+        virial = g.T @ features["rij"]
+        out = {"energy": energy.detach(), "pair_forces": g}
+        for gk, (src, dst) in (("trip_rij", ("trip_i", "trip_j")),
+                               ("trip_rik", ("trip_i", "trip_k"))):
+            if gk in grads:
+                gt = grads[gk]
+                forces = forces + seg(gt, src) - seg(gt, dst)
+                virial = virial + gt.T @ features[gk]
+                out[f"{gk}_forces"] = gt
+        volume = torch.clamp(torch.abs(torch.linalg.det(features["cell"])),
+                             min=1e-12)
+        stress = virial / volume
+        out.update({"forces": forces, "virial": virial, "stress": stress,
+                    "stress_voigt": full_to_voigt(stress)})
+        return out
+
+    return efs

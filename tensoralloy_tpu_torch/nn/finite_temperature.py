@@ -14,8 +14,6 @@ energy (`variational_energy`). Weights sit under
 ``params.<element>.{trunk, head_u, head_s, norm}``, the JAX tree's
 names. `AtomicNN.clone_for` serves this class unchanged (the copy keeps
 the class and shares the weights).
-
-Not ported yet: `heads_chunked` (with the chunked large-cell path).
 """
 from __future__ import annotations
 
@@ -134,6 +132,39 @@ class TemperatureDependentAtomicNN(AtomicNN):
         totals = {k: torch.sum(v, dim=-1) for k, v in heads.items()}
         return totals["free_energy"], {"atomic_energies": heads["energy"],
                                        **totals}
+
+    # -- row-chunked evaluation of large cells (AtomicNN._chunked_totals)
+    def _chunk_head(self, net, x, features) -> tuple:
+        """(U_i, S_i) of one element's rows."""
+        t = features["etemperature"].to(x.dtype)
+        h = apply_dense_stack(net["trunk"]["layers"], x, self.ft_activation)
+        ht = torch.cat([h, t.expand(*h.shape[:-1], 1)], dim=-1)
+        head_u = net["head_u"]["layers"]
+        if self.fixed_static_energy:
+            head_u = freeze_output_bias(head_u)
+        u = apply_dense_stack(head_u, ht, self.activation)[..., 0]
+        s = apply_dense_stack(net["head_s"]["layers"], ht,
+                              self.activation)[..., 0]
+        return u, self._entropy_from_head(s, t)
+
+    def heads_chunked(self, features, params=None, atom_chunk: int = 4096
+                      ) -> Dict[str, torch.Tensor]:
+        """Totals {'energy': U, 'eentropy': S, 'free_energy': U - T S} of
+        one structure, evaluated in row blocks."""
+        u, s = self._chunked_totals(features, params, atom_chunk)
+        t = features["etemperature"].to(u.dtype)
+        return {"energy": u, "eentropy": s, "free_energy": u - t * s}
+
+    def energy_chunked(self, features, params=None,
+                       atom_chunk: int = 4096) -> torch.Tensor:
+        """Internal energy U, evaluated in row blocks."""
+        return self.heads_chunked(features, params, atom_chunk)["energy"]
+
+    def make_chunked_energy_fn(self, atom_chunk: int = 4096):
+        """-> fn(features, params=None): the chunked free energy F, what
+        large-cell forces and stress differentiate."""
+        return lambda features, params=None: self.heads_chunked(
+            features, params, atom_chunk)["free_energy"]
 
     def _stacks(self, params):
         return [params[e][key] for e in self.elements

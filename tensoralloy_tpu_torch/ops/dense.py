@@ -50,20 +50,45 @@ def shift_dot_cell(simg: torch.Tensor, cell: torch.Tensor, dtype):
                  for a in range(3))
 
 
+def spread_padding(jd: torch.Tensor, mask: torch.Tensor, n_rows: int
+                   ) -> torch.Tensor:
+    """`jd` with every masked slot pointed at a row of its own spread over
+    the `n_rows` rows. The featurizers write row 0 into every padding
+    slot; where the positions gather is differentiated, CUDA accumulates
+    a run of equal indices serially, so a large padding made one row the
+    bottleneck of the backward. The masked slots' values and gradients
+    are zero either way."""
+    spread = torch.arange(jd.shape[-2] * jd.shape[-1], device=jd.device,
+                          dtype=jd.dtype).view(jd.shape[-2:]) % n_rows
+    return torch.where(mask > 0, jd, spread)
+
+
+def _gather_rows(jd: torch.Tensor, mask: torch.Tensor, pos: torch.Tensor):
+    """The rows to gather: `jd` itself, or spread off row 0 where the
+    positions are differentiated (the masked entries' garbage geometry
+    then differs from the reference's; every consumer masks it)."""
+    if pos.requires_grad:
+        return spread_padding(jd, mask, pos.shape[-2])
+    return jd
+
+
 def gather_vec(pos: torch.Tensor, jd: torch.Tensor, simg: torch.Tensor,
-               cell: torch.Tensor):
+               cell: torch.Tensor, centers=None):
     """Per-pair vectors r_j + S @ cell - r_i as THREE [B, A, N] component
     tensors, from one row gather over the batch's [B * A, 3] positions
     (structure b's neighbor indices are offset by b * A). A single
-    structure ([A, 3] positions) is a batch of one."""
+    structure ([A, 3] positions) is a batch of one. `centers` (the rows
+    of a row block, [R, 3] with `jd` [R, N]) defaults to `pos`."""
     if pos.dim() == 2:
-        return tuple(v[0] for v in gather_vec(pos[None], jd[None],
-                                              simg[None], cell[None]))
+        return tuple(v[0] for v in gather_vec(
+            pos[None], jd[None], simg[None], cell[None],
+            None if centers is None else centers[None]))
     b, a, _ = pos.shape
+    c = pos if centers is None else centers
     sv = shift_dot_cell(simg, cell, pos.dtype)
     offset = torch.arange(0, b * a, a, device=pos.device).view(b, 1, 1)
-    g = pos.reshape(b * a, 3)[jd + offset]         # [B, A, N, 3]
-    return tuple(g[..., c] + sv[c] - pos[..., c, None] for c in range(3))
+    g = pos.reshape(b * a, 3)[jd + offset]         # [B, R, N, 3]
+    return tuple(g[..., k] + sv[k] - c[..., k, None] for k in range(3))
 
 
 def safe_norm_components(vec, eps: float = 1e-14):
@@ -96,8 +121,12 @@ def dense_pair_geometry(features, with_unit: bool = True):
         # vector-fed evaluation (`make_dense_efs_fn`)
         vec = features["pair_vec_d"]
     else:
-        vec = gather_vec(features["positions"], features["pair_j_d"],
-                         features["pair_simg_d"], features["cell"])
+        # a row block (`positions_rows`, the chunked energies) gathers
+        # from the full positions
+        pos = features["positions"]
+        vec = gather_vec(pos, _gather_rows(features["pair_j_d"], mask, pos),
+                         features["pair_simg_d"], features["cell"],
+                         features.get("positions_rows"))
     rij = safe_norm_components(vec)
     rij = torch.where(mask > 0, rij, 1.0)
     unit = tuple(v / rij for v in vec) if with_unit else None
@@ -120,10 +149,11 @@ def dense_triple_geometry(features):
         vk = features["trip_vec_k_d"]
     else:
         pos, cell = features["positions"], features["cell"]
-        vj = gather_vec(pos, features["trip_j_d"],
-                        features["trip_simg_j_d"], cell)
-        vk = gather_vec(pos, features["trip_k_d"],
-                        features["trip_simg_k_d"], cell)
+        centers = features.get("positions_rows")
+        vj, vk = (gather_vec(pos, _gather_rows(features[f"trip_{s}_d"],
+                                               mask, pos),
+                             features[f"trip_simg_{s}_d"], cell, centers)
+                  for s in ("j", "k"))
     return (distv(vj), distv(vk),
             distv(tuple(k - j for j, k in zip(vj, vk))),
             features["trip_aslot_d"], mask)

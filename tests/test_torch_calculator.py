@@ -135,9 +135,10 @@ def test_request_evaluates_descriptors_once():
 
 
 def test_auto_and_false_take_the_host_list_path():
-    """The reference's defaults ("auto") and False evaluate on the
-    host-built lists in one piece; only True asks for a path that is
-    not ported."""
+    """The reference's routing: a frame below device_nl_auto_atoms (and
+    any frame with device_nl=False) takes the host lists, in one piece
+    below chunk_auto_pairs; the defaults of the six routing parameters
+    are the JAX calculator's."""
     import inspect
     _, s = _structures(1)
     want = TensorAlloyCalculator(MODEL, device="cpu").calculate(s)
@@ -145,19 +146,18 @@ def test_auto_and_false_take_the_host_list_path():
         calc = TensorAlloyCalculator(MODEL, device="cpu", chunked=value,
                                      device_nl=value, fast_efs=value)
         assert calc.calculate(s)["energy"] == want["energy"]
+        assert not calc._nl_cache and "atomic_energies" in calc.results
     defaults = inspect.signature(TensorAlloyCalculator).parameters
     jax_defaults = inspect.signature(JaxCalculator).parameters
-    for name in ("chunked", "device_nl", "fast_efs"):
-        assert defaults[name].default == jax_defaults[name].default == "auto"
+    for name in ("chunked", "chunk_size", "chunk_auto_pairs", "device_nl",
+                 "device_nl_auto_atoms", "fast_efs"):
+        assert defaults[name].default == jax_defaults[name].default, name
+    assert len(s) < defaults["device_nl_auto_atoms"].default
     with pytest.raises(ValueError, match="'auto'"):
         TensorAlloyCalculator(MODEL, device="cpu", chunked="always")
 
 
 def test_deferred_modes_raise():
-    with pytest.raises(NotImplementedError, match="slice"):
-        TensorAlloyCalculator(MODEL, device="cpu", device_nl=True)
-    with pytest.raises(NotImplementedError, match="slice"):
-        TensorAlloyCalculator(MODEL, device="cpu", chunked=True)
     _, s = _structures(1)
     # fast_efs=True asks for the EAM family's analytic route: another
     # model serves as without it, as in the JAX calculator
@@ -166,8 +166,6 @@ def test_deferred_modes_raise():
     assert calc.calculate(s)["energy"] == TensorAlloyCalculator(
         MODEL, device="cpu").calculate(s)["energy"]
     calc = TensorAlloyCalculator(MODEL, device="cpu")
-    with pytest.raises(NotImplementedError, match="slice"):
-        calc.get_hessian(s)
     with pytest.raises(ValueError, match="not supported"):
         calc.calculate(Structure.from_symbols(
             ["Mo"], [[0.0, 0.0, 0.0]], np.eye(3) * 4.0))

@@ -354,23 +354,11 @@ def test_warm_start_from_the_file_named_in_the_toml(tmp_path):
     assert TrainingManager(warm, device="cpu")._initial_state()["step"] == 0
 
 
-EAM_MODEL = str(ARTIFACTS / "mleam_ni/model/snap_Ni_mleam.npz")
-
-
 def _ni_cell():
     from chip_smoke import jittered_fcc
     pos, cell = jittered_fcc(2)
     return Structure.from_symbols(["Ni"] * len(pos), pos, cell,
                                   pbc=[True] * 3)
-
-
-def _calculator(**kw):
-    return TensorAlloyCalculator(EAM_MODEL, device="cpu", **kw)
-
-
-def _eam_model():
-    from tensoralloy_tpu_torch.io.model import load_model
-    return load_model(EAM_MODEL, device="cpu")[0]
 
 
 # what still raises NotImplementedError, each by its name: the manager's
@@ -385,15 +373,6 @@ NOT_PORTED = {
                {"nn.atomic.grap.legacy_mode": True}, "legacy"),
     "nn_filter": ("snap_ni_v5_readapt",
                   {"nn.atomic.grap.algorithm": "nn"}, "'nn'"),
-    "chunked": (lambda: _calculator(chunked=True), "chunked"),
-    "device_nl": (lambda: _calculator(device_nl=True), "device_nl"),
-    "get_hessian": (lambda: _calculator().get_hessian(_ni_cell()),
-                    "get_hessian"),
-    "energy_chunked": (lambda: _eam_model().energy_chunked({}),
-                       "energy_chunked"),
-    "heat_flux": (lambda: __import__(
-        "tensoralloy_tpu_torch.nn.eam.fast_efs", fromlist=["x"]
-    ).make_fast_heat_flux_fn(_eam_model()), "heat flux"),
     "segment_triples": (lambda: __import__(
         "tensoralloy_tpu_torch.transform.featurizer", fromlist=["x"]
     ).Featurizer(["Ni"], 4.0, angular=True).featurize(
