@@ -125,7 +125,40 @@ failure ends the run with a non-zero exit and no result line:
              once a step and twice a chunk; (d) BAOAB NVT and Berendsen
              NPT of ADP Mo 4394, 100 steps each. Each run prints steps/s,
              atom-steps/s, the chunk-end sync time and the regrows
- 11. time    median time per request and its device E/F/S part,
+ 11. analysis the materials-analysis path on the default device (cuda),
+             each part with the launch counts reset before it and read
+             after it (the kernels it names must launch, no other):
+             (a) relax_cell -> fit_elastic_tensor -> EOS over 7 volumes of
+             snap_ni_sfa on the 4-atom fcc Ni cell (g2, g4): float64
+             against `tests/data/torch_port_ref_analysis.json` (1e-6),
+             float32 kernels against twins (1e-3); (b) phonons of
+             mleam_ni (fcc primitive cell, 3x3x3 supercell): Gamma
+             acoustic modes below 0.05 THz, X and L and the QHA's inputs
+             over 5 scales against the fixture (1e-8), the QHA's fits to
+             their solver's precision (`QHA_REL`); a snap_ni_sfa supercell
+             Hessian through the kernels against the twins (1e-10); (c)
+             `vacancy_diffusivity` of mleam_ni on fcc Ni 3x3x3 (relax ->
+             NEB -> Vineyard, exactly one imaginary mode) against
+             `torch_port_ref_kinetics.json` (1e-6); (d) the GRAP band of
+             the 255-atom vacancy hop (snap_ni_v5_readapt, 7 images,
+             float32): one evaluation against the twins (1e-4), then 100
+             FIRE steps in chunks of 25 between relaxed endpoints,
+             grap_kernel once per band evaluation; (e) the committees:
+             5 MoNi GRAP members on the 4000-atom MoNi cell and 8 Mo SF
+             members on bcc Mo 4394, the mean against the mean of single
+             members (1e-4), one descriptor launch a request, the request
+             beside the K single requests; `select_by_uncertainty` over
+             8 jittered MoNi frames; (f) LinearTensorMD (pexp8, moments
+             0-3) fitted in float64 on the first 50 structures of
+             snap-Ni.db through grap_kernel and through the twins
+             (coefficients 1e-8), exported and served; (g) Frenkel-Ladd of
+             mleam_ni on Ni 108 at 300 K at cut depth, and the Einstein ->
+             Einstein integration against its closed form (5 %); (h) the
+             (111) and (100) surface energies and the intrinsic stacking
+             fault of mleam_ni against `torch_port_ref_surface.json`
+             (1e-8). Prints each part's wall time, the FIRE steps/s, the
+             TI steps/s and the committees' request times
+ 12. time    median time per request and its device E/F/S part,
              kernels vs twins (the grap 32000 request on device lists, as
              "auto" routes it); each kernel vs its twin at the
              32000-atom request's shapes (`ms`: the median of single
@@ -140,8 +173,8 @@ failure ends the run with a non-zero exit and no result line:
              useful FLOP at the FP32 67 TFLOP/s
 
 The line before the last is a JSON object of per-kernel results (the
-launches of the serve, train, manager, large and md phases, each counted
-from 0);
+launches of the serve, train, manager, large, md and analysis phases,
+each counted from 0);
 the last is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -1995,6 +2028,592 @@ def md(card):
     return launches
 
 
+# ----------------------------------------------------------------------
+# analysis
+# ----------------------------------------------------------------------
+
+# (a) elastic constants and EOS of the SF model: the relaxation's start
+# (fcc Ni, 4 atoms), the EOS's linear scales of the relaxed cell
+ELASTIC_A = 3.50
+EOS_SCALES = np.linspace(0.97, 1.03, 7)
+# (b) phonons and QHA of the EAM model on the fcc primitive cell
+PHONON_A = 3.52
+PHONON_SUPERCELL = (3, 3, 3)
+QHA_SCALES = np.linspace(0.99, 1.02, 5)
+QHA_TEMPERATURES = [0.0, 300.0, 600.0]
+QHA_QMESH = (4, 4, 4)
+Q_POINTS = {"X": [0.5, 0.0, 0.5], "L": [0.5, 0.5, 0.5]}
+GAMMA_ACOUSTIC_THZ = 0.05
+# The QHA's F(V) fits stop at scipy's least_squares tolerances (a step of
+# 1e-8 of the parameters): fits of inputs equal to round-off may stop an
+# iteration apart, so the fitted outputs are held to these limits and the
+# fits' inputs, E(V) and F_vib(V, T), to ANALYSIS_F64_REL
+QHA_REL = {"volume": 1e-6, "a_scale": 1e-6, "free_energy": 1e-6,
+           "bulk_modulus": 1e-5, "alpha": 1e-4, "T": 0.0}
+ANALYSIS_F64_REL = 1e-8
+ELASTIC_F64_REL = 1e-6
+ELASTIC_F32_REL = 1e-3
+# (c) vacancy kinetics of the EAM model
+KINETICS_RUN = dict(supercell=(3, 3, 3), temperatures=(600.0, 900.0, 1200.0))
+KINETICS_KEYS = ("formation_energy", "migration_energy", "nu_star_thz",
+                 "jump_distance", "jump_rate_hz", "d_vacancy_m2_s")
+KINETICS_REL = 1e-6
+# (d) the GRAP band: fcc Ni 4x4x4 less one site, images, FIRE depth
+NEB_REPS, NEB_IMAGES, NEB_STEPS, NEB_CHUNK = 4, 7, 100, 25
+NEB_F32_REL = 1e-4
+# (e) the committees: members of one architecture, and their cells
+MONI_MEMBERS = [MODELS / run / "model" / "snap_MoNi.npz" for run in (
+    "snap_moni", "snap_moni_readapt", "snap_moni_ref11", "snap_moni_v2",
+    "snap_moni_v3")]
+MO_SF_MEMBERS = [MODELS / run / "model" / name for run, name in (
+    ("snap_mo_ref11", "snap_Mo_refsf.npz"),
+    ("snap_mo_refsf_cont", "snap_Mo_refsf.npz"),
+    ("snap_mo_refsf_cpu", "snap_Mo_refsf.npz"),
+    ("snap_mo_refsf_f15", "snap_Mo_refsf.npz"),
+    ("snap_mo_refsf_l2", "snap_Mo_refsf.npz"),
+    ("snap_mo_refsf_rrmse", "snap_Mo_refsf.npz"),
+    ("snap_mo_refsf_s30", "snap_Mo_refsf.npz"),
+    ("snap_mo_y15", "snap_Mo_y15.npz"))]
+SELECT_FRAMES = 8
+# (f) the linear model: its basis, the data, and the ridge strength whose
+# normal matrix is well conditioned (4.9e6 on these rows; 4.9e12 at the
+# default 1e-8, where rows equal to round-off give coefficients 1e-4 apart)
+LINEAR_STRUCTURES = 50
+LINEAR_ALPHA = 1e-2
+LINEAR_REL = 1e-8
+# (g) Frenkel-Ladd at cut depth, and the Einstein -> Einstein oracle
+TI_RUN = dict(n_lambda=4, equil_steps=200, prod_steps=400, timestep=2.0,
+              sample=10, seed=1)
+# (108 atoms; BAOAB samples a harmonic crystal's positions exactly at
+# any stable step, and a light friction decorrelates the samples, 100 fs
+# apart: over ten seeds the integral lands within 2.5 % of its closed
+# form, mean +0.9 %)
+EINSTEIN_RUN = dict(n_lambda=4, equil_steps=50, prod_steps=250,
+                    timestep=10.0, friction=0.05, sample=10, seed=3,
+                    com_correction=False)
+EINSTEIN_K = (1.5, 6.0)
+# (h) surface energies and the intrinsic stacking fault
+SURFACE_RUN = dict(layers=6, relax=True, steps=60)
+EV_A3_TO_GPA = 160.21766208
+
+
+def port_analysis():
+    """The port's analysis modules, as the workflows below take them."""
+    from types import SimpleNamespace
+    from tensoralloy_tpu_torch.analysis import (elastic, eos, kinetics,
+                                                phonon, surface)
+    return SimpleNamespace(elastic=elastic, eos=eos, phonon=phonon,
+                           surface=surface, kinetics=kinetics)
+
+
+def fcc_conventional(cls, a: float):
+    base = np.array([[0, 0, 0], [.5, .5, 0], [.5, 0, .5], [0, .5, .5]]) * a
+    return cls.from_symbols(["Ni"] * 4, base, np.eye(3) * a, pbc=[True] * 3)
+
+
+def fcc_primitive(cls, a: float):
+    cell = 0.5 * a * np.array([[0.0, 1.0, 1.0], [1.0, 0.0, 1.0],
+                               [1.0, 1.0, 0.0]])
+    return cls.from_symbols(["Ni"], [[0.0, 0.0, 0.0]], cell, pbc=[True] * 3)
+
+
+def elastic_workflow(calc, analysis, structure):
+    """relax_cell -> fit_elastic_tensor -> EOS over EOS_SCALES of the
+    relaxed cell (with either package's modules in `analysis`)."""
+    el = analysis.elastic
+    relaxed = el.relax_cell(calc, structure, fmax=1e-4, smax=1e-4,
+                            steps=400)
+    c, info = el.fit_elastic_tensor(calc, relaxed)
+    vols, ens = [], []
+    for sc in EOS_SCALES:
+        s = relaxed.copy()
+        s.cell = s.cell * sc
+        s.positions = s.positions * sc
+        vols.append(s.volume)
+        ens.append(float(calc.get_potential_energy(s)))
+    v0, e0, b0 = analysis.eos.EquationOfState(vols, ens).fit()
+    return {"a0": float(np.linalg.norm(relaxed.cell[0])),
+            "cij": info["cij"], "bulk_modulus_voigt":
+                el.bulk_modulus_voigt(c),
+            "eos": {"v0": v0, "e0": e0, "b0": b0}, "eos_energies": ens}
+
+
+def qha_inputs(calc, analysis, primitive, temperatures, supercell, qmesh):
+    """[n_scales, 1 + n_T]: E(V) and F_vib(V, T) at each of QHA_SCALES,
+    what `quasi_harmonic` fits (computed again by its own steps)."""
+    rows = []
+    for sc in QHA_SCALES:
+        s = primitive.copy()
+        s.cell = s.cell * sc
+        s.positions = s.positions * sc
+        th = analysis.phonon.PhononCalculator(
+            calc, s, supercell=supercell).thermal_properties(
+                temperatures, qmesh=qmesh)
+        rows.append([float(calc.get_potential_energy(s))]
+                    + list(th["free_energy"]))
+    return np.asarray(rows)
+
+
+def phonon_workflow(calc, analysis, primitive):
+    """Frequencies at G, X and L of the PHONON_SUPERCELL, the QHA and its
+    inputs."""
+    ph = analysis.phonon.PhononCalculator(calc, primitive,
+                                          supercell=PHONON_SUPERCELL)
+    out = {"gamma": ph.gamma_frequencies().tolist()}
+    for k, q in Q_POINTS.items():
+        out[k] = ph.frequencies(np.array(q)).tolist()
+    qha = analysis.phonon.quasi_harmonic(
+        calc, primitive, QHA_TEMPERATURES, scales=QHA_SCALES,
+        supercell=PHONON_SUPERCELL, qmesh=QHA_QMESH)
+    out["qha"] = {k: np.asarray(v).tolist() for k, v in qha.items()}
+    out["qha_inputs"] = qha_inputs(calc, analysis, primitive,
+                                   QHA_TEMPERATURES, PHONON_SUPERCELL,
+                                   QHA_QMESH).tolist()
+    return out
+
+
+def kinetics_workflow(calc, analysis, bulk):
+    out = analysis.kinetics.vacancy_diffusivity(calc, bulk, **KINETICS_RUN)
+    res = {k: np.asarray(out[k]).tolist() for k in KINETICS_KEYS}
+    res["barrier"] = out["neb"]["barrier"]
+    res["neb_steps"] = out["neb"]["n_steps"]
+    return res
+
+
+def surface_workflow(calc, analysis, bulk):
+    """(111) and (100) surface energies and the (111) intrinsic stacking
+    fault."""
+    out = {}
+    for hkl in ((1, 1, 1), (1, 0, 0)):
+        r = analysis.surface.surface_energy(calc, bulk, hkl, **SURFACE_RUN)
+        out["".join(map(str, hkl))] = {k: r[k] for k in (
+            "gamma_j_m2", "relaxation_ev")}
+    isf = analysis.surface.stacking_fault_energy(
+        calc, bulk, (1, 1, 1), (1 / 3, 1 / 3), **SURFACE_RUN)
+    out["isf_mj_m2"] = isf["gamma_mj_m2"]
+    return out
+
+
+def _analysis_fixture():
+    return json.loads((DATA / "torch_port_ref_analysis.json").read_text())
+
+
+def _flat_rel(got, want) -> float:
+    """rel_err over the numbers of two equal-shaped JSON-like records."""
+    def flat(x):
+        if isinstance(x, dict):
+            return [v for k in sorted(x) for v in flat(x[k])]
+        return list(np.ravel(np.asarray(x, np.float64)))
+    return rel_err(flat(got), flat(want))
+
+
+def _launched(before, kernels=("g2", "g4", "grap")):
+    from tensoralloy_tpu_torch.ops import fused
+    return {k: fused.launch_counts[k] - before.get(k, 0) for k in kernels}
+
+
+def analysis_elastic(card):
+    """(a) relax_cell -> fit_elastic_tensor -> EOS of snap_ni_sfa on the
+    4-atom fcc Ni cell through g2 and g4: float64 against the JAX
+    fixture, float32 kernels against float32 twins."""
+    from tensoralloy_tpu_torch.atoms import Structure
+    from tensoralloy_tpu_torch.calculator import TensorAlloyCalculator
+    from tensoralloy_tpu_torch.ops import fused
+    ref = _analysis_fixture()["elastic"]
+    s = fcc_conventional(Structure, ELASTIC_A)
+    got = {}
+    for dtype, backend in (("high", "pallas"), ("medium", "pallas"),
+                           ("medium", "dense")):
+        calc = TensorAlloyCalculator(str(PATHS["sf"][0]), dtype=dtype,
+                                     backend=backend)
+        before = dict(fused.launch_counts)
+        t0 = time.perf_counter()
+        got[dtype, backend] = elastic_workflow(calc, port_analysis(), s)
+        sec = time.perf_counter() - t0
+        r = got[dtype, backend]
+        print(f"  ({dtype}, {backend}) a0 {r['a0']:.6f} A, "
+              f"{ {k: round(v, 4) for k, v in r['cij'].items()} } GPa, "
+              f"B_V {r['bulk_modulus_voigt']:.3f} GPa, EOS B "
+              f"{r['eos']['b0'] * EV_A3_TO_GPA:.3f} GPa; {sec:.2f} s, "
+              f"launches {_launched(before)} ({card})")
+    err64 = _flat_rel(got["high", "pallas"], ref)
+    err32 = _flat_rel(got["medium", "pallas"], got["medium", "dense"])
+    print(f"    float64 vs the JAX fixture {err64:.2e} (limit "
+          f"{ELASTIC_F64_REL}); float32 kernels vs twins {err32:.2e} "
+          f"(limit {ELASTIC_F32_REL})")
+    if not (err64 <= ELASTIC_F64_REL and err32 <= ELASTIC_F32_REL):
+        raise AssertionError(f"elastic: {err64}, {err32}")
+
+
+def analysis_phonons(card):
+    """(b) phonons and the QHA of mleam_ni (fcc primitive cell, 3x3x3
+    supercell) in float64 against the JAX fixture; one snap_ni_sfa
+    supercell Hessian through the kernels against the twins."""
+    from tensoralloy_tpu_torch.atoms import Structure
+    from tensoralloy_tpu_torch.calculator import TensorAlloyCalculator
+    from tensoralloy_tpu_torch.ops import fused
+    ref = _analysis_fixture()["phonon"]
+    prim = fcc_primitive(Structure, PHONON_A)
+    calc = TensorAlloyCalculator(str(EAM_PATHS["mleam_ni"][0]),
+                                 dtype="high")
+    t0 = time.perf_counter()
+    got = phonon_workflow(calc, port_analysis(), prim)
+    sec = time.perf_counter() - t0
+    gamma = float(np.max(np.abs(got["gamma"])))
+    errs = {k: rel_err(got[k], ref[k]) for k in ("X", "L", "qha_inputs")}
+    qha = {k: rel_err(got["qha"][k], v) for k, v in ref["qha"].items()}
+    print(f"  mleam_ni: Gamma acoustic max |nu| {gamma:.2e} THz; X "
+          f"{np.round(got['X'], 4).tolist()}, L "
+          f"{np.round(got['L'], 4).tolist()} THz; QHA volume "
+          f"{np.round(got['qha']['volume'], 5).tolist()} A^3, alpha(300 K) "
+          f"{got['qha']['alpha'][1]:.3e} /K; {sec:.2f} s for "
+          f"{1 + 2 * len(QHA_SCALES)} Hessians of "
+          f"{int(np.prod(PHONON_SUPERCELL))} atoms and the fits ({card})")
+    print(f"    vs the JAX fixture: {json.dumps(errs)}; QHA fits "
+          f"{json.dumps(qha)}")
+    if gamma > GAMMA_ACOUSTIC_THZ or max(errs.values()) > ANALYSIS_F64_REL \
+            or any(qha[k] > QHA_REL[k] for k in qha):
+        raise AssertionError(f"phonons: {gamma}, {errs}, {qha}")
+
+    fcs = {}
+    for backend in ("pallas", "dense"):
+        sf = TensorAlloyCalculator(str(PATHS["sf"][0]), dtype="high",
+                                   backend=backend)
+        before = dict(fused.launch_counts)
+        t0 = time.perf_counter()
+        fcs[backend] = port_analysis().phonon.PhononCalculator(
+            sf, prim, supercell=PHONON_SUPERCELL).fc
+        launched = _launched(before)
+        print(f"  snap_ni_sfa Hessian of {int(np.prod(PHONON_SUPERCELL))} "
+              f"atoms, {backend}: {time.perf_counter() - t0:.2f} s, "
+              f"launches {launched} ({card})")
+        if backend == "pallas" and (launched["g2"] != 1
+                                    or launched["g4"] != 1):
+            raise AssertionError(f"the Hessian launched {launched}")
+    err = rel_err(fcs["pallas"], fcs["dense"])
+    print(f"    kernels vs twins {err:.2e} (limit {F64_REL})")
+    if err > F64_REL:
+        raise AssertionError(f"snap_ni_sfa Hessian: {err}")
+
+
+def analysis_kinetics(card):
+    """(c) vacancy_diffusivity of mleam_ni on fcc Ni 3x3x3 in float64
+    against the JAX fixture; `vineyard_rate` raises unless the saddle has
+    exactly one imaginary mode."""
+    from tensoralloy_tpu_torch.atoms import Structure
+    from tensoralloy_tpu_torch.calculator import TensorAlloyCalculator
+    ref = json.loads((DATA / "torch_port_ref_kinetics.json").read_text())
+    calc = TensorAlloyCalculator(str(EAM_PATHS["mleam_ni"][0]),
+                                 dtype="high")
+    t0 = time.perf_counter()
+    got = kinetics_workflow(calc, port_analysis(),
+                            fcc_conventional(Structure, PHONON_A))
+    sec = time.perf_counter() - t0
+    errs = {k: rel_err(got[k], ref[k]) for k in KINETICS_KEYS}
+    print(f"  E_f {got['formation_energy']:.6f} eV, E_m "
+          f"{got['migration_energy']:.6f} eV ({got['neb_steps']} NEB "
+          f"steps), nu* {got['nu_star_thz']:.4f} THz, one imaginary mode "
+          f"at the saddle, D(T) {got['d_vacancy_m2_s']} m^2/s; {sec:.2f} "
+          f"s ({card})")
+    print(f"    vs the JAX fixture {json.dumps(errs)}")
+    if max(errs.values()) > KINETICS_REL:
+        raise AssertionError(f"kinetics: {errs}")
+
+
+def _vacancy_hop(reps: int, a: float = LATTICE):
+    """(initial, final) jittered fcc Ni cells with site 0 vacant; in the
+    final one its nearest neighbor sits on the vacant site. The jitter
+    breaks the hop's mirror symmetry: on a perfect lattice mirror images
+    of the band have equal energies, and round-off alone would pick their
+    tangents."""
+    from tensoralloy_tpu_torch.atoms import Structure, minimum_image
+    pos, cell = jittered_fcc(reps, a=a)
+    vac, pos = pos[0], pos[1:]
+    d = minimum_image(pos - vac, cell)
+    hop = int(np.argmin(np.linalg.norm(d, axis=1)))
+    final = pos.copy()
+    final[hop] = pos[hop] - d[hop]
+    symbols = ["Ni"] * len(pos)
+    return (Structure.from_symbols(symbols, pos, cell, pbc=[True] * 3),
+            Structure.from_symbols(symbols, final, cell, pbc=[True] * 3))
+
+
+def analysis_neb(card):
+    """(d) the GRAP band of the 255-atom vacancy hop through grap_kernel:
+    one evaluation of the jittered band against the twins; then, between
+    endpoints relaxed through the kernels, NEB_STEPS FIRE steps with
+    grap_kernel once per band evaluation."""
+    from tensoralloy_tpu_torch.io.model import load_model
+    from tensoralloy_tpu_torch.neb import NEB
+    from tensoralloy_tpu_torch.ops import fused
+    initial, final = _vacancy_hop(NEB_REPS)
+    bands = {}
+    for backend in ("pallas", "dense"):
+        model, _ = load_model(str(PATHS["grap"][0]), dtype="medium",
+                              backend=backend)
+        bands[backend] = NEB(model, initial, final, n_images=NEB_IMAGES,
+                             chunk_size=NEB_CHUNK)
+    evals = {}
+    for backend, neb in bands.items():
+        e, f = neb._band_force(neb._featurize_band(), neb._positions_vap())
+        evals[backend] = (e.cpu().numpy(), f.cpu().numpy())
+    errs = {"energies": rel_err(evals["pallas"][0], evals["dense"][0]),
+            "neb_forces": rel_err(evals["pallas"][1], evals["dense"][1])}
+    print(f"  band of {NEB_IMAGES} x {len(initial)} atoms, one evaluation: "
+          f"kernels vs twins {json.dumps(errs)}")
+    if max(errs.values()) > NEB_F32_REL:
+        raise AssertionError(f"GRAP band: {errs}")
+    # the run: endpoints relaxed through the kernels, a fresh band
+    from tensoralloy_tpu_torch.analysis.elastic import relax_positions
+    from tensoralloy_tpu_torch.calculator import TensorAlloyCalculator
+    calc = TensorAlloyCalculator(str(PATHS["grap"][0]), dtype="medium",
+                                 backend="pallas")
+    t0 = time.perf_counter()
+    initial, final = (relax_positions(calc, s, fmax=0.05, steps=200)
+                      for s in (initial, final))
+    print(f"  endpoints relaxed to 0.05 eV/A: "
+          f"{time.perf_counter() - t0:.2f} s ({card})")
+    neb = NEB(bands["pallas"].model, initial, final, n_images=NEB_IMAGES,
+              chunk_size=NEB_CHUNK)
+    before = dict(fused.launch_counts)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = neb.run(fmax=1e-6, max_steps=NEB_STEPS)
+    sec = time.perf_counter() - t0
+    launched = _launched(before)
+    print(f"  {res['n_steps']} FIRE steps in chunks of {NEB_CHUNK}: "
+          f"{sec:.2f} s, {res['n_steps'] / sec:.1f} steps/s; barrier "
+          f"{res['barrier']:.4f} eV, fmax {res['fmax']:.4f} eV/A; "
+          f"grap_kernel launches {launched['grap']} for "
+          f"{neb.n_evaluations} band evaluations ({card})")
+    if launched["grap"] != neb.n_evaluations or \
+            not np.all(np.isfinite(res["energies"])):
+        raise AssertionError(f"GRAP NEB launched {launched}, "
+                             f"{neb.n_evaluations} evaluations")
+
+
+def _committee(name, members, structure, kernel, card):
+    """One committee request against the mean of its K single members:
+    one launch of the descriptor kernel, mean E/F/S to F32_REL, a spread
+    above zero; the request's time beside the K single requests'."""
+    from tensoralloy_tpu_torch.calculator import TensorAlloyCalculator
+    from tensoralloy_tpu_torch.ensemble import EnsembleCalculator
+    from tensoralloy_tpu_torch.ops import fused
+    paths = [str(p) for p in members]
+    ens = EnsembleCalculator(paths, dtype="medium", backend="pallas")
+    before = dict(fused.launch_counts)
+    res = ens.calculate(structure)
+    launched = _launched(before)
+    singles = [TensorAlloyCalculator(p, dtype="medium", backend="pallas")
+               for p in paths]
+    results = [c.calculate(structure) for c in singles]
+    mean = {k: np.mean([r[k] for r in results], axis=0)
+            for k in ("energy", "forces", "stress")}
+    errs = efs_errors(res, mean)
+    t_ens = _median_host_ms(lambda: ens.calculate(structure), 3)
+    t_one = [_median_host_ms(lambda c=c: c.calculate(structure), 3)
+             for c in singles]
+    # the device E/F/S of the committee and of one member, on features
+    # made once
+    t_dev = []
+    for c in (ens, singles[0]):
+        feats = c.featurize(structure, c._get_vap(structure))
+        efs = c._get_variant(structure)[1]
+        t_dev.append(_median_host_ms(lambda: efs(feats), 3))
+    print(f"  {name}: {len(members)} members, {len(structure)} atoms: "
+          f"{kernel} launches {launched[kernel]} a request; mean vs the "
+          f"mean of single members {json.dumps(errs)}; energy std "
+          f"{res['energy_std']:.3e} eV, max force std "
+          f"{res['forces_std'].max():.3e} eV/A; request {t_ens:.1f} ms "
+          f"(device E/F/S {t_dev[0]:.1f} ms: one descriptor pass, one "
+          f"batched VJP over the members) against {sum(t_one):.1f} ms for "
+          f"{len(members)} single requests (a member's device E/F/S "
+          f"{t_dev[1]:.1f} ms) ({card})")
+    if launched[kernel] != 1 or max(errs.values()) > F32_REL or \
+            not res["forces_std"].max() > 0:
+        raise AssertionError(f"committee {name}: {launched}, {errs}")
+    return ens
+
+
+def analysis_committees(card):
+    """(e) the MoNi GRAP committee (5 members, 4000 atoms) and the Mo SF
+    committee (8 members, bcc Mo 4394), and the selection by uncertainty
+    over jittered MoNi frames."""
+    from tensoralloy_tpu_torch.atoms import Structure
+    from tensoralloy_tpu_torch.ensemble import select_by_uncertainty
+    ens = _committee("moni grap", MONI_MEMBERS, _moni_structure(), "grap",
+                     card)
+    _committee("mo sf", MO_SF_MEMBERS,
+               _lattice_structure("bcc", "Mo", 3.16, MD_MO_REPS), "g2", card)
+    frames = []
+    for i in range(SELECT_FRAMES):
+        pos, cell = jittered_fcc(3, seed=SEED + i, sigma=0.02 + 0.02 * i)
+        symbols = ["Mo" if j % 10 == 0 else "Ni" for j in range(len(pos))]
+        frames.append(Structure.from_symbols(symbols, pos, cell,
+                                             pbc=[True] * 3))
+    t0 = time.perf_counter()
+    order = select_by_uncertainty(ens, frames)
+    scores = [ens.get_max_force_std(s) for s in frames]
+    print(f"  select_by_uncertainty over {len(frames)} frames: {order}, "
+          f"scores {np.round([scores[i] for i in order], 4).tolist()}; "
+          f"{time.perf_counter() - t0:.2f} s ({card})")
+    if sorted(order) != list(range(len(frames))) or \
+            [scores[i] for i in order] != sorted(scores, reverse=True):
+        raise AssertionError(f"selection order {order}, scores {scores}")
+
+
+def analysis_linear(card):
+    """(f) LinearTensorMD (pexp8, moments 0-3, Ni, rcut 6) fitted in
+    float64 on the first LINEAR_STRUCTURES structures of snap-Ni.db
+    (energy and force rows) through grap_kernel and through the twins;
+    the fitted model exported and served."""
+    from tensoralloy_tpu_torch.calculator import TensorAlloyCalculator
+    from tensoralloy_tpu_torch.io.sqlite import connect
+    from tensoralloy_tpu_torch.linear.model import (LinearTensorMD,
+                                                    TensorMDPythonCalculator)
+    from tensoralloy_tpu_torch.ops import fused
+    with tempfile.TemporaryDirectory() as tmp:
+        shutil.copy(TRAIN_DB, Path(tmp) / TRAIN_DB.name)
+        db = connect(str(Path(tmp) / TRAIN_DB.name))
+        structures = [db.get(i) for i in range(1, LINEAR_STRUCTURES + 1)]
+        fits, coefs = {}, {}
+        for backend in ("pallas", "dense"):
+            lm = LinearTensorMD(["Ni"], rcut=6.0, preset="pexp8",
+                                max_moment=3, backend=backend)
+            before = dict(fused.launch_counts)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fits[backend] = lm.fit(structures, alpha=LINEAR_ALPHA)
+            sec = time.perf_counter() - t0
+            coefs[backend] = lm
+            print(f"  {backend}: {fits[backend]['n_rows']} rows x "
+                  f"{lm.n_coef} coefficients, RMSE "
+                  f"{fits[backend]['rmse']:.6f}; {sec:.2f} s, launches "
+                  f"{_launched(before)} ({card})")
+        err = rel_err(coefs["pallas"].coef_, coefs["dense"].coef_)
+        print(f"    coefficients, kernels vs twins {err:.2e} (limit "
+              f"{LINEAR_REL})")
+        if err > LINEAR_REL:
+            raise AssertionError(f"linear coefficients: {err}")
+        lm = coefs["pallas"]
+        path = str(Path(tmp) / "linear.npz")
+        lm.export(path)
+        s = structures[-1]
+        served = TensorAlloyCalculator(path, dtype="high",
+                                       backend="pallas").calculate(s)
+        direct = TensorMDPythonCalculator(lm).calculate(s)
+        errs = efs_errors(served, direct)
+        print(f"    exported and served: {len(s)} atoms, E "
+              f"{served['energy']:.6f} eV (label {s.energy:.6f}); vs the "
+              f"fitted model's calculator {json.dumps(errs)}")
+        if max(errs.values()) > F64_REL:
+            raise AssertionError(f"linear export: {errs}")
+
+
+def analysis_ti(card):
+    """(g) Frenkel-Ladd of mleam_ni on Ni 108 at 300 K at cut depth, and
+    the Einstein -> Einstein integration against its closed form."""
+    from tensoralloy_tpu_torch.analysis import ti
+    from tensoralloy_tpu_torch.atoms import Structure
+    from tensoralloy_tpu_torch.dynamics import KB
+    from tensoralloy_tpu_torch.io.model import load_model
+    model, _ = load_model(str(EAM_PATHS["mleam_ni"][0]), dtype="high")
+    temp = 300.0
+    s = fcc_conventional(Structure, PHONON_A).repeat((3, 3, 3))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = ti.frenkel_ladd(model, s, temp, **TI_RUN)
+    sec = time.perf_counter() - t0
+    steps = (TI_RUN["equil_steps"] + max(TI_RUN["prod_steps"] // 2,
+                                         10 * TI_RUN["sample"])
+             + TI_RUN["n_lambda"] * (TI_RUN["equil_steps"]
+                                     + TI_RUN["prod_steps"]))
+    print(f"  Ni {len(s)} at {temp} K: F {res['free_energy_per_atom']:.6f} "
+          f"eV/atom (k_spring {res['k_spring']:.3f} eV/A^2), {steps} MD "
+          f"steps in {sec:.2f} s, {steps / sec:.1f} steps/s ({card})")
+    if not np.isfinite(res["free_energy_per_atom"]):
+        raise AssertionError("Frenkel-Ladd: non-finite free energy")
+
+    clone = model.clone_for(s.count())
+    vap = model.featurizer.make_vap(s, s.count())
+    centers = np.zeros((clone.n_atoms_vap, 3))
+    centers[vap.local_to_vap] = s.positions
+    masks = np.zeros(clone.n_atoms_vap)
+    masks[vap.local_to_vap] = 1.0
+    k0, k1 = EINSTEIN_K
+    fake = ti.LambdaMix(model, 0.0, centers, k1, masks)
+    t0 = time.perf_counter()
+    res = ti.frenkel_ladd(fake, s, temp, k_spring=k0, **EINSTEIN_RUN)
+    df = 1.5 * len(s) * KB * temp * np.log(k1 / k0)
+    f1 = ti.einstein_free_energy(len(s), s.masses, k1, temp)
+    print(f"  Einstein -> Einstein, {len(s)} atoms: dF {res['delta_f']:.6f} "
+          f"eV against {df:.6f} eV ({res['delta_f'] / df - 1:+.4f}); F "
+          f"{res['free_energy']:.6f} against {f1:.6f} eV; "
+          f"{time.perf_counter() - t0:.2f} s ({card})")
+    if abs(res["delta_f"] / df - 1) > 0.05 or \
+            abs(res["free_energy"] - f1) > 0.06 * abs(df):
+        raise AssertionError("Einstein -> Einstein off its closed form")
+
+
+def analysis_surfaces(card):
+    """(h) surface energies and the intrinsic stacking fault of mleam_ni
+    in float64 against the JAX fixture; (111) below (100)."""
+    from tensoralloy_tpu_torch.atoms import Structure
+    from tensoralloy_tpu_torch.calculator import TensorAlloyCalculator
+    ref = json.loads((DATA / "torch_port_ref_surface.json").read_text())
+    calc = TensorAlloyCalculator(str(EAM_PATHS["mleam_ni"][0]),
+                                 dtype="high")
+    t0 = time.perf_counter()
+    got = surface_workflow(calc, port_analysis(),
+                           fcc_conventional(Structure, PHONON_A))
+    err = _flat_rel(got, ref)
+    print(f"  gamma(111) {got['111']['gamma_j_m2']:.6f}, gamma(100) "
+          f"{got['100']['gamma_j_m2']:.6f} J/m^2, ISF "
+          f"{got['isf_mj_m2']:.4f} mJ/m^2; vs the JAX fixture {err:.2e}; "
+          f"{time.perf_counter() - t0:.2f} s ({card})")
+    if err > ANALYSIS_F64_REL or not \
+            got["111"]["gamma_j_m2"] < got["100"]["gamma_j_m2"]:
+        raise AssertionError(f"surfaces: {err}, {got}")
+
+
+ANALYSIS_PARTS = (("a elastic + EOS", analysis_elastic, ("g2", "g4")),
+                  ("b phonons + QHA", analysis_phonons, ("g2", "g4")),
+                  ("c vacancy kinetics", analysis_kinetics, ()),
+                  ("d GRAP NEB", analysis_neb, ("grap",)),
+                  ("e committees", analysis_committees, ("g2", "grap")),
+                  ("f linear TensorMD", analysis_linear, ("grap",)),
+                  ("g Frenkel-Ladd", analysis_ti, ()),
+                  ("h surfaces", analysis_surfaces, ()))
+
+
+def analysis(card):
+    """The materials-analysis path on the default device (cuda), each
+    part with the launch counts reset before it and read after it: the
+    kernels it names must have launched, the others not. -> launches by
+    kernel over the phase."""
+    from tensoralloy_tpu_torch.ops import fused
+    phase("analysis")
+    t0 = time.perf_counter()
+    totals = {k: 0 for k in fused.launch_counts}
+    for name, part, kernels in ANALYSIS_PARTS:
+        print(f"  -- ({name})")
+        t1 = time.perf_counter()
+        fused.reset_launch_counts()
+        part(card)
+        launches = dict(fused.launch_counts)
+        print(f"  ({name}) {time.perf_counter() - t1:.1f} s, launches "
+              f"{launches}")
+        if any(not launches[k] for k in kernels) or any(
+                launches[k] for k in launches if k not in kernels):
+            raise AssertionError(f"({name}) launched {launches}, expected "
+                                 f"{kernels}")
+        for k, v in launches.items():
+            totals[k] += v
+    print(f"  launches over the analysis phase: {totals}")
+    print(f"  analysis phase {time.perf_counter() - t0:.1f} s")
+    return totals
+
+
 def _median_ms(fn, reps: int, warmup: int = 3) -> float:
     """Median of `reps` CUDA-event times of single calls: the event pair
     also spans the host's enqueue when the device waits on it."""
@@ -2206,8 +2825,10 @@ def main() -> int:
     eam(card)
     _, large_launches = large(card)
     md_launches = md(card)
+    analysis_launches = analysis(card)
     for counts in [m["launches"] for m in measured.values()] \
-            + [manager_launches, large_launches, md_launches]:
+            + [manager_launches, large_launches, md_launches,
+               analysis_launches]:
         for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v
     rows = time_path(card, served, launches)

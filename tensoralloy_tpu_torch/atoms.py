@@ -200,3 +200,36 @@ def voigt_to_full_3x3(v: np.ndarray) -> np.ndarray:
     return np.array([[v[0], v[5], v[4]],
                      [v[5], v[1], v[3]],
                      [v[4], v[3], v[2]]])
+
+
+def minimum_image(d: np.ndarray, cell: np.ndarray,
+                  pbc=None) -> np.ndarray:
+    """Minimum-image displacement vector(s) `d` under `cell`.
+
+    `pbc` (default: fully periodic) masks the wrap per axis; a
+    singular/zero cell returns `d` unchanged. Fractional rounding
+    alone is NOT minimal for skewed (hexagonal/triclinic) cells, so
+    the rounded image is refined over its 26 neighboring lattice
+    offsets. Shared by NEB band tangents, tensordb cluster geometry
+    and fingerprint motifs."""
+    d = np.asarray(d, dtype=float)
+    if cell is None or abs(np.linalg.det(cell)) < 1e-12:
+        return d
+    mask = np.ones(3) if pbc is None else np.asarray(pbc, dtype=float)
+    if not mask.any():
+        return d
+    frac = d @ np.linalg.inv(cell)
+    base = (frac - np.round(frac * mask)) @ cell
+    # refine: for skewed cells the rounded image can be off by one
+    # lattice offset along each periodic axis
+    steps = [(-1.0, 0.0, 1.0) if mask[ax] else (0.0,)
+             for ax in range(3)]
+    offsets = np.array([(i, j, k) for i in steps[0] for j in steps[1]
+                        for k in steps[2]])
+    if len(offsets) == 1:
+        return base
+    cands = base[..., None, :] + (offsets @ cell)      # [..., no, 3]
+    norms = np.sum(np.square(cands), axis=-1)
+    best = np.argmin(norms, axis=-1)
+    return np.take_along_axis(
+        cands, best[..., None, None], axis=-2)[..., 0, :]

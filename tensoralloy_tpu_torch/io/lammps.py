@@ -1,6 +1,6 @@
-"""LAMMPS potential files: setfl (eam/alloy, eam/fs) and ADP, read and
-written (port of the setfl half of `tensoralloy_tpu/io/lammps.py`; the
-Tersoff, MEAM/spline and funcfl readers are not ported yet).
+"""LAMMPS potential files (port of `tensoralloy_tpu/io/lammps.py`): setfl
+(eam/alloy, eam/fs) and ADP read and written, Tersoff read and written,
+MEAM/spline and single-element funcfl read.
 
 setfl layout (eam/alloy):
   3 comment lines
@@ -200,23 +200,207 @@ def write_eam_fs_setfl(path: str, data: SetflData,
     write_eam_alloy_setfl(path, data, comments, style="fs")
 
 
-def _not_ported(what: str):
-    raise NotImplementedError(
-        f"{what} is not ported to tensoralloy_tpu_torch yet; it comes with "
-        "the analysis slice (ROADMAP queue 1, item 9)")
+TERSOFF_KEYS = ["m", "gamma", "lambda3", "c", "d", "costheta0", "n",
+                "beta", "lambda2", "B", "R", "D", "lambda1", "A"]
 
 
-def read_tersoff_file(*args, **kwargs):
-    _not_ported("read_tersoff_file (Tersoff potential files)")
+@dataclasses.dataclass
+class TersoffPotential:
+    elements: List[str]
+    params: Dict[str, Dict[str, float]]
 
 
-def write_tersoff_file(*args, **kwargs):
-    _not_ported("write_tersoff_file (Tersoff potential files)")
+def read_tersoff_file(filename: str) -> TersoffPotential:
+    """Parse a LAMMPS Tersoff file: per (el1, el2, el3) entry, 14
+    parameters possibly wrapped over two lines."""
+    params: Dict[str, Dict[str, float]] = {}
+    elements: List[str] = []
+    stack: List[str] = []
+    kbody_term = None
+    with open(filename) as fp:
+        for line in fp:
+            line = line.strip()
+            if not line or line.startswith("#"):
+                continue
+            tokens = line.split()
+            if not _is_number(tokens[0]):
+                kbody_term = "".join(tokens[:3])
+                elements.extend(tokens[:3])
+                stack = list(tokens[3:])
+            else:
+                stack.extend(tokens)
+            if kbody_term and len(stack) == len(TERSOFF_KEYS):
+                params[kbody_term] = {
+                    key: float(stack[i])
+                    for i, key in enumerate(TERSOFF_KEYS)}
+                stack = []
+    return TersoffPotential(sorted(set(elements)), params)
 
 
-def read_meam_spline_file(*args, **kwargs):
-    _not_ported("read_meam_spline_file (MEAM/spline potential files)")
+def write_tersoff_file(filename: str, potential: TersoffPotential):
+    import re
+    with open(filename, "w") as fp:
+        fp.write("# Tersoff parameters (tensoralloy_tpu)\n")
+        fp.write("# el1 el2 el3 " + " ".join(TERSOFF_KEYS) + "\n")
+        for kbody_term, params in potential.params.items():
+            els = re.findall(r"[A-Z][a-z]*", kbody_term)
+            row1 = " ".join(str(params[k]) for k in TERSOFF_KEYS[:7])
+            row2 = " ".join(str(params[k]) for k in TERSOFF_KEYS[7:])
+            fp.write(f"{els[0]:2s} {els[1]:2s} {els[2]:2s} {row1}\n")
+            fp.write(f"          {row2}\n")
 
 
-def read_funcfl(*args, **kwargs):
-    _not_ported("read_funcfl (single-element funcfl files)")
+def _is_number(token: str) -> bool:
+    try:
+        float(token)
+        return True
+    except ValueError:
+        return False
+
+
+# ----------------------------------------------------------------------
+# MEAM/spline potential files (reference `io/lammps.py:379-492`)
+# ----------------------------------------------------------------------
+
+@dataclasses.dataclass
+class Spline:
+    """Cubic-spline table: knots + clamped first-derivative BCs."""
+    x: np.ndarray
+    y: np.ndarray
+    bc_start: float
+    bc_end: float
+
+    def __call__(self, r):
+        cs = self.__dict__.get("_cs")
+        if cs is None:
+            # build the tridiagonal factorization ONCE, not per call
+            from scipy.interpolate import CubicSpline
+            cs = CubicSpline(
+                self.x, self.y,
+                bc_type=((1, self.bc_start), (1, self.bc_end)))
+            self.__dict__["_cs"] = cs
+        return cs(r)
+
+
+@dataclasses.dataclass
+class MeamSpline:
+    elements: List[str]
+    rho: Dict[str, Spline]
+    phi: Dict[str, Spline]
+    embed: Dict[str, Spline]
+    fs: Dict[str, Spline]
+    gs: Dict[str, Spline]
+
+
+def read_meam_spline_file(filename: str,
+                          element: Optional[str] = None) -> MeamSpline:
+    """Read new-format (header `meam/spline N el...`) or old-format
+    (single element, pass `element`) meam/spline files.
+
+    Spline ordering: phi (N(N+1)/2 pair splines), rho (N), U/embed (N),
+    f (N), g (N(N+1)/2)."""
+    with open(filename) as fp:
+        lines = [ln.strip() for ln in fp
+                 if ln.strip() and not ln.strip().startswith("#")]
+    i = 0
+    if lines[0].startswith("meam/spline"):
+        tokens = lines[0].split()
+        nel = int(tokens[1])
+        elements = tokens[2:2 + nel]
+        new_format = True
+        i = 1
+    else:
+        if element is None:
+            raise ValueError("old meam/spline format requires `element`")
+        elements = [element]
+        nel = 1
+        new_format = False
+    kbody_terms = ["".join([elements[a], elements[b]])
+                   for a in range(nel) for b in range(a, nel)]
+    npairs = len(kbody_terms)
+
+    splines: List[Spline] = []
+    total = npairs * 2 + nel * 3
+    while len(splines) < total and i < len(lines):
+        if new_format and lines[i] == "spline3eq":
+            i += 1
+        nknots = int(lines[i]); i += 1
+        bc = lines[i].split(); i += 1
+        bc_start, bc_end = float(bc[0]), float(bc[1])
+        if not new_format:
+            i += 1   # old format has an extra (ignored) line
+        xs = np.zeros(nknots)
+        ys = np.zeros(nknots)
+        for k in range(nknots):
+            vals = lines[i].split(); i += 1
+            xs[k], ys[k] = float(vals[0]), float(vals[1])
+        splines.append(Spline(xs, ys, bc_start, bc_end))
+
+    phi = {kbody_terms[k]: splines[k] for k in range(npairs)}
+    rho = {elements[k]: splines[npairs + k] for k in range(nel)}
+    embed = {elements[k]: splines[npairs + nel + k] for k in range(nel)}
+    fs = {elements[k]: splines[npairs + 2 * nel + k] for k in range(nel)}
+    gs = {kbody_terms[k]: splines[npairs + 3 * nel + k]
+          for k in range(npairs)}
+    return MeamSpline(elements, rho, phi, embed, fs, gs)
+
+
+# ----------------------------------------------------------------------
+# funcfl (single-element DYNAMO) format
+# ----------------------------------------------------------------------
+
+@dataclasses.dataclass
+class FuncflData:
+    element: str
+    nrho: int
+    drho: float
+    nr: int
+    dr: float
+    cutoff: float
+    mass: float
+    frho: np.ndarray      # [nrho]
+    zr: np.ndarray        # [nr] effective charge Z(r)
+    rho: np.ndarray       # [nr]
+
+    @property
+    def r_grid(self) -> np.ndarray:
+        return np.arange(self.nr) * self.dr
+
+    @property
+    def rho_grid(self) -> np.ndarray:
+        return np.arange(self.nrho) * self.drho
+
+    def phi(self) -> np.ndarray:
+        """Pair potential (eV): phi(r) = 27.2 * 0.529 * Z(r)^2 / r."""
+        r = self.r_grid
+        with np.errstate(divide="ignore", invalid="ignore"):
+            v = 27.2 * 0.529 * self.zr ** 2 / np.where(r > 0, r, 1.0)
+        v[0] = v[1] if self.nr > 1 else 0.0
+        return v
+
+
+def read_funcfl(path: str) -> FuncflData:
+    """Read a single-element DYNAMO funcfl file."""
+    from ..elements import chemical_symbols
+    with open(path) as fh:
+        lines = [ln for ln in fh.read().splitlines() if ln.strip()]
+    hdr = lines[1].split()
+    z, mass = int(hdr[0]), float(hdr[1])
+    grid = lines[2].split()
+    nrho, drho = int(grid[0]), float(grid[1])
+    nr, dr = int(grid[2]), float(grid[3])
+    cutoff = float(grid[4])
+    tokens: List[str] = []
+    for line in lines[3:]:
+        tokens.extend(line.split())
+    need = nrho + 2 * nr
+    if len(tokens) < need:
+        raise ValueError(
+            f"truncated funcfl file {path!r}: expected {need} table "
+            f"values, found {len(tokens)}")
+    frho = np.asarray(tokens[:nrho], dtype=np.float64)
+    zr = np.asarray(tokens[nrho:nrho + nr], dtype=np.float64)
+    rho = np.asarray(tokens[nrho + nr:nrho + 2 * nr], dtype=np.float64)
+    return FuncflData(element=chemical_symbols[z], nrho=nrho, drho=drho,
+                      nr=nr, dr=dr, cutoff=cutoff, mass=mass,
+                      frho=frho, zr=zr, rho=rho)

@@ -1,1 +1,3 @@
-"""Linear models on the descriptor basis (filter presets so far)."""
+"""Linear models on the descriptor basis: the filter presets and the
+least-squares-fitted linear TensorMD."""
+from .model import LinearTensorMD, TensorMDPythonCalculator  # noqa: F401

@@ -177,6 +177,11 @@ class AtomicNN(nn.Module):
 
     # ------------------------------------------------------------------
     def descriptors(self, features) -> torch.Tensor:
+        """-> [.., n_vap, D]; `features["descriptors"]`, when given, is
+        taken as they are (a committee evaluates them once for all of
+        its members, `ensemble.make_ensemble_efs_fn`)."""
+        if "descriptors" in features:
+            return features["descriptors"]
         f = self.featurizer
         return self.descriptor.compute(
             features, f.rcut, f.acut, f.n_radial_slots, f.n_angular_slots,

@@ -243,7 +243,22 @@ def test_port_imports_without_jax():
             "tensoralloy_tpu_torch.data.crystals, "
             "tensoralloy_tpu_torch.io.lammps, "
             "tensoralloy_tpu_torch.ops.safe, "
-            "tensoralloy_tpu_torch.ops.spline; "
+            "tensoralloy_tpu_torch.ops.spline, "
+            "tensoralloy_tpu_torch.atoms_utils, "
+            "tensoralloy_tpu_torch.neb, "
+            "tensoralloy_tpu_torch.ensemble, "
+            "tensoralloy_tpu_torch.linear.model, "
+            "tensoralloy_tpu_torch.analysis.eos, "
+            "tensoralloy_tpu_torch.analysis.elastic, "
+            "tensoralloy_tpu_torch.analysis.phonon, "
+            "tensoralloy_tpu_torch.analysis.kinetics, "
+            "tensoralloy_tpu_torch.analysis.ti, "
+            "tensoralloy_tpu_torch.analysis.surface, "
+            "tensoralloy_tpu_torch.analysis.fingerprints, "
+            "tensoralloy_tpu_torch.analysis.lammps, "
+            "tensoralloy_tpu_torch.io.vasp, "
+            "tensoralloy_tpu_torch.io.db, "
+            "tensoralloy_tpu_torch.io.lammps_native; "
             "assert 'tensoralloy_tpu' not in sys.modules; print('ok')")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)

@@ -377,9 +377,9 @@ NOT_PORTED = {
         "tensoralloy_tpu_torch.transform.featurizer", fromlist=["x"]
     ).Featurizer(["Ni"], 4.0, angular=True).featurize(
         _ni_cell(), layout="segment"), "triple"),
-    "lammps_files": (lambda: __import__(
-        "tensoralloy_tpu_torch.io.lammps", fromlist=["x"]
-    ).read_tersoff_file("Ni.tersoff"), "Tersoff"),
+    "ensemble_shards": (lambda: __import__(
+        "tensoralloy_tpu_torch.ensemble", fromlist=["x"]
+    ).EnsembleCalculator(["a.npz", "b.npz"], n_shards=2), "parallel"),
 }
 
 
