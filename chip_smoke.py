@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training and dynamics paths once on
-one NVIDIA GPU.
+"""Drive the PyTorch port's serving, training, dynamics, analysis and
+command-line paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -158,7 +158,37 @@ failure ends the run with a non-zero exit and no result line:
              fault of mleam_ni against `torch_port_ref_surface.json`
              (1e-8). Prints each part's wall time, the FIRE steps/s, the
              TI steps/s and the committees' request times
- 12. time    median time per request and its device E/F/S part,
+ 12. cli     the command lines on the default device (cuda), each part
+             with the launch counts reset before it and read after it:
+             (a) `run` of artifacts/snap_ni_sfa/input.toml at full width
+             with backend 'pallas', warm-started from the saved model and
+             cut to 20 steps with one evaluation and one checkpoint, then
+             `export --checkpoint`, `evaluate` and `print` of the run's
+             metrics: one launch of g2 and g4 in each train step, the
+             run's files, the exported file says 'pallas'; `python -m
+             tensoralloy_tpu_torch.cli compute latt` of the exported model
+             exits 0; (b) latt, eos, elastic, relax --cell, defect (3x3x3),
+             phonon, scatter and percentile (20 structures of snap-Ni.db)
+             on the exported model and on its twin copy ('dense'), float32:
+             each launches g2 and g4, and its printed numbers and files
+             agree with the twins' to 1e-4; (c) md --device-nl of GRAP Ni
+             4000 (40 steps, chunks of 20; grap_kernel once a step and
+             twice a chunk), neb of the 255-atom vacancy hop (20 FIRE
+             steps; once a band evaluation) and uncertainty of the 5 MoNi
+             members over 4 jittered frames (once a frame), each on
+             'pallas' copies against the saved 'dense' files (1e-4); (d)
+             latt, eos, elastic, defect and surface of snap_ni_sfa and
+             mleam_ni (their weights stored in float64), float64, against
+             `tests/data/torch_port_ref_cli.json` (1e-8 of the largest
+             number of a line, 1e-6 for what an EOS fit prints, a printed
+             number standing for its value to half a unit of its last
+             digit); (e) kappa and fe of
+             mleam_ni at cut depth: no descriptor kernel; (f) `python -m
+             tensoralloy_tpu_torch.tensordb` through sampling aimd ->
+             status -> postprocess -> create calc -> status calc -> gather
+             on synthetic VASP outputs. Prints each verb's wall time, and
+             for a `python -m` run its imports apart (`-X importtime`)
+ 13. time    median time per request and its device E/F/S part,
              kernels vs twins (the grap 32000 request on device lists, as
              "auto" routes it); each kernel vs its twin at the
              32000-atom request's shapes (`ms`: the median of single
@@ -173,8 +203,8 @@ failure ends the run with a non-zero exit and no result line:
              useful FLOP at the FP32 67 TFLOP/s
 
 The line before the last is a JSON object of per-kernel results (the
-launches of the serve, train, manager, large, md and analysis phases,
-each counted from 0);
+launches of the serve, train, manager, large, md, analysis and cli
+phases, each counted from 0; "cli" the cli phase's alone);
 the last is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -2614,6 +2644,779 @@ def analysis(card):
     return totals
 
 
+# ----------------------------------------------------------------------
+# cli: the command lines
+# ----------------------------------------------------------------------
+
+# (a) the experiment through the verbs: the run's input.toml at full width
+# with backend 'pallas', warm-started from the saved model, its depth cut
+# to CLI_STEPS steps with one evaluation and one periodic checkpoint
+CLI_RUN = "snap_ni_sfa"
+CLI_STEPS = 20
+CLI_F32_REL = 1e-4       # a verb through the kernels against the twins
+CLI_F64_REL = 1e-8       # the float64 verbs against the JAX fixture
+# ... what an equation-of-state fit prints (V0, E0, B, the lattice
+# constants of `latt`): scipy's least squares stops at a relative change
+# of 1.5e-8 in the sum of squares, so the fitted parameters move by up
+# to 1e-7 with round-off of the energies (5e-8 seen between the packages
+# on one input); its input energies (eos.csv) stay at CLI_F64_REL
+CLI_FIT_REL = 1e-6
+CLI_DB_STRUCTURES = 20   # scatter and percentile
+# (c) GRAP: MD of Ni 4000 on device lists, a few FIRE steps of the
+# 255-atom vacancy hop, the MoNi committee over jittered frames
+CLI_MD_STEPS, CLI_MD_CHUNK = 40, 20
+CLI_NEB_STEPS = 20
+CLI_UNCERTAINTY_FRAMES = 4
+# (d) the float64 verbs held against tests/data/torch_port_ref_cli.json:
+# the saved models with their weights stored in float64 (the files hold
+# float32, which the JAX package keeps, so that part of its arithmetic
+# stays in float32 under its float64 policy), and the verbs' arguments
+# ({model} is the copy's path)
+CLI_F64_MODELS = {"snap_ni_sfa": PATHS["sf"][0],
+                  "mleam_ni": EAM_PATHS["mleam_ni"][0]}
+CLI_F64_VERBS = {
+    "latt": ["compute", "latt", "{model}", "Ni"],
+    "eos": ["compute", "eos", "{model}", "Ni", "--num", "9",
+            "--output", "eos.csv"],
+    "elastic": ["compute", "elastic", "{model}", "Ni"],
+    "defect": ["compute", "defect", "{model}", "Ni",
+               "--supercell", "2", "2", "2"],
+    "surface": ["compute", "surface", "{model}", "Ni", "1", "1", "1",
+                "--layers", "4"],
+}
+NUMBER = re.compile(r"[-+]?(?:\d+\.\d*|\.\d+|\d+)(?:[eE][-+]?\d+)?")
+
+
+def split_numbers(text: str):
+    """-> (the text with each number replaced by '#' and each run of
+    spaces by one, the numbers as printed). A number's sign moves the
+    padding of a fixed-width column."""
+    return re.sub(r"[ \t]+", " ", NUMBER.sub("#", text)), \
+        NUMBER.findall(text)
+
+
+def half_unit(token: str) -> float:
+    """Half a unit of the last digit of a printed number."""
+    mantissa, _, exponent = token.lower().partition("e")
+    decimals = len(mantissa.split(".")[1]) if "." in mantissa else 0
+    return 0.5 * 10.0 ** (int(exponent or 0) - decimals)
+
+
+def printed_mismatches(got: str, want: str, rel: float) -> list:
+    """Where two printed texts differ: in their words, or in a number. A
+    printed number stands for its value to half a unit of its last digit,
+    so two agree where they differ by at most the two half units plus
+    `rel` of the largest number on their line (a component that is zero
+    up to round-off beside others is held to their scale).
+    -> [(got, want), ...], empty where they agree."""
+    g_lines, w_lines = got.splitlines(), want.splitlines()
+    if len(g_lines) != len(w_lines):
+        return [(got, want)]
+    bad = []
+    for g_line, w_line in zip(g_lines, w_lines):
+        (g_text, g_nums), (w_text, w_nums) = split_numbers(g_line), \
+            split_numbers(w_line)
+        if g_text != w_text or len(g_nums) != len(w_nums):
+            bad.append((g_line, w_line))
+            continue
+        scale = max((abs(float(b)) for b in w_nums), default=0.0)
+        bad += [(a, b) for a, b in zip(g_nums, w_nums)
+                if not abs(float(a) - float(b))
+                <= rel * scale + half_unit(a) + half_unit(b)]
+    return bad
+
+
+def printed_rel_err(got: str, want: str, squared: bool = False) -> float:
+    """`rel_err` over the numbers of two printed texts with the same
+    words, each difference less the two half units of the numbers' last
+    digits (what printing alone explains); inf where the words differ.
+    `squared` compares x |x| in place of x: phonon frequencies through
+    the Hessian's eigenvalues, where the square root would magnify the
+    round-off of a near-zero acoustic mode."""
+    (g_text, g_nums), (w_text, w_nums) = split_numbers(got), \
+        split_numbers(want)
+    if g_text != w_text or len(g_nums) != len(w_nums):
+        return float("inf")
+    if not w_nums:
+        return 0.0
+    g, w = (np.array([float(x) for x in nums]) for nums in (g_nums, w_nums))
+    slack = np.array([half_unit(a) + half_unit(b)
+                      for a, b in zip(g_nums, w_nums)])
+    if squared:
+        slack = slack * (np.abs(g) + np.abs(w))
+        g, w = g * np.abs(g), w * np.abs(w)
+    diff = np.maximum(np.abs(g - w) - slack, 0.0)
+    return float(diff.max() / max(np.abs(w).max(), 1e-300))
+
+
+def run_verb(main, argv, workdir, **kwargs) -> dict:
+    """`main(argv, **kwargs)` of either package's command line with
+    `workdir` as the working directory and stdout captured. -> {"rc",
+    "stdout", "files": {name: text of each text file written}}."""
+    import contextlib
+    import io
+    workdir = Path(workdir)
+    workdir.mkdir(parents=True, exist_ok=True)
+    before = {p for p in workdir.rglob("*") if p.is_file()}
+    cwd = os.getcwd()
+    out = io.StringIO()
+    os.chdir(workdir)
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = main(argv, **kwargs)
+    finally:
+        os.chdir(cwd)
+    files = {}
+    for p in sorted(workdir.rglob("*")):
+        if p.is_file() and p not in before and p.suffix in (
+                ".csv", ".extxyz", ".json", ".lammps", ".txt", ""):
+            files[str(p.relative_to(workdir))] = p.read_text()
+    return {"rc": rc, "stdout": out.getvalue(), "files": files}
+
+
+def cli_f64_rel(case: str, part: str) -> float:
+    """The tolerance of a part ("stdout" or a file's name) of a case of
+    `cli_f64_cases`: CLI_FIT_REL for what an EOS fit prints."""
+    fitted = case.split()[0] in ("eos", "latt") and part == "stdout"
+    return CLI_FIT_REL if fitted else CLI_F64_REL
+
+
+def float64_copy(model_path, path) -> str:
+    """A copy of a saved model with its weights stored in float64 (an
+    exact cast). -> the copy's path."""
+    with np.load(model_path) as z:
+        flat = {k: (z[k].astype(np.float64) if k.startswith("p/") else z[k])
+                for k in z.files}
+    np.savez(path, **flat)
+    return str(path)
+
+
+def cli_f64_cases() -> dict:
+    """{"<verb> <model>": (model name, argv)} of the float64 fixture."""
+    return {f"{verb} {name}": (name, argv) for name in CLI_F64_MODELS
+            for verb, argv in CLI_F64_VERBS.items()}
+
+
+def cli_f64_run(main, case, workdir, **kwargs) -> dict:
+    """One case of `cli_f64_cases` through `main` (either package's) in
+    `workdir`, on a float64 copy of its model written there.
+    -> {"stdout", "files"}."""
+    name, argv = cli_f64_cases()[case]
+    workdir = Path(workdir)
+    workdir.mkdir(parents=True, exist_ok=True)
+    model = float64_copy(CLI_F64_MODELS[name], workdir / f"{name}_f64.npz")
+    rec = run_verb(main, [model if a == "{model}" else a for a in argv],
+                   workdir / "run", **kwargs)
+    if rec["rc"] != 0:
+        raise AssertionError(f"{case}: exit code {rec['rc']}")
+    return {"stdout": rec["stdout"], "files": rec["files"]}
+
+
+# tensordb: a deployment's sampling and recompute pipeline on synthetic
+# VASP outputs (fcc Cu 2x2x2, two AIMD temperatures)
+TENSORDB_CONFIG = """\
+species = ["Cu"]
+phases = ["fcc"]
+[fcc]
+a = 3.6
+supercell = [[2, 2, 2]]
+[calc]
+interval = 2
+[aimd.sampling.nvt.fcc]
+t0 = 300
+t1 = 900
+size = 2
+[vasp.sampling]
+encut = 400
+[vasp.calc]
+encut = 520
+kpar = 2
+nbands = "lambda a, n, v, t: n * 4 + 8"
+magmom = 0.6
+[neq]
+nmax = 3
+dmin = 1.2
+interval = 3
+[porosity]
+porosity = [1.5, 3.0]
+interval = 3
+[aging]
+interval = 3
+[aging.transmutation]
+Cu-Ni = {prob = 0.5, nmax = 2}
+[aging.helium_bubble]
+target = "Cu"
+max_target_size = 2
+max_bubble_size = 4
+max_ratio = 3.0
+"""
+TENSORDB_FRAMES = 6      # AIMD frames of a sampling task
+TENSORDB_A = 3.6
+
+
+def _v(values) -> str:
+    return "<v>" + " ".join(f"{x:.10f}" for x in values) + "</v>"
+
+
+def write_vasprun_frames(path, frames, sigma: float = 0.1,
+                         seed: int = SEED) -> None:
+    """A vasprun.xml of the ionic steps `frames` ([(symbols, positions,
+    cell)]), with the fields the readers read: per step two electronic
+    steps, the cell, fractional positions, forces, stress and energies
+    from a seeded generator."""
+    rng = np.random.RandomState(seed)
+    symbols = frames[0][0]
+    lines = ['<?xml version="1.0" encoding="ISO-8859-1"?>', "<modeling>",
+             '<parameters><separator name="electronic">'
+             f'<i name="SIGMA">{sigma}</i></separator></parameters>',
+             '<atominfo><array name="atoms"><set>']
+    lines += [f"<rc><c>{s}</c><c>1</c></rc>" for s in symbols]
+    lines.append("</set></array></atominfo>")
+    for _, positions, cell in frames:
+        n = len(positions)
+        lines.append("<calculation>")
+        for _ in range(2):
+            e0, efr, ewo = rng.normal(-3.7 * n, 0.5, 3)
+            lines.append(
+                f'<scstep><energy><i name="e_fr_energy">{efr}</i>'
+                f'<i name="e_wo_entrp">{ewo}</i>'
+                f'<i name="e_0_energy">{e0}</i></energy></scstep>')
+        lines.append('<structure><crystal><varray name="basis">')
+        lines += [_v(row) for row in cell]
+        lines.append('</varray></crystal><varray name="positions">')
+        lines += [_v(row) for row in positions @ np.linalg.inv(cell)]
+        lines.append('</varray></structure><varray name="forces">')
+        lines += [_v(row) for row in rng.normal(scale=0.3, size=(n, 3))]
+        lines.append('</varray><varray name="stress">')
+        s = rng.normal(scale=10, size=(3, 3))
+        lines += [_v(row) for row in s + s.T]
+        lines.append(f'</varray><energy><i name="e_fr_energy">'
+                     f'{rng.normal(-3.7 * n)}</i></energy></calculation>')
+    lines.append("</modeling>")
+    Path(path).write_text("\n".join(lines) + "\n")
+
+
+def write_vasp_outputs(jobdir, nscf=(12, 9), nelm=None, ranks=(32, 2, 1),
+                       loop_seconds=(41.5, 38.25)) -> None:
+    """The INCAR line NELM (where given), an OSZICAR of one ionic step a
+    `nscf` entry (that many SCF iterations each), and an OUTCAR with the
+    MPI/thread layout and one LOOP+ time an ionic step."""
+    jobdir = Path(jobdir)
+    if nelm is not None:
+        with open(jobdir / "INCAR", "a") as fh:
+            fh.write(f" NELM = {nelm}\n")
+    lines = []
+    for step, n in enumerate(nscf, 1):
+        lines.append("       N       E                     dE             d eps")
+        lines += [f"DAV:  {k:2d}    -0.230645970000E+02   -0.1E-05   "
+                  f"-0.2E-07  1600   0.2E-03" for k in range(1, n + 1)]
+        lines.append(f"   {step} F= -.23064597E+02 E0= -.23064{step}97E+02 "
+                     f" d E =-.230646E+02")
+    (jobdir / "OSZICAR").write_text("\n".join(lines) + "\n")
+    mpi, threads, nodes = ranks
+    lines = [" vasp.6.3.2 18Jan22 (build Feb 10 2022) complex",
+             f" running {mpi:4d} mpi-ranks, with {threads:4d} threads/rank, "
+             f"on {nodes:4d} nodes"]
+    lines += [f"      LOOP+:  cpu time {t * 0.98:10.4f}: real time "
+              f"{t:10.4f}" for t in loop_seconds]
+    (jobdir / "OUTCAR").write_text("\n".join(lines) + "\n")
+
+
+def _cu_frame(seed: int, sigma: float = 0.05):
+    pos, cell = jittered_fcc(2, seed=seed, a=TENSORDB_A, sigma=sigma)
+    return ["Cu"] * len(pos), pos, cell
+
+
+def tensordb_workflow(run, root, calculators=("calc", "neq", "porosity",
+                                              "aging")) -> list:
+    """The tensordb pipeline in `root` through `run(argv) -> exit code`
+    (either package's `main`, or the module run as a program, with `root`
+    as its working directory): sampling aimd -> the AIMD runs finish
+    (synthetic vasprun.xml) -> status sampling -> postprocess -> create
+    each of `calculators` -> their jobs finish (synthetic INCAR NELM,
+    OSZICAR, OUTCAR, vasprun.xml; every third one unconverged) -> status
+    of each -> gather. -> the exit codes."""
+    root = Path(root)
+    root.mkdir(parents=True, exist_ok=True)
+    (root / "config.toml").write_text(TENSORDB_CONFIG)
+    rcs = [run(["sampling", "aimd"])]
+    tasks = sorted(p.parent for p in root.glob("*/status.json"))
+    for i, task in enumerate(tasks):
+        frames = [_cu_frame(100 * i + j) for j in range(TENSORDB_FRAMES)]
+        write_vasprun_frames(task / "vasprun.xml", frames, seed=i)
+    rcs += [run(["status", "sampling"]), run(["status", "unsubmitted"]),
+            run(["postprocess"])]
+    subdirs = {"calc": "calc", "neq": "neq", "porosity": "porous",
+               "aging": "aging"}
+    for calc in calculators:
+        rcs.append(run(["create", calc]))
+        jobs = sorted(root.glob(f"{subdirs[calc]}/*atoms/group*/task*"))
+        for k, job in enumerate(jobs):
+            write_vasp_outputs(job, nscf=(12, 60 if k % 3 == 2 else 9),
+                               nelm=60)
+            write_vasprun_frames(job / "vasprun.xml",
+                                 [_cu_frame(1000 + k, sigma=0.02)],
+                                 seed=1000 + k)
+        rcs.append(run(["status", calc]))
+    rcs.append(run(["gather", "-o", "gathered.extxyz"]))
+    return rcs
+
+
+def warm_start_checkpoint(model_path, path) -> None:
+    """A training checkpoint (the JAX package's keys) whose raw and EMA
+    parameters are a saved model's weights (in float64: a trainer casts
+    them to its own dtype), at step 0."""
+    with np.load(model_path) as z:
+        tree = {k[2:]: z[k].astype(np.float64) for k in z.files
+                if k.startswith("p/")}
+    np.savez(path, step=np.asarray(0, np.int32),
+             **{f"{prefix}/{k}": v for prefix in ("params", "ema")
+                for k, v in tree.items()})
+
+
+def pallas_copy(model_path, path) -> None:
+    """A copy of a saved model whose descriptor says backend 'pallas'."""
+    from tensoralloy_tpu_torch.io.model import load_model, save_model
+    model, _ = load_model(str(model_path), backend="pallas")
+    save_model(str(path), model)
+
+
+class _Recorded:
+    """Swap `module.<name>` (a class) for a subclass that keeps each
+    instance it makes in `made` (and hands it to `hook`), for as long as
+    the block runs: the verbs build their trainers, integrators and bands
+    inside, where the script cannot reach them otherwise."""
+
+    def __init__(self, module, name, hook=None):
+        self.module, self.name, self.hook = module, name, hook
+        self.made = []
+
+    def __enter__(self):
+        cls, made, hook = getattr(self.module, self.name), self.made, \
+            self.hook
+        self.cls = cls
+
+        class Recorded(cls):
+            def __init__(self, *args, **kwargs):
+                super().__init__(*args, **kwargs)
+                made.append(self)
+                if hook is not None:
+                    hook(self)
+
+        setattr(self.module, self.name, Recorded)
+        return self.made
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.cls)
+
+
+def _timed_verb(label, main, argv, workdir, times, **kwargs) -> dict:
+    """`run_verb` in this process; fails on a non-zero exit code. `times`
+    gets (label, wall time, None: no process start)."""
+    t0 = time.perf_counter()
+    rec = run_verb(main, argv, workdir, **kwargs)
+    times.append((label, time.perf_counter() - t0, None))
+    if rec["rc"] != 0:
+        raise AssertionError(f"{label}: exit code {rec['rc']}\n"
+                             f"{rec['stdout']}")
+    return rec
+
+
+def _module_run(module: str, argv, cwd):
+    """`python -m <module> <argv>` from `cwd` with the checkout
+    importable, as a user runs it, with `-X importtime`. -> (the
+    CompletedProcess, seconds the process spent importing modules: the
+    sum of the top-level imports' cumulative times, the lazy imports of
+    the verb included)."""
+    proc = subprocess.run([sys.executable, "-X", "importtime", "-m", module,
+                           *argv], cwd=cwd,
+                          env=dict(os.environ, PYTHONPATH=str(ROOT)),
+                          capture_output=True, text=True, timeout=600)
+    us = 0
+    for line in proc.stderr.splitlines():
+        fields = line.split("|")
+        if line.startswith("import time:") and len(fields) == 3 \
+                and fields[1].strip().isdigit() \
+                and not fields[2].startswith("  "):
+            us += int(fields[1])
+    return proc, us * 1e-6
+
+
+def _subprocess_verb(label, module, argv, cwd, times) -> str:
+    """`_module_run`; fails on a non-zero exit code. -> its stdout. `times`
+    gets (label, wall time, the imports' seconds)."""
+    t0 = time.perf_counter()
+    proc, imports = _module_run(module, argv, cwd)
+    sec = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"{label}: exit code {proc.returncode}\n"
+                             f"{proc.stdout}\n{proc.stderr}")
+    times.append((label, sec, imports))
+    return proc.stdout
+
+
+def _add_launches(totals: dict, launched: dict) -> None:
+    for k, v in launched.items():
+        totals[k] = totals.get(k, 0) + v
+
+
+def _launch_check(label, launched, kernels):
+    """The kernels that `label` names launched, the others not."""
+    if any(not launched[k] for k in kernels) or any(
+            launched[k] for k in launched if k not in kernels):
+        raise AssertionError(f"{label} launched {launched}, expected "
+                             f"{kernels}")
+
+
+def cli_experiment(work, card, times) -> dict:
+    """(a) run -> export -> evaluate -> print of the run's input.toml at
+    full width with backend 'pallas', and the module entry on the
+    exported model. -> {"exported": path, "launches": ...}."""
+    from tensoralloy_tpu_torch.cli.entry import main
+    from tensoralloy_tpu_torch.io.model import load_model
+    from tensoralloy_tpu_torch.ops import fused
+    from tensoralloy_tpu_torch.train import manager as manager_module
+    run_dir = work / "run"
+    run_dir.mkdir()
+    warm_start_checkpoint(PATHS["sf"][0], run_dir / "warm.npz")
+    config = experiment_config(CLI_RUN, run_dir, {
+        "nn.atomic.sf.backend": "pallas",
+        "train.train_steps": CLI_STEPS, "train.eval_steps": CLI_STEPS,
+        "train.log_steps": CLI_STEPS, "train.summary_steps": 10,
+        "train.ckpt.checkpoint_filename": str(run_dir / "warm.npz"),
+        "train.ckpt.use_ema_variables": True,
+        "train.ckpt.restore_optimizer_variables": False,
+        "train.reset_global_step": True}, database=TRAIN_DB)
+    toml = run_dir / "input.toml"
+    dump_toml(config, toml)
+    rows = []
+    fused.reset_launch_counts()
+    with _Recorded(manager_module, "Trainer", lambda tr: _count_step_launches(
+            tr, ("g2", "g4"), rows)):
+        _timed_verb("run", main, ["run", str(toml), "--quiet"], work / "a",
+                    times)
+    run_launches = _launched({})
+    bad = [r for r in rows if set(r[1].values()) != {1}]
+    if [r[0] for r in rows] != list(range(CLI_STEPS)) or bad:
+        raise AssertionError(f"run: steps {[r[0] for r in rows]}, not one "
+                             f"launch of g2 and g4 in each of {bad}")
+    model_dir = Path(config["train"]["model_dir"])
+    ckpt = model_dir / f"ckpt-{CLI_STEPS}.npz"
+    rec = _timed_verb("export", main, ["export", str(toml), "--checkpoint",
+                                       str(ckpt)], work / "a", times)
+    exported = model_dir / f"{config['dataset']['name']}.npz"
+    with np.load(exported) as z:
+        saved = json.loads(bytes(z["__config__"]).decode())
+    backend = saved["model"]["descriptor"]["backend"]
+    fused.reset_launch_counts()
+    rec_eval = _timed_verb("evaluate", main, ["evaluate", str(run_dir)],
+                           work / "a", times)
+    eval_launches = _launched({})
+    report = json.loads((run_dir / "group_maes.json").read_text())
+    rec_print = _timed_verb("print", main, ["print", str(
+        model_dir / "metrics.jsonl"), "--output", "summary.csv"],
+        work / "a", times)
+    wanted = ["input.json", "run.pid", ckpt.name, "ckpt-best.npz",
+              "best.json", "metrics.jsonl", "checkpoint.npz",
+              "history.json", exported.name]
+    missing = [f for f in wanted if not (model_dir / f).exists()]
+    if missing or backend != "pallas" or report["step"] != CLI_STEPS \
+            or f"(step {CLI_STEPS})" not in rec["stdout"] \
+            or not (work / "a" / "summary.csv").exists() \
+            or not eval_launches["g2"] or not eval_launches["g4"]:
+        raise AssertionError(f"the experiment's files: missing {missing}, "
+                             f"backend {backend!r}, evaluation at step "
+                             f"{report['step']}, launches {eval_launches}")
+    overall = report["splits"]["test"]["overall"]
+    print(f"  (a) run: {CLI_STEPS} steps warm-started from the saved "
+          f"model, one launch of g2 and g4 in each ({run_launches} with the "
+          f"evaluation's); export -> "
+          f"{exported.name} (backend {backend!r}); evaluate at step "
+          f"{report['step']}: test {overall['energy_meV_per_atom']:.3f} "
+          f"meV/atom, {overall['force_eV_A']:.4f} eV/A ({eval_launches}); "
+          f"print: {rec_print['stdout'].splitlines()[-1]}")
+    out = _subprocess_verb("python -m tensoralloy_tpu_torch.cli compute "
+                           "latt", "tensoralloy_tpu_torch.cli",
+                           ["compute", "latt", str(exported), "Ni"],
+                           work / "a", times)
+    print(f"  module entry, compute latt of the exported model: "
+          f"{' / '.join(out.strip().splitlines())}")
+    # the twin copy: the exported weights with backend 'dense'
+    from tensoralloy_tpu_torch.io.model import save_model
+    model, _ = load_model(str(exported), backend="dense")
+    twin = work / "exported_dense.npz"
+    save_model(str(twin), model)
+    launches = {k: run_launches[k] + eval_launches[k] for k in run_launches}
+    return {"exported": exported, "twin": twin, "launches": launches}
+
+
+def _verb_pair(label, argv, model, twin, work, times, kernels,
+               extra_files=()) -> dict:
+    """`argv` ({model} in it) through the kernels' model and through its
+    twin copy in float32 on the default device: the kernels named launch
+    (only those), the printed numbers and the files written agree to
+    CLI_F32_REL. -> launches."""
+    from tensoralloy_tpu_torch.cli.entry import main
+    from tensoralloy_tpu_torch.ops import fused
+    recs = {}
+    for name, path in (("kernels", model), ("twins", twin)):
+        fused.reset_launch_counts()
+        recs[name] = _timed_verb(
+            f"{label} ({name})", main,
+            [str(path) if a == "{model}" else a for a in argv],
+            work / label.replace(" ", "_") / name, times)
+        if name == "kernels":
+            launched = _launched({})
+    _launch_check(label, launched, kernels)
+    errs = {"stdout": printed_rel_err(recs["kernels"]["stdout"],
+                                      recs["twins"]["stdout"])}
+    for f in recs["twins"]["files"]:
+        errs[f] = printed_rel_err(recs["kernels"]["files"].get(f, ""),
+                                  recs["twins"]["files"][f],
+                                  squared=f == "bands.csv")
+    for f in extra_files:
+        if f not in errs:
+            raise AssertionError(f"{label}: {f} was not written")
+    last = recs["kernels"]["stdout"].strip().splitlines()[-1]
+    print(f"  {label}: launches {launched}; kernels vs twins "
+          f"{json.dumps(errs)}; {last}")
+    if max(errs.values()) > CLI_F32_REL:
+        raise AssertionError(f"{label}: kernels vs twins {errs}")
+    return launched
+
+
+def cli_sf_verbs(work, exported, twin, card, times) -> dict:
+    """(b) the SF verbs on the exported model (kernels) and its twin copy
+    in float32: each launches g2 and g4 and agrees with the twins."""
+    from tensoralloy_tpu_torch.io.sqlite import connect
+    db_path = work / "snap20.db"
+    db = connect(str(db_path))
+    for s in itertools.islice(connect(str(TRAIN_DB)), CLI_DB_STRUCTURES):
+        db.write(s, commit=False)
+    db._con.commit()
+    verbs = {
+        "latt": ["compute", "latt", "{model}", "Ni"],
+        "eos": ["compute", "eos", "{model}", "Ni", "--output", "eos.csv"],
+        "elastic": ["compute", "elastic", "{model}", "Ni"],
+        "relax --cell": ["compute", "relax", "{model}", "Ni", "--cell",
+                         "-o", "relaxed.extxyz"],
+        "defect": ["compute", "defect", "{model}", "Ni", "--supercell",
+                   "3", "3", "3"],
+        "phonon": ["compute", "phonon", "{model}", "Ni", "--output",
+                   "bands.csv"],
+        "scatter": ["compute", "scatter", "{model}", str(db_path),
+                    "--output", "scatter.csv"],
+        "percentile": ["compute", "percentile", "{model}", str(db_path)],
+    }
+    files = {"eos": ("eos.csv",), "relax --cell": ("relaxed.extxyz",),
+             "phonon": ("bands.csv",), "scatter": ("scatter.csv",)}
+    totals = {}
+    for label, argv in verbs.items():
+        _add_launches(totals, _verb_pair(label, argv, exported, twin, work,
+                                         times, ("g2", "g4"),
+                                         files.get(label, ())))
+    return totals
+
+
+def cli_grap_verbs(work, card, times) -> dict:
+    """(c) md, neb and uncertainty through grap_kernel: a 'pallas' copy of
+    the saved GRAP model (and of the MoNi committee) against the saved
+    files, which say 'dense'."""
+    from tensoralloy_tpu_torch import dynamics, neb as neb_module
+    from tensoralloy_tpu_torch.io.extxyz import write_extxyz
+    grap = work / "snap_Ni_pallas.npz"
+    pallas_copy(PATHS["grap"][0], grap)
+    totals = {}
+    reps = REQUEST_REPS[1]
+    with _Recorded(dynamics, "VelocityVerlet") as made:
+        got = _verb_pair(
+            f"md --device-nl Ni {4 * reps ** 3}",
+            ["compute", "md", "{model}", "Ni", "--supercell", str(reps),
+             str(reps), str(reps), "--steps", str(CLI_MD_STEPS),
+             "--chunk-size", str(CLI_MD_CHUNK), "--temp", "300",
+             "--device-nl", "-o", "md_final.extxyz", "--thermo",
+             "thermo.csv"], grap, PATHS["grap"][0], work, times, ("grap",),
+            ("md_final.extxyz", "thermo.csv"))
+    md = made[0]
+    chunks = CLI_MD_STEPS // CLI_MD_CHUNK + md.regrows
+    want = chunks * (CLI_MD_CHUNK + 2)
+    if got["grap"] != want:
+        raise AssertionError(f"md launched {got}, expected {want} "
+                             f"({chunks} chunks)")
+    _add_launches(totals, got)
+
+    initial, final = _vacancy_hop(NEB_REPS)
+    write_extxyz(str(work / "hop_initial.extxyz"), [initial])
+    write_extxyz(str(work / "hop_final.extxyz"), [final])
+    with _Recorded(neb_module, "NEB") as made:
+        got = _verb_pair(
+            f"neb {len(initial)} atoms",
+            ["compute", "neb", "{model}", str(work / "hop_initial.extxyz"),
+             str(work / "hop_final.extxyz"), "--n-images", str(NEB_IMAGES),
+             "--max-steps", str(CLI_NEB_STEPS), "--fmax", "1e-6",
+             "--output", "neb.csv"], grap, PATHS["grap"][0], work, times,
+            ("grap",), ("neb.csv",))
+    if got["grap"] != made[0].n_evaluations:
+        raise AssertionError(f"neb launched {got}, "
+                             f"{made[0].n_evaluations} band evaluations")
+    _add_launches(totals, got)
+
+    members = []
+    for i, path in enumerate(MONI_MEMBERS):
+        members.append(work / f"moni_{i}_pallas.npz")
+        pallas_copy(path, members[-1])
+    frames = []
+    for i in range(CLI_UNCERTAINTY_FRAMES):
+        s = _moni_structure()
+        s.positions = s.positions + np.random.default_rng(SEED + i).normal(
+            0.0, 0.02 * (i + 1), s.positions.shape)
+        frames.append(s)
+    write_extxyz(str(work / "moni_frames.extxyz"), frames)
+    from tensoralloy_tpu_torch import ensemble
+    from tensoralloy_tpu_torch.cli.entry import main
+    from tensoralloy_tpu_torch.ops import fused
+    requests = []
+
+    def count_requests(calc):
+        calculate = calc.calculate
+
+        def counted(structure):
+            requests.append(len(structure))
+            return calculate(structure)
+        calc.calculate = counted
+
+    recs = {}
+    for name, paths in (("kernels", members), ("twins", MONI_MEMBERS)):
+        fused.reset_launch_counts()
+        with _Recorded(ensemble, "EnsembleCalculator", count_requests):
+            recs[name] = _timed_verb(
+                f"uncertainty ({name})", main,
+                ["compute", "uncertainty", str(work / "moni_frames.extxyz"),
+                 *map(str, paths)], work / "uncertainty" / name, times)
+        if name == "kernels":
+            launched, n_requests = _launched({}), len(requests)
+    err = printed_rel_err(recs["kernels"]["stdout"], recs["twins"]["stdout"])
+    print(f"  uncertainty: {len(MONI_MEMBERS)} MoNi members, "
+          f"{len(frames)} frames of {len(frames[0])} atoms: launches "
+          f"{launched} for {n_requests} requests (the ranking, then the "
+          f"printed scores but the one cached); kernels vs twins "
+          f"{err:.2e}")
+    _launch_check("uncertainty", launched, ("grap",))
+    if launched["grap"] != n_requests or n_requests < len(frames) \
+            or err > CLI_F32_REL:
+        raise AssertionError(f"uncertainty: {launched}, {n_requests} "
+                             f"requests, {err}")
+    _add_launches(totals, launched)
+    return totals
+
+
+def cli_f64(work, card, times) -> None:
+    """(d) the saved models as they stand at float64 against the JAX
+    command line's fixture."""
+    from tensoralloy_tpu_torch.cli.entry import main
+    t0 = time.perf_counter()
+    got = {case: cli_f64_run(main, case, work / "f64" / str(k),
+                             dtype="high")
+           for k, case in enumerate(cli_f64_cases())}
+    times.append(("float64 verbs", time.perf_counter() - t0, None))
+    want = json.loads((DATA / "torch_port_ref_cli.json").read_text())
+    bad = {}
+    for case, rec in want.items():
+        for name, text in [("stdout", rec["stdout"])] + sorted(
+                rec["files"].items()):
+            have = got[case]["stdout"] if name == "stdout" else \
+                got[case]["files"].get(name, "")
+            miss = printed_mismatches(have, text, cli_f64_rel(case, name))
+            if miss:
+                bad[f"{case}: {name}"] = miss[:3]
+    print(f"  (d) {len(want)} float64 verbs ({', '.join(want)}) against "
+          f"torch_port_ref_cli.json: "
+          f"{'agree' if not bad else bad} (to {CLI_F64_REL:g}, what an "
+          f"EOS fit prints to {CLI_FIT_REL:g}, of the largest number of "
+          f"a line, a printed number standing for its value to half a "
+          f"unit of its last digit)")
+    if bad:
+        raise AssertionError(f"float64 verbs: {bad}")
+
+
+def cli_eam(work, card, times) -> None:
+    """(e) kappa and fe of mleam_ni at cut depth: no descriptor kernel."""
+    from tensoralloy_tpu_torch.cli.entry import main
+    from tensoralloy_tpu_torch.ops import fused
+    model = str(EAM_PATHS["mleam_ni"][0])
+    for label, argv in (
+            ("kappa", ["compute", "kappa", model, "Ni", "--supercell", "3",
+                       "3", "3", "--equil-steps", "100", "--steps", "200",
+                       "--sample", "5", "-o", "kappa.csv"]),
+            ("fe", ["compute", "fe", model, "Ni", "--supercell", "3", "3",
+                    "3", "--n-lambda", "2", "--equil-steps", "50",
+                    "--steps", "100"])):
+        fused.reset_launch_counts()
+        rec = _timed_verb(label, main, argv, work / label, times)
+        launched = _launched({})
+        numbers = [float(x) for x in split_numbers(rec["stdout"])[1]]
+        print(f"  (e) {label} mleam_ni: launches {launched}; "
+              f"{rec['stdout'].strip().splitlines()[-1]}")
+        if any(launched.values()) or not np.all(np.isfinite(numbers)):
+            raise AssertionError(f"{label}: launches {launched}, numbers "
+                                 f"{numbers}")
+
+
+def cli_tensordb(work, card, times) -> None:
+    """(f) python -m tensoralloy_tpu_torch.tensordb through the pipeline
+    on synthetic VASP outputs: host code only."""
+    root = work / "tensordb"
+    module = "tensoralloy_tpu_torch.tensordb"
+
+    def run(argv):
+        t0 = time.perf_counter()
+        proc, imports = _module_run(module, argv, root)
+        times.append((f"python -m {module} {' '.join(argv)}",
+                      time.perf_counter() - t0, imports))
+        return proc.returncode
+
+    rcs = tensordb_workflow(run, root, calculators=("calc",))
+    gathered = (root / "gathered.extxyz").read_text() \
+        if (root / "gathered.extxyz").exists() else ""
+    jobs = sorted(root.glob("calc/*atoms/group*/task*"))
+    n_frames = gathered.count("Lattice=")
+    print(f"  (f) tensordb: {len(rcs)} runs of python -m "
+          f"tensoralloy_tpu_torch.tensordb, exit codes {rcs}; {len(jobs)} "
+          f"recompute jobs, {n_frames} converged structures gathered")
+    if any(rcs) or not jobs or n_frames != len(jobs) - len(jobs) // 3:
+        raise AssertionError(f"tensordb: {rcs}, {len(jobs)} jobs, "
+                             f"{n_frames} gathered")
+
+
+def cli(card):
+    """The command lines on the default device (cuda), each part with the
+    launch counts reset before it and read after it. -> launches by
+    kernel over the phase."""
+    phase("cli")
+    t0 = time.perf_counter()
+    times = []
+    totals = {"g2": 0, "g4": 0, "grap": 0}
+    with tempfile.TemporaryDirectory() as tmp:
+        work = Path(tmp)
+        a = cli_experiment(work, card, times)
+        _add_launches(totals, a["launches"])
+        _add_launches(totals, cli_sf_verbs(work, a["exported"], a["twin"],
+                                           card, times))
+        _add_launches(totals, cli_grap_verbs(work, card, times))
+        cli_f64(work, card, times)
+        cli_eam(work, card, times)
+        cli_tensordb(work, card, times)
+    print(f"  wall time a verb ({card}):")
+    for label, sec, imports in times:
+        split = ("in this process" if imports is None else
+                 f"imports {imports:.2f} s (-X importtime) + the rest "
+                 f"(interpreter, CUDA and the verb) {sec - imports:.2f} s")
+        print(f"    {label}: {sec:.2f} s, {split}")
+    print(f"  launches over the cli phase: {totals}")
+    print(f"  cli phase {time.perf_counter() - t0:.1f} s")
+    return totals
+
+
 def _median_ms(fn, reps: int, warmup: int = 3) -> float:
     """Median of `reps` CUDA-event times of single calls: the event pair
     also spans the host's enqueue when the device waits on it."""
@@ -2826,14 +3629,16 @@ def main() -> int:
     _, large_launches = large(card)
     md_launches = md(card)
     analysis_launches = analysis(card)
+    cli_launches = cli(card)
     for counts in [m["launches"] for m in measured.values()] \
             + [manager_launches, large_launches, md_launches,
-               analysis_launches]:
+               analysis_launches, cli_launches]:
         for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v
     rows = time_path(card, served, launches)
     for row in rows:
         row["launches_per_train_step"] = per_step[row["name"]]
+        row["cli"] = cli_launches[row["name"]]
     print(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

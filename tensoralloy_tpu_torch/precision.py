@@ -55,3 +55,7 @@ def set_tf32(enabled: bool) -> None:
     """Switch TF32 for float32 matmuls and cuDNN convolutions together."""
     torch.backends.cuda.matmul.allow_tf32 = bool(enabled)
     torch.backends.cudnn.allow_tf32 = bool(enabled)
+
+
+# TF32 stays off unless a caller asks for it (see the module docstring)
+set_tf32(False)

@@ -226,43 +226,36 @@ def test_kernel_bounds_count_real_geometry():
                     + 3 * 2 * 1 * k * d)
 
 
+# modules that need a card to import; none so far
+CARD_ONLY_MODULES = ()
+
+
 def test_port_imports_without_jax():
-    code = ("import sys; sys.modules['jax'] = None; "
-            "sys.modules['optax'] = None; "
-            "import tensoralloy_tpu_torch.calculator, "
-            "tensoralloy_tpu_torch.io.model, "
-            "tensoralloy_tpu_torch.ops.fused, "
-            "tensoralloy_tpu_torch.native, "
-            "tensoralloy_tpu_torch.io.extxyz, "
-            "tensoralloy_tpu_torch.io.xyz, "
-            "tensoralloy_tpu_torch.linear.preset, "
-            "tensoralloy_tpu_torch.train.manager, "
-            "tensoralloy_tpu_torch.train.evaluation, "
-            "tensoralloy_tpu_torch.nn.eam.fast_efs, "
-            "tensoralloy_tpu_torch.nn.constraints, "
-            "tensoralloy_tpu_torch.data.crystals, "
-            "tensoralloy_tpu_torch.io.lammps, "
-            "tensoralloy_tpu_torch.ops.safe, "
-            "tensoralloy_tpu_torch.ops.spline, "
-            "tensoralloy_tpu_torch.atoms_utils, "
-            "tensoralloy_tpu_torch.neb, "
-            "tensoralloy_tpu_torch.ensemble, "
-            "tensoralloy_tpu_torch.linear.model, "
-            "tensoralloy_tpu_torch.analysis.eos, "
-            "tensoralloy_tpu_torch.analysis.elastic, "
-            "tensoralloy_tpu_torch.analysis.phonon, "
-            "tensoralloy_tpu_torch.analysis.kinetics, "
-            "tensoralloy_tpu_torch.analysis.ti, "
-            "tensoralloy_tpu_torch.analysis.surface, "
-            "tensoralloy_tpu_torch.analysis.fingerprints, "
-            "tensoralloy_tpu_torch.analysis.lammps, "
-            "tensoralloy_tpu_torch.io.vasp, "
-            "tensoralloy_tpu_torch.io.db, "
-            "tensoralloy_tpu_torch.io.lammps_native; "
-            "assert 'tensoralloy_tpu' not in sys.modules; print('ok')")
+    """Every module of the port imports with jax, optax and the JAX
+    package blocked, and none of them pulls the JAX package in."""
+    code = ("import importlib, pkgutil, sys\n"
+            "for name in ('jax', 'optax', 'tensoralloy_tpu'):\n"
+            "    sys.modules[name] = None\n"
+            "import tensoralloy_tpu_torch as pkg\n"
+            f"skip = set({CARD_ONLY_MODULES!r})\n"
+            "names = [m.name for m in pkgutil.walk_packages(\n"
+            "    pkg.__path__, pkg.__name__ + '.')]\n"
+            "for name in names:\n"
+            "    if name not in skip:\n"
+            "        importlib.import_module(name)\n"
+            "assert not any(m == 'tensoralloy_tpu' or m.startswith(\n"
+            "    'tensoralloy_tpu.') for m in sys.modules\n"
+            "    if sys.modules[m] is not None)\n"
+            "print(' '.join(names))")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+    # the walk reaches every subpackage, the command lines among them
+    walked = set(proc.stdout.split())
+    for name in ("cli.entry", "cli.__main__", "tensordb.cli",
+                 "tensordb.__main__", "test_utils", "ops.fused",
+                 "train.manager", "nn.eam.fast_efs", "analysis.surface"):
+        assert f"tensoralloy_tpu_torch.{name}" in walked, name
     sources = list((ROOT / "tensoralloy_tpu_torch").rglob("*.py"))
     assert sources
     for path in sources + [ROOT / "chip_smoke.py", ROOT / "kernel_times.py"]:
