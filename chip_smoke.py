@@ -188,7 +188,35 @@ failure ends the run with a non-zero exit and no result line:
              status -> postprocess -> create calc -> status calc -> gather
              on synthetic VASP outputs. Prints each verb's wall time, and
              for a `python -m` run its imports apart (`-X importtime`)
- 13. time    median time per request and its device E/F/S part,
+ 13. descriptors the flat ('segment') layout, legacy GRAP, the learned
+             'nn' filter, the descriptor heat flux and the chunked
+             committee, on the default device (cuda), each part with the
+             launch counts reset before it and read after it: (a)
+             snap_Ni_sfa and snap_Ni (v5_readapt) with backend="segment"
+             on jittered fcc Ni of 108 and 4000 atoms (host lists) and,
+             GRAP, 32000 atoms (the device builder "auto" takes), each
+             request against the same model on 'pallas' and 'dense'
+             (float32, 1e-4; no kernel on the segment route), the float64
+             108-atom requests against the JAX fixtures (1e-10), each
+             request's split and peak memory beside the kernels'; (b)
+             both training configurations at full width with backend
+             'segment': float64 steps against the train fixtures (1e-8),
+             5 float32 steps against the pallas run (1e-4); (c) the
+             committed JAX-saved legacy (moments 0-2) and 'nn' (16
+             filters, hidden [32, 32, 32]) models at the
+             snap_ni_v5_readapt width: float64 E/F/S of the 108-atom cell
+             against `tests/data/torch_port_ref_grap_legacy_nn.json`
+             (1e-10) on each backend, the 'nn' model on 'pallas' launching
+             no kernel and equal to its dense route, a float64 train step
+             (loss, every leaf's gradient norm) against the JAX trainer's
+             (1e-8); (d) the segment copy of snap_ni_sfa: a float64 NVE of
+             the 108-atom cell with the flux against
+             `tests/data/torch_port_ref_heat_flux_sf.json` (1e-9), atomic
+             virials summing to the virial, `python -m
+             tensoralloy_tpu_torch.cli compute kappa` exits 0; (e) the 5
+             MoNi GRAP members at 4000 atoms with chunked=True against
+             chunked=False (1e-4), grap_kernel once a row block
+ 14. time    median time per request and its device E/F/S part,
              kernels vs twins (the grap 32000 request on device lists, as
              "auto" routes it); each kernel vs its twin at the
              32000-atom request's shapes (`ms`: the median of single
@@ -203,8 +231,9 @@ failure ends the run with a non-zero exit and no result line:
              useful FLOP at the FP32 67 TFLOP/s
 
 The line before the last is a JSON object of per-kernel results (the
-launches of the serve, train, manager, large, md, analysis and cli
-phases, each counted from 0; "cli" the cli phase's alone);
+launches of the serve, train, manager, large, md, analysis, cli and
+descriptors phases, each counted from 0; "cli" and "descriptors" those
+phases' alone);
 the last is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -219,6 +248,7 @@ import sys
 import tempfile
 import time
 import tomllib
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
@@ -276,6 +306,19 @@ TRAIN_CONFIGS = {
         warm_start=True, fixture_steps=3, steps=10, evaluate=False,
         kernels=("grap",)),
 }
+# the descriptors phase (c): snap_ni_v5_readapt's input.toml with legacy
+# GRAP (moments 0-2) and with the learned filter (the file defaults:
+# hidden [32, 32, 32], 16 filters), each model JAX-saved with its
+# weights (`python -m tests.test_torch_grap_legacy_nn`)
+LEGACY_NN_CONFIGS = {
+    "legacy": {"nn.atomic.grap.legacy_mode": True,
+               "nn.atomic.grap.moment_tensors": [0, 1, 2],
+               "nn.atomic.grap.backend": "segment"},
+    "nn": {"nn.atomic.grap.algorithm": "nn",
+           "nn.atomic.grap.backend": "dense"},
+}
+LEGACY_NN_FILES = {name: f"tests/data/torch_port_grap_{name}_ni.npz"
+                   for name in LEGACY_NN_CONFIGS}
 # the eam phase: model, lattice, element, lattice constant (Angstrom),
 # repeats of the cells served (the first is the JAX fixture's cell), and
 # the fixture
@@ -596,9 +639,9 @@ def check_kernels(device="cuda", rows=4001) -> None:
     from tensoralloy_tpu_torch.nn.sf import SymmetryFunction
     sf = SymmetryFunction(["Ni"], eta=[0.01, 0.1, 0.5, 1.0, 4.0],
                           omega=[0.0], beta=[0.005], gamma=[1.0, -1.0],
-                          zeta=[1.0, 4.0])
+                          zeta=[1.0, 4.0], backend="dense")
     wide = SymmetryFunction(["Ni"], eta=[0.01, 0.1, 0.5, 1.0, 4.0, 20.0],
-                            omega=[0.0, 1.5, 3.0])
+                            omega=[0.0, 1.5, 3.0], backend="dense")
     rng = np.random.default_rng(SEED)
     for dtype, tol in ((torch.float32, F32), (torch.float64, F64)):
         for cutoff in ("cosine", "polynomial"):
@@ -676,7 +719,7 @@ def check_grap_kernel(device="cuda", rows=4001) -> None:
             desc = GenericRadialAtomicPotential(
                 ["Mo", "Ni"], algorithm=algorithm, parameters=params,
                 moment_tensors=moments, symmetric=symmetric,
-                cutoff_function=cutoff)
+                cutoff_function=cutoff, backend="dense")
             *diff, slot, mask = _random_unit_pairs(rng, rows, n, n_slots,
                                                    6.0, dtype, device)
             label = (f"{algorithm} K={desc.n_filters} moments={moments}"
@@ -897,14 +940,16 @@ def _manager(cfg, work, dtype, backend, steps):
     input.toml on the default device: loss, optimizer, batch size, seed
     and split are the file's. Changed for this phase: the precision, the
     descriptor backend, the depth, one step a block (every step's loss
-    is read), the scatter-free force assembly, and no periodic work."""
+    is read), the scatter-free force assembly where the backend reads
+    the dense rows (the flat 'segment' layout has autograd's alone), and
+    no periodic work."""
     from tensoralloy_tpu_torch.train.manager import TrainingManager
     config = experiment_config(cfg["run"], work, {
         "precision": dtype,
         f"nn.atomic.{cfg['descriptor']}.backend": backend,
         "train.train_steps": steps, "train.scan_steps": 1,
         "train.eval_steps": 10 ** 9, "train.log_steps": 10 ** 9,
-        "train.force_assembly": "dense",
+        "train.force_assembly": "auto" if backend == "segment" else "dense",
         "train.final_f32_steps": 0}, database=TRAIN_DB)
     manager = TrainingManager(config)
     if manager.trainer.device.type != "cuda":
@@ -2974,6 +3019,19 @@ def warm_start_checkpoint(model_path, path) -> None:
                 for k, v in tree.items()})
 
 
+def backend_copy(model_path, path, backend: str) -> str:
+    """A copy of a saved model file whose descriptor names `backend`, its
+    weights as they are (either package loads it). -> `path`."""
+    with np.load(str(model_path)) as z:
+        flat = {k: z[k] for k in z.files}
+    config = json.loads(bytes(flat["__config__"]).decode())
+    config["model"]["descriptor"]["backend"] = backend
+    flat["__config__"] = np.frombuffer(json.dumps(config).encode(),
+                                       dtype=np.uint8)
+    np.savez(str(path), **flat)
+    return str(path)
+
+
 def pallas_copy(model_path, path) -> None:
     """A copy of a saved model whose descriptor says backend 'pallas'."""
     from tensoralloy_tpu_torch.io.model import load_model, save_model
@@ -3417,6 +3475,422 @@ def cli(card):
     return totals
 
 
+# ----------------------------------------------------------------------
+# descriptors: the flat ('segment') layout, legacy GRAP and the 'nn'
+# filter, the descriptor heat flux, the chunked committee
+# ----------------------------------------------------------------------
+
+# fcc repeats of the segment requests: 108 and 4000 atoms on the host
+# lists, 32000 atoms (GRAP only: "auto" sends an angular featurizer to
+# the host lists) on the device builder
+SEGMENT_REQUEST_REPS = {"sf": (3, 10), "grap": (3, 10, 20)}
+SEGMENT_TRAIN_F32_STEPS = 5
+LEGACY_NN_FIXTURE = DATA / "torch_port_ref_grap_legacy_nn.json"
+# the float64 NVE of the 108-atom fixture cell with the flux, on the
+# segment copy of snap_ni_sfa (`python -m tests.test_torch_heatflux`)
+HEAT_FLUX_FIXTURE = DATA / "torch_port_ref_heat_flux_sf.json"
+HEAT_FLUX_RUN = dict(timestep=1.0, chunk_size=5, temperature=300.0, seed=3)
+HEAT_FLUX_STEPS = 10
+HEAT_FLUX_REL = 1e-9
+COMMITTEE_CHUNK_ROWS = 1024
+
+
+def segment_model_file(model_path, workdir, float64=False) -> str:
+    """A copy of a saved descriptor model whose descriptor says
+    'segment' (its weights cast to float64 where asked)."""
+    workdir = Path(workdir)
+    source = str(model_path)
+    if float64:
+        source = float64_copy(model_path, workdir / "f64_source.npz")
+    return backend_copy(source, workdir / f"segment_{Path(model_path).name}",
+                        "segment")
+
+
+def _peak_mib(fn) -> float:
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() / 2 ** 20
+
+
+def descriptors_serving(card) -> dict:
+    """(a) snap_Ni_sfa and snap_Ni (v5_readapt) loaded with
+    backend="segment": every request against the same model on 'pallas'
+    (the kernels) and 'dense' (the twins), float32 to 1e-4; the segment
+    route launches no kernel; the float64 108-atom request against the
+    JAX fixture (1e-10); each request's time split and peak memory beside
+    the kernels' and the twins'. -> launches of the pallas requests."""
+    from tensoralloy_tpu_torch.calculator import TensorAlloyCalculator
+    from tensoralloy_tpu_torch.ops import fused
+    totals = {}
+    for name in ("sf", "grap"):
+        model, kernels, fixture = PATHS[name]
+        calcs = {b: TensorAlloyCalculator(str(model), dtype="medium",
+                                          backend=b)
+                 for b in ("segment", "pallas", "dense")}
+        seg = calcs["segment"]
+        if seg.device.type != "cuda" or seg.layout != "segment":
+            raise AssertionError(f"{name}: {seg.device}, {seg.layout}")
+        structures = [_fixture(fixture)[0]] + [
+            _structure(r) for r in SEGMENT_REQUEST_REPS[name][1:]]
+        for s in structures:
+            device = seg._use_device_nl(s)
+            before = dict(fused.launch_counts)
+            res = seg.calculate(s)
+            if any(_launched(before).values()):
+                raise AssertionError(f"{name} segment launched a kernel")
+            before = dict(fused.launch_counts)
+            res_k = calcs["pallas"].calculate(s)
+            launched = _launched(before)
+            _add_launches(totals, launched)
+            res_t = calcs["dense"].calculate(s)
+            errs = {"kernels": efs_errors(res, res_k),
+                    "twins": efs_errors(res, res_t)}
+            fsum = float(np.max(np.abs(res["forces"].sum(axis=0))))
+            fmax = float(np.max(np.abs(res["forces"])))
+            print(f"  {name} segment {len(s)} atoms"
+                  f"{' (device lists)' if device else ''}: E "
+                  f"{res['energy']:.6f} eV, |sum F| {fsum:.2e}; vs "
+                  f"{json.dumps(errs)}; pallas launches {launched}")
+            if max(max(e.values()) for e in errs.values()) > F32_REL \
+                    or any(launched[k] != 1 for k in kernels) \
+                    or fsum > 1e-5 * fmax * np.sqrt(len(s)):
+                raise AssertionError(f"{name} {len(s)}: {errs}, {launched}")
+            if name == "grap" and len(s) > 10000 and not device:
+                raise AssertionError("32000 atoms: auto did not take the "
+                                     "device builder")
+        s, ref = _fixture(fixture)
+        calc64 = TensorAlloyCalculator(str(model), dtype="high",
+                                       backend="segment")
+        errs64 = efs_errors(calc64.calculate(s), ref)
+        print(f"  {name} segment float64 {len(s)} atoms vs the JAX "
+              f"fixture: {json.dumps(errs64)}")
+        if max(errs64.values()) > F64_REL:
+            raise AssertionError(f"{name} segment disagrees with JAX")
+        for s in structures:
+            reps = 3 if len(s) < 10000 else 2
+            for backend in ("segment", "pallas", "dense"):
+                calc = calcs[backend]
+                t_req, split, t_dev = _timed_request(calc, s, reps)
+                peak = _peak_mib(lambda: calc.calculate(s))
+                print(f"  {name} {backend} request {len(s)} atoms: "
+                      f"{t_req:.2f} ms, {split}, device E/F/S "
+                      f"{t_dev:.2f} ms (medians of {reps}); peak memory "
+                      f"allocated {peak:.1f} MiB ({card})")
+    return totals
+
+
+def _both_layouts(manager, workdir):
+    """The manager's database featurized once at float64 in both layouts
+    (the flat arrays and the dense rows with their transpose tables) ->
+    (flat, dense) splits (train features, labels, test features,
+    labels), each without the other layout's arrays, and the seconds."""
+    from tensoralloy_tpu_torch.train.dataset import Dataset
+    ds = manager.dataset
+    both = Dataset(ds.db, ds.featurizer, name=ds.name,
+                   test_size=ds.test_size, seed=ds.seed, dtype=np.float64,
+                   cache_dir=str(workdir), layout="both", transpose=True)
+    t0 = time.perf_counter()
+    arrays = both.split(*both.build())
+    seconds = time.perf_counter() - t0
+
+    def keep(is_flat):
+        return tuple({k: v for k, v in a.items()
+                      if not (k.startswith(("pair_", "trip_"))
+                              and k.endswith("_d") == is_flat)}
+                     for a in arrays)
+
+    return keep(True), keep(False), seconds
+
+
+def descriptors_training(workdir, card) -> dict:
+    """(b) both training configurations at full width with backend
+    'segment' on snap-Ni.db: float64 steps against the JAX trainer's
+    fixture (every loss and the first gradient norm, 1e-8: the same math
+    as the dense layout's), then float32 steps against the pallas route
+    of the same run (1e-4), and each step's time beside the kernels'
+    and the twins'. -> launches of the pallas run."""
+    from tensoralloy_tpu_torch.ops import fused
+    from tensoralloy_tpu_torch.io.model import load_model
+    from tensoralloy_tpu_torch.train.dataset import batch_index_stream
+    from tensoralloy_tpu_torch.train.optim import global_norm
+    from tensoralloy_tpu_torch.utils import tree_map
+    totals = {}
+    for name, cfg in TRAIN_CONFIGS.items():
+        fixture = json.loads(
+            (DATA / f"torch_port_ref_train_{name}.json").read_text())
+        work = Path(workdir) / f"segment_{name}"
+        work.mkdir()
+        m64 = _manager(cfg, work, "high", "segment", cfg["fixture_steps"])
+        t64 = m64.trainer
+        if m64.dataset.layout != "segment":
+            raise AssertionError(f"{name}: the manager's layout is "
+                                 f"{m64.dataset.layout}")
+        arrays, dense, build_s = _both_layouts(m64, work / "both")
+        saved = load_model(str(ROOT / cfg["model"]), dtype="high")[0] \
+            .param_tree()
+        params0 = saved if cfg["warm_start"] else seeded_params(
+            tree_map(lambda x: x.cpu().numpy(), saved),
+            t64.train_parameters.seed)
+        bs, seed = t64.train_parameters.batch_size, \
+            t64.train_parameters.seed
+        first = next(batch_index_stream(len(arrays[1]["energy"]), bs,
+                                        seed=seed, repeat=True))
+        (_, _), grads = t64.loss_and_grads(
+            t64._tree_to_device(params0),
+            t64._to_device({k: v[first] for k, v in arrays[0].items()}),
+            t64._to_device({k: v[first] for k, v in arrays[1].items()}), 0)
+        gnorm = float(global_norm(grads))
+        gerr = abs(gnorm - fixture["grad_norm_first_step"]) \
+            / fixture["grad_norm_first_step"]
+        _, losses64, _ = _fit_losses(t64, arrays, params0)
+        _check_losses(f"train_{name} segment float64 vs the JAX fixture",
+                      losses64, fixture["losses"], TRAIN_F64_REL)
+        grad_rel = (TRAIN_F64_WARM_GRAD_REL if cfg["warm_start"]
+                    else TRAIN_F64_REL)
+        print(f"  first-step gradient norm {gnorm:.10g}: rel err "
+              f"{gerr:.2e} (limit {grad_rel:g}); both layouts of "
+              f"{len(m64.db)} structures featurized in {build_s:.1f} s "
+              f"(flat pairs {arrays[0]['pair_i'].shape[1]}"
+              + (f", triples {arrays[0]['trip_i'].shape[1]}"
+                 if "trip_i" in arrays[0] else "") + f") ({card})")
+        if gerr > grad_rel:
+            raise AssertionError(f"train_{name} segment gradient norm")
+        steps = SEGMENT_TRAIN_F32_STEPS
+        t32 = _manager(cfg, work, "medium", "segment", steps).trainer
+        params_init = t32.init_params(arrays[0], verbose=False)
+        before = dict(fused.launch_counts)
+        _, losses, seconds = _fit_losses(t32, arrays, params_init,
+                                         timed=True)
+        if any(_launched(before).values()):
+            raise AssertionError("the segment trainer launched a kernel")
+        k32 = _manager(cfg, work, "medium", "pallas", steps).trainer
+        before = dict(fused.launch_counts)
+        _, losses_k, seconds_k = _fit_losses(k32, dense, params_init,
+                                             timed=True)
+        launched = _launched(before)
+        _add_launches(totals, launched)
+        _check_losses(f"train_{name} float32, segment vs pallas",
+                      losses, losses_k, TRAIN_F32_REL_FIRST)
+        twin = _manager(cfg, work, "medium", "dense", steps).trainer
+        _, _, seconds_t = _fit_losses(twin, dense, params_init, timed=True)
+
+        def spread(sec):
+            ms = 1e3 * np.asarray(sec[1:])
+            return (f"{np.median(ms):.2f} ms ({ms.min():.2f}–"
+                    f"{ms.max():.2f})")
+
+        print(f"  train_{name} float32 step, median (min–max) of "
+              f"{steps - 1} after 1: segment {spread(seconds)}, pallas "
+              f"{spread(seconds_k)}, dense {spread(seconds_t)}; pallas "
+              f"launches {launched} ({card})")
+        if any(launched[k] != steps for k in cfg["kernels"]):
+            raise AssertionError(f"pallas launches {launched}")
+    return totals
+
+
+def _legacy_nn_batch(manager):
+    """The first training batch of `manager`'s run, featurized alone
+    with the dataset's padding (the rows its full build would give)."""
+    from tensoralloy_tpu_torch.train.dataset import batch_index_stream
+    from tensoralloy_tpu_torch.transform.featurizer import batch_features
+    ds, tp = manager.dataset, manager.train_parameters
+    train_idx, _ = ds.split_indices(len(ds.db))
+    first = next(batch_index_stream(len(train_idx), tp.batch_size,
+                                    seed=tp.seed, repeat=True))
+    pairs = [ds._featurize_one(ds.db.get(int(i) + 1))
+             for i in train_idx[first]]
+    return (batch_features([p[0] for p in pairs]),
+            batch_features([p[1] for p in pairs]))
+
+
+def descriptors_legacy_nn(workdir, card) -> None:
+    """(c) the committed JAX-saved legacy and 'nn' models at the
+    snap_ni_v5_readapt width: float64 E/F/S of the 108-atom cell against
+    the JAX fixture (1e-10) on every backend the model takes; the 'nn'
+    model on 'pallas' launches no kernel and equals its dense route; a
+    float64 train step (loss and every leaf's gradient norm, the
+    filter's included) against the JAX trainer's (1e-8)."""
+    from tensoralloy_tpu_torch.calculator import TensorAlloyCalculator
+    from tensoralloy_tpu_torch.io.model import load_model
+    from tensoralloy_tpu_torch.ops import fused
+    from tensoralloy_tpu_torch.train.manager import TrainingManager
+    from tensoralloy_tpu_torch.utils import tree_flatten
+    record = json.loads(LEGACY_NN_FIXTURE.read_text())
+    s, _ = _fixture(PATHS["grap"][2])
+    for name, overrides in LEGACY_NN_CONFIGS.items():
+        want = record[name]
+        path = str(ROOT / LEGACY_NN_FILES[name])
+        backends = ("segment",) if name == "legacy" else (
+            "segment", "dense", "pallas")
+        for backend in backends:
+            calc = TensorAlloyCalculator(path, dtype="high", backend=backend)
+            before = dict(fused.launch_counts)
+            errs = efs_errors(calc.calculate(s), want)
+            launched = _launched(before)
+            print(f"  {name} {backend} float64 {len(s)} atoms vs the JAX "
+                  f"fixture: {json.dumps(errs)}; launches {launched}")
+            if max(errs.values()) > F64_REL or any(launched.values()):
+                raise AssertionError(f"{name} {backend}: {errs}")
+        if name == "nn":
+            got = {b: TensorAlloyCalculator(path, dtype="medium",
+                                            backend=b).calculate(s)
+                   for b in ("pallas", "dense")}
+            errs = efs_errors(got["pallas"], got["dense"])
+            print(f"  nn float32 pallas vs dense: {json.dumps(errs)}")
+            if max(errs.values()) > 1e-12:
+                raise AssertionError("the 'nn' filter on 'pallas' is not "
+                                     "its dense route")
+        work = Path(workdir) / f"legacy_nn_{name}"
+        work.mkdir()
+        manager = TrainingManager(experiment_config(
+            "snap_ni_v5_readapt", work, {
+                "precision": "high", "train.train_steps": 1,
+                "train.scan_steps": 1, "train.eval_steps": 10 ** 9,
+                "train.log_steps": 10 ** 9, "train.final_f32_steps": 0,
+                **overrides}, database=TRAIN_DB))
+        model = load_model(path, dtype="high")[0]
+        if manager.model.as_dict() != model.as_dict():
+            raise AssertionError(f"{name}: the manager builds another model")
+        t0 = time.perf_counter()
+        feats, labels = _legacy_nn_batch(manager)
+        t = manager.trainer
+        (loss, _), grads = t.loss_and_grads(
+            model.param_tree(), t._to_device(feats), t._to_device(labels), 0)
+        norms = {k: float(torch.linalg.vector_norm(v))
+                 for k, v in tree_flatten(grads).items()}
+        top = max(want["grad_norms"].values())
+        gerr = max(abs(norms[k] - v) for k, v in want["grad_norms"].items())
+        lerr = abs(float(loss) - want["loss_first_step"]) \
+            / abs(want["loss_first_step"])
+        filt = {k: v for k, v in norms.items() if k.startswith("descriptor")}
+        print(f"  {name} float64 train step on the first batch "
+              f"({len(labels['energy'])} structures): loss "
+              f"{float(loss):.10g}, rel err {lerr:.2e}; gradient norms "
+              f"of {len(norms)} leaves, worst error {gerr / top:.2e} of "
+              f"the largest ({len(filt)} of the filter's); "
+              f"{time.perf_counter() - t0:.1f} s ({card})")
+        if set(norms) != set(want["grad_norms"]) or lerr > TRAIN_F64_REL \
+                or gerr > TRAIN_F64_REL * top \
+                or (name == "nn" and not (filt and min(filt.values()) > 0)):
+            raise AssertionError(f"{name} train step disagrees with JAX")
+
+
+def descriptors_heat_flux(workdir, card, times) -> None:
+    """(d) the segment copy of snap_ni_sfa (float64 weights): NVE of the
+    108-atom fixture cell recording the flux, against the JAX fixture
+    (1e-9); atomic virials that sum to the total virial; `python -m
+    tensoralloy_tpu_torch.cli compute kappa` on it, exit 0."""
+    from tensoralloy_tpu_torch.analysis.heatflux import (
+        make_atomic_virial_fn)
+    from tensoralloy_tpu_torch.dynamics import VelocityVerlet
+    from tensoralloy_tpu_torch.io.model import load_model
+    from tensoralloy_tpu_torch.nn.fields import make_efs_fn
+    from tensoralloy_tpu_torch.ops import fused
+    path = segment_model_file(PATHS["sf"][0], workdir, float64=True)
+    model, _ = load_model(path, dtype="high")
+    s, _ = _fixture(PATHS["sf"][2])
+    ref = json.loads(HEAT_FLUX_FIXTURE.read_text())
+    before = dict(fused.launch_counts)
+    t0 = time.perf_counter()
+    h = VelocityVerlet(model, s, record_heat_flux=True,
+                       **HEAT_FLUX_RUN).run(HEAT_FLUX_STEPS)
+    sec = time.perf_counter() - t0
+    errs = {k: rel_err(h[k], ref[k]) for k in ("heat_flux", "potential",
+                                               "total")}
+    print(f"  NVE of {len(s)} atoms, {HEAT_FLUX_STEPS} steps, float64, "
+          f"flux at every chunk end vs the JAX fixture: {json.dumps(errs)}"
+          f" (limit {HEAT_FLUX_REL:g}); {sec:.2f} s ({card})")
+    if max(errs.values()) > HEAT_FLUX_REL or any(_launched(before).values()):
+        raise AssertionError("the descriptor heat flux disagrees")
+    m = model.clone_for(Counter(s.symbols))
+    feats = {k: torch.as_tensor(v, device="cuda") for k, v in
+             m.featurizer.featurize(s, m.featurizer.make_vap(s),
+                                    layout="segment").items()}
+    w = make_atomic_virial_fn(m)(feats)
+    total = make_efs_fn(m.energy_and_aux)(feats)["virial"]
+    err = rel_err(w["atomic_virials"].sum(0).cpu(), total.cpu())
+    print(f"  atomic virials: {tuple(w['atomic_virials'].shape)}, their "
+          f"sum vs the total virial {err:.2e}")
+    if err > 1e-10:
+        raise AssertionError("the atomic virials do not sum to the virial")
+    out = _subprocess_verb(
+        "compute kappa (segment SF)", "tensoralloy_tpu_torch.cli",
+        ["compute", "kappa", path, "Ni", "--supercell", "2", "2", "2",
+         "--equil-steps", "10", "--steps", "20", "--sample", "5", "-o",
+         str(Path(workdir) / "kappa.csv")], workdir, times)
+    print("  " + out.strip().splitlines()[-1])
+
+
+def descriptors_committee(card) -> dict:
+    """(e) the 5 MoNi GRAP members (pallas) at 4000 atoms with
+    chunked=True in blocks of COMMITTEE_CHUNK_ROWS rows against
+    chunked=False (1e-4): grap_kernel once a row block."""
+    from tensoralloy_tpu_torch.ensemble import EnsembleCalculator
+    from tensoralloy_tpu_torch.ops import fused
+    paths = [str(p) for p in MONI_MEMBERS]
+    s = _moni_structure()
+    mono = EnsembleCalculator(paths, dtype="medium", backend="pallas",
+                              chunked=False)
+    chunked = EnsembleCalculator(paths, dtype="medium", backend="pallas",
+                                 chunked=True,
+                                 chunk_size=COMMITTEE_CHUNK_ROWS)
+    want = mono.calculate(s)
+    before = dict(fused.launch_counts)
+    got = chunked.calculate(s)
+    launched = _launched(before)
+    blocks = -(-chunked._get_vap(s).n_atoms_vap // COMMITTEE_CHUNK_ROWS)
+    errs = efs_errors(got, want)
+    errs["energy_std"] = rel_err(got["energy_std"], want["energy_std"])
+    errs["forces_std"] = rel_err(got["forces_std"], want["forces_std"])
+    t_c = _median_host_ms(lambda: chunked.calculate(s), 3)
+    t_m = _median_host_ms(lambda: mono.calculate(s), 3)
+    p_c = _peak_mib(lambda: chunked.calculate(s))
+    p_m = _peak_mib(lambda: mono.calculate(s))
+    print(f"  moni committee, {len(paths)} members, {len(s)} atoms, "
+          f"chunked ({blocks} row blocks of {COMMITTEE_CHUNK_ROWS}) vs "
+          f"monolithic: {json.dumps(errs)}; grap_kernel launches "
+          f"{launched['grap']} ({launched['grap'] / blocks:g} a row "
+          f"block); request {t_c:.1f} ms chunked, {t_m:.1f} ms monolithic; "
+          f"peak memory {p_c:.1f} / {p_m:.1f} MiB ({card})")
+    if max(errs.values()) > F32_REL or launched["grap"] != blocks \
+            or launched["g2"] or launched["g4"]:
+        raise AssertionError(f"chunked committee: {errs}, {launched}")
+    return launched
+
+
+def descriptors(card):
+    """The descriptor paths of the flat layout, legacy GRAP and the 'nn'
+    filter, the descriptor heat flux and the chunked committee, each
+    part with the launch counts reset before it and read after it. ->
+    launches by kernel over the phase."""
+    phase("descriptors")
+    from tensoralloy_tpu_torch.ops import fused
+    t0 = time.perf_counter()
+    totals = {"g2": 0, "g4": 0, "grap": 0}
+    times = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, part in (
+                ("a serving", lambda: descriptors_serving(card)),
+                ("b training", lambda: descriptors_training(tmp, card)),
+                ("c legacy + nn", lambda: descriptors_legacy_nn(tmp, card)),
+                ("d heat flux", lambda: descriptors_heat_flux(tmp, card,
+                                                              times)),
+                ("e committee", lambda: descriptors_committee(card))):
+            print(f"  -- {label}")
+            fused.reset_launch_counts()
+            t1 = time.perf_counter()
+            part()
+            _add_launches(totals, dict(fused.launch_counts))
+            print(f"  {label}: {time.perf_counter() - t1:.1f} s")
+    for label, sec, imports in times:
+        print(f"  {label}: {sec:.2f} s, imports {imports:.2f} s")
+    print(f"  launches over the descriptors phase: {totals}")
+    print(f"  descriptors phase {time.perf_counter() - t0:.1f} s")
+    return totals
+
+
 def _median_ms(fn, reps: int, warmup: int = 3) -> float:
     """Median of `reps` CUDA-event times of single calls: the event pair
     also spans the host's enqueue when the device waits on it."""
@@ -3630,15 +4104,17 @@ def main() -> int:
     md_launches = md(card)
     analysis_launches = analysis(card)
     cli_launches = cli(card)
+    descriptor_launches = descriptors(card)
     for counts in [m["launches"] for m in measured.values()] \
             + [manager_launches, large_launches, md_launches,
-               analysis_launches, cli_launches]:
+               analysis_launches, cli_launches, descriptor_launches]:
         for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v
     rows = time_path(card, served, launches)
     for row in rows:
         row["launches_per_train_step"] = per_step[row["name"]]
         row["cli"] = cli_launches[row["name"]]
+        row["descriptors"] = descriptor_launches[row["name"]]
     print(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

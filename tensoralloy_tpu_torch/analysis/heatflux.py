@@ -11,8 +11,9 @@ the microscopic energy current reduces to
 
 (Hardy/Fan form, Fan et al., PRB 92, 094301 (2015), Eq. 24): one
 autograd pass against the rij-fed energy of `nn.fields.make_rij_efs_fn`.
-The flat pair layout is the only one with owner-anchored vectors: in
-this port that serves the EAM family; the EAM family's analytic flux on
+The flat layout is the only one with owner-anchored vectors: it serves
+the EAM family and the descriptor models on the 'segment' backend (SF
+and GRAP, their triples included); the EAM family's analytic flux on
 the dense layout is `nn.eam.fast_efs.make_fast_heat_flux_fn`.
 
 Green-Kubo: kappa = 1 / (V kB T^2) int_0^inf <J(0) . J(t)> / 3 dt, the
@@ -27,7 +28,7 @@ import numpy as np
 import torch
 
 from ..dynamics import FORCE_TO_ACC, KB
-from ..ops.pairs import pair_vectors
+from ..ops.pairs import pair_vectors, triple_vectors
 
 __all__ = ["make_heat_flux_fn", "make_atomic_virial_fn",
            "trajectory_heat_flux", "gk_plateau", "green_kubo",
@@ -37,17 +38,6 @@ __all__ = ["make_heat_flux_fn", "make_atomic_virial_fn",
 EV_A_FS_TO_W_MK = 1.602176634e-19 / (1e-10 * 1e-15)
 # 1 eV*fs/A^3 in Pa*s
 EV_FS_A3_TO_PA_S = 1.602176634e-19 / 1e-30 * 1e-15
-
-
-def _trip_vectors(features):
-    """Owner-anchored triple displacement vectors (d_ij, d_ik)."""
-    pos, cell = features["positions"], features["cell"]
-    ri = pos[features["trip_i"].long()]
-    dij = (pos[features["trip_j"].long()] + features["trip_shift_j"] @ cell
-           - ri)
-    dik = (pos[features["trip_k"].long()] + features["trip_shift_k"] @ cell
-           - ri)
-    return dij, dik
 
 
 def _site_energy_fn(model):
@@ -76,7 +66,7 @@ def _owner_gradients(model, features, params):
     vecs = [pair_vectors(features)]
     if "trip_i" in features:
         keys += ["trip_rij", "trip_rik"]
-        vecs += list(_trip_vectors(features))
+        vecs += list(triple_vectors(features))
     vecs = [v.detach().requires_grad_() for v in vecs]
     with torch.enable_grad():
         ae = site_energies(dict(features, **dict(zip(keys, vecs))), params)

@@ -19,10 +19,15 @@ request, as in the reference:
     the EAM family on the flat pair ('segment') layout, and a dense
     descriptor model on device-built lists (which carry no transpose
     tables);
+  * descriptor models on the flat ('segment') layout: autograd w.r.t.
+    positions and cell of the pair and triple arrays;
   * `chunked`: the energy in rematerialized blocks (`energy_chunked`:
     atom rows of a descriptor model, flat pair blocks of the EAM family),
     differentiated by autograd. "auto" takes it when a frame's padded
     pairs exceed `chunk_auto_pairs` (8 times that on the dense layout).
+    As in the reference, a model chunks only where it can: never on the
+    fast EFS, a descriptor model only on the dense layout and never with
+    the learned 'nn' GRAP filter.
 
 `device_nl`: the neighbor list is built on the device
 (`transform.device_nl.DeviceNeighborList`) instead of the host. "auto"
@@ -194,13 +199,30 @@ class TensorAlloyCalculator:
             else:
                 efs = make_efs_fn(model.energy_and_aux)
             efs_chunked = None
-            if self.chunked and not self.fast_efs:   # "auto" or True
-                chunk = self.chunk_size or (1 << 20 if self.layout ==
-                                            "segment" else 4096)
-                efs_chunked = make_efs_fn(self._chunked_energy(model, chunk))
+            if self.chunked and self.can_chunk(model):   # "auto" or True
+                efs_chunked = make_efs_fn(self._chunked_energy(
+                    model, self.chunk_rows()))
             hit = (model, efs, efs_chunked)
             self._variant_cache[key] = hit
         return hit
+
+    def can_chunk(self, model) -> bool:
+        """Whether `model` has a chunked route here (the reference's
+        `can_chunk`): not on the fast EFS; the EAM family where it has
+        `make_chunked_energy_fn`; a descriptor model on the dense layout
+        without the learned 'nn' filter."""
+        if self.fast_efs:
+            return False
+        desc = getattr(model, "descriptor", None)
+        if desc is None:
+            return hasattr(model, "make_chunked_energy_fn")
+        return (self.layout == "dense"
+                and getattr(desc, "algorithm", None) != "nn")
+
+    def chunk_rows(self) -> int:
+        """Pairs (the flat layout) or atom rows (dense) a block."""
+        return self.chunk_size or (1 << 20 if self.layout == "segment"
+                                   else 4096)
 
     @staticmethod
     def _chunked_energy(model, chunk: int) -> Callable:
@@ -246,6 +268,7 @@ class TensorAlloyCalculator:
         feats = self.featurizer.featurize(
             structure, vap, layout=layout or self.layout,
             pair_bucket=lambda n: _bucket(max(n, 1)),
+            trip_bucket=lambda n: _bucket(max(n, 1)),
             # per-atom neighbor/triple WIDTHS are far smaller than flat
             # counts: a 256-minimum bucket would pad every row 2-8x
             nnl_bucket=lambda n: _bucket(max(n, 1), minimum=32),

@@ -7,8 +7,16 @@ descriptors are evaluated once (one launch of each descriptor kernel on
 the card) and shared by the K members' heads, and the K members' forces
 and stress come from one batched vector-Jacobian product through the
 shared graph (`torch.autograd.grad(..., is_grads_batched=True)` with the
-K one-hot cotangents of the stacked energies). The EAM family has no
-shared stage: each member's analytic EFS runs on the shared features.
+K one-hot cotangents of the stacked energies). A descriptor with weights
+of its own (GRAP's learned 'nn' filter) is evaluated once per member,
+with that member's weights. The EAM family has no shared stage: each
+member's analytic EFS runs on the shared features.
+
+The chunked large-cell route (`chunked`, as the calculator routes it)
+takes the dense layout in row blocks: per block the descriptors once,
+the K members' heads on them, and one batched VJP of the block's K
+energies, accumulated over the blocks; the block's graph is freed
+before the next block, so the descriptor kernels launch once a block.
 
 `EnsembleCalculator` returns the ensemble mean for every property of
 `TensorAlloyCalculator` plus uncertainty channels (`energy_std`,
@@ -36,8 +44,11 @@ def _member_energies(model, trees: Sequence[dict]) -> Callable:
     """features -> (energies [K], by-products stacked over K): the shared
     descriptors once, then each member's heads on them."""
 
+    shared = hasattr(model, "descriptors") and not any(
+        "descriptor" in tree for tree in trees)
+
     def energies(features):
-        if hasattr(model, "descriptors"):
+        if shared:
             features = dict(features, descriptors=model.descriptors(features))
         outs = [model.energy_and_aux(features, tree) for tree in trees]
         aux = {k: torch.stack([o[1][k] for o in outs]) for k in outs[0][1]}
@@ -118,6 +129,48 @@ def make_ensemble_efs_fn(model, trees: Sequence[dict],
     return efs_vectors if transpose else efs_positions
 
 
+def make_chunked_ensemble_efs_fn(model, trees: Sequence[dict],
+                                 atom_chunk: int = 4096) -> Callable:
+    """fn(features) -> the K members' energy [K], forces [K, A, 3] and
+    stress of one structure on the dense layout, evaluated in row blocks
+    of `atom_chunk` centre rows (`model.block_totals`): each block's K
+    variational energies are differentiated w.r.t. positions and cell
+    by one batched VJP and the gradients accumulated. A
+    finite-temperature model adds its totals U ('energy'), S and F."""
+    k = len(trees)
+    finite_t = hasattr(model, "heads_chunked")
+
+    def efs(features) -> Dict[str, torch.Tensor]:
+        pos0, cell0 = features["positions"].detach(), \
+            features["cell"].detach()
+        eye = torch.eye(k, dtype=pos0.dtype, device=pos0.device)
+        gpos, gcell, totals = 0.0, 0.0, 0.0
+        for lo, hi in model.row_blocks(features, atom_chunk):
+            pos = pos0.clone().requires_grad_()
+            cell = cell0.clone().requires_grad_()
+            f = dict(features, positions=pos, cell=cell)
+            with torch.enable_grad():
+                t = model.block_totals(f, trees, lo, hi)  # [K, n_heads]
+                e = t[:, 0]
+                if finite_t:
+                    e = e - f["etemperature"].to(e.dtype) * t[:, 1]
+                gp, gc = torch.autograd.grad(e, (pos, cell), eye,
+                                             is_grads_batched=True)
+            gpos, gcell = gpos + gp, gcell + gc
+            totals = totals + t.detach()
+        virial = (gpos.transpose(-1, -2) @ pos0
+                  + gcell.transpose(-1, -2) @ cell0)
+        out = {"forces": -gpos, **stress_outputs(virial, cell0)}
+        out["energy"] = totals[:, 0]
+        if finite_t:
+            temp = features["etemperature"].to(totals.dtype)
+            out["eentropy"] = totals[:, 1]
+            out["free_energy"] = totals[:, 0] - temp * totals[:, 1]
+        return out
+
+    return efs
+
+
 def _make_fast_ensemble_fn(model, trees: Sequence[dict]) -> Callable:
     """The EAM family's analytic EFS of each member, stacked over K."""
     from .nn.eam.fast_efs import make_fast_efs_fn
@@ -125,6 +178,22 @@ def _make_fast_ensemble_fn(model, trees: Sequence[dict]) -> Callable:
 
     def efs(features) -> Dict[str, torch.Tensor]:
         outs = [fast(features, tree) for tree in trees]
+        return {key: torch.stack([o[key] for o in outs]) for key in outs[0]}
+
+    return efs
+
+
+def _make_member_chunked_fn(model, trees: Sequence[dict],
+                            chunk: int) -> Callable:
+    """The EAM family's chunked EFS of each member (its flat pair
+    blocks), stacked over K."""
+    from .nn.fields import make_efs_fn
+    e_fn = model.make_chunked_energy_fn(chunk)
+    fns = [make_efs_fn(lambda f, tree=tree: (e_fn(f, tree), {}))
+           for tree in trees]
+
+    def efs(features) -> Dict[str, torch.Tensor]:
+        outs = [fn(features) for fn in fns]
         return {key: torch.stack([o[key] for o in outs]) for key in outs[0]}
 
     return efs
@@ -141,9 +210,9 @@ class EnsembleCalculator(TensorAlloyCalculator):
     All `TensorAlloyCalculator` getters return the ensemble MEAN;
     `get_energy_std`, `get_forces_std`, `get_max_force_std` expose the
     disagreement. `device`, `dtype` and `backend` load the paths as the
-    calculator does; `fast_efs` and `device_nl` route as there. The
-    chunked large-cell route and `n_shards > 1` (members over several
-    devices) are not ported."""
+    calculator does; `fast_efs`, `device_nl` and `chunked` route as
+    there. `n_shards > 1` (members over several devices) is not
+    ported."""
 
     def __init__(self, members: Sequence, n_shards: int = 1, *,
                  device="cuda", dtype="high", backend=None,
@@ -153,10 +222,6 @@ class EnsembleCalculator(TensorAlloyCalculator):
                 "EnsembleCalculator(n_shards > 1) shards the members over "
                 "several devices; that comes with the port of "
                 "`parallel/` (ROADMAP queue 1, item 12)")
-        if chunked is True:
-            raise NotImplementedError(
-                "the chunked large-cell route is not ported for "
-                "committees; evaluate a member with TensorAlloyCalculator")
         members = list(members)
         if len(members) < 2:
             raise ValueError("an ensemble needs at least 2 members")
@@ -175,7 +240,7 @@ class EnsembleCalculator(TensorAlloyCalculator):
                     "ensemble members disagree on the featurizer "
                     "(elements/cutoffs) — they are not one architecture")
         super().__init__(members[0], device=device, dtype=dtype,
-                         chunked=False, **kwargs)
+                         chunked=chunked, **kwargs)
         for m in members:
             m.requires_grad_(False)
         self.member_trees: List[dict] = [m.param_tree() for m in members]
@@ -193,7 +258,15 @@ class EnsembleCalculator(TensorAlloyCalculator):
                 efs = make_ensemble_efs_fn(
                     model, self.member_trees,
                     transpose=self.layout == "dense" and not use_device)
-            hit = (model, efs, None)
+            efs_chunked = None
+            if self.chunked and self.can_chunk(model):   # "auto" or True
+                if getattr(model, "descriptor", None) is None:
+                    efs_chunked = _make_member_chunked_fn(
+                        model, self.member_trees, self.chunk_rows())
+                else:
+                    efs_chunked = make_chunked_ensemble_efs_fn(
+                        model, self.member_trees, self.chunk_rows())
+            hit = (model, efs, efs_chunked)
             self._variant_cache[key] = hit
         return hit
 

@@ -12,6 +12,11 @@ leaf ``params["Ni"]["mlp"]["layers"][0]["w"]`` (see
 them with `load_state_dict`, `load_param_tree` or `io.model.load_model`,
 or draw fresh ones with `init_params`.
 
+A descriptor with weights of its own (GRAP's learned 'nn' filter) keeps
+them beside the elements, under ``params.descriptor`` (the JAX tree's
+``params["descriptor"]``); every loop over elements reads
+`self.elements`, never the keys of the tree.
+
 Every compute method takes one structure's features or a batch's
 ([B, A, ...]): the descriptor kernels are row-independent, so a batch is
 B * A rows of one launch, and each element's MLP takes its row slice of
@@ -25,6 +30,7 @@ import copy
 from collections import Counter
 from typing import Dict, List, Optional, Sequence, Union
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -102,6 +108,10 @@ class AtomicNN(nn.Module):
                                     requires_grad=False)
                     for k in ("xlo", "xhi")})
             params[e] = net
+        zero_params = getattr(descriptor, "zero_params", None)
+        dmod = zero_params(factory) if zero_params is not None else None
+        if dmod is not None:
+            params["descriptor"] = dmod
         self.params = params
         self._set_layout(max_occurs)
 
@@ -122,6 +132,12 @@ class AtomicNN(nn.Module):
             self.layout[e] = (offset, cnt)
             offset += cnt
         self.n_atoms_vap = offset
+        # element index of every VAP row (the virtual row reads 0)
+        vei = np.zeros(self.n_atoms_vap, dtype=np.int32)
+        for i, e in enumerate(self.elements):
+            lo, cnt = self.layout[e]
+            vei[lo:lo + cnt] = i
+        self.vap_element_idx = vei
 
     def clone_for(self, max_occurs: Counter) -> "AtomicNN":
         """The same weights (shared, not copied) under another VAP row
@@ -167,6 +183,10 @@ class AtomicNN(nn.Module):
         its bits."""
         factory = self._factory()
         params = {}
+        init = getattr(self.descriptor, "init_params", None)
+        dparams = init(generator, **factory) if init is not None else {}
+        if dparams:
+            params["descriptor"] = dparams
         for e in self.elements:
             p = self._init_element(e, generator, factory)
             if self.minmax_scale:
@@ -176,16 +196,21 @@ class AtomicNN(nn.Module):
         return params
 
     # ------------------------------------------------------------------
-    def descriptors(self, features) -> torch.Tensor:
+    def descriptors(self, features, params=None) -> torch.Tensor:
         """-> [.., n_vap, D]; `features["descriptors"]`, when given, is
         taken as they are (a committee evaluates them once for all of
-        its members, `ensemble.make_ensemble_efs_fn`)."""
+        its members, `ensemble.make_ensemble_efs_fn`). `params` (the
+        module's own weights when None) carries the descriptor's
+        weights, where it has any."""
         if "descriptors" in features:
             return features["descriptors"]
+        params = self.params if params is None else params
         f = self.featurizer
         return self.descriptor.compute(
             features, f.rcut, f.acut, f.n_radial_slots, f.n_angular_slots,
-            f.angular)
+            f.angular,
+            params=params["descriptor"] if "descriptor" in params else None,
+            vap_element_idx=self.vap_element_idx)
 
     def _element_rows(self, g: torch.Tensor, params):
         """(element net, its min-max scaled descriptor rows [.., cnt, D])
@@ -204,7 +229,7 @@ class AtomicNN(nn.Module):
         """-> [.., n_vap] atomic energies (zero at padding rows);
         features are one structure's or a batch's ([B, A, ...])."""
         params = self.params if params is None else params
-        g = self.descriptors(features)
+        g = self.descriptors(features, params)
         rows = [g.new_zeros(*g.shape[:-2], 1)]
         for net, x in self._element_rows(g, params):
             layers = net["mlp"]["layers"]
@@ -244,24 +269,27 @@ class AtomicNN(nn.Module):
             layers = freeze_output_bias(layers)
         return (apply_dense_stack(layers, x, self.activation)[..., 0],)
 
-    def _chunked_totals(self, features, params, atom_chunk: int
-                        ) -> torch.Tensor:
-        """-> [n_heads] masked sums of `_chunk_head` over every row,
-        evaluated block by block."""
-        from torch.utils.checkpoint import checkpoint
-        if "pair_j_d" not in features:
-            raise KeyError("energy_chunked needs the dense layout "
-                           "('pair_j_d' ...)")
-        params = self.params if params is None else params
-        d_keys = [k for k in features if k.endswith("_d")]
-        base = {k: v for k, v in features.items() if k not in d_keys}
+    def row_blocks(self, features, atom_chunk: int):
+        """-> [(lo, hi)] row blocks of at most `atom_chunk` centre rows
+        covering the dense layout, after the JAX guards."""
+        self._check_chunkable(features)
         a_tot = features["pair_j_d"].shape[0]
         chunk = max(1, int(min(atom_chunk, a_tot)))
+        return [(lo, min(lo + chunk, a_tot)) for lo in range(0, a_tot, chunk)]
 
-        def block(lo: int, hi: int) -> torch.Tensor:
-            f = dict(base, positions_rows=features["positions"][lo:hi])
-            f.update({k: features[k][lo:hi] for k in d_keys})
-            g = self.descriptors(f)                  # [hi - lo, D]
+    def block_totals(self, features, trees, lo: int, hi: int
+                     ) -> torch.Tensor:
+        """-> [K, n_heads]: the masked sums of `_chunk_head` over rows
+        lo:hi for each of the K parameter trees `trees`, on one
+        evaluation of the block's descriptors (they have no weights
+        where rows are chunked)."""
+        d_keys = [k for k in features if k.endswith("_d")]
+        f = {k: v for k, v in features.items() if k not in d_keys}
+        f["positions_rows"] = features["positions"][lo:hi]
+        f.update({k: features[k][lo:hi] for k in d_keys})
+        g = self.descriptors(f)                      # [hi - lo, D]
+        out = []
+        for params in trees:
             sums = []
             for e in self.elements:
                 elo, cnt = self.layout[e]
@@ -275,11 +303,34 @@ class AtomicNN(nn.Module):
                 m = features["atom_masks"][a:b]
                 sums.append(torch.stack([torch.sum(y * m) for y in
                                          self._chunk_head(net, x, features)]))
-            return torch.stack(sums).sum(0)
+            out.append(torch.stack(sums).sum(0))
+        return torch.stack(out)
 
-        return sum(checkpoint(block, lo, min(lo + chunk, a_tot),
-                              use_reentrant=False)
-                   for lo in range(0, a_tot, chunk))
+    def _chunked_totals(self, features, params, atom_chunk: int
+                        ) -> torch.Tensor:
+        """-> [n_heads] masked sums of `_chunk_head` over every row,
+        evaluated block by block."""
+        from torch.utils.checkpoint import checkpoint
+        trees = [self.params if params is None else params]
+        return sum(checkpoint(lambda lo, hi: self.block_totals(
+            features, trees, lo, hi)[0], lo, hi, use_reentrant=False)
+            for lo, hi in self.row_blocks(features, atom_chunk))
+
+    def _check_chunkable(self, features) -> None:
+        """The JAX guards of row-chunked evaluation."""
+        if getattr(self.descriptor, "algorithm", None) == "nn":
+            raise NotImplementedError(
+                "chunked evaluation with learned ('nn') GRAP filters "
+                "is not supported — the rcov channel indexes the full "
+                "VAP layout")
+        if getattr(self.descriptor, "backend", "segment") == "segment":
+            raise ValueError(
+                "energy_chunked requires a dense-layout descriptor "
+                "backend ('dense' or 'pallas'); the flat segment "
+                "layout cannot be row-chunked")
+        if "pair_j_d" not in features:
+            raise KeyError("energy_chunked needs the dense layout "
+                           "('pair_j_d' ...)")
 
     def energy_chunked(self, features, params=None,
                        atom_chunk: int = 4096) -> torch.Tensor:
@@ -297,18 +348,27 @@ class AtomicNN(nn.Module):
         return [params[e]["mlp"] for e in self.elements]
 
     def l2_loss(self, params=None) -> torch.Tensor:
+        """Sum of squared kernel weights of every stack, the descriptor's
+        trainable stacks (the 'nn' filter) included."""
         params = self.params if params is None else params
-        return sum(l2_of_stack(stack) for stack in self._stacks(params))
+        stacks = self._stacks(params)
+        if "descriptor" in params:
+            stacks += [stack for stack in params["descriptor"].values()
+                       if "layers" in stack]
+        return sum(l2_of_stack(stack) for stack in stacks)
 
     # ------------------------------------------------------------------
     def norm_sweep_bytes_per_structure(self, feats) -> int:
         """Working-set estimate (bytes) of ONE structure inside a batched
         descriptor evaluation; the trainer chunks the whole-set min/max
         sweep by it."""
-        if "pair_j_d" not in feats:
+        if "pair_j_d" in feats:
+            sh = feats["pair_j_d"].shape
+            pairs = int(sh[-2]) * int(sh[-1])
+        elif "pair_i" in feats:
+            pairs = int(feats["pair_i"].shape[-1])
+        else:
             return 0
-        sh = feats["pair_j_d"].shape
-        pairs = int(sh[-2]) * int(sh[-1])
         per_pair = getattr(self.descriptor, "sweep_bytes_per_pair", None)
         total = (pairs * per_pair(self.featurizer.n_radial_slots)
                  if per_pair is not None else pairs * 512)
@@ -325,7 +385,7 @@ class AtomicNN(nn.Module):
     def update_norm_stats(self, params: dict, features_batch) -> dict:
         """Running min/max of the descriptors over a batch -> a new tree
         with the `norm` leaves widened (the other leaves shared)."""
-        g = self.descriptors(features_batch)           # [B, n_vap, D]
+        g = self.descriptors(features_batch, params)   # [B, n_vap, D]
         masks = features_batch["atom_masks"]
         params = {e: dict(params[e]) for e in params}
         for e in self.elements:

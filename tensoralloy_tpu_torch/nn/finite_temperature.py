@@ -85,7 +85,7 @@ class TemperatureDependentAtomicNN(AtomicNN):
         """-> {'energy': U_i, 'eentropy': S_i, 'free_energy': F_i}, each
         [.., n_vap], zero at padding rows."""
         params = self.params if params is None else params
-        g = self.descriptors(features)
+        g = self.descriptors(features, params)
         t = features["etemperature"].to(g.dtype)[..., None]   # [.., 1]
         zero = g.new_zeros(*g.shape[:-2], 1)
         u_rows, s_rows = [zero], [zero]

@@ -13,14 +13,22 @@ multinomial count of each unique monomial, with the optional traceless
 "symmetric" correction for moments 2-3).
 
 Radial algorithms: 'sf' (eta, omega), 'density' (A, beta, re), 'morse'
-(D, gamma, r0) and 'pexp' (rl, pl). Backends: 'dense' runs the plain
-PyTorch twin `ops.fused.grap_reference`; 'pallas' (the JAX package's
-name for its fused kernels) runs the CUDA kernel through
-`ops.fused.GrapFunction`.
+(D, gamma, r0), 'pexp' (rl, pl), or 'nn': a learned filter MLP shared
+across elements (its weights under ``params["descriptor"]["filters"]``
+of the model), its input optionally scaled by the covalent radius of
+the pair's centre (`h_abck_modifier` 1: r / rcov, 2: exp(-r / rcov)).
 
-Not ported yet: the 'segment' backend and `legacy_mode` (training
-slice), and the learned 'nn' filter (a later slice; no saved model
-uses it and it never reaches a kernel).
+Backends: 'segment' (the default, as in the JAX package) reads the flat
+pair arrays and sums the H (x) M outer products with one `index_add`
+keyed by ``atom_row * n_slots + slot``; 'dense' runs the plain PyTorch
+twin `ops.fused.grap_reference` on the per-atom rows; 'pallas' (the JAX
+package's name for its fused kernels) runs the CUDA kernel through
+`ops.fused.GrapFunction`. The 'nn' filter has no kernel: on 'pallas' it
+takes the dense path, as in the JAX package.
+
+`legacy_mode` (segment only): the reference's per-moment scalar
+contractions, moments 0-2 (0: sum_j h; 1: sum_a (sum_j h u_a)^2;
+2: sum_ab (sum_j h u_a u_b)^2), K len(moment_tensors) columns a slot.
 """
 from __future__ import annotations
 
@@ -32,11 +40,17 @@ from typing import List, Optional, Union
 import numpy as np
 import torch
 
+from ..elements import atomic_numbers, covalent_radii
+from ..ops.cutoffs import apply_cutoff
 from ..ops.dense import as_rows, dense_pair_geometry
 from ..ops.fused import GRAP_ALGORITHMS, GrapFunction, grap_reference
 from ..ops.generic import density_exp, morse, power_exp
+from ..ops.pairs import pair_vectors, safe_norm
+from .atomic import _dense_stack
+from .layers import apply_dense_stack, init_dense_stack
+from .sf import segment_rows
 
-BACKENDS = ("dense", "pallas")
+BACKENDS = ("segment", "dense", "pallas")
 
 
 def _param_grid(algorithm: str, parameters: dict, method: str):
@@ -110,8 +124,8 @@ def moment_basis_c(comps, max_moment: int) -> torch.Tensor:
 
 # ----------------------------------------------------------------------
 class GenericRadialAtomicPotential:
-    """Config + compute for GRAP descriptors (no trainable parameters for
-    the grid algorithms)."""
+    """Config + compute for GRAP descriptors; the 'nn' filter's weights
+    are parameters of the model that holds the descriptor."""
 
     name = "GRAP"
 
@@ -122,21 +136,12 @@ class GenericRadialAtomicPotential:
                  cutoff_function: str = "cosine",
                  symmetric: bool = False,
                  legacy_mode: bool = False,
-                 backend: str = "dense"):
-        if backend == "segment" or legacy_mode:
-            what = ("the 'segment' descriptor backend" if not legacy_mode
-                    else "legacy-mode GRAP")
-            raise NotImplementedError(
-                f"{what} is not ported yet; it comes with the training "
-                f"slice (slice 1b). Use backend 'dense' or 'pallas'")
+                 backend: str = "segment"):
         if backend not in BACKENDS:
             raise ValueError(f"unknown descriptor backend {backend!r}")
-        if algorithm == "nn":
-            raise NotImplementedError(
-                "GRAP with learned ('nn') filters is not ported yet; it "
-                "comes with a later slice (it needs descriptor parameters "
-                "in AtomicNN)")
-        if algorithm not in GRAP_ALGORITHMS:
+        if backend != "segment" and legacy_mode:
+            raise ValueError("legacy GRAP supports only backend='segment'")
+        if algorithm != "nn" and algorithm not in GRAP_ALGORITHMS:
             raise ValueError(f"unknown GRAP algorithm {algorithm!r}")
         self.backend = backend
         self.elements = sorted(elements)
@@ -150,21 +155,67 @@ class GenericRadialAtomicPotential:
         self.cutoff_function = cutoff_function
         self.symmetric = symmetric
         self.legacy_mode = legacy_mode
-        self._grid, self._grid_keys = _param_grid(
-            algorithm, self.parameters, param_space_method)
-        self.n_filters = len(self._grid)
+        if algorithm == "nn":
+            if legacy_mode:
+                raise ValueError("NN filters require non-legacy GRAP")
+            p = self.parameters
+            self.nn_hidden = list(p.get("hidden_sizes", [32, 32, 32]))
+            self.nn_activation = p.get("activation", "softplus")
+            self.nn_filters = int(p.get("num_filters", 16))
+            self.nn_resnet_dt = bool(p.get("use_resnet_dt", True))
+            self.h_modifier = int(p.get("h_abck_modifier", 0))
+            self.n_filters = self.nn_filters
+            self._grid = None
+        else:
+            self._grid, self._grid_keys = _param_grid(
+                algorithm, self.parameters, param_space_method)
+            self.n_filters = len(self._grid)
 
     def feature_dim(self, n_radial_slots: int, n_angular_slots: int,
                     angular: bool) -> int:
+        if self.legacy_mode:
+            return n_radial_slots * self.n_filters * len(self.moment_tensors)
         # As the JAX package computes it: K (max_moment + 1) per slot,
         # which is wider than the descriptor when the moment list has
         # gaps (e.g. [0, 2, 5] emits K * 3 columns); see ROADMAP.md
         # queue 3. No saved model has gaps.
         return n_radial_slots * self.n_filters * (self.max_moment + 1)
 
+    # -- the 'nn' filter's parameters ----------------------------------
+    def zero_params(self, factory: dict):
+        """The filter MLP as a zero-filled module in the JAX tree's
+        shape ({"filters": stack}), or None for the grid algorithms."""
+        if self.algorithm != "nn":
+            return None
+        from torch import nn
+        return nn.ModuleDict({"filters": _dense_stack(
+            1, self.nn_hidden, self.nn_resnet_dt, factory,
+            out_dim=self.nn_filters, output_bias=False)})
+
+    def init_params(self, generator, dtype=None, device=None) -> dict:
+        """Fresh filter weights drawn from `generator` (the JAX
+        distributions and scales, not its bits); {} for the grid
+        algorithms."""
+        if self.algorithm != "nn":
+            return {}
+        return {"filters": init_dense_stack(
+            generator, 1, self.nn_hidden, out_dim=self.nn_filters,
+            output_bias=False, resnet_dt=self.nn_resnet_dt, dtype=dtype,
+            device=device)}
+
     # ------------------------------------------------------------------
-    def _filter_values(self, r: torch.Tensor, rcut: float) -> torch.Tensor:
-        """H [..., K] before the cutoff."""
+    def _filter_values(self, r: torch.Tensor, rcut: float, params=None,
+                       rcov: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """H [..., K] before the cutoff; `rcov` [...] is the covalent
+        radius of each entry's centre (the 'nn' filter's modifiers)."""
+        if self.algorithm == "nn":
+            x = r
+            if self.h_modifier == 1:
+                x = r / rcov
+            elif self.h_modifier == 2:
+                x = torch.exp(-r / rcov)
+            return apply_dense_stack(params["filters"]["layers"],
+                                     x[..., None], self.nn_activation)
         cols = {k: torch.as_tensor(self._grid[:, i], dtype=r.dtype,
                                    device=r.device)
                 for i, k in enumerate(self._grid_keys)}
@@ -177,6 +228,19 @@ class GenericRadialAtomicPotential:
         if self.algorithm == "morse":
             return morse(r, cols["D"], cols["gamma"], cols["r0"])
         return power_exp(r, cols["rl"], cols["pl"])
+
+    def _rcov_rows(self, vap_element_idx, like: torch.Tensor
+                   ) -> Optional[torch.Tensor]:
+        """[A] covalent radius of every VAP row's element, where the 'nn'
+        filter's modifier reads it; None otherwise."""
+        if self.algorithm != "nn" or self.h_modifier == 0:
+            return None
+        if vap_element_idx is None:
+            raise ValueError("h_abck_modifier needs the model's "
+                             "vap_element_idx")
+        radii = covalent_radii[[atomic_numbers[self.elements[i]]
+                                for i in np.asarray(vap_element_idx)]]
+        return torch.as_tensor(radii, dtype=like.dtype, device=like.device)
 
     def invariants_from_p(self, p: torch.Tensor, n_vap: int,
                           n_slots: int) -> torch.Tensor:
@@ -198,15 +262,106 @@ class GenericRadialAtomicPotential:
 
     def compute(self, features, rcut: float, acut: float,
                 n_radial_slots: int, n_angular_slots: int,
-                angular: bool) -> torch.Tensor:
-        """-> [.., n_vap, n_radial_slots * K * M]; a batch [B, A, N] is
-        B * A rows of one call."""
-        grap = (GrapFunction.apply if self.backend == "pallas"
-                else grap_reference)
+                angular: bool, params=None,
+                vap_element_idx=None) -> torch.Tensor:
+        """-> [.., n_vap, n_radial_slots * K * M]; a batch [B, A, ...] is
+        one call. `params` holds the 'nn' filter's weights and
+        `vap_element_idx` [A] the element of every row (its covalent
+        radii), as the JAX signature."""
+        backend = self.backend
+        if backend == "pallas" and self.algorithm == "nn":
+            backend = "dense"       # the learned filter has no kernel
+        if backend == "segment":
+            return self._compute_segment(features, rcut, n_radial_slots,
+                                         params, vap_element_idx)
         rij, unit, islotf, mask = dense_pair_geometry(features)
+        if self.algorithm == "nn":
+            return self._compute_dense_nn(rij, unit, islotf, mask, rcut,
+                                          n_radial_slots, params,
+                                          vap_element_idx)
+        grap = GrapFunction.apply if backend == "pallas" else grap_reference
         g = grap(*as_rows(rij, *unit, islotf, mask), self, float(rcut),
                  n_radial_slots)
         return g.reshape(*rij.shape[:-1], g.shape[-1])
+
+    def _compute_dense_nn(self, rij, unit, islotf, mask, rcut: float,
+                          n_slots: int, params, vap_element_idx
+                          ) -> torch.Tensor:
+        """The dense per-atom rows with the learned filter: the twin's
+        contraction with H from the filter MLP."""
+        lead, a, n = rij.shape[:-2], rij.shape[-2], rij.shape[-1]
+        rcov = self._rcov_rows(vap_element_idx, rij)
+        if rcov is not None:
+            rcov = rcov[:, None].expand(rij.shape)
+        fc = apply_cutoff(self.cutoff_function, rij, rcut) * mask
+        h = self._filter_values(rij, rcut, params, rcov) * fc[..., None]
+        m = moment_basis_c(unit, self.max_moment)          # [.., A, N, D]
+        k = self.n_filters
+        eye = torch.arange(n_slots, dtype=islotf.dtype, device=islotf.device)
+        sel = (islotf[..., None] == eye) * mask[..., None]  # [.., A, N, S]
+        hs = (sel[..., None] * h[..., None, :]).reshape(
+            *rij.shape, n_slots * k)
+        p = torch.einsum("...nx,...nd->...xd", hs, m)
+        rows = lead.numel() * a
+        g = self.invariants_from_p(p.reshape(rows * n_slots, k, -1), rows,
+                                   n_slots)
+        return g.reshape(*lead, a, g.shape[-1])
+
+    def _compute_segment(self, features, rcut: float, n_slots: int,
+                         params, vap_element_idx) -> torch.Tensor:
+        """The flat pair layout: per pair H (x) M, summed by (centre,
+        slot) with one `index_add`."""
+        vec = pair_vectors(features)
+        mask = features["pair_mask"]
+        rij = torch.where(mask > 0, safe_norm(vec), 1.0)
+        unit = vec / rij[..., None]
+        fc = apply_cutoff(self.cutoff_function, rij, rcut) * mask
+        rcov = self._rcov_rows(vap_element_idx, rij)
+        if rcov is not None:
+            rcov = rcov[features["pair_i"].long()]
+        h = self._filter_values(rij, rcut, params, rcov) * fc[..., None]
+        n_vap = features["positions"].shape[-2]
+        lead = mask.shape[:-1]
+        comps = (unit[..., 0], unit[..., 1], unit[..., 2])
+
+        def rows(values):
+            return segment_rows(values, features["pair_i"],
+                                features["pair_islot"], n_vap, n_slots)
+
+        if self.legacy_mode:
+            g = self._legacy(h, comps, rows)
+        else:
+            m = moment_basis_c(comps, self.max_moment)       # [.., nij, D]
+            p = rows(h[..., :, None] * m[..., None, :])     # [.., A, S, K, D]
+            n = lead.numel() * n_vap
+            g = self.invariants_from_p(
+                p.reshape(n * n_slots, self.n_filters, -1), n, n_slots)
+        return g.reshape(*lead, n_vap, g.shape[-1])
+
+    def _legacy(self, h, comps, rows) -> torch.Tensor:
+        """Legacy per-moment scalar contractions (reference
+        `grap.py:384-468`): per filter and moment, 0: sum, 1: sum_a
+        (sum_j h u_a)^2, 2: sum_ab (sum_j h u_a u_b)^2 over all 9 ordered
+        (a, b). -> [.., n_vap, n_slots * K * n_moments]."""
+        outs = []
+        for moment in self.moment_tensors:
+            if moment == 0:
+                g = rows(h)
+            elif moment == 1:
+                u = torch.stack(comps, dim=-1)               # [.., nij, 3]
+                g = torch.sum(torch.square(
+                    rows(h[..., :, None] * u[..., None, :])), dim=-1)
+            elif moment == 2:
+                ab = torch.stack([a * b for a in comps for b in comps],
+                                 dim=-1)                     # [.., nij, 9]
+                g = torch.sum(torch.square(
+                    rows(h[..., :, None] * ab[..., None, :])), dim=-1)
+            else:
+                raise ValueError("legacy GRAP supports moments 0-2")
+            outs.append(g)
+        g = torch.stack(outs, dim=-1)          # [.., A, S, K, n_moments]
+        return g.reshape(*g.shape[:-4], g.shape[-4],
+                         g.shape[-3] * self.n_filters * len(outs))
 
     def sweep_bytes_per_pair(self, n_slots: int, itemsize: int = 4) -> int:
         """Working bytes per pair slot of one descriptor evaluation: the

@@ -16,10 +16,18 @@ import torch.nn.functional as F
 
 
 def softplus(x):
-    # log(1 + e^x) without torch's linear cut-over above x = 20, which
-    # is off by ~2e-9 there; jax.nn.softplus is this same logaddexp
-    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype,
-                                          device=x.device))
+    """log(1 + e^x), as jax.nn.softplus: x + log1p(e^-x) above 0,
+    log1p(e^x) below (torch's `F.softplus` turns linear above x = 20,
+    ~2e-9 off there). Each branch reads an input clamped to its own side,
+    so no derivative of any order overflows where |x| is large
+    (`torch.logaddexp`'s second derivative is NaN below x = -709, which
+    the force loss's parameter gradient reaches on an unscaled
+    descriptor)."""
+    pos = x > 0
+    xp = torch.where(pos, x, 0.0)
+    xn = torch.where(pos, 0.0, x)
+    return torch.where(pos, xp + torch.log1p(torch.exp(-xp)),
+                       torch.log1p(torch.exp(xn)))
 
 
 def squareplus(x, b: float = 4.0):

@@ -6,20 +6,19 @@ as a compressed ``.npz`` in a directory the caller names (the file name
 carries the signature: name, k_max, rc, layout, precision, count);
 batches are index selections of those arrays. Labels are VAP-mapped on
 the host so the device loss is pure array math. The layout is the one
-the model reads: 'dense' (per-atom rows, the descriptor models),
-'segment' (flat pair arrays padded to the database's largest pair
-count, the EAM family) or 'both'; the flat triple arrays are not
-ported, so an angular featurizer takes 'dense' only.
+the model reads: 'dense' (per-atom rows, the 'dense' and 'pallas'
+descriptor backends), 'segment' (flat pair and triple arrays padded to
+the database's largest counts, the EAM family and the 'segment'
+descriptor backends) or 'both', the default, as in the JAX package.
 
-The cache schema (``f_<feature>``, ``l_<label>``), the split permutation
-(`RandomState(seed)`, test rows first) and the batch order are shared
-with the JAX package. The layout is part of the file name, and the
-defaults differ: this package's default writes ``...-dense-...`` files,
-the JAX `Dataset` (``layout="both"``) files without a layout tag. A
-``-dense`` or ``-segment`` file written by either package is read by the
-other; where it is absent, `build` reads the JAX default's ``both`` file
-and keeps the keys of its own layout. A cache that predates the packed
-periodic images is upgraded and rewritten on load
+The cache schema (``f_<feature>``, ``l_<label>``), the file names (the
+layout is part of the name: ``...-dense-...``, ``...-segment-...``, and
+no tag for 'both'), the split permutation (`RandomState(seed)`, test
+rows first) and the batch order are shared with the JAX package, so
+either package reads the other's cache. Where a ``-dense`` or
+``-segment`` file is absent, `build` reads the ``both`` file and keeps
+the keys of its own layout. A cache that predates the packed periodic
+images is upgraded and rewritten on load
 (`ops.dense.convert_legacy_shifts`).
 """
 from __future__ import annotations
@@ -45,7 +44,7 @@ class Dataset:
                  name: str = "dataset", test_size: float | int = 0.2,
                  seed: int = 611, dtype=np.float32, *,
                  cache_dir: str,
-                 layout: str = "dense", transpose: bool = False):
+                 layout: str = "both", transpose: bool = False):
         self.db = database
         self.featurizer = featurizer
         self.name = name
@@ -57,11 +56,6 @@ class Dataset:
         self.cache_dir = str(cache_dir)
         if layout not in ("dense", "segment", "both"):
             raise ValueError(f"unknown layout {layout!r}")
-        if layout != "dense" and featurizer.angular:
-            raise NotImplementedError(
-                f"layout={layout!r} with an angular featurizer: the flat "
-                "'segment' triple arrays are not ported yet (they come "
-                "with the 'segment' descriptor backends)")
         self.layout = layout
         # also emit the host-built transpose tables so the trainer can
         # assemble forces scatter-free (`force_assembly='dense'`)
@@ -105,6 +99,7 @@ class Dataset:
         fz = self.featurizer
         vap = fz.make_vap(s, self.max_occurs)
         feats = fz.featurize(s, vap, nij_max=self.nij_max,
+                             nijk_max=self.nijk_max or None,
                              nnl_max=self.nnl_max or None,
                              ntl_max=self.ntl_max or None,
                              dtype=self.dtype, layout=self.layout,

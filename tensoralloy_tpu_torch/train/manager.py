@@ -6,14 +6,14 @@ defaults. What differs follows from PyTorch: the file's `precision`
 ('high' | 'medium') becomes the explicit dtype of the dataset, the model
 and the trainer (no global is set), the device is the `device` argument
 (the card unless the caller passes "cpu"), and a fresh start draws its
-parameters from a `torch.Generator` seeded with `seed`. The descriptor
-models read the dense layout, the EAM family the flat pair layout; the
+parameters from a `torch.Generator` seeded with `seed`. As in the JAX
+manager, the dataset emits the layout the model reads: the flat pair
+and triple arrays for the EAM family and the descriptors' 'segment'
+backend (the default), the dense rows for 'dense' and 'pallas'. The
 constraint losses named under `nn.minimize` are built as the JAX manager
 builds them, and `export` writes the EAM family's setfl file beside the
-`.npz`. A request for something that is not ported yet (several
-devices, the descriptors' 'segment' backend, legacy-mode GRAP, the
-learned 'nn' filter) raises `NotImplementedError` when the manager is
-built.
+`.npz`. Several devices are not ported yet: `distribute.num_devices`
+above 1 raises `NotImplementedError` when the manager is built.
 """
 from __future__ import annotations
 
@@ -70,12 +70,6 @@ class TrainingManager:
         r = self.reader
         self.precision = r["precision"]
         self.pair_style = PairStyle.parse(r["pair_style"])
-        eam = self.pair_style.category == "eam"
-        backend = r.get(f"nn.atomic.{self.pair_style.model}.backend",
-                        "dense") or "dense"
-        if backend == "segment" and not eam:
-            raise _not_ported("the 'segment' descriptor backend",
-                              "the segment-layout slice")
         n_devices = r.get("distribute.num_devices", 0) or None
         if r.get("distribute.strategy", "off") in ("off", "one_device"):
             n_devices = 1
@@ -91,8 +85,14 @@ class TrainingManager:
             acut=r["acut"] if angular else None, angular=angular)
 
         dtype = np.float64 if self.precision == "high" else np.float32
-        # the EAM family computes its geometry from the flat pair arrays
-        layout = "segment" if eam else "dense"
+        # emit only the layout the descriptor backend reads; the EAM
+        # family computes its geometry from the flat pair arrays
+        if self.pair_style.model in ("sf", "grap"):
+            backend = r.get(f"nn.atomic.{self.pair_style.model}.backend",
+                            "dense") or "dense"
+            layout = "segment" if backend == "segment" else "dense"
+        else:
+            layout = "segment"
         # the transpose tables for the scatter-free force assembly are
         # emitted only when the file asks for `force_assembly = 'dense'`
         # (they change the cache schema); 'auto' then resolves to the
@@ -204,7 +204,7 @@ class TrainingManager:
                 beta=sf.get("beta"), gamma=sf.get("gamma"),
                 zeta=sf.get("zeta"),
                 cutoff_function=sf.get("cutoff_function", "cosine"),
-                backend=sf["backend"])
+                backend=sf.get("backend", "segment"))
         else:
             from ..nn.grap import GenericRadialAtomicPotential
             g = r.get("nn.atomic.grap", {})
@@ -224,7 +224,7 @@ class TrainingManager:
                 cutoff_function=g.get("cutoff_function", "cosine"),
                 symmetric=g.get("symmetric", False),
                 legacy_mode=g.get("legacy_mode", False),
-                backend=g["backend"])
+                backend=g.get("backend", "segment"))
 
         layers = r.get("nn.atomic.layers", {}) or None
         static = (self.db.get_atomic_static_energy()

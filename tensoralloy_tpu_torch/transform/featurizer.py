@@ -5,10 +5,10 @@ numpy, with the triples enumerated by the native C++ list where it can
 be built (`native/`; the Python loop otherwise, in the same order). It
 emits the same keys with the same values as the JAX featurizer, so both
 packages read one feature contract. Two layouts: the dense per-atom
-rows that the descriptor models read, and the flat pair arrays
-('segment') that the EAM family reads; 'both' emits the two. The flat
-triple arrays are not carried over: a segment layout on an angular
-featurizer raises.
+rows ('dense': the 'dense' and 'pallas' descriptor backends and the
+EAM family's fast EFS), and the flat pair and triple arrays ('segment':
+the EAM family and the 'segment' descriptor backends); 'both' emits the
+two.
 
 Shape contract (`Features` dict; A = n_vap rows, N = nnl, Nt = ntl):
   positions     [A, 3]    VAP layout, row 0 = virtual atom
@@ -22,6 +22,11 @@ Shape contract (`Features` dict; A = n_vap rows, N = nnl, Nt = ntl):
   pair_islot    [nij]     int32 radial slot within the center's terms
   pair_term     [nij]     int32 global radial k-body term id
   pair_mask     [nij]     1.0 for real pairs
+  (angular, layout 'segment' or 'both'; nijk = padded triple count)
+  trip_i / trip_j / trip_k       [nijk]     int32 VAP rows
+  trip_shift_j / trip_shift_k    [nijk, 3]  integer cell shifts
+  trip_aslot    [nijk]    int32 angular slot within the center's terms
+  trip_mask     [nijk]    1.0 for real triples
   (layout 'dense' or 'both')
   pair_j_d      [A, N]    int32 VAP row of each neighbor
   pair_simg_d   [A, N]    int32 packed periodic image (`encode_simg_np`)
@@ -151,30 +156,26 @@ class Featurizer:
                   transpose: bool = False,
                   ttrans_max: Optional[int] = None,
                   nij_max: Optional[int] = None,
-                  pair_bucket=None) -> Features:
+                  pair_bucket=None,
+                  nijk_max: Optional[int] = None,
+                  trip_bucket=None) -> Features:
         """Build the feature arrays for one structure.
 
         `layout` is 'dense' (the per-atom rows), 'segment' (the flat
-        pair arrays) or 'both'. `nij_max` fixes the padded length of the
-        flat pair arrays; by default it is this structure's pair count,
-        rounded up by `pair_bucket` when given.
+        pair and triple arrays) or 'both'. `nij_max` / `nijk_max` fix
+        the padded lengths of the flat pair / triple arrays; by default
+        they are this structure's counts, rounded up by `pair_bucket` /
+        `trip_bucket` when given.
         `nnl_max`/`ntl_max` fix the widths of the per-atom neighbor and
         triple rows; by default they are this structure's own maxima,
-        rounded up by `nnl_bucket`/`ntl_bucket` (or `pair_bucket`) when
-        given (bounded shape variety for serving). `transpose=True` adds
-        the transpose tables that `ops.dense.make_dense_efs_fn`
-        assembles forces with; `ttrans_max` fixes the width of the
-        triple tables (pass the dataset's `NeighborSize.ttrans` so that
-        structures stack). The flat triple arrays are not ported: an
-        angular featurizer takes layout 'dense' only."""
+        rounded up by `nnl_bucket`/`ntl_bucket` (or `pair_bucket` /
+        `trip_bucket`) when given (bounded shape variety for serving).
+        `transpose=True` adds the transpose tables that
+        `ops.dense.make_dense_efs_fn` assembles forces with;
+        `ttrans_max` fixes the width of the triple tables (pass the
+        dataset's `NeighborSize.ttrans` so that structures stack)."""
         if layout not in ("both", "segment", "dense"):
             raise ValueError(f"unknown layout {layout!r}")
-        if layout != "dense" and self.angular:
-            raise NotImplementedError(
-                f"layout={layout!r} on an angular featurizer: the flat "
-                "'segment' triple arrays are not ported yet (they come "
-                "with the 'segment' descriptor backends); use "
-                "layout='dense'")
         structure = structure.ensure_cell()
         if vap is None:
             vap = self.make_vap(structure)
@@ -224,9 +225,22 @@ class Featurizer:
             feats["pair_term"] = _pad(self._rterm[ci, cj], nij_max, 0)
             feats["pair_mask"] = np.concatenate(
                 [np.ones(nij), np.zeros(pad)]).astype(dtype)
-            if layout == "segment":
-                return feats
+        if layout in ("both", "dense"):
+            self._dense_pairs(feats, structure, vap, ilist, jlist, shift,
+                              ci, cj, dtype, nnl_max, nnl_bucket,
+                              pair_bucket, transpose)
+        if self.angular:
+            a_i, a_j, a_s, a_d = all_pairs if all_pairs is not None else (
+                ilist, jlist, shift, dists)
+            self._build_triples(feats, structure, vap, a_i, a_j, a_s,
+                                a_d, elem_idx_local, dtype, ntl_max,
+                                ntl_bucket, transpose, ttrans_max, layout,
+                                nijk_max, trip_bucket)
+        return feats
 
+    def _dense_pairs(self, feats, structure, vap, ilist, jlist, shift, ci,
+                     cj, dtype, nnl_max, nnl_bucket, pair_bucket,
+                     transpose):
         # Row = VAP index of the center, column = neighbor counter.
         cols, nnl = _columns_of(ilist, len(structure))
         if nnl_max is not None:
@@ -265,17 +279,10 @@ class Featurizer:
             feats["pair_trans_d"] = ptd
             feats["pair_trans_mask_d"] = ptm
 
-        if self.angular:
-            a_i, a_j, a_s, a_d = all_pairs if all_pairs is not None else (
-                ilist, jlist, shift, dists)
-            self._build_triples(feats, structure, vap, a_i, a_j, a_s,
-                                a_d, elem_idx_local, dtype, ntl_max,
-                                ntl_bucket, transpose, ttrans_max)
-        return feats
-
     def _build_triples(self, feats, structure, vap, ilist, jlist, shift,
                        dists, elem_idx_local, dtype, ntl_max=None,
-                       ntl_bucket=None, transpose=False, ttrans_max=None):
+                       ntl_bucket=None, transpose=False, ttrans_max=None,
+                       layout="dense", nijk_max=None, trip_bucket=None):
         within = dists < self.acut
         ii, jj, ss = ilist[within], jlist[within], shift[within]
         # group pairs by center atom; emit j<k combinations
@@ -321,13 +328,32 @@ class Featurizer:
         ci = elem_idx_local[t_i]
         cj = elem_idx_local[t_j]
         ck = elem_idx_local[t_k]
+        if layout in ("both", "segment"):
+            nijk = len(t_i)
+            if nijk_max is None:
+                nijk_max = trip_bucket(nijk) if trip_bucket else nijk
+            pad = nijk_max - nijk
+            if pad < 0:
+                raise ValueError(f"nijk={nijk} exceeds nijk_max={nijk_max}")
+            feats["trip_i"] = _pad(vap.local_to_vap[t_i], nijk_max, 0)
+            feats["trip_j"] = _pad(vap.local_to_vap[t_j], nijk_max, 0)
+            feats["trip_k"] = _pad(vap.local_to_vap[t_k], nijk_max, 0)
+            feats["trip_shift_j"] = np.concatenate(
+                [t_sj, np.zeros((pad, 3))], axis=0).astype(dtype)
+            feats["trip_shift_k"] = np.concatenate(
+                [t_sk, np.zeros((pad, 3))], axis=0).astype(dtype)
+            feats["trip_aslot"] = _pad(self._aslot[ci, cj, ck], nijk_max, 0)
+            feats["trip_mask"] = np.concatenate(
+                [np.ones(nijk), np.zeros(pad)]).astype(dtype)
+            if layout == "segment":
+                return
         tcols, ntl = _columns_of(t_i, len(structure))
         if ntl_max is not None:
             if ntl > ntl_max:
                 raise ValueError(f"ntl={ntl} exceeds ntl_max={ntl_max}")
             ntl = int(ntl_max)
-        elif ntl_bucket is not None:
-            ntl = int(ntl_bucket(ntl))
+        elif ntl_bucket is not None or trip_bucket is not None:
+            ntl = int((ntl_bucket or trip_bucket)(ntl))
         ntl = max(ntl, 1)
         n_vap = vap.n_atoms_vap
         rows = vap.local_to_vap[t_i]
@@ -364,8 +390,8 @@ class Featurizer:
                         f"triple {side}-side in-degree {sw} exceeds "
                         f"ttrans_max={ttrans_max}")
                 sw = max(int(ttrans_max), 1)
-            elif ntl_bucket is not None:
-                sw = int(ntl_bucket(sw))
+            elif ntl_bucket is not None or trip_bucket is not None:
+                sw = int((ntl_bucket or trip_bucket)(sw))
             std = np.zeros((n_vap, sw), np.int32)
             stm = np.zeros((n_vap, sw), dtype)
             srows = vap.local_to_vap[np.asarray(t_side, np.int64)]

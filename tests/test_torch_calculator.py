@@ -157,6 +157,49 @@ def test_auto_and_false_take_the_host_list_path():
         TensorAlloyCalculator(MODEL, device="cpu", chunked="always")
 
 
+def test_chunked_routing_matches_jax(tmp_path):
+    """Where the calculator builds a chunked route, for "auto" and True:
+    a segment SF model, a dense SF model, an 'nn'-filter GRAP model and
+    an EAM model, against the JAX calculator's choice (its variant's
+    fourth element)."""
+    from tensoralloy_tpu.io.model import save_model as jax_save_model
+    from test_torch_grap_legacy_nn import model_pair, nn_kw
+    jmodel, params, _ = model_pair(nn_kw(1, backend="dense"))
+    nn_file = str(tmp_path / "nn.npz")
+    jax_save_model(nn_file, jmodel, params)
+    from tensoralloy_tpu_torch.atoms import Structure as S
+    from test_torch_host import mo_ni
+    moni = mo_ni()
+    # -> (file, chunks under "auto", chunks under True); "auto" serves
+    # the EAM family through the fast EFS, which never chunks
+    files = {
+        "sf_segment": (chip_smoke.backend_copy(
+            MODEL, tmp_path / "sf_segment.npz", "segment"), False, False),
+        "sf_dense": (MODEL, True, True),
+        "grap_nn": (nn_file, False, False),
+        "eam": (str(ROOT / "artifacts/mleam_ni/model/snap_Ni_mleam.npz"),
+                False, True),
+    }
+    for name, (path, *expected) in files.items():
+        symbols, pos, cell = (moni if name == "grap_nn" else
+                              (["Ni"] * 32, *chip_smoke.jittered_fcc(2)))
+        js = JaxStructure.from_symbols(symbols, pos, cell, pbc=[True] * 3)
+        s = S.from_symbols(symbols, pos, cell, pbc=[True] * 3)
+        for chunked, chunks in zip(("auto", True), expected):
+            calc = TensorAlloyCalculator(path, device="cpu",
+                                         chunked=chunked)
+            jcalc = JaxCalculator(path, chunked=chunked)
+            got = calc._get_variant(s)[2] is not None
+            want = jcalc._get_variant(js)[3] is not None
+            assert got == want == chunks, (name, chunked)
+    # True always chunks a model that can: the JAX numbers
+    calc = TensorAlloyCalculator(MODEL, device="cpu", chunked=True,
+                                 chunk_size=12)
+    js, s = _structures(2, seed=3)
+    _assert_efs_close(calc.calculate(s), _jax_efs(js), REL_F64)
+    assert "atomic_energies" not in calc.results
+
+
 def test_deferred_modes_raise():
     _, s = _structures(1)
     # fast_efs=True asks for the EAM family's analytic route: another
@@ -216,7 +259,7 @@ def test_kernel_bounds_count_real_geometry():
     desc = GenericRadialAtomicPotential(
         ["Ni"], algorithm="pexp",
         parameters={"rl": [1.0, 2.0], "pl": [4.0, 3.0]},
-        moment_tensors=[0, 1, 2, 3, 4, 5])
+        moment_tensors=[0, 1, 2, 3, 4, 5], backend="dense")
     out = torch.zeros(2, 2 * 6)
     n_bytes, flop = chip_smoke.kernel_work(
         "grap", (*geo, slot, mask, desc, 6.0, 1), out)

@@ -533,10 +533,6 @@ def test_platform_cpu_and_float32_by_default(tmp_path, monkeypatch):
 
 
 NOT_PORTED = {
-    "segment": ("snap_ni_sfa", {"nn.atomic.sf.backend": "segment"},
-                "segment"),
-    "legacy": ("snap_ni_v5_readapt", {"nn.atomic.grap.legacy_mode": True},
-               "legacy"),
     "devices": ("snap_ni_sfa", {"distribute.strategy": "mirrored",
                                 "distribute.num_devices": 4}, "parallel"),
 }
@@ -552,7 +548,7 @@ def test_run_of_what_is_not_ported_raises_by_name(case, tmp_path):
     chip_smoke.dump_toml(config, tmp_path / "input.toml")
     with pytest.raises(NotImplementedError, match=match):
         torch_main(["run", str(tmp_path / "input.toml")], device="cpu")
-    if case == "segment":
+    if case == "devices":
         proc = subprocess.run(
             [sys.executable, "-m", "tensoralloy_tpu_torch.cli", "run",
              str(tmp_path / "input.toml")], cwd=tmp_path,
@@ -561,6 +557,51 @@ def test_run_of_what_is_not_ported_raises_by_name(case, tmp_path):
             capture_output=True, text=True, timeout=300)
         assert proc.returncode != 0
         assert "NotImplementedError" in proc.stderr
+
+
+# the files that once raised: the descriptors' flat layout and legacy GRAP
+ONCE_NOT_PORTED = {
+    "segment": ("snap_ni_sfa", {"nn.atomic.sf.backend": "segment"}),
+    "legacy": ("snap_ni_v5_readapt", {"nn.atomic.grap.legacy_mode": True,
+                                      "nn.atomic.grap.moment_tensors":
+                                          [0, 1, 2],
+                                      "nn.atomic.grap.backend": "segment"}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ONCE_NOT_PORTED))
+def test_run_of_a_segment_or_legacy_file_exports_what_jax_loads(case,
+                                                                tmp_path):
+    """`run` of a cut file with the segment backend or legacy GRAP trains
+    and exports (exit 0); the exported model is the JAX manager's model,
+    loads in the JAX package, and the JAX calculator serves it as the
+    port's does (float64)."""
+    from tensoralloy_tpu.calculator import (
+        TensorAlloyCalculator as JaxCalculator)
+    from tensoralloy_tpu.io.model import load_model as jax_load_model
+    from tensoralloy_tpu_torch.calculator import TensorAlloyCalculator
+    from test_torch_manager import cut_config
+    run, overrides = ONCE_NOT_PORTED[case]
+    config = cut_config(run, tmp_path, {
+        **overrides, "train.train_steps": 2, "train.eval_steps": 2})
+    chip_smoke.dump_toml(config, tmp_path / "input.toml")
+    assert torch_main(["run", str(tmp_path / "input.toml")],
+                      device="cpu") == 0
+    path = str(Path(config["train"]["model_dir"])
+               / f"{config['dataset']['name']}.npz")
+    jax_model, _, _ = jax_load_model(path)
+    desc = jax_model.descriptor
+    assert desc.backend == "segment" and getattr(
+        desc, "legacy_mode", False) == (case == "legacy")
+    from tensoralloy_tpu.atoms import Structure as JaxStructure
+    frame = ni_frames(1, labels=False)[0]
+    got = TensorAlloyCalculator(path, device="cpu").calculate(frame)
+    want = JaxCalculator(path)
+    js = JaxStructure(frame.numbers, frame.positions, frame.cell, frame.pbc)
+    errs = chip_smoke.efs_errors(got, {
+        "energy": want.get_potential_energy(js),
+        "forces": want.get_forces(js), "stress": want.get_stress(js)})
+    assert max(errs.values()) <= 1e-10, errs
 
 
 # ----------------------------------------------------------------------

@@ -308,9 +308,19 @@ def test_segment_features_match_jax(layout, monkeypatch):
                                                    atol=1e-12, err_msg=key)
     with pytest.raises(ValueError, match="exceeds"):
         fz.featurize(s, layout="segment", nij_max=3)
-    angular = Featurizer(["Ni"], 5.0, angular=True)
-    with pytest.raises(NotImplementedError, match="segment"):
-        angular.featurize(s, layout=layout)
+    # an angular featurizer adds the flat triple arrays, padded as asked
+    jangular = JaxFeaturizer(["Ni"], 5.0, angular=True, acut=4.0)
+    angular = Featurizer(["Ni"], 5.0, angular=True, acut=4.0)
+    js, s = both(*lattice("fcc", 3.52, 2, ["Ni"]))
+    want = jangular.featurize(js, layout=layout, trip_bucket=lambda n: n + 5)
+    got = angular.featurize(s, layout=layout, trip_bucket=lambda n: n + 5)
+    assert list(got) == list(want) and "trip_i" in got
+    for key in want:
+        np.testing.assert_allclose(np.asarray(got[key]),
+                                   np.asarray(want[key]), rtol=1e-12,
+                                   atol=1e-12, err_msg=key)
+    with pytest.raises(ValueError, match="exceeds"):
+        angular.featurize(s, layout=layout, nijk_max=3)
 
 
 # ----------------------------------------------------------------------

@@ -4,7 +4,10 @@ snap_ni_v5_readapt) from their paths on a 32-atom cell, mean and spread
 of E/F/S to 1e-10; members given as models; the mean equal to the mean
 of single calculators; the descriptors evaluated once a request; a
 finite-temperature committee's heads; an EAM committee through the
-analytic EFS; the selection by uncertainty; and the refusals.
+analytic EFS; the chunked large-cell route (row blocks, one batched VJP
+a block) against the JAX committee's, "auto" routing as JAX does; a
+committee of 'nn'-filter members, each on its own descriptors; the
+selection by uncertainty; and the refusals.
 """
 import json
 from collections import Counter
@@ -160,6 +163,83 @@ def test_eam_committee_through_the_analytic_efs_matches_jax():
     assert calc.fast_efs
     got = calc.calculate(s)
     want = JaxEnsemble(model, [p0, p1]).calculate(js)
+    for k in ("energy", "forces", "stress", "energy_std", "forces_std"):
+        _close(got[k], want[k], REL, k)
+
+
+def test_chunked_committee_matches_jax(monkeypatch):
+    """chunked=True on row blocks of 12 (three blocks of the 32-atom cell)
+    against the JAX committee's chunked route at float64, the descriptors
+    evaluated once a block; "auto" takes the chunked route above
+    chunk_auto_pairs and not below, as the JAX committee."""
+    js, s = jittered_ni(seed=4)
+    want = JaxEnsemble(NI_MEMBERS, chunked=True, chunk_size=12).calculate(js)
+    calc = EnsembleCalculator(NI_MEMBERS, device="cpu", backend="pallas",
+                              chunked=True, chunk_size=12)
+    desc = calc.model.descriptor
+    calls = []
+    compute = desc.compute
+    monkeypatch.setattr(desc, "compute",
+                        lambda *a, **k: calls.append(1) or compute(*a, **k))
+    got = calc.calculate(s)
+    assert len(calls) == 3
+    assert "atomic_energies" not in got and "atomic_energies" not in want
+    for k in KEYS[:-1]:
+        _close(got[k], want[k], REL, k)
+    mono = EnsembleCalculator(NI_MEMBERS, device="cpu").calculate(s)
+    for k in ("energy", "forces", "stress", "energy_std", "forces_std"):
+        _close(got[k], mono[k], REL, k)
+    for auto_pairs, chunks in ((100, True), (10 ** 9, False)):
+        ens = EnsembleCalculator(NI_MEMBERS, device="cpu",
+                                 chunk_auto_pairs=auto_pairs)
+        jens = JaxEnsemble(NI_MEMBERS, chunk_auto_pairs=auto_pairs)
+        res, jres = ens.calculate(s), jens.calculate(js)
+        assert ("atomic_energies" not in res) is chunks
+        assert ("atomic_energies" not in jres) is chunks
+        _close(res["forces"], jres["forces"], REL)
+
+
+def test_chunked_finite_temperature_committee_heads():
+    """Two copies of td_Be on the chunked route: the single chunked
+    calculator's U, S and F, zero spread."""
+    import chip_smoke
+    pos, cell = chip_smoke.jittered_hcp(seed=2)
+    s = Structure.from_symbols(["Be"] * len(pos), pos, cell,
+                               pbc=[True] * 3, etemperature=0.1)
+    single = TensorAlloyCalculator(TD_BE, device="cpu", chunked=True,
+                                   chunk_size=10).calculate(s)
+    res = EnsembleCalculator([TD_BE, TD_BE], device="cpu", chunked=True,
+                             chunk_size=10).calculate(s)
+    for k in ("energy", "free_energy", "eentropy", "forces", "stress"):
+        _close(res[k], single[k], 1e-12, k)
+    assert res["energy_std"] == pytest.approx(0.0, abs=1e-12)
+
+
+def test_nn_filter_members_use_their_own_descriptors():
+    """Two 'nn'-filter GRAP members that differ in every weight, the
+    filter's included: each member's descriptors are its own (one
+    evaluation a member), the mean equals the mean of single members and
+    the JAX committee over the same parameters."""
+    from test_torch_grap_legacy_nn import model_pair, nn_kw
+    from test_torch_host import mo_ni
+    jmodel, p0, m0 = model_pair(nn_kw(2), seed=1)
+    _, p1, m1 = model_pair(nn_kw(2), seed=2)
+    symbols, pos, cell = mo_ni(seed=3)
+    js = JaxStructure.from_symbols(symbols, pos, cell, pbc=[True] * 3)
+    s = Structure.from_symbols(symbols, pos, cell, pbc=[True] * 3)
+    calc = EnsembleCalculator([m0, m1], device="cpu")
+    calls = []
+    compute = calc.model.descriptor.compute
+    calc.model.descriptor.compute = \
+        lambda *a, **k: calls.append(1) or compute(*a, **k)
+    got = calc.calculate(s)
+    assert len(calls) == 2
+    singles = [TensorAlloyCalculator(m, device="cpu").calculate(s)
+               for m in (m0, m1)]
+    assert abs(singles[0]["energy"] - singles[1]["energy"]) > 1e-3
+    for k in ("energy", "forces", "stress"):
+        _close(got[k], np.mean([r[k] for r in singles], axis=0), REL, k)
+    want = JaxEnsemble(jmodel, [p0, p1]).calculate(js)
     for k in ("energy", "forces", "stress", "energy_std", "forces_std"):
         _close(got[k], want[k], REL, k)
 

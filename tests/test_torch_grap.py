@@ -75,7 +75,7 @@ def _moni_features():
 
 def _descriptors(algorithm, moments, **kw):
     kw = dict(algorithm=algorithm, parameters=PARAMS[algorithm],
-              moment_tensors=moments, **kw)
+              moment_tensors=moments, **{"backend": "dense", **kw})
     return (jax_grap.GenericRadialAtomicPotential(["Mo", "Ni"], **kw),
             grap.GenericRadialAtomicPotential(["Mo", "Ni"], **kw))
 
@@ -227,17 +227,48 @@ def test_saved_grap_models_load(path):
         assert torch.equal(state[key], value), key
 
 
-def test_deferred_options_raise():
-    kw = dict(algorithm="pexp", parameters=PARAMS["pexp"])
-    with pytest.raises(NotImplementedError, match="training slice"):
-        grap.GenericRadialAtomicPotential(["Ni"], backend="segment", **kw)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        grap.GenericRadialAtomicPotential(["Ni"], legacy_mode=True, **kw)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        grap.GenericRadialAtomicPotential(
-            ["Ni"], algorithm="nn", parameters={"num_filters": 4})
-    with pytest.raises(NotImplementedError, match="training slice"):
-        load_model(NI_MODEL, device="cpu", backend="segment")
+def test_once_deferred_options_match_jax():
+    """The segment backend (the constructors' default, as in JAX),
+    legacy mode and the 'nn' filter: the port's descriptors equal the
+    JAX ones on the MoNi cell's flat features at float64, the choices
+    JAX refuses are refused alike, and the saved Ni model on the segment
+    backend serves what JAX serves."""
+    from test_torch_grap_legacy_nn import descriptor_pair, flat_features
+    jfeats, feats, vei = flat_features()
+    cases = [dict(algorithm="pexp", parameters=PARAMS["pexp"],
+                  moment_tensors=[0, 1, 2, 3]),
+             dict(algorithm="pexp", parameters=PARAMS["pexp"],
+                  moment_tensors=[0, 1, 2], legacy_mode=True),
+             dict(algorithm="nn", moment_tensors=[0, 1, 2],
+                  parameters={"num_filters": 4, "hidden_sizes": [8]})]
+    for kw in cases:
+        assert grap.GenericRadialAtomicPotential(
+            ["Ni"], **kw).backend == "segment"
+        (jdesc, jparams), (desc, params) = descriptor_pair(kw)
+        want = jdesc.compute(jfeats, 4.5, 0.0, 2, 0, False,
+                             params=jparams, vap_element_idx=vei)
+        got = desc.compute(feats, 4.5, 0.0, 2, 0, False, params=params,
+                           vap_element_idx=vei)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    for kw in (dict(legacy_mode=True, backend="dense"),
+               dict(legacy_mode=True, algorithm="nn"),
+               dict(backend="flat")):
+        kw = {"algorithm": "pexp", "parameters": PARAMS["pexp"], **kw}
+        with pytest.raises(ValueError):
+            jax_grap.GenericRadialAtomicPotential(["Ni"], **kw)
+        with pytest.raises(ValueError):
+            grap.GenericRadialAtomicPotential(["Ni"], **kw)
+    _, pos, cell = fcc_ni(2, seed=9)
+    args = (["Ni"] * len(pos), pos, cell)
+    res = TensorAlloyCalculator(NI_MODEL, device="cpu",
+                                backend="segment").calculate(
+        Structure.from_symbols(*args, pbc=[True] * 3))
+    jax_s = JaxStructure.from_symbols(*args, pbc=[True] * 3)
+    want = JaxCalculator(NI_MODEL)
+    np.testing.assert_allclose(res["energy"],
+                               want.get_potential_energy(jax_s), **TOL)
+    np.testing.assert_allclose(res["forces"], want.get_forces(jax_s),
+                               **TOL)
 
 
 def test_feature_dim_gap_quirk_matches_jax():
@@ -266,7 +297,7 @@ def test_kernel_wrapper_refuses_bad_inputs():
     wide = grap.GenericRadialAtomicPotential(
         ["Ni"], algorithm="pexp", moment_tensors=[0],
         parameters={"rl": np.linspace(1.0, 4.0, 65).tolist(),
-                    "pl": [2.0] * 65})
+                    "pl": [2.0] * 65}, backend="dense")
     with pytest.raises(ValueError, match="at most"):
         fused.grap_tables(wide)
     algorithm, cols, codes, weights, moments = fused.grap_tables(desc)
@@ -402,7 +433,7 @@ def test_second_order_matches_jax(algorithm, moments):
             *(torch.as_tensor(x) for x in (rij, *unit, slot, mask)),
             grap.GenericRadialAtomicPotential(
                 ["Mo", "Ni"], algorithm="morse", parameters=PARAMS["morse"],
-                moment_tensors=[0]), rc, n_slots)
+                moment_tensors=[0], backend="dense"), rc, n_slots)
         near = p0[1].abs()
         assert ((near > 0) & (near < 1e-6)).any()
     ref = functools.partial(jax_fused._grap_ref_dense, jdesc, rc, n_slots)

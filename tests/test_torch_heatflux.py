@@ -1,9 +1,11 @@
 """The port's heat flux, Green-Kubo and trajectory analysis against the
 JAX package at float64: the autograd flux and atomic virials on the flat
-layout, the EAM family's analytic flux on the dense layout (and against
-the autograd flux), the dense-backend refusal, the flux and stress that
-MD records at each chunk end, `trajectory_heat_flux`, and the numpy
-estimators and trajectory observables on seeded inputs.
+layout (the EAM family, and the SF and GRAP descriptor models on the
+'segment' backend, triples included), the EAM family's analytic flux on
+the dense layout (and against the autograd flux), the dense-backend
+refusal, the flux and stress that MD records at each chunk end (an SF
+model's too), `trajectory_heat_flux`, and the numpy estimators and
+trajectory observables on seeded inputs.
 """
 from collections import Counter
 from pathlib import Path
@@ -30,7 +32,23 @@ from tensoralloy_tpu_torch.nn.eam.fast_efs import make_fast_heat_flux_fn
 ROOT = Path(__file__).resolve().parent.parent
 REL = 1e-10
 MODELS = {"eam": "artifacts/mleam_ni/model/snap_Ni_mleam.npz",
-          "adp": "artifacts/mladp_mo_v5/model/snap_Mo_mladp_gw.npz"}
+          "adp": "artifacts/mladp_mo_v5/model/snap_Mo_mladp_gw.npz",
+          # served from copies whose descriptor says 'segment'
+          "sf": "artifacts/snap_ni_sfa/model/snap_Ni_sfa.npz",
+          "grap": "artifacts/snap_ni_v5_readapt/model/snap_Ni.npz"}
+_SEGMENT_COPIES = {}
+
+
+def _model_file(name) -> str:
+    if name not in ("sf", "grap"):
+        return str(ROOT / MODELS[name])
+    if name not in _SEGMENT_COPIES:
+        import tempfile
+        import chip_smoke
+        _SEGMENT_COPIES[name] = chip_smoke.backend_copy(
+            ROOT / MODELS[name], Path(tempfile.mkdtemp()) / f"{name}.npz",
+            "segment")
+    return _SEGMENT_COPIES[name]
 
 
 def _rel(a, b) -> float:
@@ -60,10 +78,10 @@ def _cell(name, seed=3):
 
 
 def _models(name):
-    jmodel, jparams, _ = jax_load_model(str(ROOT / MODELS[name]))
+    jmodel, jparams, _ = jax_load_model(_model_file(name))
     jparams = jax.tree_util.tree_map(
         lambda x: jnp.asarray(x, jnp.float64), jparams)
-    model, _ = load_model(str(ROOT / MODELS[name]), device="cpu")
+    model, _ = load_model(_model_file(name), device="cpu")
     return jmodel, jparams, model
 
 
@@ -90,7 +108,7 @@ def _inputs(name, layout, seed=0):
 FLUX_KEYS = ("J", "J_convective", "J_virial", "energy", "atomic_energies")
 
 
-@pytest.mark.parametrize("name", ["eam", "adp"])
+@pytest.mark.parametrize("name", ["eam", "adp", "sf", "grap"])
 def test_autograd_heat_flux_matches_jax(name):
     jmodel, jparams, model, (jf, jv, jm), (tf, tv, tm) = _inputs(
         name, "segment")
@@ -101,7 +119,7 @@ def test_autograd_heat_flux_matches_jax(name):
         assert _rel(got[key], want[key]) <= REL, key
 
 
-@pytest.mark.parametrize("name", ["eam", "adp"])
+@pytest.mark.parametrize("name", ["eam", "adp", "sf", "grap"])
 def test_atomic_virials_match_jax_and_sum_to_the_virial(name):
     jmodel, jparams, model, (jf, _, _), (tf, _, _) = _inputs(name,
                                                              "segment")
@@ -153,6 +171,20 @@ def test_md_records_flux_and_stress_as_jax(fast, device_nl):
     h = VelocityVerlet(model, s, **kw).run(12)
     for key in ("heat_flux", "stress_tensor", "potential"):
         assert _rel(h[key], jh[key]) <= REL, key
+
+
+def test_descriptor_md_records_flux_as_jax():
+    """NVE of the segment copy of snap_ni_sfa (G2 and G4 on the flat
+    pairs and triples) recording the flux at each chunk end, against
+    the JAX integrator's (1e-9)."""
+    js, s = _cell("sf")
+    jmodel, jparams, model = _models("sf")
+    kw = dict(timestep=1.0, chunk_size=3, temperature=300.0, seed=4,
+              record_heat_flux=True)
+    jh = JaxVelocityVerlet(jmodel, jparams, js, **kw).run(6)
+    h = VelocityVerlet(model, s, **kw).run(6)
+    for key in ("heat_flux", "potential", "total"):
+        assert _rel(h[key], jh[key]) <= 1e-9, key
 
 
 def test_trajectory_heat_flux_matches_jax():
@@ -244,3 +276,68 @@ def test_time_series_observables_match_jax():
                             getattr(jax_trajectory, fn)(*args))
     assert trajectory.diffusion_coefficient(pos, 2.0) == pytest.approx(
         jax_trajectory.diffusion_coefficient(pos, 2.0), rel=1e-12)
+
+
+def _heat_flux_fixture_run(vv_cls, structure, model, params=None):
+    """The NVE run of chip_smoke's descriptor heat-flux fixture."""
+    import chip_smoke
+    args = (model, structure) if params is None else (model, params,
+                                                      structure)
+    return vv_cls(*args, record_heat_flux=True,
+                  **chip_smoke.HEAT_FLUX_RUN).run(chip_smoke.HEAT_FLUX_STEPS)
+
+
+def heat_flux_record(workdir: Path) -> dict:
+    """The JAX package's NVE of the 108-atom fixture cell with the segment
+    copy of snap_ni_sfa (float64 weights), the flux at every chunk end."""
+    import chip_smoke
+    import json
+    path = chip_smoke.segment_model_file(chip_smoke.PATHS["sf"][0],
+                                         workdir, float64=True)
+    jmodel, jparams, _ = jax_load_model(path)
+    ref = json.loads(chip_smoke.PATHS["sf"][2][0].read_text())
+    js = JaxStructure.from_symbols(["Ni"] * len(ref["positions"]),
+                                   ref["positions"], ref["cell"],
+                                   pbc=[True] * 3)
+    h = _heat_flux_fixture_run(JaxVelocityVerlet, js, jmodel, jparams)
+    return {"model": "artifacts/snap_ni_sfa/model/snap_Ni_sfa.npz with "
+                     "backend 'segment', weights in float64",
+            "structure": ref["structure"], "run": chip_smoke.HEAT_FLUX_RUN,
+            "steps": chip_smoke.HEAT_FLUX_STEPS,
+            **{k: np.asarray(h[k]).tolist()
+               for k in ("heat_flux", "potential", "total")}}
+
+
+def test_descriptor_heat_flux_fixture_is_current(tmp_path):
+    """The port on the CPU reproduces `tests/data/
+    torch_port_ref_heat_flux_sf.json` (1e-9), which the card is held
+    against."""
+    import chip_smoke
+    import json
+    want = json.loads(chip_smoke.HEAT_FLUX_FIXTURE.read_text())
+    assert want["run"] == chip_smoke.HEAT_FLUX_RUN
+    path = chip_smoke.segment_model_file(chip_smoke.PATHS["sf"][0],
+                                         tmp_path, float64=True)
+    model, _ = load_model(path, device="cpu")
+    ref = json.loads(chip_smoke.PATHS["sf"][2][0].read_text())
+    s = Structure.from_symbols(["Ni"] * len(ref["positions"]),
+                               ref["positions"], ref["cell"], pbc=[True] * 3)
+    h = _heat_flux_fixture_run(VelocityVerlet, s, model)
+    for key in ("heat_flux", "potential", "total"):
+        assert _rel(h[key], want[key]) <= chip_smoke.HEAT_FLUX_REL, key
+
+
+if __name__ == "__main__":
+    import json
+    import sys
+    import tempfile
+    jax.config.update("jax_platforms", "cpu")
+    jax.config.update("jax_enable_x64", True)
+    from tensoralloy_tpu import set_precision
+    set_precision("high")
+    import chip_smoke
+    with tempfile.TemporaryDirectory() as tmp:
+        record = heat_flux_record(Path(tmp))
+    chip_smoke.HEAT_FLUX_FIXTURE.write_text(json.dumps(record, indent=1)
+                                            + "\n")
+    print(f"wrote {chip_smoke.HEAT_FLUX_FIXTURE}", file=sys.stderr)

@@ -179,7 +179,8 @@ def test_dataset_matches_jax(small_databases, name, angular, tmp_path,
                               cache_dir=str(tmp_path / "jax"),
                               layout="dense", **common)
     ds = dataset.Dataset(db, Featurizer(db.elements, **kw),
-                         cache_dir=str(tmp_path / "port"), **common)
+                         cache_dir=str(tmp_path / "port"), layout="dense",
+                         **common)
     assert ds.signature == jds.signature
     want_f, want_l = jds.build()
     got_f, got_l = ds.build()
@@ -187,7 +188,7 @@ def test_dataset_matches_jax(small_databases, name, angular, tmp_path,
     _assert_arrays_equal(got_l, want_l)
     assert got_f["positions"].shape[:2] == (len(db), ds.n_atoms_vap)
     # each reads the other's cache
-    cached = dataset.Dataset(db, ds.featurizer,
+    cached = dataset.Dataset(db, ds.featurizer, layout="dense",
                              cache_dir=str(tmp_path / "jax"), **common)
     _assert_arrays_equal(cached.build()[0], want_f)
     for a, b in zip(ds.split_indices(len(db)), jds.split_indices(len(db))):
@@ -210,17 +211,8 @@ def test_dataset_matches_jax(small_databases, name, angular, tmp_path,
     one = [ds._featurize_one(s)[0] for s in list(db)[:2]]
     _assert_arrays_equal(batch_features(one),
                          {k: v[:2] for k, v in got_f.items()})
-    s = next(iter(db))
-    if angular:
-        # the flat triple arrays are not ported
-        with pytest.raises(NotImplementedError, match="segment"):
-            dataset.Dataset(db, ds.featurizer, cache_dir=str(tmp_path),
-                            layout="both")
-        with pytest.raises(NotImplementedError, match="segment"):
-            ds.featurizer.featurize(s, layout="segment")
-        return
-    # the flat pair layout: the same arrays, and each reads the other's
-    # 'segment' cache
+    # the flat pair (and, angular, triple) layout and 'both': the same
+    # arrays, and each reads the other's cache
     jseg = jax_dataset.Dataset(jax_db, jds.featurizer,
                                cache_dir=str(tmp_path / "jax"),
                                layout="segment", **common)
@@ -232,3 +224,9 @@ def test_dataset_matches_jax(small_databases, name, angular, tmp_path,
     _assert_arrays_equal(dataset.Dataset(
         db, ds.featurizer, cache_dir=str(tmp_path / "jax"),
         layout="segment", **common).build()[0], want_f)
+    jboth = jax_dataset.Dataset(jax_db, jds.featurizer,
+                                cache_dir=str(tmp_path / "jax"), **common)
+    both = dataset.Dataset(db, ds.featurizer,
+                           cache_dir=str(tmp_path / "jax"), **common)
+    assert both.layout == "both" and both.signature == jboth.signature
+    _assert_arrays_equal(both.build()[0], jboth.build()[0])

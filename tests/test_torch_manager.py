@@ -354,29 +354,12 @@ def test_warm_start_from_the_file_named_in_the_toml(tmp_path):
     assert TrainingManager(warm, device="cpu")._initial_state()["step"] == 0
 
 
-def _ni_cell():
-    from chip_smoke import jittered_fcc
-    pos, cell = jittered_fcc(2)
-    return Structure.from_symbols(["Ni"] * len(pos), pos, cell,
-                                  pbc=[True] * 3)
-
-
 # what still raises NotImplementedError, each by its name: the manager's
 # refusals (run, overrides, match) and the other entry points (a callable
 # and match)
 NOT_PORTED = {
     "devices": ("snap_ni_sfa", {"distribute.strategy": "mirrored",
                                 "distribute.num_devices": 4}, "parallel"),
-    "segment": ("snap_ni_sfa", {"nn.atomic.sf.backend": "segment"},
-                "segment"),
-    "legacy": ("snap_ni_v5_readapt",
-               {"nn.atomic.grap.legacy_mode": True}, "legacy"),
-    "nn_filter": ("snap_ni_v5_readapt",
-                  {"nn.atomic.grap.algorithm": "nn"}, "'nn'"),
-    "segment_triples": (lambda: __import__(
-        "tensoralloy_tpu_torch.transform.featurizer", fromlist=["x"]
-    ).Featurizer(["Ni"], 4.0, angular=True).featurize(
-        _ni_cell(), layout="segment"), "triple"),
     "ensemble_shards": (lambda: __import__(
         "tensoralloy_tpu_torch.ensemble", fromlist=["x"]
     ).EnsembleCalculator(["a.npz", "b.npz"], n_shards=2), "parallel"),

@@ -173,9 +173,39 @@ def test_saved_sf_models_load_and_serve_as_in_jax(run, monkeypatch):
     assert _rel(res["stress"], calc.get_stress(jax_s)) <= REL
 
 
-def test_segment_backend_is_deferred():
-    with pytest.raises(NotImplementedError, match="later slice"):
-        load_model(MODEL, device="cpu", backend="segment")
+def test_segment_backend_serves_as_jax():
+    """`load_model(..., backend="segment")` (the flat pair and triple
+    arrays, `index_add` sums) serves what the JAX calculator serves from
+    the same file, and a file saved without a 'backend' key (the JAX
+    constructors' default, 'segment') loads and serves the same."""
+    import json
+    import tempfile
+    _, pos, cell = fcc_ni(2, seed=5)
+    args = (["Ni"] * len(pos), pos, cell)
+    want = JaxCalculator(MODEL)
+    jax_s = JaxStructure.from_symbols(*args, pbc=[True] * 3)
+    model, _ = load_model(MODEL, device="cpu", backend="segment")
+    assert model.descriptor.backend == "segment"
+    with np.load(MODEL) as z:
+        flat = {k: z[k] for k in z.files}
+    config = json.loads(bytes(flat["__config__"]).decode())
+    del config["model"]["descriptor"]["backend"]
+    flat["__config__"] = np.frombuffer(json.dumps(config).encode(),
+                                       dtype=np.uint8)
+    with tempfile.TemporaryDirectory() as tmp:
+        bare = f"{tmp}/bare.npz"
+        np.savez(bare, **flat)
+        calcs = [TensorAlloyCalculator(model, device="cpu"),
+                 TensorAlloyCalculator(bare, device="cpu", dtype="high")]
+        assert calcs[1].model.descriptor.backend == "segment"
+        s = Structure.from_symbols(*args, pbc=[True] * 3)
+        for calc in calcs:
+            res = calc.calculate(s)
+            assert calc.layout == "segment"
+            assert _rel(res["energy"], want.get_potential_energy(jax_s)) \
+                <= REL
+            assert _rel(res["forces"], want.get_forces(jax_s)) <= REL
+            assert _rel(res["stress"], want.get_stress(jax_s)) <= REL
 
 
 # the six saved EAM-family models: an EamAlloyNN (Ni) and five AdpNNs (Mo)

@@ -238,7 +238,7 @@ def test_kept_grap_tables_equal_fresh_ones(algorithm):
     desc = GenericRadialAtomicPotential(
         ["Mo", "Ni"], algorithm=algorithm,
         parameters=GRAP_PARAMETERS[algorithm], moment_tensors=[0, 1, 3],
-        symmetric=True)
+        symmetric=True, backend="dense")
     kept = fused.kept_grap_tables(desc)
     _assert_tables_equal(kept, fused.grap_tables(desc))
     again = fused.kept_grap_tables(GenericRadialAtomicPotential.from_dict(

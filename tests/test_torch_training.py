@@ -1,7 +1,8 @@
 """The port's training slice against the JAX package: the same batches and
 the same numpy-seeded parameters go through both `Trainer`s on the CPU at
 float64 (the JAX side with Pallas in interpret mode where the backend is
-'pallas').
+'pallas'), on the dense rows and on the flat ('segment') layout, with
+legacy GRAP and the learned 'nn' filter.
 
 Small sizes: 12 structures of at most 32 atoms from
 artifacts/snap_ni/snap-Ni.db and 8 frames of artifacts/td_be/td-Be.db,
@@ -104,6 +105,12 @@ CASES = {
     # two elements, each absent from some structures (the database's
     # small cells are pure Mo or pure Ni)
     "moni_grap": ("moni", "grap012", "pallas", "auto"),
+    # the flat pair and triple layout (autograd w.r.t. positions), legacy
+    # GRAP and the learned filter (whose weights get gradients too)
+    "sf_segment": ("ni", "sf", "segment", "auto"),
+    "grap_segment": ("ni", "grap012", "segment", "auto"),
+    "grap_legacy": ("ni", "grap_legacy", "segment", "auto"),
+    "grap_nn": ("ni", "grap_nn", "segment", "auto"),
 }
 
 
@@ -114,6 +121,11 @@ def _descriptors(kind, elements, backend):
     moments = list(range(6)) if kind == "grap05" else [0, 1, 2]
     kw = dict(algorithm="pexp", parameters=PEXP, moment_tensors=moments,
               backend=backend)
+    if kind == "grap_legacy":
+        kw["legacy_mode"] = True
+    elif kind == "grap_nn":
+        kw.update(algorithm="nn", parameters={
+            "num_filters": 4, "hidden_sizes": [8, 8], "h_abck_modifier": 1})
     return (JaxGRAP(elements, **kw),
             GenericRadialAtomicPotential(elements, **kw))
 
@@ -163,9 +175,11 @@ class Case:
         jfz = JaxFeaturizer(elements, **fz_kw)
         fz = Featurizer(elements, **fz_kw)
         jdesc, desc = _descriptors(kind, elements, backend)
+        flat = backend == "segment"
         ds = JaxDataset(self.jax_db, jfz, name=name, test_size=2,
                         dtype=np.float64, cache_dir=str(tmp / "jax"),
-                        layout="dense", transpose=True)
+                        layout="segment" if flat else "dense",
+                        transpose=not flat)
         feats, labels = ds.build()
         self.arrays = ds.split(feats, labels)      # tf, tl, ef, el
         static = self.jax_db.get_atomic_static_energy()
@@ -360,11 +374,11 @@ def test_dataset_reads_the_jax_default_cache_and_upgrades_old_ones(
                      **shared)
     assert jds.layout == "both" and "dense" not in jds.signature
     jfeats, jlabels = jds.build()
-    ds = Dataset(db, Featurizer(db.elements, **kw),
+    ds = Dataset(db, Featurizer(db.elements, **kw), layout="dense",
                  cache_dir=str(tmp_path / "cache"), transpose=True, **shared)
     assert ds.signature == jds.signature.replace("-tr-", "-dense-tr-")
     assert not Path(ds.cache_path).exists()
-    own = Dataset(db, Featurizer(db.elements, **kw),
+    own = Dataset(db, Featurizer(db.elements, **kw), layout="dense",
                   cache_dir=str(tmp_path / "own"), transpose=True,
                   **shared).build()
     monkeypatch.setattr(Dataset, "_featurize_one", None)   # must not run
@@ -389,7 +403,7 @@ def test_dataset_reads_the_jax_default_cache_and_upgrades_old_ones(
             old[f"f_{k.replace('simg', 'shift')}"] = decode(v)
         else:
             old[f"f_{k}"] = v
-    legacy = Dataset(db, Featurizer(db.elements, **kw),
+    legacy = Dataset(db, Featurizer(db.elements, **kw), layout="dense",
                      cache_dir=str(tmp_path / "legacy"), transpose=True,
                      **shared)
     Path(legacy.cache_path).parent.mkdir()
