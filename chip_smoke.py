@@ -216,7 +216,29 @@ failure ends the run with a non-zero exit and no result line:
              tensoralloy_tpu_torch.cli compute kappa` exits 0; (e) the 5
              MoNi GRAP members at 4000 atoms with chunked=True against
              chunked=False (1e-4), grap_kernel once a row block
- 14. time    median time per request and its device E/F/S part,
+ 14. parallel `parallel/` over `torch.distributed`, each part printing
+             its backend and each time beside the card's name and power
+             limit: (a) in this process a world of one rank on a
+             HashStore with NCCL: a data-parallel float64 step of
+             snap_ni_sfa (batch 50), spatial EFS, a replica-sharded band
+             and a member-sharded committee through the NCCL
+             communicator, each equal to its run without a group
+             (1e-12); (b) two gloo ranks sharing the card through
+             `parallel.mesh.launch`: data-parallel steps of snap_ni_sfa
+             and snap_ni_v5_readapt at batch 50 on snap-Ni.db through the
+             kernels (one float64 step against the one-rank step, 1e-10,
+             and snap_ni_v5_readapt's against its train fixture, 1e-8;
+             3 float32 steps against the one-rank run, 1e-5; the step
+             times and the gradient all-reduce), spatial EFS of mleam_ni
+             Ni 32000 on flat pairs (the device builder) and on the fast
+             dense route, and of mladp_mo_v5 Mo 31250 on the fast route
+             (1e-4), the 255-atom GRAP band of 8 images for 10 FIRE steps
+             with 4 images a rank, and 4 MoNi members at 4000 atoms with 2
+             a rank, each against one rank (1e-4); every rank's launches
+             are counted; (c) `python -m torch.distributed.run
+             --nproc_per_node 2 -m tensoralloy_tpu_torch.cli compute neb
+             --shards 2` against the unsharded verb (1e-4 of a line)
+ 15. time    median time per request and its device E/F/S part,
              kernels vs twins (the grap 32000 request on device lists, as
              "auto" routes it); each kernel vs its twin at the
              32000-atom request's shapes (`ms`: the median of single
@@ -231,9 +253,10 @@ failure ends the run with a non-zero exit and no result line:
              useful FLOP at the FP32 67 TFLOP/s
 
 The line before the last is a JSON object of per-kernel results (the
-launches of the serve, train, manager, large, md, analysis, cli and
-descriptors phases, each counted from 0; "cli" and "descriptors" those
-phases' alone);
+launches of the serve, train, manager, large, md, analysis, cli,
+descriptors and parallel phases, each counted from 0; "cli",
+"descriptors" and "parallel" those phases' alone, "parallel" summed over
+the ranks);
 the last is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -3891,6 +3914,289 @@ def descriptors(card):
     return totals
 
 
+# ----------------------------------------------------------------------
+# parallel
+# ----------------------------------------------------------------------
+
+PARALLEL_RANKS = 2
+PARALLEL_BATCH = 50        # snap_ni_sfa's file says 25: no even split
+PARALLEL_F32_STEPS = 3
+PARALLEL_F64_REL = 1e-10   # two ranks against one, float64
+PARALLEL_F32_REL = 1e-5    # float32 train losses, two ranks against one
+PARALLEL_NCCL_REL = 1e-12  # a world of one NCCL rank against no group
+PARALLEL_NEB = dict(n_images=8, steps=10, chunk_size=5)
+PARALLEL_MEMBERS = 4
+PARALLEL_SPATIAL = (("mleam_ni Ni 32000 flat (device builder)", "mleam_ni",
+                     "segment", 20),
+                    ("mleam_ni Ni 32000 fast dense", "mleam_ni", "fast", 20),
+                    ("mladp_mo_v5 Mo 31250 fast dense", "mladp_mo_v5",
+                     "fast", 25))
+
+
+def _parallel_train_specs(work) -> dict:
+    """name -> (float64 spec of one step, float32 spec of
+    PARALLEL_F32_STEPS steps) of `parallel.ranks.train_steps` for each
+    training configuration at batch PARALLEL_BATCH: the manager's model
+    (saved with its starting parameters, as the train phase starts them)
+    and loss on the run's dataset, the first batches of its seeded
+    stream, through the kernels."""
+    import dataclasses
+    from tensoralloy_tpu_torch.io.model import load_model, save_model
+    from tensoralloy_tpu_torch.train.dataset import batch_index_stream
+    from tensoralloy_tpu_torch.utils import tree_map
+    specs = {}
+    for name, cfg in TRAIN_CONFIGS.items():
+        (work / name).mkdir()
+        m = _manager(cfg, work / name, "high", "pallas", 10)
+        t0 = time.perf_counter()
+        arrays = m.dataset.split(*m.dataset.build())
+        tp = dataclasses.replace(m.train_parameters,
+                                 batch_size=PARALLEL_BATCH)
+        saved = tree_map(lambda x: x.cpu().numpy(), load_model(
+            str(ROOT / cfg["model"]), dtype="high")[0].param_tree())
+        params = saved if cfg["warm_start"] else seeded_params(saved,
+                                                               tp.seed)
+        path = str(work / f"{name}.npz")
+        save_model(path, m.model, params)
+        stream = batch_index_stream(len(arrays[1]["energy"]), tp.batch_size,
+                                    seed=tp.seed, repeat=True)
+        batches = [({k: v[i] for k, v in arrays[0].items()},
+                    {k: v[i] for k, v in arrays[1].items()})
+                   for i in (next(stream)
+                             for _ in range(PARALLEL_F32_STEPS))]
+        print(f"  train_{name}: dataset of {len(arrays[1]['energy'])} "
+              f"structures built in {time.perf_counter() - t0:.1f} s; "
+              f"batch {tp.batch_size}")
+        base = {"model": path, "backend": "pallas", "params": params,
+                "loss_parameters": m.loss_parameters,
+                "opt_parameters": m.opt_parameters, "train_parameters": tp,
+                "minimize_properties": m.trainer.minimize, "device": "cuda"}
+        specs[name] = (dict(base, dtype="high", batches=batches[:1]),
+                       dict(base, dtype="medium", batches=batches))
+    return specs
+
+
+def _parallel_specs(work) -> dict:
+    """label -> (rank function, spec) of every sharded case of (b)."""
+    from tensoralloy_tpu_torch.parallel import ranks
+    specs = {}
+    for name, (f64, f32) in _parallel_train_specs(work).items():
+        specs[f"train_{name} float64"] = (ranks.train_steps, f64)
+        specs[f"train_{name} float32"] = (ranks.train_steps, f32)
+    for label, model, route, reps in PARALLEL_SPATIAL:
+        path, kind, element, a = EAM_PATHS[model][:4]
+        specs[label] = (ranks.spatial_efs, {
+            "model": str(path), "route": route,
+            "structure": _lattice_structure(kind, element, a, reps),
+            "reps": 3, "device": "cuda", "dtype": "medium"})
+    initial, final = _vacancy_hop(NEB_REPS)
+    specs["grap band"] = (ranks.neb_band, {
+        "model": str(PATHS["grap"][0]), "backend": "pallas",
+        "initial": initial, "final": final, "n_shards": PARALLEL_RANKS,
+        "device": "cuda", "dtype": "medium", **PARALLEL_NEB})
+    specs["moni committee"] = (ranks.committee, {
+        "members": MONI_MEMBERS[:PARALLEL_MEMBERS],
+        "structure": _moni_structure(), "n_shards": PARALLEL_RANKS,
+        "backend": "pallas", "reps": 3, "device": "cuda",
+        "dtype": "medium"})
+    return specs
+
+
+def _one_rank(spec) -> dict:
+    """`spec` on this process alone."""
+    return dict(spec, n_shards=1, n_devices=None)
+
+
+def _parallel_numbers(fn, out) -> dict:
+    """The numbers of a rank function's result that two runs compare."""
+    from tensoralloy_tpu_torch.parallel import ranks
+    if fn is ranks.train_steps:
+        return {"losses": out["losses"], "params": out["params"]}
+    if fn is ranks.spatial_efs:
+        return {k: out[k] for k in ("energy", "forces", "stress_voigt")}
+    if fn is ranks.neb_band:
+        return {"energies": out["result"]["energies"],
+                "positions": out["positions"]}
+    return {k: out["results"][k] for k in (
+        "energy", "forces", "stress", "energy_std", "forces_std")}
+
+
+def _parallel_err(fn, got, want) -> float:
+    from tensoralloy_tpu_torch.utils import tree_flatten
+    a, b = (tree_flatten(_parallel_numbers(fn, r)) for r in (got, want))
+    return max(rel_err(np.asarray(a[k], np.float64),
+                       np.asarray(b[k], np.float64)) for k in b)
+
+
+def _parallel_limit(label) -> float:
+    if "float64" in label:
+        return PARALLEL_F64_REL
+    return PARALLEL_F32_REL if "float32" in label else F32_REL
+
+
+def parallel_nccl(specs, refs, card) -> dict:
+    """(a) a world of one rank with NCCL on a HashStore, in this process:
+    one case of each mode through the NCCL communicator, against its run
+    without a group. -> launches."""
+    import torch.distributed as dist
+    from tensoralloy_tpu_torch.parallel.mesh import to_host
+    labels = ("train_sf float64", PARALLEL_SPATIAL[1][0], "grap band",
+              "moni committee")
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    totals = {"g2": 0, "g4": 0, "grap": 0}
+    try:
+        print(f"  (a) backend {dist.get_backend()}, world "
+              f"{dist.get_world_size()} ({card})")
+        for label in labels:
+            fn, spec = specs[label]
+            t0 = time.perf_counter()
+            got = to_host(fn(dict(spec, n_shards=1, n_devices=None)))
+            _add_launches(totals, got["launches"])
+            err = _parallel_err(fn, got, refs[label])
+            print(f"    {label}: {time.perf_counter() - t0:.2f} s, vs no "
+                  f"group rel err {err:.1e} (limit {PARALLEL_NCCL_REL:g}); "
+                  f"launches {got['launches']}")
+            if err > PARALLEL_NCCL_REL:
+                raise AssertionError(f"NCCL {label}: {err}")
+    finally:
+        dist.destroy_process_group()
+    return totals
+
+
+def parallel_ranks(specs, refs, card) -> dict:
+    """(b) every case on PARALLEL_RANKS gloo ranks sharing the card,
+    against its one-rank run. -> launches summed over the ranks."""
+    from tensoralloy_tpu_torch.parallel import ranks
+    from tensoralloy_tpu_torch.parallel.mesh import launch
+    labels = list(specs)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    results = launch(ranks.run_all, PARALLEL_RANKS,
+                     [specs[label] for label in labels], device="cuda",
+                     timeout=900.0)
+    print(f"  (b) {PARALLEL_RANKS} ranks: {time.perf_counter() - t0:.1f} s "
+          f"from spawn to the last result ({card})")
+    totals = {"g2": 0, "g4": 0, "grap": 0}
+    for i, label in enumerate(labels):
+        fn = specs[label][0]
+        per_rank = [r[i] for r in results]
+        for r in per_rank:
+            _add_launches(totals, r["launches"])
+        agree = max(_parallel_err(fn, r, per_rank[0]) for r in per_rank)
+        err = _parallel_err(fn, per_rank[0], refs[label])
+        limit = _parallel_limit(label)
+        got, ref = per_rank[0], refs[label]
+        if fn is ranks.train_steps:
+            # the float32 runs' last two steps are warm; float64's one
+            # step is not
+            times = (f"steps {np.round(got['step_ms'], 2).tolist()} ms at "
+                     f"{PARALLEL_RANKS} ranks against "
+                     f"{np.round(ref['step_ms'], 2).tolist()} on one; "
+                     f"gradient all-reduce {got['allreduce_ms']:.3f} ms")
+        elif fn is ranks.neb_band:
+            times = (f"{got['ms']:.0f} ms for {got['evaluations']} band "
+                     f"evaluations against {ref['ms']:.0f} on one")
+        else:
+            times = (f"{np.median(got['ms']):.2f} ms a request against "
+                     f"{np.median(ref['ms']):.2f} on one")
+        print(f"    {label}: ranks agree {agree:.1e}; vs one rank rel err "
+              f"{err:.1e} (limit {limit:g}); {times}; launches a rank "
+              f"{[r['launches'] for r in per_rank]} ({card})")
+        if err > limit or agree > limit:
+            raise AssertionError(f"parallel {label}: {err}, {agree}")
+    fixture = json.loads((DATA / "torch_port_ref_train_grap.json")
+                         .read_text())
+    i = labels.index("train_grap float64")
+    got = results[0][i]["losses"][0]
+    err = abs(got - fixture["losses"][0]) / abs(fixture["losses"][0])
+    print(f"    train_grap float64 first loss {got:.12g} vs the JAX "
+          f"fixture {fixture['losses'][0]:.12g}: rel err {err:.1e} "
+          f"(limit {TRAIN_F64_REL:g}; train_sf's fixture is of batch 25)")
+    if fixture["batch_size"] != PARALLEL_BATCH or err > TRAIN_F64_REL:
+        raise AssertionError(f"train_grap vs its fixture: {err}")
+    return totals
+
+
+def parallel_verb(work, card) -> None:
+    """(c) `compute neb --shards 2` under `python -m
+    torch.distributed.run` against the unsharded verb in this process."""
+    from tensoralloy_tpu_torch.cli.entry import main as port_main
+    from tensoralloy_tpu_torch.io.extxyz import write_extxyz
+    model = work / "grap_pallas.npz"
+    pallas_copy(PATHS["grap"][0], model)
+    initial, final = _vacancy_hop(NEB_REPS)
+    argv = ["compute", "neb", str(model), "initial.extxyz", "final.extxyz",
+            "--n-images", str(PARALLEL_NEB["n_images"]), "--max-steps",
+            str(PARALLEL_NEB["steps"]), "--output", "neb.csv"]
+    runs = {}
+    for name in ("ranks", "one"):
+        (work / name).mkdir()
+        write_extxyz(str(work / name / "initial.extxyz"), [initial])
+        write_extxyz(str(work / name / "final.extxyz"), [final])
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", str(PARALLEL_RANKS), "-m",
+         "tensoralloy_tpu_torch.cli", *argv, "--shards",
+         str(PARALLEL_RANKS)], cwd=work / "ranks",
+        env={"GLOO_SOCKET_IFNAME": "lo", **os.environ,
+             "PYTHONPATH": str(ROOT)},
+        capture_output=True, text=True, timeout=600)
+    sec = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"torch.distributed.run: exit code "
+                             f"{proc.returncode}\n{proc.stdout}\n"
+                             f"{proc.stderr}")
+    backends = sorted({f"backend {b} on {d}" for b, d in re.findall(
+        r"backend (gloo|nccl) on (cpu|cuda)", proc.stderr)})
+    runs["ranks"] = {"stdout": proc.stdout,
+                     "csv": (work / "ranks" / "neb.csv").read_text()}
+    t1 = time.perf_counter()
+    rec = run_verb(port_main, argv, work / "one")
+    one_sec = time.perf_counter() - t1
+    runs["one"] = {"stdout": rec["stdout"],
+                   "csv": (work / "one" / "neb.csv").read_text()}
+    miss = [m for key in ("stdout", "csv") for m in printed_mismatches(
+        runs["ranks"][key], runs["one"][key], F32_REL)]
+    print(f"  (c) python -m torch.distributed.run --nproc_per_node "
+          f"{PARALLEL_RANKS} -m tensoralloy_tpu_torch.cli compute neb "
+          f"--shards {PARALLEL_RANKS}: {backends}; {sec:.1f} s (the "
+          f"unsharded verb in this process {one_sec:.1f} s); printed lines "
+          f"and neb.csv vs the unsharded verb: {len(miss)} numbers beyond "
+          f"{F32_REL:g} of a line ({card})")
+    print("    " + runs["ranks"]["stdout"].strip().replace("\n", "\n    "))
+    if miss or "forward barrier" not in runs["ranks"]["stdout"]:
+        raise AssertionError(f"sharded neb verb: {miss[:5]}")
+
+
+def parallel(card):
+    """`parallel/`: (a) a world of one NCCL rank, (b) two gloo ranks on
+    the card through `launch`, (c) the verb under `torch.distributed.run`.
+    -> launches by kernel of (a) and of every rank of (b)."""
+    phase("parallel")
+    from tensoralloy_tpu_torch.parallel.mesh import to_host
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        work = Path(tmp)
+        specs = _parallel_specs(work)
+        t1 = time.perf_counter()
+        refs = {label: to_host(fn(_one_rank(spec)))
+                for label, (fn, spec) in specs.items()}
+        print(f"  one-rank references: {time.perf_counter() - t1:.1f} s "
+              f"({card})")
+        totals = parallel_nccl(specs, refs, card)
+        _add_launches(totals, parallel_ranks(specs, refs, card))
+        parallel_verb(work, card)
+    for kernel, n in totals.items():
+        if n == 0:
+            raise AssertionError(f"parallel: {kernel} never launched")
+    print(f"  launches over the parallel phase (a and every rank of b): "
+          f"{totals}")
+    print(f"  parallel phase {time.perf_counter() - t0:.1f} s ({card})")
+    return totals
+
+
 def _median_ms(fn, reps: int, warmup: int = 3) -> float:
     """Median of `reps` CUDA-event times of single calls: the event pair
     also spans the host's enqueue when the device waits on it."""
@@ -4105,9 +4411,11 @@ def main() -> int:
     analysis_launches = analysis(card)
     cli_launches = cli(card)
     descriptor_launches = descriptors(card)
+    parallel_launches = parallel(card)
     for counts in [m["launches"] for m in measured.values()] \
             + [manager_launches, large_launches, md_launches,
-               analysis_launches, cli_launches, descriptor_launches]:
+               analysis_launches, cli_launches, descriptor_launches,
+               parallel_launches]:
         for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v
     rows = time_path(card, served, launches)
@@ -4115,6 +4423,7 @@ def main() -> int:
         row["launches_per_train_step"] = per_step[row["name"]]
         row["cli"] = cli_launches[row["name"]]
         row["descriptors"] = descriptor_launches[row["name"]]
+        row["parallel"] = parallel_launches[row["name"]]
     print(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -20,6 +20,14 @@ evaluation it builds an explicit device and dtype:
   `export` and `evaluate` take the input file's `precision`, as both
   training managers do.
 
+Several ranks: `compute neb --shards n` and a `run` whose file sets
+`distribute.num_devices` run under ``python -m torch.distributed.run
+--nproc_per_node n -m tensoralloy_tpu_torch.cli ...``; `main` joins the
+launcher's group (`parallel.mesh.initialize_distributed`: NCCL with a
+card per rank, gloo where ranks share one or on the CPU) and only rank 0
+prints. Without a group of n ranks they raise the ValueError of too few
+devices.
+
 The keywords `main(argv, device=..., dtype=...)` are the counterpart of
 a JAX caller's `set_precision(...)` before its `main`. The descriptor
 kernels are reached through the model file: a model whose descriptor
@@ -569,7 +577,7 @@ def main(argv=None, *, device=None, dtype=None):
 
     args = parser.parse_args(argv)
     args.device, args.dtype = device, dtype or "medium"
-    return {
+    return _in_group({
         "stop": _cmd_stop,
         "evaluate": _cmd_evaluate,
         "build": _cmd_build,
@@ -578,7 +586,30 @@ def main(argv=None, *, device=None, dtype=None):
         "print": _cmd_print,
         "compute": _cmd_compute,
         "vasp2lammps": _cmd_vasp2lammps,
-    }[args.command](args)
+    }[args.command], args)
+
+
+def _in_group(verb, args):
+    """Run `verb(args)`; under a launcher (``WORLD_SIZE`` > 1) first join
+    its group, unless this process is in one already, and leave it after.
+    Ranks other than 0 print nothing on stdout."""
+    import contextlib
+    if int(os.environ.get("WORLD_SIZE", "1")) <= 1:
+        return verb(args)
+    import torch.distributed as dist
+    joined = not dist.is_initialized()
+    if joined:
+        from ..parallel.mesh import initialize_distributed
+        initialize_distributed(device=args.device)
+    try:
+        if dist.get_rank() == 0:
+            return verb(args)
+        with open(os.devnull, "w") as quiet, \
+                contextlib.redirect_stdout(quiet):
+            return verb(args)
+    finally:
+        if joined:
+            dist.destroy_process_group()
 
 
 # ----------------------------------------------------------------------
@@ -1578,13 +1609,15 @@ def _compute_neb(args):
               n_images=args.n_images, k=args.spring,
               climb=not args.no_climb, n_shards=args.shards)
     res = neb.run(fmax=args.fmax, max_steps=args.max_steps)
+    # every rank of a sharded band holds the same result: rank 0 writes
+    writes = neb.mesh.is_main
     state = "converged" if res["converged"] else \
         f"NOT converged (fmax={res['fmax']:.4f})"
     print(f"{state} after {res['n_steps']} FIRE steps")
     print(f"forward barrier : {res['barrier']:.6f} eV")
     print(f"reverse barrier : {res['reverse_barrier']:.6f} eV")
     print(f"reaction dE     : {res['delta_e']:.6f} eV")
-    if args.output:
+    if args.output and writes:
         with open(args.output, "w") as fh:
             fh.write("image,energy\n")
             for m, e in enumerate(res["energies"]):

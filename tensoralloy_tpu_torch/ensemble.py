@@ -18,6 +18,12 @@ the K members' heads on them, and one batched VJP of the block's K
 energies, accumulated over the blocks; the block's graph is freed
 before the next block, so the descriptor kernels launch once a block.
 
+With `n_shards` ranks of a `torch.distributed` group, each rank takes
+its contiguous block of K / n_shards members (its own batched VJP over
+them) and the members' outputs ([K] energies, [K, A, 3] forces, ...) are
+gathered, so the mean and the disagreement are computed replicated on
+every rank; the chunked route shards the same way.
+
 `EnsembleCalculator` returns the ensemble mean for every property of
 `TensorAlloyCalculator` plus uncertainty channels (`energy_std`,
 `forces_std`, per-atom force disagreement); `select_by_uncertainty`
@@ -211,20 +217,27 @@ class EnsembleCalculator(TensorAlloyCalculator):
     `get_energy_std`, `get_forces_std`, `get_max_force_std` expose the
     disagreement. `device`, `dtype` and `backend` load the paths as the
     calculator does; `fast_efs`, `device_nl` and `chunked` route as
-    there. `n_shards > 1` (members over several devices) is not
-    ported."""
+    there. `n_shards > 1` splits the members over that many ranks of the
+    current `torch.distributed` group (module docstring); the members
+    must divide evenly and the group must have the ranks (ValueError
+    otherwise)."""
 
     def __init__(self, members: Sequence, n_shards: int = 1, *,
                  device="cuda", dtype="high", backend=None,
                  chunked: "bool | str" = "auto", **kwargs):
-        if n_shards > 1:
-            raise NotImplementedError(
-                "EnsembleCalculator(n_shards > 1) shards the members over "
-                "several devices; that comes with the port of "
-                "`parallel/` (ROADMAP queue 1, item 12)")
         members = list(members)
         if len(members) < 2:
             raise ValueError("an ensemble needs at least 2 members")
+        from .parallel.mesh import group_size, make_mesh
+        if n_shards > 1:
+            if len(members) % n_shards:
+                raise ValueError(
+                    f"{len(members)} members not divisible by "
+                    f"n_shards={n_shards}")
+            if n_shards > group_size():
+                raise ValueError(
+                    f"n_shards={n_shards} > available devices")
+        self.mesh = make_mesh(n_shards, axis_name="member")
         if all(isinstance(m, str) for m in members):
             from .io.model import load_model
             device, dtype = resolve_device(device), resolve_dtype(dtype)
@@ -245,6 +258,8 @@ class EnsembleCalculator(TensorAlloyCalculator):
             m.requires_grad_(False)
         self.member_trees: List[dict] = [m.param_tree() for m in members]
         self.n_members = len(members)
+        # this rank's members
+        self._trees = self.member_trees[self.mesh.block(self.n_members)]
 
     def _get_variant(self, structure: Structure, use_device: bool = False):
         occurs = self._bucketed_occurs(structure)
@@ -252,23 +267,36 @@ class EnsembleCalculator(TensorAlloyCalculator):
         hit = self._variant_cache.get(key)
         if hit is None:
             model = self.model.clone_for(occurs)
+            trees = self._trees
             if self.fast_efs:
-                efs = _make_fast_ensemble_fn(model, self.member_trees)
+                efs = _make_fast_ensemble_fn(model, trees)
             else:
                 efs = make_ensemble_efs_fn(
-                    model, self.member_trees,
+                    model, trees,
                     transpose=self.layout == "dense" and not use_device)
             efs_chunked = None
             if self.chunked and self.can_chunk(model):   # "auto" or True
                 if getattr(model, "descriptor", None) is None:
                     efs_chunked = _make_member_chunked_fn(
-                        model, self.member_trees, self.chunk_rows())
+                        model, trees, self.chunk_rows())
                 else:
                     efs_chunked = make_chunked_ensemble_efs_fn(
-                        model, self.member_trees, self.chunk_rows())
+                        model, trees, self.chunk_rows())
+            efs = self._gathered(efs)
+            efs_chunked = efs_chunked and self._gathered(efs_chunked)
             hit = (model, efs, efs_chunked)
             self._variant_cache[key] = hit
         return hit
+
+    def _gathered(self, efs: Callable) -> Callable:
+        """`efs` of this rank's members -> every member's outputs (`efs`'s
+        own on a mesh without a group)."""
+        from .parallel.collectives import all_gather
+
+        def run(features) -> Dict[str, torch.Tensor]:
+            return {k: all_gather(v, self.mesh)
+                    for k, v in efs(features).items()}
+        return run
 
     @staticmethod
     def _assemble(out, vap) -> Dict[str, np.ndarray]:

@@ -11,6 +11,12 @@ the device with its step size, mixing and counter held as device
 scalars, so the host reads nothing inside a chunk; between chunks it
 rebuilds the (skinned) neighbor lists.
 
+With `n_shards` ranks of a `torch.distributed` group, each rank
+evaluates its contiguous block of M / n_shards replicas and the band's
+energies [M] and forces [M, A, 3] are gathered; the tangents, springs
+and FIRE then run replicated and identical on every rank, so the
+tangents across a block's edges need no halo.
+
 Implements the improved tangent estimate and the climbing-image method
 (Henkelman & Jonsson, J. Chem. Phys. 113, 9901/9978 (2000)).
 
@@ -69,7 +75,10 @@ class NEB:
         onto the saddle point.
     skin : margin (A) added to the cutoff of the lists a chunk reuses.
     chunk_size : FIRE steps between two rebuilds of the lists.
-    n_shards : replicas over several devices; not ported (`parallel/`).
+    n_shards : the replicas split over this many ranks of the current
+        `torch.distributed` group (the reference's LAMMPS `-partition`
+        analog; module docstring). `n_images` must be divisible by it,
+        and the group must have that many ranks (ValueError otherwise).
     """
 
     def __init__(self, model, initial: Structure, final: Structure,
@@ -78,11 +87,17 @@ class NEB:
                  n_shards: int = 1):
         if n_images < 3:
             raise ValueError("need at least 3 images")
+        from .parallel.mesh import group_size, make_mesh
         if n_shards > 1:
-            raise NotImplementedError(
-                "NEB(n_shards > 1) shards the replicas over several "
-                "devices; that comes with the port of `parallel/` "
-                "(ROADMAP queue 1, item 12)")
+            if n_images % n_shards:
+                raise ValueError(
+                    f"n_images={n_images} not divisible by "
+                    f"n_shards={n_shards}")
+            if n_shards > group_size():
+                raise ValueError(
+                    f"n_shards={n_shards} > {group_size()} available "
+                    "devices")
+        self.mesh = make_mesh(n_shards, axis_name="rep")
         from .calculator import is_eam_family, model_feature_layout
         self.k = float(k)
         self.climb = bool(climb)
@@ -171,13 +186,23 @@ class NEB:
 
     # ------------------------------------------------------------------
     def _energy_forces(self, feats, pos):
-        """-> (energies [M], forces [M, A, 3]) of every replica."""
+        """-> (energies [M], forces [M, A, 3]) of every replica: this
+        rank's block evaluated, the band gathered (the whole band on one
+        rank)."""
+        from .parallel.collectives import all_gather
         self.n_evaluations += 1
+        block = self.mesh.block(self.n_images)
+        e, f = self._evaluate({k: v[block] for k, v in feats.items()},
+                              pos[block])
+        return all_gather(e, self.mesh), all_gather(f, self.mesh)
+
+    def _evaluate(self, feats, pos):
+        """(energies, forces) of the replicas of `feats` and `pos`."""
         mask = feats["atom_masks"][..., None]
         if self._fast_fn is not None:
             outs = [self._fast_fn({k: v[m] for k, v in feats.items()}
                                   | {"positions": pos[m]})
-                    for m in range(self.n_images)]
+                    for m in range(pos.shape[0])]
             e = torch.stack([o["energy"] for o in outs])
             f = torch.stack([o["forces"] for o in outs])
             return e, f * mask

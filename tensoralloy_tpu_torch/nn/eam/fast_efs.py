@@ -26,6 +26,13 @@ The only autograd here is elementwise: f'(r) of each function (one
 results are detached: this is a serving path. The EFS and the heat flux
 share one pass (`_make_pass`), which also returns the per-slot
 cotangents ct_self and the vectors v that the flux contracts.
+
+Where the dense neighbor columns are sharded over ranks
+(`parallel.spatial.make_spatial_fast_efs_fn`), every row reduction of a
+rank is a partial: `reduce` (the identity by default) sums rho, the pair
+energy, ADP's moments, the forces and the virial across the ranks. The
+reversed term reads the per-atom adjoints of the summed accumulators, so
+it needs no exchange.
 """
 from __future__ import annotations
 
@@ -57,13 +64,19 @@ def _adjoint(fn: Callable, inputs, cotangent: torch.Tensor):
     return out.detach(), [g.detach() for g in grads]
 
 
-def _make_pass(model) -> Callable:
+def _identity(x: torch.Tensor) -> torch.Tensor:
+    return x
+
+
+def _make_pass(model, reduce: Callable = _identity) -> Callable:
     """The analytic pass that the EFS and the heat flux share:
     fn(features, params=None) -> energy, atomic_energies, forces, virial,
     and the owner-anchored per-slot cotangents ct_self = dE/dv_kj through
     row k's accumulators (three [A, N] components) with the vectors v
     themselves. Reads the dense layout ('pair_j_d', 'pair_simg_d',
-    'pair_mask_d') of one structure; raises KeyError otherwise."""
+    'pair_mask_d') of one structure; raises KeyError otherwise. `reduce`
+    completes each row reduction of a column shard (module docstring);
+    ct_self and v stay the shard's own."""
     rcut = model.featurizer.rcut
     elements = model.elements
     is_adp = model.tag == "adp"
@@ -129,8 +142,8 @@ def _make_pass(model) -> Callable:
             dphi = dphi + torch.where(sel, der, 0.0)
 
         # ---- accumulators (dense row reductions) ---------------------
-        rho_i = torch.sum(rho_p * mask, dim=1)
-        phi_i = 0.5 * torch.sum(phi_p * mask, dim=1)
+        rho_i = reduce(torch.sum(rho_p * mask, dim=1))
+        phi_i = reduce(0.5 * torch.sum(phi_p * mask, dim=1))
         embed_i, (g_rho,) = _adjoint(
             lambda rho: model._embed_energy(params, rho), (rho_i,), am)
         atomic_e = (embed_i + phi_i) * am
@@ -147,7 +160,7 @@ def _make_pass(model) -> Callable:
 
         if is_adp:
             adp_e, ct_a_self, ct_a_rev = _adp_terms(
-                model, params, v, r, u, mask, ut, am, jd)
+                model, params, v, r, u, mask, ut, am, jd, reduce)
             atomic_e = atomic_e + adp_e * am
             forces_c = [fc + torch.sum(cs - cr, dim=1)
                         for fc, cs, cr in zip(forces_c, ct_a_self,
@@ -155,23 +168,25 @@ def _make_pass(model) -> Callable:
             ct_self = [c + cs for c, cs in zip(ct_self, ct_a_self)]
 
         # virial[a, b] = sum ct_self[a] v[b]
-        virial = torch.stack(
+        virial = reduce(torch.stack(
             [torch.stack([torch.sum(ct_self[a] * v[b]) for b in range(3)])
-             for a in range(3)])
+             for a in range(3)]))
         return {"energy": torch.sum(atomic_e), "atomic_energies": atomic_e,
-                "forces": torch.stack(forces_c, dim=-1), "virial": virial,
+                "forces": reduce(torch.stack(forces_c, dim=-1)),
+                "virial": virial,
                 "ct_self": tuple(ct_self), "v": v}
 
     return run
 
 
-def make_fast_efs_fn(model) -> Callable:
+def make_fast_efs_fn(model, reduce: Callable = _identity) -> Callable:
     """fn(features, params=None) -> energy, atomic_energies, forces,
     virial, stress, stress_voigt and total_pressure (the `make_efs_fn`
     contract), computed without autograd over pair arrays. Reads the
     dense layout ('pair_j_d', 'pair_simg_d', 'pair_mask_d') of one
-    structure; raises KeyError otherwise."""
-    run = _make_pass(model)
+    structure; raises KeyError otherwise. `reduce` sums a column shard's
+    row reductions across ranks (the module docstring)."""
+    run = _make_pass(model, reduce)
 
     def efs(features, params=None) -> Dict[str, torch.Tensor]:
         o = run(features, params)
@@ -216,7 +231,8 @@ def make_fast_heat_flux_fn(model) -> Callable:
     return flux
 
 
-def _adp_terms(model, params, v, r, u, mask, ut, am, jd):
+def _adp_terms(model, params, v, r, u, mask, ut, am, jd,
+               reduce: Callable = _identity):
     """ADP dipole/quadrupole energy + analytic forces/virial.
 
     a_mu = u_t(r) v  (per k-body term t),  a_lam = w_t(r) v (x) v.
@@ -255,9 +271,9 @@ def _adp_terms(model, params, v, r, u, mask, ut, am, jd):
     tsel = (torch.nn.functional.one_hot(ut, n_ut).to(r.dtype) if per_term
             else torch.ones(r.shape + (1,), dtype=r.dtype,
                             device=r.device))      # [A, N, G]
-    mu = torch.einsum("knt,kn,kna->kta", tsel, u_p, v)
+    mu = reduce(torch.einsum("knt,kn,kna->kta", tsel, u_p, v))
     dd = v[..., :, None] * v[..., None, :]          # [A, N, 3, 3]
-    lam = torch.einsum("knt,kn,knab->ktab", tsel, w_p, dd)
+    lam = reduce(torch.einsum("knt,kn,knab->ktab", tsel, w_p, dd))
 
     def quad_energy(mu_, lam_):
         e_mu = 0.5 * torch.sum(torch.square(mu_), dim=-1)

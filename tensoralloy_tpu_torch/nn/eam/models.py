@@ -39,7 +39,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ...ops.pairs import pair_vectors, safe_norm
+from ...ops.pairs import pair_vectors, reduce_rows, safe_norm
 from ...transform.featurizer import Featurizer
 from ...utils import get_elements_from_kbody_term
 from ..layers import apply_dense_stack, init_dense_stack, l2_of_stack
@@ -78,9 +78,10 @@ def _from_module(module):
 
 def _segment_sum(values: torch.Tensor, segments: torch.Tensor,
                  n: int) -> torch.Tensor:
-    """sum of `values` rows by segment id -> [n, ...]."""
+    """sum of `values` rows by segment id -> [n, ...] (over every rank's
+    pairs where the pair axis is sharded, `ops.pairs.reduce_rows`)."""
     out = values.new_zeros((n,) + tuple(values.shape[1:]))
-    return out.index_add(0, segments, values)
+    return reduce_rows(out.index_add(0, segments, values))
 
 
 class EamNN(nn.Module):

@@ -34,7 +34,7 @@ from ..ops.dense import (as_rows, dense_pair_geometry,
                          dense_triple_geometry)
 from ..ops.fused import (G2Function, G4Function, _g4_values, g2_reference,
                          g4_reference)
-from ..ops.pairs import pair_distances, triple_distances
+from ..ops.pairs import pair_distances, reduce_rows, triple_distances
 
 BACKENDS = ("segment", "dense", "pallas")
 
@@ -45,7 +45,9 @@ def segment_rows(values: torch.Tensor, center: torch.Tensor,
     """Sum the flat per-entry `values` [.., n, ...] by (center row, slot)
     -> [.., n_vap, n_slots, ...]. A batch's entries ([B, n]) address
     their own structure's rows: structure b's sums are rows
-    b * n_vap * n_slots of one accumulator."""
+    b * n_vap * n_slots of one accumulator. Where the pair or triple
+    axis is sharded the sums run over every rank's entries
+    (`ops.pairs.reduce_rows`)."""
     lead = center.shape[:-1]
     seg = center.long() * n_slots + slot.long()
     if lead:
@@ -54,8 +56,8 @@ def segment_rows(values: torch.Tensor, center: torch.Tensor,
                                  device=seg.device).view(b, 1)
     tail = values.shape[center.dim():]
     out = values.new_zeros((lead.numel() * n_vap * n_slots,) + tail)
-    out = out.index_add(0, seg.reshape(-1),
-                        values.reshape((-1,) + tail))
+    out = reduce_rows(out.index_add(0, seg.reshape(-1),
+                                    values.reshape((-1,) + tail)))
     return out.reshape(lead + (n_vap, n_slots) + tail)
 
 

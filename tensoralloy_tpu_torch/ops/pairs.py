@@ -4,10 +4,40 @@
 Every function takes one structure's features or a batch's: pair and
 triple arrays [n] or [B, n] with positions [A, 3] or [B, A, 3]; a
 batch's indices address their own structure's rows.
+
+`reduce_rows` is the one hook of the spatially sharded evaluation
+(`parallel.spatial`): every per-atom sum over the pair or triple axis
+passes through it before any nonlinear stage. It is the identity unless
+a `row_reduction` context names a reduction (the sum of the ranks'
+partial sums there).
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
+from typing import Callable, Optional
+
 import torch
+
+_ROW_REDUCE: contextvars.ContextVar[Optional[Callable]] = \
+    contextvars.ContextVar("row_reduce", default=None)
+
+
+def reduce_rows(partial: torch.Tensor) -> torch.Tensor:
+    """A per-atom sum over this process's pairs -> the sum over every
+    pair of the structure: `partial` itself outside a `row_reduction`."""
+    reduce = _ROW_REDUCE.get()
+    return partial if reduce is None else reduce(partial)
+
+
+@contextlib.contextmanager
+def row_reduction(reduce: Callable[[torch.Tensor], torch.Tensor]):
+    """Evaluate a model with `reduce` applied at every `reduce_rows`."""
+    token = _ROW_REDUCE.set(reduce)
+    try:
+        yield
+    finally:
+        _ROW_REDUCE.reset(token)
 
 
 def safe_norm(vec: torch.Tensor, eps: float = 1e-14, dim: int = -1):

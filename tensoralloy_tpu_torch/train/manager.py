@@ -12,8 +12,13 @@ and triple arrays for the EAM family and the descriptors' 'segment'
 backend (the default), the dense rows for 'dense' and 'pallas'. The
 constraint losses named under `nn.minimize` are built as the JAX manager
 builds them, and `export` writes the EAM family's setfl file beside the
-`.npz`. Several devices are not ported yet: `distribute.num_devices`
-above 1 raises `NotImplementedError` when the manager is built.
+`.npz`. `distribute.num_devices` (None or 0: the whole current
+`torch.distributed` group) is the trainer's data-parallel mesh, unless
+`distribute.strategy` is 'off' or 'one_device'; more devices than the
+group has ranks raise ValueError. Each rank builds the dataset (rank 0
+first: it writes the cache and the database's metadata) and only rank 0
+writes files: the backed-up input, logs, checkpoints, the export and the
+setfl file.
 """
 from __future__ import annotations
 
@@ -28,16 +33,11 @@ import numpy as np
 from ..io.input import InputReader
 from ..io.sqlite import connect
 from ..nn import losses as loss_ops
+from ..parallel.mesh import main_first, make_mesh
 from ..transform.featurizer import Featurizer
 from . import hooks as hook_ops
 from .dataset import Dataset
 from .trainer import OptParameters, TrainParameters, Trainer
-
-def _not_ported(what: str, slice_name: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to tensoralloy_tpu_torch yet; it comes "
-        f"with {slice_name}")
-
 
 @dataclass
 class PairStyle:
@@ -73,9 +73,28 @@ class TrainingManager:
         n_devices = r.get("distribute.num_devices", 0) or None
         if r.get("distribute.strategy", "off") in ("off", "one_device"):
             n_devices = 1
-        if n_devices not in (None, 1):
-            raise _not_ported(f"distribute.num_devices={n_devices}",
-                              "the parallel/ slice")
+        self.mesh = make_mesh(n_devices)
+        with main_first(self.mesh):
+            self._open_dataset()
+            self.model = self._build_model()
+        self.constraints = self._build_constraints()
+        self.loss_parameters = self._build_loss_parameters()
+        self.opt_parameters = self._build_opt_parameters()
+        self.train_parameters = self._build_train_parameters()
+        self.trainer = Trainer(
+            self.model, self.loss_parameters, self.opt_parameters,
+            self.train_parameters,
+            minimize_properties=tuple(
+                p for p in r["nn.minimize"]
+                if p in ("energy", "forces", "stress", "total_pressure",
+                         "eentropy", "free_energy")),
+            n_devices=n_devices, constraints=self.constraints,
+            device=device, dtype=self.precision)
+        self._last_state: Optional[dict] = None
+
+    def _open_dataset(self) -> None:
+        """The database, the featurizer and the dataset of the file."""
+        r = self.reader
         self.db = connect(r["dataset.sqlite3"])
         self.elements = self.db.elements
 
@@ -108,22 +127,6 @@ class TrainingManager:
             test_size=r["dataset.test_size"], seed=r["seed"], dtype=dtype,
             cache_dir=r["dataset.tfrecords_dir"], layout=layout,
             transpose=(fa == "dense"))
-
-        self.model = self._build_model()
-        self.constraints = self._build_constraints()
-        self.loss_parameters = self._build_loss_parameters()
-        self.opt_parameters = self._build_opt_parameters()
-        self.train_parameters = self._build_train_parameters()
-        self.trainer = Trainer(
-            self.model, self.loss_parameters, self.opt_parameters,
-            self.train_parameters,
-            minimize_properties=tuple(
-                p for p in r["nn.minimize"]
-                if p in ("energy", "forces", "stress", "total_pressure",
-                         "eentropy", "free_energy")),
-            n_devices=n_devices, constraints=self.constraints,
-            device=device, dtype=self.precision)
-        self._last_state: Optional[dict] = None
 
     def _build_constraints(self) -> list:
         """The constraint losses named in `nn.minimize`, each with its
@@ -382,36 +385,42 @@ class TrainingManager:
         return None
 
     def train_and_evaluate(self, verbose: bool = True) -> dict:
-        """Featurize, split, fit; checkpoint + history into model_dir."""
-        os.makedirs(self.model_dir, exist_ok=True)
-        # back up the input config + record the pid for `stop`
-        with open(os.path.join(self.model_dir, "input.json"), "w") as fh:
-            json.dump(self.reader.as_dict(), fh, indent=2, default=str)
-        with open(os.path.join(self.model_dir, "run.pid"), "w") as fh:
-            fh.write(str(os.getpid()))
+        """Featurize, split, fit; checkpoint + history into model_dir
+        (rank 0's files; the other ranks train and write nothing)."""
+        main = self.mesh.is_main
+        if main:
+            os.makedirs(self.model_dir, exist_ok=True)
+            # back up the input config + record the pid for `stop`
+            with open(os.path.join(self.model_dir, "input.json"),
+                      "w") as fh:
+                json.dump(self.reader.as_dict(), fh, indent=2, default=str)
+            with open(os.path.join(self.model_dir, "run.pid"), "w") as fh:
+                fh.write(str(os.getpid()))
 
-        feats, labels = self.dataset.build(verbose=verbose)
+        with main_first(self.mesh):
+            feats, labels = self.dataset.build(verbose=verbose and main)
         tf_, tl_, ef_, el_ = self.dataset.split(feats, labels)
         initial_state = self._initial_state()
 
         r = self.reader
         tp = self.train_parameters
         hooks = [hook_ops.NanTensorHook()]
-        hooks.append(hook_ops.CheckpointHook(
-            self.trainer, self.model_dir, every_steps=tp.eval_steps,
-            keep=tp.max_checkpoints_to_keep))
-        if r.get("train.profile_steps", 0):
-            hooks.append(hook_ops.ProfilerHook(
-                self.model_dir + "-profile",
-                every_steps=r["train.profile_steps"]))
-        hooks.append(hook_ops.ExamplesPerSecondHook(
-            tp.batch_size, every_steps=tp.log_steps))
-        hooks.append(hook_ops.LoggingTensorHook(
-            every_steps=tp.summary_steps,
-            jsonl_path=os.path.join(self.model_dir, "metrics.jsonl")))
+        if main:
+            hooks.append(hook_ops.CheckpointHook(
+                self.trainer, self.model_dir, every_steps=tp.eval_steps,
+                keep=tp.max_checkpoints_to_keep))
+            if r.get("train.profile_steps", 0):
+                hooks.append(hook_ops.ProfilerHook(
+                    self.model_dir + "-profile",
+                    every_steps=r["train.profile_steps"]))
+            hooks.append(hook_ops.ExamplesPerSecondHook(
+                tp.batch_size, every_steps=tp.log_steps))
+            hooks.append(hook_ops.LoggingTensorHook(
+                every_steps=tp.summary_steps,
+                jsonl_path=os.path.join(self.model_dir, "metrics.jsonl")))
         callback = hook_ops.compose_hooks(hooks)
         eval_callback = None
-        if r.get("train.keep_best_checkpoint", True):
+        if main and r.get("train.keep_best_checkpoint", True):
             best_hook = hook_ops.BestCheckpointHook(
                 self.trainer, self.model_dir,
                 metric=str(r.get("train.best_metric", "energy/mae/atom")))
@@ -427,15 +436,17 @@ class TrainingManager:
         state = result["state"]
         self.trainer.save_checkpoint(
             os.path.join(self.model_dir, "checkpoint.npz"), state)
-        with open(os.path.join(self.model_dir, "history.json"), "w") as fh:
-            json.dump(result["history"], fh, indent=2)
+        if main:
+            with open(os.path.join(self.model_dir, "history.json"),
+                      "w") as fh:
+                json.dump(result["history"], fh, indent=2)
         self._last_state = state
         return result
 
     def export(self, state: Optional[dict] = None,
                use_ema: bool = True) -> str:
         """Save the deployable model (and, for the EAM family, its LAMMPS
-        setfl file beside it); -> the `.npz` path."""
+        setfl file beside it; rank 0 writes them); -> the `.npz` path."""
         from ..io.model import save_model
         state = state or self._last_state
         if state is None:
@@ -443,6 +454,8 @@ class TrainingManager:
         params = state["ema_params"] if use_ema else state["params"]
         name = self.reader["dataset.name"]
         path = os.path.join(self.model_dir, f"{name}.npz")
+        if not self.mesh.is_main:
+            return path
         save_model(path, self.model, params)
         if self.pair_style.category == "eam":
             r = self.reader

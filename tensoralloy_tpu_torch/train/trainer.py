@@ -14,6 +14,17 @@ loss w.r.t. the parameters only (a second backward through the first).
 Flat `.npz` checkpoints use the JAX package's keys (`params/...`,
 `ema/...`, `opt/...`, `step`), so either package resumes from the
 other's file.
+
+Data parallelism (`n_devices`, a mesh of `torch.distributed` ranks):
+every rank reads the same batch, predicts E/F/S of its own block of it,
+and the predictions are gathered with their gradients
+(`parallel.collectives.gather`). Every rank then computes the loss of
+the GLOBAL batch, as JAX's SPMD step does: an `rmse` is the root of the
+whole batch's mean, not a mean of per-shard roots (which averaging
+per-shard gradients would give). Each rank's parameter gradient is the
+share of its predictions plus 1/n of the terms on the parameters alone
+(L2, constraints), and one all-reduce sums them. The optimizer and the
+EMA run replicated on every rank from parameters broadcast by rank 0.
 """
 from __future__ import annotations
 
@@ -29,6 +40,8 @@ import torch
 from ..nn import losses as loss_ops
 from ..nn.fields import EV_ANGSTROM3_TO_GPA, make_efs_fn
 from ..ops.dense import make_dense_efs_fn
+from ..parallel.collectives import all_reduce_many, gather
+from ..parallel.mesh import make_mesh, replicate
 from ..precision import resolve_device, resolve_dtype, set_tf32
 from ..utils import tree_flatten, tree_map, tree_unflatten
 from .dataset import batch_index_stream, batches, to_tensors
@@ -36,6 +49,13 @@ from .optim import (OptParameters, make_optimizer, opt_state_from_flat,
                     opt_state_to_flat)
 
 __all__ = ["OptParameters", "TrainParameters", "Trainer"]
+
+# the loss terms read from the (gathered) predictions; every other term
+# (L2, the constraints) is a function of the parameters alone
+_PREDICTED = ("energy", "forces", "stress_voigt", "total_pressure",
+              "eentropy", "free_energy")
+_PREDICTED_TERMS = ("energy", "forces", "stress", "total_pressure",
+                    "eentropy", "free_energy")
 
 # jax's names for float32 matmuls at full precision, and for the reduced
 # ones that map onto TF32 here
@@ -155,8 +175,12 @@ class Trainer:
     `device` is the card unless the caller passes "cpu" ("cuda" without
     a card raises); `dtype` is 'high' (float64), 'medium' (float32) or a
     torch float dtype. The model, and the constant features of the
-    `constraints`, are moved there. Data-parallel training (`n_devices`
-    > 1) is not ported yet."""
+    `constraints`, are moved there. `n_devices` is the data-parallel
+    mesh (`parallel.mesh.make_mesh`): None is the whole current
+    `torch.distributed` group (one rank without a group), and more ranks
+    than the group has raise ValueError. The batch, and a microbatch,
+    must split evenly over the ranks. Only rank 0 prints and writes
+    checkpoints."""
 
     def __init__(self, model, loss_parameters: loss_ops.LossParameters,
                  opt_parameters: OptParameters,
@@ -165,11 +189,14 @@ class Trainer:
                  n_devices: Optional[int] = None,
                  constraints: Optional[list] = None, *,
                  device="cuda", dtype="medium"):
-        if n_devices not in (None, 1):
-            raise NotImplementedError(
-                f"n_devices={n_devices}: data-parallel training is not "
-                "ported yet; it comes with the parallel/ slice")
         self.device = resolve_device(device)
+        self.mesh = make_mesh(n_devices)
+        n = self.mesh.size
+        mb = int(train_parameters.microbatch_size or 0)
+        if train_parameters.batch_size % n or mb % n:
+            raise ValueError(
+                f"batch_size={train_parameters.batch_size} and "
+                f"microbatch_size={mb} must split evenly over {n} devices")
         self.dtype = resolve_dtype(dtype)
         self.model = model.to(device=self.device, dtype=self.dtype)
         self.constraints = [c.to(self.device, self.dtype)
@@ -222,8 +249,14 @@ class Trainer:
     def total_loss(self, params, feats, labels, step: int
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         lp = self.loss_parameters
+        mesh = self.mesh
+        local = feats if mesh.group is None else {
+            k: v[mesh.block(v.shape[0])] for k, v in feats.items()}
         preds = self.batched_predictions(
-            params, feats, create_graph=torch.is_grad_enabled())
+            params, local, create_graph=torch.is_grad_enabled())
+        if mesh.group is not None:
+            preds = {k: gather(v, mesh) for k, v in preds.items()
+                     if k in _PREDICTED}
         n_atoms = labels["n_atoms"]
         atom_masks = feats["atom_masks"]
         max_steps = self.train_parameters.train_steps
@@ -322,8 +355,9 @@ class Trainer:
     # ------------------------------------------------------------------
     def init_state(self, params) -> dict:
         """Fresh state around copies of `params` (a tree of tensors or
-        arrays), on the trainer's device in its dtype."""
-        params = self._tree_to_device(params)
+        arrays), on the trainer's device in its dtype; rank 0's on every
+        rank of the mesh."""
+        params = replicate(self._tree_to_device(params), self.mesh)
         return {"params": params,
                 "opt_state": self._opt_init(params),
                 "ema_params": tree_map(torch.clone, params),
@@ -337,7 +371,8 @@ class Trainer:
         tp = self.train_parameters
         mb, bs = int(tp.microbatch_size or 0), int(tp.batch_size)
         if not (0 < mb < bs):
-            return self._loss_and_grads(params, feats, labels, step)
+            out, grads = self._loss_and_grads(params, feats, labels, step)
+            return out, self._sum_over_ranks(grads)
         n_chunks = bs // mb
         g_acc = m_acc = None
         for c in range(n_chunks):
@@ -350,15 +385,30 @@ class Trainer:
         scale = 1.0 / n_chunks
         metrics = {k: v * scale for k, v in m_acc.items()}
         return ((metrics["loss/total"], metrics),
-                tree_map(lambda x: x * scale, g_acc))
+                self._sum_over_ranks(tree_map(lambda x: x * scale, g_acc)))
+
+    def _sum_over_ranks(self, grads):
+        """The ranks' gradient shares summed (one all-reduce)."""
+        if self.mesh.group is None:
+            return grads
+        flat = tree_flatten(grads)
+        return tree_unflatten(dict(zip(
+            flat, all_reduce_many(list(flat.values()), self.mesh))))
 
     def _loss_and_grads(self, params, feats, labels, step):
+        """This rank's share of the gradient (`_sum_over_ranks` completes
+        it)."""
         flat = tree_flatten(params)
         leaves = {k: v.detach().requires_grad_() for k, v in flat.items()}
+        n = self.mesh.size
         with torch.enable_grad():
             loss, metrics = self.total_loss(tree_unflatten(leaves), feats,
                                             labels, step)
-            grads = torch.autograd.grad(loss, list(leaves.values()),
+            target = loss if n == 1 else sum(
+                v if k[5:] in _PREDICTED_TERMS else v / n
+                for k, v in metrics.items()
+                if k.startswith("loss/") and k != "loss/total")
+            grads = torch.autograd.grad(target, list(leaves.values()),
                                         allow_unused=True)
         grads = {k: torch.zeros_like(v) if g is None else g
                  for (k, v), g in zip(leaves.items(), grads)}
@@ -499,6 +549,7 @@ class Trainer:
         `eval_callback(step, state, metrics)` after each periodic
         evaluation of the EMA parameters on the test set."""
         tp = self.train_parameters
+        verbose = verbose and self.mesh.is_main
         if params is None and initial_state is None:
             params = self.init_params(train_feats, verbose)
         bs = tp.batch_size
@@ -509,7 +560,8 @@ class Trainer:
         n_train = len(train_labels["energy"])
         k = max(int(tp.scan_steps or 1), 1)
 
-        use_dev = bool(tp.device_dataset)
+        # the device-resident set serves one rank, as in the JAX package
+        use_dev = bool(tp.device_dataset) and self.mesh.size == 1
         if use_dev:
             dev_bytes = sum(np.asarray(v).nbytes
                             for d in (train_feats, train_labels)
@@ -588,7 +640,10 @@ class Trainer:
     # ------------------------------------------------------------------
     def save_checkpoint(self, path: str, state: dict, extra: dict = None):
         """Flat-npz checkpoint: params, EMA params, optimizer state and
-        global step, under the JAX package's keys."""
+        global step, under the JAX package's keys; written by rank 0
+        only."""
+        if not self.mesh.is_main:
+            return
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
         flat = {}
         for prefix, key in (("params", "params"), ("ema", "ema_params")):

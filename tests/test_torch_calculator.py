@@ -297,7 +297,9 @@ def test_port_imports_without_jax():
     walked = set(proc.stdout.split())
     for name in ("cli.entry", "cli.__main__", "tensordb.cli",
                  "tensordb.__main__", "test_utils", "ops.fused",
-                 "train.manager", "nn.eam.fast_efs", "analysis.surface"):
+                 "train.manager", "nn.eam.fast_efs", "analysis.surface",
+                 "parallel", "parallel.mesh", "parallel.collectives",
+                 "parallel.spatial", "parallel.ranks", "parallel.dryrun"):
         assert f"tensoralloy_tpu_torch.{name}" in walked, name
     sources = list((ROOT / "tensoralloy_tpu_torch").rglob("*.py"))
     assert sources

@@ -16,7 +16,7 @@ import chip_smoke
 from test_torch_cli_compute import (  # noqa: F401 (the fixtures apply)
     DYNAMICS, EAM, _argv, _hop, check_case, float64_models,
     one_torch_thread)
-from test_torch_cli_verbs import port_main, run_both
+from test_torch_cli_verbs import jax_main, port_main, run_both
 
 REL = 1e-8
 
@@ -48,10 +48,16 @@ def test_fe_as_jax_where_it_is_deterministic(tmp_path):
 
 
 def test_neb_on_several_devices_raises_by_name(tmp_path):
-    """--shards 2 asks for NEB over two devices: NotImplementedError,
-    naming what it waits for."""
+    """--shards 2 asks for NEB over two devices: without a group of two
+    ranks the ValueError of too few devices, and with 9 images (the
+    default) JAX's uneven split. (On two ranks it runs:
+    test_torch_parallel_analysis.py.)"""
     _hop(tmp_path)
-    with pytest.raises(NotImplementedError, match="parallel"):
-        chip_smoke.run_verb(port_main, _argv([
-            "compute", "neb", EAM, "initial.extxyz", "final.extxyz",
-            "--shards", "2", "--max-steps", "1"]), tmp_path)
+    argv = ["compute", "neb", EAM, "initial.extxyz", "final.extxyz",
+            "--shards", "2", "--max-steps", "1"]
+    with pytest.raises(ValueError, match="n_shards=2 > 1 available devices"):
+        chip_smoke.run_verb(port_main, _argv(argv + ["--n-images", "8"]),
+                            tmp_path)
+    for main in (port_main, jax_main):
+        with pytest.raises(ValueError, match="not divisible by n_shards=2"):
+            chip_smoke.run_verb(main, _argv(argv), tmp_path)

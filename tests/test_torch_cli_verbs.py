@@ -532,21 +532,26 @@ def test_platform_cpu_and_float32_by_default(tmp_path, monkeypatch):
     assert seen == [{"device": "cpu", "dtype": "medium"}]
 
 
+# a file that once raised NotImplementedError (several devices, until the
+# port of `parallel/`)
 NOT_PORTED = {
     "devices": ("snap_ni_sfa", {"distribute.strategy": "mirrored",
-                                "distribute.num_devices": 4}, "parallel"),
+                                "distribute.num_devices": 4},
+                "requested 4 devices but only 1 available"),
 }
 
 
 @pytest.mark.parametrize("case", sorted(NOT_PORTED))
 def test_run_of_what_is_not_ported_raises_by_name(case, tmp_path):
-    """A file that asks for what this package does not have yet raises
-    NotImplementedError naming it; `python -m` exits non-zero."""
+    """A file that asks for more devices than the process's group has
+    ranks raises the ValueError that JAX raises with too few devices;
+    `python -m` exits non-zero. (Under `python -m torch.distributed.run`
+    with that many ranks it trains: test_torch_parallel_train.py.)"""
     from test_torch_manager import cut_config
     run, overrides, match = NOT_PORTED[case]
     config = cut_config(run, tmp_path, overrides)
     chip_smoke.dump_toml(config, tmp_path / "input.toml")
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(ValueError, match=match):
         torch_main(["run", str(tmp_path / "input.toml")], device="cpu")
     if case == "devices":
         proc = subprocess.run(
@@ -556,7 +561,7 @@ def test_run_of_what_is_not_ported_raises_by_name(case, tmp_path):
                      PYTHONPATH=str(ROOT)),
             capture_output=True, text=True, timeout=300)
         assert proc.returncode != 0
-        assert "NotImplementedError" in proc.stderr
+        assert "ValueError: " + match in proc.stderr
 
 
 # the files that once raised: the descriptors' flat layout and legacy GRAP

@@ -261,8 +261,15 @@ def test_refusals(ni_committees):
     _, calc = ni_committees
     with pytest.raises(NotImplementedError):
         calc.get_hessian(jittered_ni()[1])
-    with pytest.raises(NotImplementedError, match="parallel"):
+    # several ranks: the ValueError of too few devices outside a group of
+    # them (tests/test_torch_parallel_analysis.py runs one), and JAX's
+    # uneven split
+    with pytest.raises(ValueError, match="n_shards=3 > available devices"):
         EnsembleCalculator(NI_MEMBERS, n_shards=3, device="cpu")
+    for cls, kw in ((EnsembleCalculator, dict(device="cpu")),
+                    (JaxEnsemble, {})):
+        with pytest.raises(ValueError, match="not divisible by n_shards=2"):
+            cls(NI_MEMBERS, n_shards=2, **kw)
     with pytest.raises(ValueError, match="at least 2"):
         EnsembleCalculator(NI_MEMBERS[:1], device="cpu")
     moni = str(ROOT / "artifacts/snap_moni/model/snap_MoNi.npz")

@@ -354,15 +354,19 @@ def test_warm_start_from_the_file_named_in_the_toml(tmp_path):
     assert TrainingManager(warm, device="cpu")._initial_state()["step"] == 0
 
 
-# what still raises NotImplementedError, each by its name: the manager's
-# refusals (run, overrides, match) and the other entry points (a callable
-# and match)
+# what once raised NotImplementedError (several devices, until the port
+# of `parallel/`) and now raises what the JAX package raises with too few
+# devices: the manager's files (run, overrides, match) and the other entry
+# points (a callable and match). Inside a group of that many ranks they
+# run: tests/test_torch_parallel_{train,analysis}.py.
 NOT_PORTED = {
     "devices": ("snap_ni_sfa", {"distribute.strategy": "mirrored",
-                                "distribute.num_devices": 4}, "parallel"),
+                                "distribute.num_devices": 4},
+                "requested 4 devices but only 1 available"),
     "ensemble_shards": (lambda: __import__(
         "tensoralloy_tpu_torch.ensemble", fromlist=["x"]
-    ).EnsembleCalculator(["a.npz", "b.npz"], n_shards=2), "parallel"),
+    ).EnsembleCalculator(["a.npz", "b.npz"], n_shards=2),
+        "n_shards=2 > available devices"),
 }
 
 
@@ -370,7 +374,7 @@ NOT_PORTED = {
 def test_what_is_not_ported_raises_by_name(case, tmp_path):
     if callable(NOT_PORTED[case][0]):
         fn, match = NOT_PORTED[case]
-        with pytest.raises(NotImplementedError, match=match):
+        with pytest.raises(ValueError, match=match):
             fn()
         return
     run, overrides, match = NOT_PORTED[case]
@@ -378,8 +382,13 @@ def test_what_is_not_ported_raises_by_name(case, tmp_path):
         config = cut_config(run, tmp_path, overrides)
     else:   # refused before the database is opened
         config = experiment_config(run, tmp_path, overrides)
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(ValueError, match=match):
         TrainingManager(config, device="cpu")
+    # the JAX manager on the conftest's 8 virtual devices: 9 are too many
+    jconfig = dict(config, distribute=dict(config["distribute"],
+                                           num_devices=9))
+    with pytest.raises(ValueError, match="requested 9 devices but only 8"):
+        JaxTrainingManager(jconfig)
 
 
 def test_rose_and_elastic_files_in_the_repo_are_refused(tmp_path):

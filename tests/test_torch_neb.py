@@ -184,7 +184,12 @@ def test_neb_refusals():
     _, _, twin = _zjw04(len(si))
     with pytest.raises(ValueError, match="at least 3"):
         NEB(twin, si, sf, n_images=2)
-    with pytest.raises(NotImplementedError, match="parallel"):
+    # several ranks: the ValueError of too few devices outside a group of
+    # them (tests/test_torch_parallel_analysis.py runs one), and the uneven
+    # split JAX refuses
+    with pytest.raises(ValueError, match="n_shards=2 > 1 available devices"):
         NEB(twin, si, sf, n_images=6, n_shards=2)
+    with pytest.raises(ValueError, match="n_images=7 not divisible"):
+        NEB(twin, si, sf, n_images=7, n_shards=2)
     with pytest.raises(RuntimeError, match="run"):
         NEB(twin, si, sf, n_images=3).saddle_structure()

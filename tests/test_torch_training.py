@@ -717,7 +717,10 @@ def test_trainer_defaults_to_the_card_and_names_what_waits(monkeypatch,
         case = Case("sf_dense", tmp_path)
     args = (case.model, L.LossParameters(), OptParameters(),
             TrainParameters())
-    with pytest.raises(NotImplementedError, match="parallel/"):
+    # several devices: the ValueError JAX raises with too few (a group of
+    # four ranks trains, tests/test_torch_parallel_train.py)
+    with pytest.raises(ValueError,
+                       match="requested 4 devices but only 1 available"):
         Trainer(*args, n_devices=4, device="cpu")
     # a constraint is moved to the trainer's device and dtype, and its
     # loss joins the total under its name (nn/constraints.py)
