@@ -8,8 +8,8 @@ Run from the root of a checkout. Phases, each printing its result; any
 failure ends the run with a non-zero exit and no result line:
 
   1. card    require torch.cuda; print nvidia-smi's name and power limit
-  2. build   compile the CUDA kernels (G2/G4, GRAP) from the checkout's
-             sources
+  2. build   compile the CUDA kernels (G2/G4, GRAP and their VJP
+             kernels) from the checkout's sources
   3. native  build the C++ host lists (neighbor list, triples) with g++
              and fail if they do not build; hold them against the numpy
              lists on the 4000-atom Ni cell, the 4000-atom MoNi cell and
@@ -18,12 +18,19 @@ failure ends the run with a non-zero exit and no result line:
              and grap requests at 4000 and 32000 atoms both ways
   4. kernels each kernel against its plain PyTorch twin on seeded random
              geometry with masked tails and an empty first row: float32
-             values and gradients to 2e-5, float64 to 1e-12; G2 at 32 to
+             values and gradients to 2e-5, float64 to 1e-12 (gradients
+             to that share of their largest value); G2 at 32 to
              256 entries and at widths that are no multiple of 4, 1 to 6
              slots, the served grid and one of 18 rows; G4 at 256
-             and 384 entries with 1 and 3 slots; GRAP over the algorithm
-             x moment grid with gaps, symmetric weights, 1-3 slots, rows
-             of 256 entries (more than 128 real pairs) and 64 filters
+             and 384 entries with 1 and 3 slots, and a grid with
+             |gamma| = 2 (the clamp active) and zeta 1, 2, 4; GRAP over
+             the algorithm x moment grid with gaps, symmetric weights,
+             1-3 slots, rows of 256 entries (more than 128 real pairs)
+             and 64 filters. Each VJP kernel on the same inputs with
+             B = 1 and B = 3 seeded cotangents against its closed form
+             and against the twin's autograd, to the same limits, its
+             masked entries exactly 0; the second-order gradients (the
+             twin's VJP in the graph) against the all-twin path
   5. serve   the port's calculator in float32 with backend="pallas" on
              its default device, which must be cuda, one path after
              another, each with the launch counts reset before it and
@@ -33,9 +40,10 @@ failure ends the run with a non-zero exit and no result line:
                grap    snap_Ni.npz (v5_readapt), the same two sizes
                moni    snap_MoNi.npz (ref11), 4000 atoms, 10 % Mo
                td      td_Be.npz, 36 atoms of hcp Be at 0.1 eV
-             Each request must launch each of its path's kernels once
-             (forces, stress and the by-products come from one pass),
-             agree with the
+             Each request must launch each of its path's kernels and
+             each of their VJP kernels once (forces, stress and the
+             by-products come from one pass and one backward), agree
+             with the
              same calculator on the twins, and have |sum F| ~ 0; the
              108-atom Ni requests and the Be request are also held
              against the JAX-reference fixtures (float32 and float64)
@@ -56,7 +64,9 @@ failure ends the run with a non-zero exit and no result line:
              parameters: every loss and the first gradient norm against
              the JAX trainer's fixture, 1e-8; (b) float32 steps from
              `init_params`: finite losses, a fixed batch's loss falls,
-             one launch of each kernel per forward, and the same run on
+             one launch of each kernel per forward and none of a VJP
+             kernel (the force loss differentiates the twin's VJP), and
+             the same run on
              the twins agrees (1e-4 over 5 steps, 1e-3 after); the
              parameter gradient through the kernels against the twins';
              (c) sf: `evaluate` of the saved weights on the test set
@@ -72,7 +82,8 @@ failure ends the run with a non-zero exit and no result line:
              checkpoint: TrainingManager -> train_and_evaluate -> export
              -> evaluate_run -> the exported file served by the
              calculator. The device must be cuda, the run's files must
-             exist, every train step must launch each kernel once,
+             exist, every train step must launch each kernel once and
+             no VJP kernel,
              evaluate_run's overall MAE must equal the trainer's own
              evaluation of the same checkpoint, and a second
              train_and_evaluate with more steps must resume from the
@@ -109,7 +120,9 @@ failure ends the run with a non-zero exit and no result line:
              map + copy of the positions, build and E/F/S; SF 4000 with
              device_nl=True (triples on the card) with its peak memory;
              SF and GRAP 32000 with chunked=True, chunk_size=4096 against
-             the monolithic route, two launches of each kernel a block;
+             the monolithic route, two launches of each kernel a block
+             and one of its VJP kernel; each device-list request one of
+             each kernel and of its VJP kernel;
              get_hessian of the 108-atom Ni cell (mleam_ni, snap_ni_sfa)
              in float64 against the JAX fixtures
              `tests/data/torch_port_ref_hessian_*.json` (1e-10),
@@ -122,12 +135,14 @@ failure ends the run with a non-zero exit and no result line:
              heat flux: the drift of the total under 0.5 meV/atom, the
              analytic and autograd fluxes of the last state to 1e-4; (c)
              GRAP MD of Ni 4000 on device lists, 50 steps: grap_kernel
-             once a step and twice a chunk; (d) BAOAB NVT and Berendsen
+             and grap_vjp_kernel once a step and twice a chunk; (d) BAOAB
+             NVT and Berendsen
              NPT of ADP Mo 4394, 100 steps each. Each run prints steps/s,
              atom-steps/s, the chunk-end sync time and the regrows
  11. analysis the materials-analysis path on the default device (cuda),
              each part with the launch counts reset before it and read
-             after it (the kernels it names must launch, no other):
+             after it (the kernels it names must launch, no other but
+             their VJP kernels):
              (a) relax_cell -> fit_elastic_tensor -> EOS over 7 volumes of
              snap_ni_sfa on the 4-atom fcc Ni cell (g2, g4): float64
              against `tests/data/torch_port_ref_analysis.json` (1e-6),
@@ -143,15 +158,19 @@ failure ends the run with a non-zero exit and no result line:
              the 255-atom vacancy hop (snap_ni_v5_readapt, 7 images,
              float32): one evaluation against the twins (1e-4), then 100
              FIRE steps in chunks of 25 between relaxed endpoints,
-             grap_kernel once per band evaluation; (e) the committees:
+             grap_kernel and grap_vjp_kernel once per band evaluation;
+             (e) the committees:
              5 MoNi GRAP members on the 4000-atom MoNi cell and 8 Mo SF
              members on bcc Mo 4394, the mean against the mean of single
-             members (1e-4), one descriptor launch a request, the request
+             members (1e-4), one descriptor launch and one of its VJP
+             kernel (B = K) a request, the request
              beside the K single requests; `select_by_uncertainty` over
              8 jittered MoNi frames; (f) LinearTensorMD (pexp8, moments
              0-3) fitted in float64 on the first 50 structures of
              snap-Ni.db through grap_kernel and through the twins
-             (coefficients 1e-8), exported and served; (g) Frenkel-Ladd of
+             (coefficients 1e-8; a structure's rows one grap_kernel and
+             one grap_vjp_kernel of B = n_coef), exported and served; (g)
+             Frenkel-Ladd of
              mleam_ni on Ni 108 at 300 K at cut depth, and the Einstein ->
              Einstein integration against its closed form (5 %); (h) the
              (111) and (100) surface energies and the intrinsic stacking
@@ -172,10 +191,11 @@ failure ends the run with a non-zero exit and no result line:
              on the exported model and on its twin copy ('dense'), float32:
              each launches g2 and g4, and its printed numbers and files
              agree with the twins' to 1e-4; (c) md --device-nl of GRAP Ni
-             4000 (40 steps, chunks of 20; grap_kernel once a step and
-             twice a chunk), neb of the 255-atom vacancy hop (20 FIRE
-             steps; once a band evaluation) and uncertainty of the 5 MoNi
-             members over 4 jittered frames (once a frame), each on
+             4000 (40 steps, chunks of 20; grap_kernel and its VJP kernel
+             once a step and twice a chunk), neb of the 255-atom vacancy
+             hop (20 FIRE steps; once a band evaluation) and uncertainty
+             of the 5 MoNi members over 4 jittered frames (once a frame),
+             each on
              'pallas' copies against the saved 'dense' files (1e-4); (d)
              latt, eos, elastic, defect and surface of snap_ni_sfa and
              mleam_ni (their weights stored in float64), float64, against
@@ -215,7 +235,8 @@ failure ends the run with a non-zero exit and no result line:
              virials summing to the virial, `python -m
              tensoralloy_tpu_torch.cli compute kappa` exits 0; (e) the 5
              MoNi GRAP members at 4000 atoms with chunked=True against
-             chunked=False (1e-4), grap_kernel once a row block
+             chunked=False (1e-4), grap_kernel and grap_vjp_kernel once a
+             row block
  14. parallel `parallel/` over `torch.distributed`, each part printing
              its backend and each time beside the card's name and power
              limit: (a) in this process a world of one rank on a
@@ -240,8 +261,10 @@ failure ends the run with a non-zero exit and no result line:
              --shards 2` against the unsharded verb (1e-4 of a line)
  15. time    median time per request and its device E/F/S part,
              kernels vs twins (the grap 32000 request on device lists, as
-             "auto" routes it); each kernel vs its twin at the
-             32000-atom request's shapes (`ms`: the median of single
+             "auto" routes it); each kernel vs its twin, each VJP kernel
+             vs its closed form (and the twin's autograd VJP, the
+             backward before the VJP kernels), at the 32000-atom
+             request's shapes, B = 1 (`ms`: the median of single
              CUDA-event-timed launches, as since the first slice;
              `ms_queued`: the device time of calls queued behind a
              sleeping kernel, on the same buffers, and
@@ -249,14 +272,14 @@ failure ends the run with a non-zero exit and no result line:
              in turn, more than the L2 cache holds), beside its bound:
              the larger of its
              bytes (mask and slot read once, the geometry of the real
-             entries only, output written once) at 3.35 TB/s and its
-             useful FLOP at the FP32 67 TFLOP/s
+             entries only, a cotangent read once, outputs written once)
+             at 3.35 TB/s and its useful FLOP at the FP32 67 TFLOP/s
 
-The line before the last is a JSON object of per-kernel results (the
-launches of the serve, train, manager, large, md, analysis, cli,
-descriptors and parallel phases, each counted from 0; "cli",
-"descriptors" and "parallel" those phases' alone, "parallel" summed over
-the ranks);
+The line before the last is a JSON object of per-kernel results, the
+three forward kernels and their three VJP kernels (the launches of the
+serve, train, manager, large, md, analysis, cli, descriptors and
+parallel phases, each counted from 0; "cli", "descriptors" and
+"parallel" those phases' alone, "parallel" summed over the ranks);
 the last is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -282,10 +305,25 @@ MODELS = ROOT / "artifacts"
 DATA = ROOT / "tests" / "data"
 SOURCES = {"g2": "tensoralloy_tpu_torch/csrc/sf_kernels.cu",
            "g4": "tensoralloy_tpu_torch/csrc/sf_kernels.cu",
-           "grap": "tensoralloy_tpu_torch/csrc/grap_kernel.cu"}
+           "grap": "tensoralloy_tpu_torch/csrc/grap_kernel.cu",
+           "g2_vjp": "tensoralloy_tpu_torch/csrc/sf_vjp.cu",
+           "g4_vjp": "tensoralloy_tpu_torch/csrc/sf_vjp.cu",
+           "grap_vjp": "tensoralloy_tpu_torch/csrc/grap_vjp.cu"}
+# a VJP kernel replaces the backward of the JAX op around the Pallas
+# kernel: `_custom_vjp_op`'s bwd (jax.vjp of `_g2_ref_dense` :310,
+# `_g4_ref_dense` :397, `_grap_ref_dense` :151)
 REPLACES = {"g2": "tensoralloy_tpu/ops/fused.py:326",
             "g4": "tensoralloy_tpu/ops/fused.py:412",
-            "grap": "tensoralloy_tpu/ops/fused.py:170"}
+            "grap": "tensoralloy_tpu/ops/fused.py:170",
+            "g2_vjp": "tensoralloy_tpu/ops/fused.py:91",
+            "g4_vjp": "tensoralloy_tpu/ops/fused.py:91",
+            "grap_vjp": "tensoralloy_tpu/ops/fused.py:91"}
+
+
+def vjps(kernels) -> tuple:
+    """The VJP kernels of the forward kernels `kernels`."""
+    return tuple(f"{k}_vjp" for k in kernels)
+
 # the main path's paths: model, the kernels every request must launch,
 # and the JAX-reference fixture of its first request with the fixture's
 # element (or None)
@@ -665,6 +703,9 @@ def check_kernels(device="cuda", rows=4001) -> None:
                           zeta=[1.0, 4.0], backend="dense")
     wide = SymmetryFunction(["Ni"], eta=[0.01, 0.1, 0.5, 1.0, 4.0, 20.0],
                             omega=[0.0, 1.5, 3.0], backend="dense")
+    # |gamma| = 2: the clamp of 1 + gamma cos(theta) at 0 is active
+    clamp = SymmetryFunction(["Ni"], beta=[0.005, 0.05], gamma=[2.0, -2.0],
+                             zeta=[1.0, 2.0, 4.0], backend="dense")
     rng = np.random.default_rng(SEED)
     for dtype, tol in ((torch.float32, F32), (torch.float64, F64)):
         for cutoff in ("cosine", "polynomial"):
@@ -677,15 +718,19 @@ def check_kernels(device="cuda", rows=4001) -> None:
                            fused.g2_reference, [rij], [slot, mask],
                            (grid, 6.0, cutoff, n_slots), dtype, tol)
                 _compare(*g2_case)
+                _compare_vjp(*g2_case)
             _compare_second_order(*g2_case)
-            for n, n_slots in ((256, 3), (384, 1), (384, 3)):
-                g4_args = (sf.angular_grid, 4.0, cutoff, n_slots)
+            for n, n_slots, g4_sf in ((256, 3, sf), (384, 1, sf),
+                                      (384, 3, sf), (256, 3, clamp)):
+                g4_args = (g4_sf.angular_grid, 4.0, cutoff, n_slots)
                 *dists, slot, mask = _random_triples(rng, rows, n, n_slots,
                                                      4.0, dtype, device)
-                g4_case = ("g4", f"{cutoff} N={n} S={n_slots}",
+                g4_case = ("g4", f"{cutoff} N={n} S={n_slots} "
+                           f"T4={len(g4_args[0])}",
                            fused.G4Function, fused.g4_reference, dists,
                            [slot, mask], g4_args, dtype, tol)
                 _compare(*g4_case)
+                _compare_vjp(*g4_case)
             _compare_second_order(*g4_case)
     check_grap_kernel(device, rows)
 
@@ -752,6 +797,7 @@ def check_grap_kernel(device="cuda", rows=4001) -> None:
                          fused.grap_reference, diff, [slot, mask],
                          (desc, 6.0, n_slots), dtype, tol)
             _compare(*grap_case)
+            _compare_vjp(*grap_case)
             if desc.n_filters <= 16:
                 _compare_second_order(*grap_case)
 
@@ -771,11 +817,56 @@ def _compare(name, label, function, reference, diff, rest, spec, dtype,
     grads = torch.autograd.grad(y, x, gbar)
     grads_ref = torch.autograd.grad(y_ref, x_ref, gbar)
     for g, gr in zip(grads, grads_ref):
-        torch.testing.assert_close(g, gr, **tol)
+        assert_close_scaled(g, gr, tol)
     err = (y - y_ref).abs().max().item()
     print(f"  {name} {str(dtype)[6:]} {label} {tuple(y.shape)}: "
           f"max_abs_err {err:.3e} at max|value| "
           f"{y_ref.abs().max().item():.3e} (rtol/atol {tol['rtol']:g}) ok")
+
+
+def assert_close_scaled(got, want, tol) -> None:
+    """`got` against `want` to `tol` of the larger of max|want| and 1: a
+    gradient's terms are summed in another order by a VJP kernel than by
+    the twin's autograd, so an entry that cancels to near 0 is off by the
+    round-off of its largest terms."""
+    scale = max(want.abs().max().item(), 1.0)
+    torch.testing.assert_close(got / scale, want / scale, **tol)
+
+
+def _compare_vjp(name, label, function, reference, diff, rest, spec, dtype,
+                 tol):
+    """The VJP kernel (`function.kernel_vjp` on the card) against its
+    closed form and against the twin's own autograd, for B = 1 and B = 3
+    seeded cotangents; masked entries exactly 0."""
+    from tensoralloy_tpu_torch.ops import fused
+    closed = getattr(fused, f"{name}_vjp_reference")
+    mask = rest[-1]
+    y = reference(*diff, *rest, *spec)
+    gen = torch.Generator(device=y.device).manual_seed(SEED + 3)
+    err, top = 0.0, 0.0
+    for batch in (1, 3):
+        gbar = torch.randn((batch, *y.shape), generator=gen, dtype=dtype,
+                           device=y.device)
+        got = function.kernel_vjp(gbar, *diff, *rest, *spec)
+        torch.cuda.synchronize()
+        want = closed(gbar, *diff, *rest, *spec)
+        x = [d.clone().requires_grad_() for d in diff]
+        y_twin = reference(*x, *rest, *spec)
+        per_b = [torch.autograd.grad(y_twin, x, gbar[b], retain_graph=True)
+                 for b in range(batch)]
+        twin = [torch.stack(g) for g in zip(*per_b)]
+        for g, w, t in zip(got, want, twin):
+            if not torch.isfinite(g).all() or (g[:, mask <= 0] != 0).any():
+                raise AssertionError(f"{name}_vjp {label}: not finite, or "
+                                     "a masked entry is not 0")
+            assert_close_scaled(g, w, tol)
+            assert_close_scaled(g, t, tol)
+            err = max(err, (g - w).abs().max().item(),
+                      (g - t).abs().max().item())
+            top = max(top, t.abs().max().item())
+    print(f"  {name}_vjp {str(dtype)[6:]} {label} B=1,3: max_abs_err "
+          f"{err:.3e} against the closed form and the twin's autograd at "
+          f"max|value| {top:.3e} (rtol/atol {tol['rtol']:g}) ok")
 
 
 def _compare_second_order(name, label, function, reference, diff, rest,
@@ -871,10 +962,12 @@ def serve_path(path_name, request_reps=REQUEST_REPS):
         before = dict(fused.launch_counts)
         results.append(calc.calculate(s))
         after = dict(fused.launch_counts)
-        if not all(after[k] == before[k] + 1 for k in kernels):
+        if not all(after[k] == before[k] + 1
+                   for k in kernels + vjps(kernels)):
             raise AssertionError(f"{path_name} {len(s)} atoms: kernels "
-                                 f"{kernels} not launched once each "
-                                 f"({before} -> {after})")
+                                 f"{kernels} and their VJP kernels not "
+                                 f"launched once each ({before} -> "
+                                 f"{after})")
     launches = dict(fused.launch_counts)
     print(f"  launches over the {len(structures)} request(s): {launches}")
 
@@ -904,7 +997,8 @@ def serve_path(path_name, request_reps=REQUEST_REPS):
               f"{json.dumps(errs32)}; float64 {json.dumps(errs64)}")
         if max(errs32.values()) > F32_REL or max(errs64.values()) > F64_REL:
             raise AssertionError("port disagrees with the JAX fixture")
-    return calc, twin, structures, {k: launches[k] for k in kernels}
+    return calc, twin, structures, {k: launches[k]
+                                    for k in kernels + vjps(kernels)}
 
 
 def serve(request_reps=REQUEST_REPS):
@@ -1138,9 +1232,12 @@ def train_path(name, workdir, card):
           f"(limit {grad_rel:g}); "
           f"launches over {len(losses64)} steps {counts}")
     if gerr > grad_rel or any(
-            counts[k] != len(losses64) for k in kernels):
-        raise AssertionError("float64 training disagrees with the fixture "
-                             "or a step did not launch each kernel once")
+            counts[k] != len(losses64) for k in kernels) or any(
+            counts[k] for k in vjps(kernels)):
+        raise AssertionError("float64 training disagrees with the fixture, "
+                             "a step did not launch each kernel once, or "
+                             "one launched a VJP kernel (the force loss "
+                             "takes the twin's differentiable VJP)")
     # kernel path against twin path at seeded parameters (away from a
     # converged model, whose gradient is ill-conditioned, see above)
     seeded64 = t64._tree_to_device(seeded_params(
@@ -1186,10 +1283,12 @@ def train_path(name, workdir, card):
     print(f"  float32, {steps} steps from init_params: loss on a fixed "
           f"batch {before:.6f} -> {after:.6f}; launches {launches}")
     if not all(np.isfinite(losses32)) or not after < before or any(
-            launches[k] != steps for k in kernels):
+            launches[k] != steps for k in kernels) or any(
+            launches[k] for k in vjps(kernels)):
         raise AssertionError("float32 training: a loss is not finite, the "
-                             "fixed batch's loss did not fall, or a "
-                             "forward did not launch each kernel once")
+                             "fixed batch's loss did not fall, a forward "
+                             "did not launch each kernel once, or a step "
+                             "launched a VJP kernel")
     _, losses_twin, _ = _fit_losses(twin32, arrays, params_init)
     _check_losses(f"train_{name} float32, kernels vs twins, steps 1-5",
                   losses32[:5], losses_twin[:5], TRAIN_F32_REL_FIRST)
@@ -1285,7 +1384,8 @@ def train(card):
     with tempfile.TemporaryDirectory() as workdir:
         for name in TRAIN_CONFIGS:
             measured[name] = m = train_path(name, workdir, card)
-            for k in TRAIN_CONFIGS[name]["kernels"]:
+            kernels = TRAIN_CONFIGS[name]["kernels"]
+            for k in kernels + vjps(kernels):
                 per_step[k] = m["launches"][k] // m["steps"]
     return measured, per_step
 
@@ -1296,7 +1396,8 @@ def train(card):
 
 def _count_step_launches(trainer, kernels, rows):
     """Have `trainer.train_step` append to `rows` the step it started
-    from and the launches of each kernel it made."""
+    from and the launches of each kernel and of its VJP kernel it
+    made."""
     from tensoralloy_tpu_torch.ops import fused
     step_fn = trainer.train_step
 
@@ -1305,10 +1406,19 @@ def _count_step_launches(trainer, kernels, rows):
         out = step_fn(state, feats, labels)
         rows.append((int(state["step"]),
                      {k: fused.launch_counts[k] - before[k]
-                      for k in kernels}))
+                      for k in kernels + vjps(kernels)}))
         return out
 
     trainer.train_step = counted
+
+
+def _bad_steps(rows, kernels) -> list:
+    """The rows of `_count_step_launches` whose step did not launch each
+    forward kernel once and no VJP kernel (a train step's force loss
+    takes the twin's differentiable VJP)."""
+    return [row for row in rows
+            if any(row[1][k] != 1 for k in kernels)
+            or any(row[1][k] for k in vjps(kernels))]
 
 
 def manager_path(name, workdir, card):
@@ -1364,14 +1474,16 @@ def manager_path(name, workdir, card):
         raise AssertionError(f"manager_{name}: files missing {missing}, "
                              f"or history {history} is not one evaluation "
                              f"at step {MANAGER_EVAL_STEPS}")
-    bad = [row for row in step_rows if set(row[1].values()) != {1}]
+    bad = _bad_steps(step_rows, kernels)
     if len(step_rows) != MANAGER_STEPS or bad:
         raise AssertionError(f"manager_{name}: {len(step_rows)} steps, "
-                             f"not one launch of each kernel in {bad}")
+                             f"not one launch of each kernel and none of "
+                             f"a VJP kernel in {bad}")
     print(f"  train_and_evaluate: {MANAGER_STEPS} steps in {fit_s:.1f} s "
           f"(min/max sweep, one evaluation and the checkpoints included), "
           f"{result['throughput']:.1f} structures/s; one launch of "
-          f"{kernels} in each step; files {wanted} ({card})")
+          f"{kernels} and none of their VJP kernels in each step; files "
+          f"{wanted} ({card})")
 
     # evaluate_run reads the run's directory again: input.toml, the
     # cached dataset, the newest numbered checkpoint
@@ -1430,7 +1542,7 @@ def manager_path(name, workdir, card):
         raise AssertionError(f"manager_{name}: the run did not resume "
                              "from its newest checkpoint")
     launches = dict(fused.launch_counts)
-    return ({k: launches[k] for k in kernels},
+    return ({k: launches[k] for k in kernels + vjps(kernels)},
             {"build_s": build_s, "fit_s": fit_s,
              "structures_per_s": result["throughput"]})
 
@@ -1831,9 +1943,11 @@ def device_nl_requests(card):
                                      device_nl=False, chunked=False, **opts)
         before = dict(fused.launch_counts)
         res = calc.calculate(s)
-        if kernel is not None and \
-                fused.launch_counts[kernel] != before[kernel] + 1:
-            raise AssertionError(f"{name}: {kernel} not launched once")
+        if kernel is not None and any(
+                fused.launch_counts[k] != before[k] + 1
+                for k in (kernel, *vjps([kernel]))):
+            raise AssertionError(f"{name}: {kernel} or its VJP kernel not "
+                                 "launched once")
         if len(calc._nl_cache) != 1:
             raise AssertionError(f"{name}: 'auto' did not take the device "
                                  "builder")
@@ -1845,7 +1959,8 @@ def device_nl_requests(card):
         (b,) = calc._nl_cache.values()
         t = _device_split(calc, s, 3)
         if kernel is not None:
-            print(f"  {name}: {kernel}_kernel launches a request: 1")
+            print(f"  {name}: {kernel}_kernel and {kernel}_vjp_kernel "
+                  f"launches a request: 1 each")
         print(f"  {name} ({len(s)} atoms, builder grid {b.grid}, "
               f"nnl_cap {b.nnl_cap}, cell_cap {b.cell_cap}, layout "
               f"{b.layout}{', chunked' if chunked else ''}): request "
@@ -1865,8 +1980,10 @@ def device_nl_requests(card):
     before = dict(fused.launch_counts)
     res = calc.calculate(s)
     peak = torch.cuda.max_memory_allocated() / 2 ** 20
-    if any(fused.launch_counts[k] != before[k] + 1 for k in ("g2", "g4")):
-        raise AssertionError("sf device_nl: g2/g4 not launched once")
+    if any(fused.launch_counts[k] != before[k] + 1
+           for k in ("g2", "g4", *vjps(("g2", "g4")))):
+        raise AssertionError("sf device_nl: g2/g4 or their VJP kernels "
+                             "not launched once")
     _check_request("sf 4000 device_nl=True", res, host.calculate(s))
     (b,) = calc._nl_cache.values()
     t = _device_split(calc, s, 3)
@@ -1881,7 +1998,8 @@ def device_nl_requests(card):
 def chunked_requests(card):
     """SF and GRAP 32000 with chunked=True, chunk_size=CHUNK_ROWS, against
     the monolithic route; each block launches its kernels twice (the
-    forward, and the recomputation in the backward)."""
+    forward, and the recomputation in the backward) and their VJP kernels
+    once."""
     from tensoralloy_tpu_torch.calculator import TensorAlloyCalculator
     from tensoralloy_tpu_torch.ops import fused
     s = _structure(TIMED_REPS)
@@ -1898,14 +2016,17 @@ def chunked_requests(card):
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
         blocks = -(-calc._get_vap(s).n_atoms_vap // CHUNK_ROWS)
-        counts = {k: fused.launch_counts[k] - before[k] for k in kernels}
+        counts = {k: fused.launch_counts[k] - before[k]
+                  for k in kernels + vjps(kernels)}
+        want = {**{k: 2 * blocks for k in kernels},
+                **{k: blocks for k in vjps(kernels)}}
         print(f"  {name} 32000 chunked ({blocks} blocks of {CHUNK_ROWS} "
               f"rows, {'device' if calc._nl_cache else 'host'} lists): "
-              f"launches a request {counts} (2 a block), request "
-              f"{ms:.1f} ms ({card})")
-        if any(v != 2 * blocks for v in counts.values()):
+              f"launches a request {counts} (2 a block, a VJP kernel 1), "
+              f"request {ms:.1f} ms ({card})")
+        if counts != want:
             raise AssertionError(f"{name} chunked: launches {counts}, "
-                                 f"expected {2 * blocks} each")
+                                 f"expected {want}")
         if "atomic_energies" in res:
             raise AssertionError(f"{name}: chunked=True served monolithic")
         _check_request(f"{name} 32000 chunked", res, mono.calculate(s))
@@ -1946,7 +2067,7 @@ def large(card):
     hessians(card)
     launches = dict(fused.launch_counts)
     print(f"  launches over the large phase: {launches}")
-    for k in ("g2", "g4", "grap"):
+    for k in launches:
         if not launches[k]:
             raise AssertionError(f"the large phase launched no {k}")
     print(f"  large phase {time.perf_counter() - t0:.1f} s")
@@ -2058,8 +2179,9 @@ def md_nve_flux(card):
 
 
 def md_grap(card):
-    """(c) GRAP MD at 4000 atoms on device lists: grap_kernel once a step
-    and once at each chunk's start and end."""
+    """(c) GRAP MD at 4000 atoms on device lists: grap_kernel and
+    grap_vjp_kernel once a step and once at each chunk's start and
+    end."""
     from tensoralloy_tpu_torch.dynamics import VelocityVerlet
     from tensoralloy_tpu_torch.io.model import load_model
     from tensoralloy_tpu_torch.ops import fused
@@ -2069,19 +2191,21 @@ def md_grap(card):
     md = VelocityVerlet(model, s, timestep=1.0, temperature=300.0, seed=4,
                         chunk_size=25, device_nl=True)
     steps = 50
-    before = fused.launch_counts["grap"]
+    before = dict(fused.launch_counts)
     hist = _timed_run(md, steps, "float32 NVE grap Ni 4000, device lists",
                       card)
-    launched = fused.launch_counts["grap"] - before
+    launched = _launched(before, ("grap", "grap_vjp"))
     # a chunk: the start's forces, one evaluation a step, the end's
     # observables; a chunk run again after a regrow counts again
     chunks = steps // md.chunk_size + md.regrows
     want = chunks * (md.chunk_size + 2)
-    print(f"    grap_kernel launches {launched} ({chunks} chunks x "
-          f"({md.chunk_size} steps + 2) = {want}); T "
-          f"{hist['temperature'][-1]:.1f} K")
-    if launched != want or not np.all(np.isfinite(hist["total"])):
-        raise AssertionError(f"grap MD launched {launched}, expected {want}")
+    print(f"    grap_kernel and grap_vjp_kernel launches {launched} "
+          f"({chunks} chunks x ({md.chunk_size} steps + 2) = {want} each); "
+          f"T {hist['temperature'][-1]:.1f} K")
+    if set(launched.values()) != {want} or \
+            not np.all(np.isfinite(hist["total"])):
+        raise AssertionError(f"grap MD launched {launched}, expected {want} "
+                             "each")
 
 
 def md_thermostats(card):
@@ -2120,8 +2244,9 @@ def md(card):
     md_thermostats(card)
     launches = dict(fused.launch_counts)
     print(f"  launches over the md phase: {launches}")
-    if not launches["grap"]:
-        raise AssertionError("the md phase launched no grap_kernel")
+    if not launches["grap"] or not launches["grap_vjp"]:
+        raise AssertionError("the md phase launched no grap_kernel or no "
+                             "grap_vjp_kernel")
     print(f"  md phase {time.perf_counter() - t0:.1f} s")
     return launches
 
@@ -2305,7 +2430,7 @@ def _flat_rel(got, want) -> float:
     return rel_err(flat(got), flat(want))
 
 
-def _launched(before, kernels=("g2", "g4", "grap")):
+def _launched(before, kernels=tuple(SOURCES)):
     from tensoralloy_tpu_torch.ops import fused
     return {k: fused.launch_counts[k] - before.get(k, 0) for k in kernels}
 
@@ -2482,9 +2607,11 @@ def analysis_neb(card):
     print(f"  {res['n_steps']} FIRE steps in chunks of {NEB_CHUNK}: "
           f"{sec:.2f} s, {res['n_steps'] / sec:.1f} steps/s; barrier "
           f"{res['barrier']:.4f} eV, fmax {res['fmax']:.4f} eV/A; "
-          f"grap_kernel launches {launched['grap']} for "
-          f"{neb.n_evaluations} band evaluations ({card})")
+          f"grap_kernel launches {launched['grap']} and grap_vjp_kernel "
+          f"{launched['grap_vjp']} for {neb.n_evaluations} band "
+          f"evaluations ({card})")
     if launched["grap"] != neb.n_evaluations or \
+            launched["grap_vjp"] != neb.n_evaluations or \
             not np.all(np.isfinite(res["energies"])):
         raise AssertionError(f"GRAP NEB launched {launched}, "
                              f"{neb.n_evaluations} evaluations")
@@ -2492,7 +2619,8 @@ def analysis_neb(card):
 
 def _committee(name, members, structure, kernel, card):
     """One committee request against the mean of its K single members:
-    one launch of the descriptor kernel, mean E/F/S to F32_REL, a spread
+    one launch of the descriptor kernel and one of its VJP kernel (the K
+    members' cotangents in one launch), mean E/F/S to F32_REL, a spread
     above zero; the request's time beside the K single requests'."""
     from tensoralloy_tpu_torch.calculator import TensorAlloyCalculator
     from tensoralloy_tpu_torch.ensemble import EnsembleCalculator
@@ -2519,7 +2647,8 @@ def _committee(name, members, structure, kernel, card):
         efs = c._get_variant(structure)[1]
         t_dev.append(_median_host_ms(lambda: efs(feats), 3))
     print(f"  {name}: {len(members)} members, {len(structure)} atoms: "
-          f"{kernel} launches {launched[kernel]} a request; mean vs the "
+          f"{kernel} launches {launched[kernel]} and {kernel}_vjp "
+          f"{launched[kernel + '_vjp']} a request; mean vs the "
           f"mean of single members {json.dumps(errs)}; energy std "
           f"{res['energy_std']:.3e} eV, max force std "
           f"{res['forces_std'].max():.3e} eV/A; request {t_ens:.1f} ms "
@@ -2527,8 +2656,8 @@ def _committee(name, members, structure, kernel, card):
           f"batched VJP over the members) against {sum(t_one):.1f} ms for "
           f"{len(members)} single requests (a member's device E/F/S "
           f"{t_dev[1]:.1f} ms) ({card})")
-    if launched[kernel] != 1 or max(errs.values()) > F32_REL or \
-            not res["forces_std"].max() > 0:
+    if launched[kernel] != 1 or launched[kernel + "_vjp"] != 1 or \
+            max(errs.values()) > F32_REL or not res["forces_std"].max() > 0:
         raise AssertionError(f"committee {name}: {launched}, {errs}")
     return ens
 
@@ -2584,10 +2713,16 @@ def analysis_linear(card):
             fits[backend] = lm.fit(structures, alpha=LINEAR_ALPHA)
             sec = time.perf_counter() - t0
             coefs[backend] = lm
+            launched = _launched(before, ("grap", "grap_vjp"))
             print(f"  {backend}: {fits[backend]['n_rows']} rows x "
                   f"{lm.n_coef} coefficients, RMSE "
-                  f"{fits[backend]['rmse']:.6f}; {sec:.2f} s, launches "
-                  f"{_launched(before)} ({card})")
+                  f"{fits[backend]['rmse']:.6f}; {sec:.2f} s, launches a "
+                  f"fit {launched} (a structure's rows: one forward, one "
+                  f"VJP of B = {lm.n_coef}) ({card})")
+            with_forces = sum(s.forces is not None for s in structures)
+            if backend == "pallas" and launched != {
+                    "grap": len(structures), "grap_vjp": with_forces}:
+                raise AssertionError(f"linear fit launched {launched}")
         err = rel_err(coefs["pallas"].coef_, coefs["dense"].coef_)
         print(f"    coefficients, kernels vs twins {err:.2e} (limit "
               f"{LINEAR_REL})")
@@ -2687,8 +2822,8 @@ ANALYSIS_PARTS = (("a elastic + EOS", analysis_elastic, ("g2", "g4")),
 def analysis(card):
     """The materials-analysis path on the default device (cuda), each
     part with the launch counts reset before it and read after it: the
-    kernels it names must have launched, the others not. -> launches by
-    kernel over the phase."""
+    kernels it names must have launched, no kernel but those and their
+    VJP kernels. -> launches by kernel over the phase."""
     from tensoralloy_tpu_torch.ops import fused
     phase("analysis")
     t0 = time.perf_counter()
@@ -2701,10 +2836,7 @@ def analysis(card):
         launches = dict(fused.launch_counts)
         print(f"  ({name}) {time.perf_counter() - t1:.1f} s, launches "
               f"{launches}")
-        if any(not launches[k] for k in kernels) or any(
-                launches[k] for k in launches if k not in kernels):
-            raise AssertionError(f"({name}) launched {launches}, expected "
-                                 f"{kernels}")
+        _launch_check(f"({name})", launches, kernels)
         for k, v in launches.items():
             totals[k] += v
     print(f"  launches over the analysis phase: {totals}")
@@ -3142,9 +3274,11 @@ def _add_launches(totals: dict, launched: dict) -> None:
 
 
 def _launch_check(label, launched, kernels):
-    """The kernels that `label` names launched, the others not."""
+    """The kernels that `label` names launched, no others but their VJP
+    kernels."""
+    allowed = set(kernels) | set(vjps(kernels))
     if any(not launched[k] for k in kernels) or any(
-            launched[k] for k in launched if k not in kernels):
+            launched[k] for k in launched if k not in allowed):
         raise AssertionError(f"{label} launched {launched}, expected "
                              f"{kernels}")
 
@@ -3177,10 +3311,11 @@ def cli_experiment(work, card, times) -> dict:
         _timed_verb("run", main, ["run", str(toml), "--quiet"], work / "a",
                     times)
     run_launches = _launched({})
-    bad = [r for r in rows if set(r[1].values()) != {1}]
+    bad = _bad_steps(rows, ("g2", "g4"))
     if [r[0] for r in rows] != list(range(CLI_STEPS)) or bad:
         raise AssertionError(f"run: steps {[r[0] for r in rows]}, not one "
-                             f"launch of g2 and g4 in each of {bad}")
+                             f"launch of g2 and g4 and none of a VJP "
+                             f"kernel in each of {bad}")
     model_dir = Path(config["train"]["model_dir"])
     ckpt = model_dir / f"ckpt-{CLI_STEPS}.npz"
     rec = _timed_verb("export", main, ["export", str(toml), "--checkpoint",
@@ -3321,9 +3456,9 @@ def cli_grap_verbs(work, card, times) -> dict:
     md = made[0]
     chunks = CLI_MD_STEPS // CLI_MD_CHUNK + md.regrows
     want = chunks * (CLI_MD_CHUNK + 2)
-    if got["grap"] != want:
-        raise AssertionError(f"md launched {got}, expected {want} "
-                             f"({chunks} chunks)")
+    if got["grap"] != want or got["grap_vjp"] != want:
+        raise AssertionError(f"md launched {got}, expected {want} of "
+                             f"grap and grap_vjp ({chunks} chunks)")
     _add_launches(totals, got)
 
     initial, final = _vacancy_hop(NEB_REPS)
@@ -3337,7 +3472,8 @@ def cli_grap_verbs(work, card, times) -> dict:
              "--max-steps", str(CLI_NEB_STEPS), "--fmax", "1e-6",
              "--output", "neb.csv"], grap, PATHS["grap"][0], work, times,
             ("grap",), ("neb.csv",))
-    if got["grap"] != made[0].n_evaluations:
+    if got["grap"] != made[0].n_evaluations or \
+            got["grap_vjp"] != made[0].n_evaluations:
         raise AssertionError(f"neb launched {got}, "
                              f"{made[0].n_evaluations} band evaluations")
     _add_launches(totals, got)
@@ -3383,8 +3519,9 @@ def cli_grap_verbs(work, card, times) -> dict:
           f"printed scores but the one cached); kernels vs twins "
           f"{err:.2e}")
     _launch_check("uncertainty", launched, ("grap",))
-    if launched["grap"] != n_requests or n_requests < len(frames) \
-            or err > CLI_F32_REL:
+    if launched["grap"] != n_requests or \
+            launched["grap_vjp"] != n_requests or \
+            n_requests < len(frames) or err > CLI_F32_REL:
         raise AssertionError(f"uncertainty: {launched}, {n_requests} "
                              f"requests, {err}")
     _add_launches(totals, launched)
@@ -3476,7 +3613,7 @@ def cli(card):
     phase("cli")
     t0 = time.perf_counter()
     times = []
-    totals = {"g2": 0, "g4": 0, "grap": 0}
+    totals = {k: 0 for k in SOURCES}
     with tempfile.TemporaryDirectory() as tmp:
         work = Path(tmp)
         a = cli_experiment(work, card, times)
@@ -3577,7 +3714,8 @@ def descriptors_serving(card) -> dict:
                   f"{res['energy']:.6f} eV, |sum F| {fsum:.2e}; vs "
                   f"{json.dumps(errs)}; pallas launches {launched}")
             if max(max(e.values()) for e in errs.values()) > F32_REL \
-                    or any(launched[k] != 1 for k in kernels) \
+                    or any(launched[k] != 1
+                           for k in kernels + vjps(kernels)) \
                     or fsum > 1e-5 * fmax * np.sqrt(len(s)):
                 raise AssertionError(f"{name} {len(s)}: {errs}, {launched}")
             if name == "grap" and len(s) > 10000 and not device:
@@ -3708,7 +3846,8 @@ def descriptors_training(workdir, card) -> dict:
               f"{steps - 1} after 1: segment {spread(seconds)}, pallas "
               f"{spread(seconds_k)}, dense {spread(seconds_t)}; pallas "
               f"launches {launched} ({card})")
-        if any(launched[k] != steps for k in cfg["kernels"]):
+        if any(launched[k] != steps for k in cfg["kernels"]) or any(
+                launched[k] for k in vjps(cfg["kernels"])):
             raise AssertionError(f"pallas launches {launched}")
     return totals
 
@@ -3874,11 +4013,14 @@ def descriptors_committee(card) -> dict:
     print(f"  moni committee, {len(paths)} members, {len(s)} atoms, "
           f"chunked ({blocks} row blocks of {COMMITTEE_CHUNK_ROWS}) vs "
           f"monolithic: {json.dumps(errs)}; grap_kernel launches "
-          f"{launched['grap']} ({launched['grap'] / blocks:g} a row "
-          f"block); request {t_c:.1f} ms chunked, {t_m:.1f} ms monolithic; "
+          f"{launched['grap']} and grap_vjp_kernel {launched['grap_vjp']} "
+          f"({launched['grap'] / blocks:g} and "
+          f"{launched['grap_vjp'] / blocks:g} a row block); request "
+          f"{t_c:.1f} ms chunked, {t_m:.1f} ms monolithic; "
           f"peak memory {p_c:.1f} / {p_m:.1f} MiB ({card})")
     if max(errs.values()) > F32_REL or launched["grap"] != blocks \
-            or launched["g2"] or launched["g4"]:
+            or launched["grap_vjp"] != blocks or any(
+                launched[k] for k in ("g2", "g4", *vjps(("g2", "g4")))):
         raise AssertionError(f"chunked committee: {errs}, {launched}")
     return launched
 
@@ -3891,7 +4033,7 @@ def descriptors(card):
     phase("descriptors")
     from tensoralloy_tpu_torch.ops import fused
     t0 = time.perf_counter()
-    totals = {"g2": 0, "g4": 0, "grap": 0}
+    totals = {k: 0 for k in SOURCES}
     times = []
     with tempfile.TemporaryDirectory() as tmp:
         for label, part in (
@@ -4044,7 +4186,7 @@ def parallel_nccl(specs, refs, card) -> dict:
               "moni committee")
     dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
                             world_size=1)
-    totals = {"g2": 0, "g4": 0, "grap": 0}
+    totals = {k: 0 for k in SOURCES}
     try:
         print(f"  (a) backend {dist.get_backend()}, world "
               f"{dist.get_world_size()} ({card})")
@@ -4077,7 +4219,7 @@ def parallel_ranks(specs, refs, card) -> dict:
                      timeout=900.0)
     print(f"  (b) {PARALLEL_RANKS} ranks: {time.perf_counter() - t0:.1f} s "
           f"from spawn to the last result ({card})")
-    totals = {"g2": 0, "g4": 0, "grap": 0}
+    totals = {k: 0 for k in SOURCES}
     for i, label in enumerate(labels):
         fn = specs[label][0]
         per_rank = [r[i] for r in results]
@@ -4188,8 +4330,10 @@ def parallel(card):
         totals = parallel_nccl(specs, refs, card)
         _add_launches(totals, parallel_ranks(specs, refs, card))
         parallel_verb(work, card)
-    for kernel, n in totals.items():
-        if n == 0:
+    # SF runs only train steps here, whose force loss takes the twin's
+    # differentiable VJP: its VJP kernels need not launch
+    for kernel in ("g2", "g4", "grap", "grap_vjp"):
+        if totals[kernel] == 0:
             raise AssertionError(f"parallel: {kernel} never launched")
     print(f"  launches over the parallel phase (a and every rank of b): "
           f"{totals}")
@@ -4257,8 +4401,9 @@ def _median_host_ms(fn, reps: int) -> float:
 
 
 def kernel_cases(sf_calc, sf_structure, grap_calc, grap_structure):
-    """{kernel: (args, kernel wrapper, twin)} at the shapes the SF and
-    GRAP calculators give the kernels for these structures."""
+    """{kernel: (args, kernel wrapper, plain version)} at the shapes the
+    SF and GRAP calculators give the kernels for these structures; a VJP
+    kernel's cotangent [1, rows, F] is seeded and normal."""
     from tensoralloy_tpu_torch.ops import fused
     from tensoralloy_tpu_torch.ops.dense import (dense_pair_geometry,
                                                  dense_triple_geometry)
@@ -4280,7 +4425,30 @@ def kernel_cases(sf_calc, sf_structure, grap_calc, grap_structure):
     cases["grap"] = ((rij, *unit, islot, mask, grap_calc.model.descriptor,
                       fz.rcut, fz.n_radial_slots), fused.grap_kernel,
                      fused.grap_reference)
+    gen = torch.Generator(device=rij.device).manual_seed(SEED + 4)
+    for name in ("g2", "g4", "grap"):
+        args, kernel, _ = cases[name]
+        out = kernel(*args)
+        gbar = torch.randn((1, *out.shape), generator=gen, dtype=out.dtype,
+                           device=out.device)
+        cases[f"{name}_vjp"] = ((gbar, *args),
+                                getattr(fused, f"{name}_vjp_kernel"),
+                                getattr(fused, f"{name}_vjp_reference"))
     return cases
+
+
+def twin_vjp(name, args):
+    """The VJP of the twin by its autograd, as the backward took it
+    before the VJP kernels: a VJP case's args -> its gradients."""
+    from tensoralloy_tpu_torch.ops import fused
+    function = {"g2_vjp": fused.G2Function, "g4_vjp": fused.G4Function,
+                "grap_vjp": fused.GrapFunction}[name]
+    gbar, *inputs = args
+    n = function.n_diff
+    with torch.enable_grad():
+        x = [t.detach().requires_grad_() for t in inputs[:n]]
+        y = function.twin(*x, *inputs[n:])
+        return torch.autograd.grad(y, x, gbar[0])
 
 
 def time_path(card, served, launches):
@@ -4316,8 +4484,10 @@ def time_kernels(cases, card, launches=None):
     rows = []
     for name, (args, kernel, reference) in cases.items():
         out = kernel(*args)
-        err = (out - reference(*args)).abs().max().item()
-        n_bytes, flop = kernel_work(name, args, out)
+        outs, refs = ((out, reference(*args)) if isinstance(out, tuple)
+                      else ((out,), (reference(*args),)))
+        err = max((o - r).abs().max().item() for o, r in zip(outs, refs))
+        n_bytes, flop = kernel_work(name, args, outs)
         bound = {"bytes": n_bytes / PEAK_BYTES_PER_S * 1e3,
                  "operations": flop / PEAK_FP32_FLOP_PER_S * 1e3}
         bound_by = max(bound, key=bound.get)
@@ -4329,14 +4499,17 @@ def time_kernels(cases, card, launches=None):
         rotated = _queued_ms(lambda: kernel(*next(turns)),
                              12 * ROTATED_COPIES)
         del turns
+        twin_ms = (_median_ms(lambda: twin_vjp(name, args), 5)
+                   if name.endswith("_vjp") else None)
         print(f"  {name} {tuple(args[0].shape)} float32: kernel {ms:.4f} / "
               f"{ms2:.4f} ms median of single launches "
               f"({n_bytes / ms * 1e-6:.1f} GB/s, "
               f"{flop / ms * 1e-9:.2f} TFLOP/s), {queued:.4f} ms "
               f"queued ({n_bytes / queued * 1e-6:.1f} GB/s, "
               f"{flop / queued * 1e-9:.2f} TFLOP/s), {rotated:.4f} ms queued "
-              f"over {ROTATED_COPIES} copies of the inputs in turn; twin "
-              f"{plain_ms:.4f} ms; "
+              f"over {ROTATED_COPIES} copies of the inputs in turn; "
+              f"{'closed form' if twin_ms else 'twin'} {plain_ms:.4f} ms"
+              f"{f', the twin by autograd {twin_ms:.4f} ms' if twin_ms else ''}; "
               f"bound {bound[bound_by]:.4f} ms by {bound_by} "
               f"({n_bytes / 1e6:.1f} MB, {flop / 1e9:.3f} GFLOP; single "
               f"launches at {100 * bound[bound_by] / ms:.1f} % of it, queued "
@@ -4350,44 +4523,73 @@ def time_kernels(cases, card, launches=None):
                     "ms_queued_rotated": rotated,
                     "plain_ms": plain_ms, "bound_ms": bound[bound_by],
                     "bound_by": bound_by,
-                    # no single PyTorch call computes G2, G4 or GRAP
+                    # no single PyTorch call computes G2, G4 or GRAP or
+                    # their VJPs
                     "library_ms": None})
+        if twin_ms is not None:
+            row["twin_vjp_ms"] = twin_ms
         rows.append(row)
     return rows
 
 
-def kernel_work(name, args, out):
-    """-> (bytes, useful FLOP) of one kernel call on these inputs.
-    Bytes: the slot and the mask read once in full, the geometry
-    (distances, unit vectors) of the real entries (mask > 0) only, since
-    a masked entry's geometry need not be read, and the output written
-    once; the kernels' small host tables aside. FLOP for the real entries
-    only, a transcendental as one:
+def kernel_work(name, args, outs):
+    """-> (bytes, useful FLOP) of one kernel call on these inputs (a VJP
+    case's args start with its cotangent [B, rows, F]). Bytes: the slot
+    and the mask read once in full, the geometry (distances, unit
+    vectors) of the real entries (mask > 0) only, since a masked entry's
+    geometry need not be read, the cotangent read once, and the outputs
+    written once; the kernels' small host tables aside. FLOP for the
+    real entries only, a transcendental as one:
       g2   per pair 4 (cutoff) + 7 per (eta, omega) row
       g4   per triple 23 (geometry, three cutoffs) + 11 per grid row
       grap per pair 4 (cutoff), D - 1 (monomials), 5 per filter (its
            value at 4 and the product with the cutoff) and 2 K D (the
            contraction); per (row, slot, filter) 3 per nonzero invariant
-           weight (P^2, times the weight, added)"""
+           weight (P^2, times the weight, added)
+      g2_vjp   per pair 8 (cutoff and slope) + per member 10 per grid row
+      g4_vjp   per triple 50 (geometry, the cosine's three slopes, three
+               cutoffs and slopes) + per member 14 per grid row
+      grap_vjp the forward's per-pair work once (P recomputed), then per
+               member and pair 8 (cutoff and slope), D - 1 (monomials),
+               12 per filter (value and slope), 4 K D (both sums over
+               Pbar) and 4 D (the monomials' adjoint); per member and
+               (row, slot, filter) 2 D M + 3 D (the coefficients and
+               Pbar)"""
+    batch = 1
+    if name.endswith("_vjp"):
+        gbar, *args = args
+        batch = gbar.shape[0]
     tensors = [a for a in args if isinstance(a, torch.Tensor)]
     *geometry, slot, mask = tensors
     size = mask.element_size()
     real = int((mask > 0).sum().item())
     n_bytes = ((slot.numel() + mask.numel() + len(geometry) * real) * size
-               + out.numel() * out.element_size())
+               + sum(o.numel() * o.element_size() for o in outs))
+    if name.endswith("_vjp"):
+        n_bytes += gbar.numel() * gbar.element_size()
     if name == "g2":
         flop = real * (4 + 7 * len(args[3]))
     elif name == "g4":
         flop = real * (23 + 11 * len(args[5]))
+    elif name == "g2_vjp":
+        flop = real * (8 + batch * 10 * len(args[3]))
+    elif name == "g4_vjp":
+        flop = real * (50 + batch * 14 * len(args[5]))
     else:
         from tensoralloy_tpu_torch.nn.grap import multiplicity_tensor
         desc, n_slots = args[6], args[8]
         weights = multiplicity_tensor(desc.max_moment, desc.symmetric)[
             :, desc.moment_tensors]
-        k, d = desc.n_filters, weights.shape[0]
+        k, (d, m) = desc.n_filters, weights.shape
         rows = args[0].shape[0]
-        flop = (real * (4 + (d - 1) + 5 * k + 2 * k * d)
-                + 3 * rows * n_slots * k * int(np.count_nonzero(weights)))
+        forward = real * (4 + (d - 1) + 5 * k + 2 * k * d)
+        if name == "grap":
+            flop = forward + 3 * rows * n_slots * k * int(
+                np.count_nonzero(weights))
+        else:
+            flop = forward + batch * (
+                real * (8 + (d - 1) + 12 * k + 4 * k * d + 4 * d)
+                + rows * n_slots * k * (2 * d * m + 3 * d))
     return n_bytes, flop
 
 

@@ -79,6 +79,47 @@ __device__ __forceinline__ T cutoff_value(const Cutoff<T>& c, T r) {
   }
 }
 
+// d cutoff_value / d r, written out as ops/cutoffs.py `cutoff_and_slope`
+// does: 0 where a clamped argument lies outside its open interval.
+template <typename T>
+__device__ __forceinline__ T cutoff_slope(const Cutoff<T>& c, T r) {
+  constexpr T kPi = T(3.14159265358979323846);
+  switch (c.id) {
+    case 0: {  // cosine
+      const T z = r * c.inv_rc;
+      return z < T(1) ? T(-0.5) * kPi * c.inv_rc * d_sinpi(z) : T(0);
+    }
+    case 1: {  // polynomial, gamma = 5
+      const T z = r * c.inv_rc;
+      if (!(z < T(1))) return T(0);
+      const T z4 = (z * z) * (z * z);
+      return T(30) * c.inv_rc * (z4 * z - z4);
+    }
+    case 2: {  // meam, window = rc
+      const T x = (c.rc - r) * c.inv_rc;
+      if (!(x > T(0) && x < T(1))) return T(0);
+      const T w = (T(1) - x) * (T(1) - x) * (T(1) - x);
+      return T(-8) * c.inv_rc * (T(1) - w * (T(1) - x)) * w;
+    }
+    case 3: {  // deepmd, rcs = 2/3 rc
+      const T z = (r - c.rcs) * c.inv_rc_rcs;
+      const T zc = clamp_to(z, T(0), T(1));
+      const T recip = r > T(0) ? T(1) / r : T(0);
+      const T ramp = z > T(0) && z < T(1)
+                         ? T(-0.5) * kPi * c.inv_rc_rcs * d_sinpi(zc)
+                         : T(0);
+      return -recip * recip * (T(0.5) * d_cospi(zc) + T(0.5)) +
+             recip * ramp;
+    }
+    default: {  // tersoff, d = 0.1 rc
+      const T z = (r - c.big_r) * c.inv_d;
+      return z > T(-1) && z < T(1)
+                 ? T(-0.25) * kPi * c.inv_d * d_cospi(T(0.5) * z)
+                 : T(0);
+    }
+  }
+}
+
 template <typename T>
 Cutoff<T> make_cutoff(int id, double rc) {
   Cutoff<T> c;

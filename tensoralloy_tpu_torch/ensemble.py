@@ -5,18 +5,25 @@ K independently trained members of ONE architecture answer a request
 together: the structure is featurized once, a descriptor model's
 descriptors are evaluated once (one launch of each descriptor kernel on
 the card) and shared by the K members' heads, and the K members' forces
-and stress come from one batched vector-Jacobian product through the
-shared graph (`torch.autograd.grad(..., is_grads_batched=True)` with the
-K one-hot cotangents of the stacked energies). A descriptor with weights
-of its own (GRAP's learned 'nn' filter) is evaluated once per member,
-with that member's weights. The EAM family has no shared stage: each
-member's analytic EFS runs on the shared features.
+and stress come from one batched vector-Jacobian product, split at the
+descriptors: the K one-hot cotangents of the stacked energies give the
+K descriptor cotangents [K, A, F] through the heads
+(`torch.autograd.grad(..., is_grads_batched=True)`), each descriptor
+kernel's VJP kernel takes them in one launch (B = K,
+`ops.fused.descriptor_vjp`), and the geometry carries the result to the
+vectors or positions. A descriptor with weights of its own (GRAP's
+learned 'nn' filter, which has no kernel) is evaluated once per member,
+with that member's weights, and differentiated in one batched VJP
+throughout. The EAM family has no shared stage: each member's analytic
+EFS runs on the shared features.
 
 The chunked large-cell route (`chunked`, as the calculator routes it)
-takes the dense layout in row blocks: per block the descriptors once,
-the K members' heads on them, and one batched VJP of the block's K
+takes the dense layout in row blocks: per block the descriptors once
+(`model.block_descriptors`), the K members' heads on them
+(`model.block_heads`), and the same split batched VJP of the block's K
 energies, accumulated over the blocks; the block's graph is freed
-before the next block, so the descriptor kernels launch once a block.
+before the next block, so each descriptor kernel and its VJP kernel
+launch once a block.
 
 With `n_shards` ranks of a `torch.distributed` group, each rank takes
 its contiguous block of K / n_shards members (its own batched VJP over
@@ -40,27 +47,47 @@ from .atoms import Structure
 from .calculator import TensorAlloyCalculator
 from .nn.fields import stress_outputs
 from .ops.dense import gather_vec, transpose_reduce
+from .ops.fused import descriptor_vjp, record_calls
 from .precision import resolve_device, resolve_dtype
 
 __all__ = ["make_ensemble_efs_fn", "EnsembleCalculator",
            "select_by_uncertainty"]
 
 
-def _member_energies(model, trees: Sequence[dict]) -> Callable:
-    """features -> (energies [K], by-products stacked over K): the shared
-    descriptors once, then each member's heads on them."""
-
+def _member_grads(model, trees: Sequence[dict]) -> Callable:
+    """fn(features, leaves) -> (energies [K], by-products stacked over K,
+    the K energies' gradients w.r.t. each of `leaves` [K, *leaf.shape]),
+    the leaves being what `features` was computed from. Shared
+    descriptors are evaluated once and the gradients split at them
+    (module docstring); otherwise one batched VJP throughout."""
     shared = hasattr(model, "descriptors") and not any(
         "descriptor" in tree for tree in trees)
 
-    def energies(features):
-        if shared:
-            features = dict(features, descriptors=model.descriptors(features))
+    def heads(features):
         outs = [model.energy_and_aux(features, tree) for tree in trees]
         aux = {k: torch.stack([o[1][k] for o in outs]) for k in outs[0][1]}
         return torch.stack([o[0] for o in outs]), aux
 
-    return energies
+    def grads(features, leaves):
+        with torch.enable_grad():
+            if not shared:
+                e, aux = heads(features)
+                return e, aux, _one_hot_grad(e, leaves)
+            with record_calls() as calls:
+                g = model.descriptors(features)
+            g_leaf = g.detach().requires_grad_()
+            e, aux = heads(dict(features, descriptors=g_leaf))
+            g_bar, = _one_hot_grad(e, [g_leaf])
+            return e, aux, descriptor_vjp(g, g_bar, calls, leaves)
+
+    return grads
+
+
+def _one_hot_grad(e: torch.Tensor, leaves) -> tuple:
+    """The gradients of each of the K entries of `e` w.r.t. `leaves`, by
+    one VJP batched over the K one-hot cotangents."""
+    eye = torch.eye(len(e), dtype=e.dtype, device=e.device)
+    return torch.autograd.grad(e, leaves, eye, is_grads_batched=True)
 
 
 def make_ensemble_efs_fn(model, trees: Sequence[dict],
@@ -75,12 +102,8 @@ def make_ensemble_efs_fn(model, trees: Sequence[dict],
     vectors and assembles the forces through the featurizer's transpose
     tables (the calculator's route on host lists); otherwise w.r.t.
     positions and cell (device-built lists, the flat pair layout)."""
-    energies = _member_energies(model, trees)
+    member_grads = _member_grads(model, trees)
     k = len(trees)
-
-    def batched_grad(e, leaves):
-        eye = torch.eye(k, dtype=e.dtype, device=e.device)
-        return torch.autograd.grad(e, leaves, eye, is_grads_batched=True)
 
     def efs_vectors(features) -> Dict[str, torch.Tensor]:
         pos, cell = features["positions"], features["cell"]
@@ -98,9 +121,7 @@ def make_ensemble_efs_fn(model, trees: Sequence[dict],
                 v = gather_vec(pos, features[jkey], features[skey], cell)
             f[key] = tuple(c.requires_grad_() for c in v)
             vecs.append(f[key])
-        with torch.enable_grad():
-            e, aux = energies(f)
-            flat = batched_grad(e, [c for v in vecs for c in v])
+        e, aux, flat = member_grads(f, [c for v in vecs for c in v])
         forces = 0.0
         virial = 0.0
         for i, (_, _, _, tkey, mkey) in enumerate(specs):
@@ -123,9 +144,8 @@ def make_ensemble_efs_fn(model, trees: Sequence[dict],
     def efs_positions(features) -> Dict[str, torch.Tensor]:
         pos = features["positions"].detach().requires_grad_()
         cell = features["cell"].detach().requires_grad_()
-        with torch.enable_grad():
-            e, aux = energies(dict(features, positions=pos, cell=cell))
-            gpos, gcell = batched_grad(e, (pos, cell))
+        e, aux, (gpos, gcell) = member_grads(
+            dict(features, positions=pos, cell=cell), (pos, cell))
         virial = (gpos.transpose(-1, -2) @ pos.detach()
                   + gcell.transpose(-1, -2) @ cell.detach())
         out = {"energy": e, "forces": -gpos,
@@ -139,29 +159,32 @@ def make_chunked_ensemble_efs_fn(model, trees: Sequence[dict],
                                  atom_chunk: int = 4096) -> Callable:
     """fn(features) -> the K members' energy [K], forces [K, A, 3] and
     stress of one structure on the dense layout, evaluated in row blocks
-    of `atom_chunk` centre rows (`model.block_totals`): each block's K
-    variational energies are differentiated w.r.t. positions and cell
-    by one batched VJP and the gradients accumulated. A
-    finite-temperature model adds its totals U ('energy'), S and F."""
-    k = len(trees)
+    of `atom_chunk` centre rows: each block's descriptors once
+    (`model.block_descriptors`), the K members' heads on them
+    (`model.block_heads`), and the K variational energies differentiated
+    w.r.t. positions and cell by one batched VJP split at the
+    descriptors (`ops.fused.descriptor_vjp`), the gradients accumulated.
+    A finite-temperature model adds its totals U ('energy'), S and F."""
     finite_t = hasattr(model, "heads_chunked")
 
     def efs(features) -> Dict[str, torch.Tensor]:
         pos0, cell0 = features["positions"].detach(), \
             features["cell"].detach()
-        eye = torch.eye(k, dtype=pos0.dtype, device=pos0.device)
         gpos, gcell, totals = 0.0, 0.0, 0.0
         for lo, hi in model.row_blocks(features, atom_chunk):
             pos = pos0.clone().requires_grad_()
             cell = cell0.clone().requires_grad_()
-            f = dict(features, positions=pos, cell=cell)
             with torch.enable_grad():
-                t = model.block_totals(f, trees, lo, hi)  # [K, n_heads]
+                with record_calls() as calls:
+                    f, g = model.block_descriptors(
+                        dict(features, positions=pos, cell=cell), lo, hi)
+                g_leaf = g.detach().requires_grad_()
+                t = model.block_heads(f, g_leaf, trees, lo, hi)  # [K, heads]
                 e = t[:, 0]
                 if finite_t:
                     e = e - f["etemperature"].to(e.dtype) * t[:, 1]
-                gp, gc = torch.autograd.grad(e, (pos, cell), eye,
-                                             is_grads_batched=True)
+                g_bar, = _one_hot_grad(e, [g_leaf])
+                gp, gc = descriptor_vjp(g, g_bar, calls, (pos, cell))
             gpos, gcell = gpos + gp, gcell + gc
             totals = totals + t.detach()
         virial = (gpos.transpose(-1, -2) @ pos0

@@ -8,8 +8,11 @@ virial are the derivatives of the per-element feature sums S [n_coef]
 w.r.t. the positions and a homogeneous strain: one forward pass of the
 descriptor for the energy and force rows (one launch of `grap_kernel` on
 the card; its plain twin on CPU tensors; one more for the virial rows)
-and one batched vector-Jacobian product with the n_coef one-hot
-cotangents (`torch.autograd.grad(..., is_grads_batched=True)`).
+and one vector-Jacobian product batched over the n_coef one-hot
+cotangents, split at the descriptors: the sums' cotangents give
+[n_coef, A, F] descriptor cotangents, `grap_vjp_kernel` takes them in
+one launch (B = n_coef, `ops.fused.descriptor_vjp`) and the geometry
+carries them to the positions or the strain.
 
 A fitted model is exported as a zero-hidden-layer `AtomicNN`, so the
 whole calculator / saved-model stack applies unchanged.
@@ -25,6 +28,7 @@ import torch
 from ..atoms import Structure
 from ..nn.atomic import AtomicNN
 from ..nn.grap import GenericRadialAtomicPotential
+from ..ops.fused import descriptor_vjp, record_calls
 from ..precision import resolve_device, resolve_dtype
 from ..transform.featurizer import Featurizer
 
@@ -44,14 +48,6 @@ PRESETS: Dict[str, dict] = {
             "parameters": {"eta": [0.5, 1.0, 4.0, 20.0],
                            "omega": [0.0, 0.0, 0.0, 0.0]}},
 }
-
-
-def _batched_jacobian(s: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """dS/dx [n, *x.shape] of a vector S [n]: one VJP per one-hot
-    cotangent, batched (the bias columns' rows come back zero)."""
-    eye = torch.eye(s.shape[0], dtype=s.dtype, device=s.device)
-    jac, = torch.autograd.grad(s, x, eye, is_grads_batched=True)
-    return jac
 
 
 class LinearTensorMD:
@@ -98,10 +94,13 @@ class LinearTensorMD:
                         device=self.device, dtype=self.dtype)
 
     # ------------------------------------------------------------------
-    def _feature_sums(self, model: AtomicNN, feats) -> torch.Tensor:
+    def _feature_sums(self, model: AtomicNN, feats, g=None
+                      ) -> torch.Tensor:
         """[n_coef] per-element feature sums (+ atom counts for the bias
-        columns)."""
-        g = model.descriptors(feats)                 # [n_vap, D]
+        columns) of the descriptors `g` [n_vap, D] (the model's on
+        `feats` when None)."""
+        if g is None:
+            g = model.descriptors(feats)
         masks = feats["atom_masks"]
         cols = []
         for e in self.elements:
@@ -110,6 +109,23 @@ class LinearTensorMD:
             cols.append(torch.sum(g[lo:lo + cnt] * me[:, None], dim=0))
             cols.append(torch.sum(me)[None])
         return torch.cat(cols)
+
+    def _sums_and_jacobian(self, model: AtomicNN, feats, x: torch.Tensor
+                           ) -> tuple:
+        """-> (S [n_coef], dS/dx [n_coef, *x.shape]) of the feature sums
+        of `feats`, `x` what `feats` was computed from: one VJP per
+        one-hot cotangent, batched and split at the descriptors (the bias
+        columns' rows come back zero)."""
+        with torch.enable_grad():
+            with record_calls() as calls:
+                g = model.descriptors(feats)
+            g_leaf = g.detach().requires_grad_()
+            s = self._feature_sums(model, feats, g_leaf)
+            eye = torch.eye(s.shape[0], dtype=s.dtype, device=s.device)
+            g_bar, = torch.autograd.grad(s, g_leaf, eye,
+                                         is_grads_batched=True)
+            jac, = descriptor_vjp(g, g_bar, calls, [x])
+        return s.detach(), jac
 
     def _model_for(self, occurs: Counter) -> AtomicNN:
         key = tuple(sorted(occurs.items()))
@@ -134,11 +150,13 @@ class LinearTensorMD:
                                           layout="dense").items()}
         forces = with_forces and structure.forces is not None
         # the energy row and the force rows from one forward pass
-        with torch.set_grad_enabled(forces):
-            pos = feats["positions"].detach().requires_grad_(forces)
-            s = self._feature_sums(model, dict(feats, positions=pos))
-            if forces:
-                jac = -_batched_jacobian(s, pos)     # [n_coef, n_vap, 3]
+        if forces:
+            pos = feats["positions"].detach().requires_grad_()
+            s, jac = self._sums_and_jacobian(model,
+                                             dict(feats, positions=pos), pos)
+            jac = -jac                               # [n_coef, n_vap, 3]
+        else:
+            s = self._feature_sums(model, feats)
         out = {"energy_row": s.detach().cpu().numpy().astype(np.float64),
                "energy": structure.energy}
         if forces:
@@ -156,9 +174,9 @@ class LinearTensorMD:
                     torch.stack([eps6[5] / 2, eps6[1], eps6[3] / 2]),
                     torch.stack([eps6[4] / 2, eps6[3] / 2, eps6[2]])])
                 m = torch.eye(3, dtype=pos0.dtype, device=pos0.device) + e
-                s = self._feature_sums(model, dict(
-                    feats, positions=pos0 @ m.T, cell=cell0 @ m.T))
-                vir = _batched_jacobian(s, eps6)     # [n_coef, 6]
+                _, vir = self._sums_and_jacobian(
+                    model, dict(feats, positions=pos0 @ m.T,
+                                cell=cell0 @ m.T), eps6)   # [n_coef, 6]
             out["virial_rows"] = (vir.cpu().numpy().astype(np.float64).T
                                   / structure.volume)
             out["stress"] = np.asarray(structure.stress)

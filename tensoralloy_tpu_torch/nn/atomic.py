@@ -283,11 +283,22 @@ class AtomicNN(nn.Module):
         lo:hi for each of the K parameter trees `trees`, on one
         evaluation of the block's descriptors (they have no weights
         where rows are chunked)."""
+        f, g = self.block_descriptors(features, lo, hi)
+        return self.block_heads(f, g, trees, lo, hi)
+
+    def block_descriptors(self, features, lo: int, hi: int) -> tuple:
+        """-> (the block's features: rows lo:hi of the dense layout with
+        their centres, the block's descriptors [hi - lo, D])."""
         d_keys = [k for k in features if k.endswith("_d")]
         f = {k: v for k, v in features.items() if k not in d_keys}
         f["positions_rows"] = features["positions"][lo:hi]
         f.update({k: features[k][lo:hi] for k in d_keys})
-        g = self.descriptors(f)                      # [hi - lo, D]
+        return f, self.descriptors(f)
+
+    def block_heads(self, features, g, trees, lo: int, hi: int
+                    ) -> torch.Tensor:
+        """-> [K, n_heads]: `block_totals` on the block's descriptors
+        `g`; `features` the block's or the whole structure's."""
         out = []
         for params in trees:
             sums = []

@@ -79,3 +79,44 @@ CUTOFF_IDS = {name: i for i, name in enumerate(CUTOFFS)}
 
 def apply_cutoff(name: str, r, rc, **kwargs):
     return CUTOFFS[name](r, rc, **kwargs)
+
+
+def cutoff_and_slope(name: str, r, rc):
+    """-> (fc(r), dfc/dr) of a registered cutoff with its default
+    keywords, the slope written out (the closed-form VJPs of
+    `ops.fused` and `cutoff_slope` in csrc/common.cuh). A clamped
+    argument has slope 0 outside its open interval."""
+    fc = apply_cutoff(name, r, rc)
+    zero = torch.zeros_like(r)
+    if name == "cosine":
+        z = r / rc
+        slope = -0.5 * math.pi / rc * torch.sin(math.pi * z)
+        return fc, torch.where(z < 1.0, slope, zero)
+    if name == "polynomial":
+        z = r / rc
+        slope = 30.0 / rc * (z ** 5 - z ** 4)
+        return fc, torch.where(z < 1.0, slope, zero)
+    if name == "meam":
+        x = (rc - r) / rc
+        w = (1.0 - x) ** 3
+        slope = -8.0 / rc * (1.0 - w * (1.0 - x)) * w
+        return fc, torch.where((x > 0.0) & (x < 1.0), slope, zero)
+    if name == "deepmd":
+        rcs = (2.0 / 3.0) * rc
+        z = (r - rcs) / (rc - rcs)
+        zc = torch.clamp(z, 0.0, 1.0)
+        positive = r > 0
+        recip = torch.where(positive, 1.0 / torch.where(positive, r, 1.0),
+                            0.0)
+        ramp = torch.where((z > 0.0) & (z < 1.0),
+                           -0.5 * math.pi / (rc - rcs)
+                           * torch.sin(math.pi * zc), zero)
+        slope = (-recip * recip * (0.5 * torch.cos(math.pi * zc) + 0.5)
+                 + recip * ramp)
+        return fc, slope
+    if name == "tersoff":
+        d = 0.1 * rc
+        z = (r - (rc - d)) / d
+        slope = -0.25 * math.pi / d * torch.cos(0.5 * math.pi * z)
+        return fc, torch.where((z > -1.0) & (z < 1.0), slope, zero)
+    raise KeyError(name)

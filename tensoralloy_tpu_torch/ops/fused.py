@@ -1,34 +1,51 @@
 """Descriptor kernels through hand-written CUDA kernels (port of
 `tensoralloy_tpu/ops/fused.py`): Behler G2/G4 and GRAP.
 
-Each descriptor has three pieces:
+Each descriptor has five pieces:
   * a plain PyTorch twin (`g2_reference`, `g4_reference`,
     `grap_reference`), the port of `_g2_ref_dense` / `_g4_ref_dense` /
     `_grap_ref_dense`: dense [A, N, ...] math, any device;
-  * a kernel wrapper (`g2_kernel`, `g4_kernel`, `grap_kernel`): on a CPU
-    tensor it returns the twin; on a CUDA tensor it launches the kernel
-    from `csrc/` or raises — there is no fallback;
+  * a forward kernel wrapper (`g2_kernel`, `g4_kernel`, `grap_kernel`):
+    on a CPU tensor it returns the twin; on a CUDA tensor it launches
+    the kernel from `csrc/` or raises — there is no fallback;
+  * the closed-form VJP (`g2_vjp_reference`, `g4_vjp_reference`,
+    `grap_vjp_reference`): the derivative of the twin written out as
+    tensor code, for a cotangent with a leading batch dimension
+    [B, A, F], the same formulas as the VJP kernels;
+  * a VJP kernel wrapper (`g2_vjp_kernel`, `g4_vjp_kernel`,
+    `grap_vjp_kernel`): the closed form on CPU tensors, the kernel from
+    `csrc/sf_vjp.cu` / `csrc/grap_vjp.cu` or an error on CUDA ones;
   * an autograd Function (`G2Function`, `G4Function`, `GrapFunction`),
-    the port of `_custom_vjp_op`: forward is the kernel wrapper,
-    backward recomputes the twin from the saved inputs and returns its
-    VJP. When the backward runs with grad mode on (a caller asked for
-    `create_graph=True`, as a force loss does) the VJP is built on the
-    saved inputs themselves and stays in the graph, so it can be
-    differentiated again w.r.t. the incoming gradient and the inputs;
-    otherwise no graph is kept. There is no backward kernel, as in the
-    JAX package: the second derivative is the twin's.
+    the port of `_custom_vjp_op`: forward is the kernel wrapper.
+
+The Functions' backward takes one of two routes, chosen by the order of
+the derivative the caller asked for, never by what failed:
+  * grad mode off (`torch.autograd.grad` without `create_graph`: every
+    calculator request, MD, FIRE and NEB step, committee and chunked
+    block, and a Hessian row's term through the descriptors): the VJP
+    kernel wrapper, one launch a backward, no graph;
+  * grad mode on (`create_graph=True`: a force loss in training, the
+    elastic constraint, a Hessian's forces): the twin is rebuilt on the
+    saved inputs and its autograd VJP stays in the graph, differentiable
+    to any order as the JAX op's `jax.vjp` of the reference is.
+A cotangent batched by `is_grads_batched` (legacy vmap) has no storage
+a kernel can be given: on CUDA the backward raises. The callers that
+batch cotangents (`ensemble`, `linear.model`) record the Functions'
+calls while the descriptors are computed (`record_calls`) and take the
+batched VJP through the kernels with `descriptor_vjp`.
 
 The CUDA sources `csrc/*.cu` are compiled with nvcc for sm_90a, one nvcc
-per source (one per entry point for `sf_kernels.cu`), all started
-together, and linked into one shared library with a plain C interface,
-at first use, into `_build/` next to this package, and loaded with
-ctypes. What a launch needs beyond its tensors (the host tables, the
-bound C function and its constant arguments) is built once per
-descriptor specification and kept; a call checks its inputs, allocates
-the output and passes pointers, sizes and the stream.
+per source (one per entry point for the sources in `SPLIT_SOURCES`),
+all started together, and linked into one shared library with a plain C
+interface, at first use, into `_build/` next to this package, and
+loaded with ctypes. What a launch needs beyond its tensors (the host
+tables, the bound C function and its constant arguments) is built once
+per descriptor specification and kept; a call checks its inputs,
+allocates the output and passes pointers, sizes and the stream.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -36,12 +53,12 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
-from .cutoffs import CUTOFF_IDS, apply_cutoff
+from .cutoffs import CUTOFF_IDS, apply_cutoff, cutoff_and_slope
 
 _PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PACKAGE_DIR / "csrc"
@@ -55,11 +72,14 @@ COMPILE_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 LINK_FLAGS = ARCH_FLAGS + ("-shared",)
 # A source whose entry points compile one per object (-D<macro>=<i>), so
 # that its instantiations are shared between as many compilers
-SPLIT_SOURCES = {"sf_kernels.cu": ("SF_ENTRY", 4)}
+SPLIT_SOURCES = {"sf_kernels.cu": ("SF_ENTRY", 4),
+                 "sf_vjp.cu": ("SF_VJP_ENTRY", 4),
+                 "grap_vjp.cu": ("GRAP_VJP_ENTRY", 2)}
 
 # Launches of each kernel since the last `reset_launch_counts()`; a
 # wrapper adds one where it launches its kernel and nowhere else.
-launch_counts: Dict[str, int] = {"g2": 0, "g4": 0, "grap": 0}
+launch_counts: Dict[str, int] = {"g2": 0, "g4": 0, "grap": 0, "g2_vjp": 0,
+                                 "g4_vjp": 0, "grap_vjp": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 build_log = ""
@@ -77,6 +97,88 @@ _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 def reset_launch_counts() -> None:
     for key in launch_counts:
         launch_counts[key] = 0
+
+
+def _is_vmapped(t: torch.Tensor) -> bool:
+    """Whether `t` is batched by a vmap (`is_grads_batched` runs the
+    backward under the legacy one): such a tensor has no storage."""
+    functorch = torch._C._functorch
+    return bool(functorch.is_legacy_batchedtensor(t)
+                or functorch.is_batchedtensor(t))
+
+
+def _backward(function, ctx, gbar):
+    """The gradients of `function`'s differentiable inputs along `gbar`
+    (module docstring): the twin's VJP in the graph under grad mode, the
+    VJP kernel wrapper otherwise."""
+    saved = ctx.saved_tensors
+    n = function.n_diff
+    vmapped = _is_vmapped(gbar)
+    if vmapped and saved[0].device.type != "cpu":
+        raise RuntimeError(
+            f"{function.__name__}: a cotangent batched by "
+            "is_grads_batched cannot be given to the VJP kernel; record "
+            "the calls (ops.fused.record_calls) and take the batched VJP "
+            "with ops.fused.descriptor_vjp")
+    if torch.is_grad_enabled() or vmapped:
+        # vmap batches the twin's ops on CPU tensors (not the closed
+        # form's einsums)
+        return _twin_vjp(function.twin, saved[:n], saved[n:], ctx.spec,
+                         gbar)
+    return tuple(g[0] for g in function.kernel_vjp(gbar[None], *saved,
+                                                   *ctx.spec))
+
+
+class Call(NamedTuple):
+    """One forward call of a kernel's Function: its inputs as given,
+    its constant arguments and its output."""
+    function: type
+    inputs: tuple
+    spec: tuple
+    output: torch.Tensor
+
+
+_tapes: List[List[Call]] = []
+
+
+@contextlib.contextmanager
+def record_calls():
+    """Record every kernel Function call made inside the block into the
+    list it yields (for `descriptor_vjp`)."""
+    tape: List[Call] = []
+    _tapes.append(tape)
+    try:
+        yield tape
+    finally:
+        _tapes.remove(tape)
+
+
+def _record(function, inputs, spec, output) -> None:
+    for tape in _tapes:
+        tape.append(Call(function, inputs, spec, output))
+
+
+def descriptor_vjp(g: torch.Tensor, g_bar: torch.Tensor, calls, leaves):
+    """The VJPs [K, *leaf.shape] of `g` w.r.t. each of `leaves` along the
+    K cotangents `g_bar` [K, *g.shape], where `g` was computed from the
+    leaves by the kernel Function calls `calls` (recorded with
+    `record_calls`) and plain tensor code: from `g` back to the calls'
+    outputs and from their inputs back to the leaves by autograd with
+    `is_grads_batched`, through each call by its VJP kernel wrapper once
+    with B = K. Without calls (a twin or flat-layout descriptor), plain
+    autograd throughout."""
+    if not calls:
+        return torch.autograd.grad(g, leaves, g_bar, is_grads_batched=True)
+    outs_bar = torch.autograd.grad(g, [c.output for c in calls], g_bar,
+                                   is_grads_batched=True)
+    xs, xs_bar = [], []
+    for call, y_bar in zip(calls, outs_bar):
+        grads = call.function.kernel_vjp(y_bar, *call.inputs, *call.spec)
+        for x, x_bar in zip(call.inputs, grads):
+            if x.requires_grad:
+                xs.append(x)
+                xs_bar.append(x_bar)
+    return torch.autograd.grad(xs, leaves, xs_bar, is_grads_batched=True)
 
 
 def _twin_vjp(twin, diff, rest, spec, gbar):
@@ -192,6 +294,16 @@ def _library() -> ctypes.CDLL:
             grap.argtypes = [p] * 8 + [i] * 5 + [p] * 3 + [i, p, i, p, d,
                                                             i, p]
             grap.restype = i
+            g2v = getattr(lib, f"sf_g2_vjp_{dt}")
+            g2v.argtypes = [p] * 5 + [i] * 5 + [p, p, d, i, p]
+            g2v.restype = i
+            g4v = getattr(lib, f"sf_g4_vjp_{dt}")
+            g4v.argtypes = [p] * 9 + [i] * 5 + [p, p, p, d, i, p]
+            g4v.restype = i
+            grapv = getattr(lib, f"grap_vjp_{dt}")
+            grapv.argtypes = [p] * 12 + [i] * 6 + [p] * 3 + [i, p, i, p,
+                                                              d, i, p]
+            grapv.restype = i
         _lib = lib
     return _lib
 
@@ -217,6 +329,21 @@ def _check_cuda_inputs(name: str, *tensors: torch.Tensor) -> None:
             raise ValueError(f"{name}: inputs must be contiguous")
     if shape[0] >= 2 ** 31 or shape[1] >= 2 ** 31:
         raise ValueError(f"{name}: shape {tuple(shape)} too large")
+
+
+def _check_cotangent(name: str, gbar: torch.Tensor, rows: int, width: int,
+                     like: torch.Tensor) -> torch.Tensor:
+    """A VJP kernel's cotangent [B, rows, width], contiguous."""
+    if gbar.dim() != 3 or tuple(gbar.shape[1:]) != (rows, width):
+        raise ValueError(f"{name}: cotangent of shape [B, {rows}, "
+                         f"{width}] required, got {tuple(gbar.shape)}")
+    if gbar.dtype != like.dtype or gbar.device != like.device:
+        raise TypeError(f"{name}: cotangent {gbar.dtype} on "
+                        f"{gbar.device}, inputs {like.dtype} on "
+                        f"{like.device}")
+    if gbar.shape[0] * rows >= 2 ** 31:
+        raise ValueError(f"{name}: {gbar.shape[0]} x {rows} rows too many")
+    return gbar.contiguous()
 
 
 def _check_launch(name: str, code: int) -> None:
@@ -345,20 +472,85 @@ def g2_kernel(rij, islotf, mask, grid, rcut: float, cutoff: str,
     return out
 
 
+def _slot_cotangent(gbar, islotf, mask, n_slots: int):
+    """[B, A, S * T] cotangent -> [B, A, N, T]: each entry's slot's row
+    times the entry's selection weight [slot = s] mask (zero for a
+    masked entry and for a slot outside [0, S))."""
+    b, a = gbar.shape[:2]
+    eye = torch.arange(n_slots, dtype=islotf.dtype, device=islotf.device)
+    sel = (islotf[..., None] == eye) * mask[..., None]     # [A, N, S]
+    return torch.einsum("ans,bast->bant", sel,
+                        gbar.reshape(b, a, n_slots, -1))
+
+
+def g2_vjp_reference(gbar, rij, islotf, mask, grid, rcut: float,
+                     cutoff: str, n_slots: int):
+    """Closed-form VJP of `g2_reference` w.r.t. `rij` along `gbar`
+    [B, A, S * T2] -> (d/d rij [B, A, N],): per entry of slot s,
+    sum_t gbar[s, t] e_t (fc'(r) - fc(r) 2 eta_t (r - omega_t) / rc^2)
+    mask^2, e_t = exp(-eta_t (r - omega_t)^2 / rc^2); exactly 0 where
+    the mask is 0."""
+    real = mask > 0
+    r = torch.where(real, rij, 1.0)
+    fc, slope = cutoff_and_slope(cutoff, r, rcut)
+    grid = torch.as_tensor(np.asarray(grid), dtype=rij.dtype,
+                           device=rij.device)
+    eta, omega = grid[:, 0], grid[:, 1]
+    d = r[..., None] - omega                               # [A, N, T2]
+    e = torch.exp(-eta * torch.square(d) / (rcut * rcut))
+    dv = e * (slope[..., None] - fc[..., None] * 2.0 * eta * d
+              / (rcut * rcut)) * mask[..., None]
+    w = _slot_cotangent(gbar, islotf, mask, n_slots)       # [B, A, N, T2]
+    return (torch.where(real, torch.sum(w * dv, dim=-1), 0.0),)
+
+
+def g2_vjp_kernel(gbar, rij, islotf, mask, grid, rcut: float, cutoff: str,
+                  n_slots: int):
+    """`g2_vjp_reference` through the CUDA kernel `g2_vjp_kernel`
+    (csrc/sf_vjp.cu, the backward of the Pallas `_g2_kernel`,
+    tensoralloy_tpu/ops/fused.py:326, which JAX takes by `jax.vjp` of
+    `_g2_ref_dense`); the closed form for CPU tensors. One warp per
+    atom row, each entry's derivative written to its own place."""
+    if rij.device.type == "cpu":
+        return g2_vjp_reference(gbar, rij, islotf, mask, grid, rcut,
+                                cutoff, n_slots)
+    if rij.device.type != "cuda":
+        raise ValueError(f"g2_vjp_kernel: no kernel for device "
+                         f"{rij.device}")
+    _check_cuda_inputs("g2_vjp_kernel", rij, islotf, mask)
+    fn, tail, n_params, _ = _bound_sf("g2_vjp", grid, rcut, cutoff, n_slots,
+                                      rij.dtype)
+    rows, n = rij.shape
+    gbar = _check_cotangent("g2_vjp_kernel", gbar, rows,
+                            n_slots * n_params, rij)
+    batch = gbar.shape[0]
+    out = torch.empty((batch, rows, n), dtype=rij.dtype, device=rij.device)
+    if rows == 0 or batch == 0:
+        return (out,)
+    _launch("g2_vjp", fn, rij.device, gbar.data_ptr(), rij.data_ptr(),
+            islotf.data_ptr(), mask.data_ptr(), out.data_ptr(), batch, rows,
+            n, *tail)
+    return (out,)
+
+
 class G2Function(torch.autograd.Function):
     """Differentiable G2 w.r.t. `rij`; no gradient for slots or mask."""
+
+    n_diff = 1
+    twin = g2_reference
+    kernel_vjp = g2_vjp_kernel
 
     @staticmethod
     def forward(ctx, rij, islotf, mask, grid, rcut, cutoff, n_slots):
         ctx.save_for_backward(rij, islotf, mask)
         ctx.spec = (grid, rcut, cutoff, n_slots)
-        return g2_kernel(rij, islotf, mask, grid, rcut, cutoff, n_slots)
+        out = g2_kernel(rij, islotf, mask, grid, rcut, cutoff, n_slots)
+        _record(G2Function, (rij, islotf, mask), ctx.spec, out)
+        return out
 
     @staticmethod
     def backward(ctx, gbar):
-        rij, islotf, mask = ctx.saved_tensors
-        (grad,) = _twin_vjp(g2_reference, [rij], [islotf, mask], ctx.spec,
-                            gbar)
+        (grad,) = _backward(G2Function, ctx, gbar)
         return grad, None, None, None, None, None, None
 
 
@@ -425,22 +617,104 @@ def g4_kernel(rij, rik, rjk, aslotf, mask, grid, acut: float, cutoff: str,
     return out
 
 
+def g4_vjp_reference(gbar, rij, rik, rjk, aslotf, mask, grid, acut: float,
+                     cutoff: str, n_slots: int):
+    """Closed-form VJP of `g4_reference` w.r.t. (rij, rik, rjk) along
+    `gbar` [B, A, S * T4] -> three [B, A, Nt]. With a, b, c the three
+    distances, per grid row t the term is P_t(cos) E_t(z) fc(a) fc(b)
+    fc(c): P_t = 2^(1-zeta) max(1 + gamma cos, 0)^zeta, E_t =
+    exp(-beta z), z = (a^2 + b^2 + c^2) / rc^2, and
+      d/da = fc3 (C dcos/da + Z 2a / rc^2) + V fc'(a) fc(b) fc(c)
+    with C = sum_t w_t P_t' E_t, Z = -sum_t w_t beta_t P_t E_t, V =
+    sum_t w_t P_t E_t, w_t the entry's slot's cotangent times mask^2,
+    dcos/da = (a^2 - b^2 + c^2) / (2 a^2 b), dcos/db likewise, dcos/dc =
+    -c / (a b). The clamp has slope 0 where 1 + gamma cos <= 0.
+    Exactly 0 where the mask is 0."""
+    real = mask > 0
+
+    def safe(x):
+        return torch.where(real, x, 1.0)
+
+    a, b, c = safe(rij), safe(rik), safe(rjk)
+    a2, b2, c2 = a * a, b * b, c * c
+    z = (a2 + b2 + c2) / (acut * acut)
+    cos = (a2 + b2 - c2) / (2.0 * a * b)
+    (fa, da), (fb, db), (fcc, dc) = (cutoff_and_slope(cutoff, x, acut)
+                                     for x in (a, b, c))
+    fc3 = fa * fb * fcc
+    p, dp, pe = [], [], []
+    for beta, gamma, zeta in np.asarray(grid, dtype=np.float64).tolist():
+        arg = 1.0 + gamma * cos
+        base = torch.clamp(arg, min=0.0)
+        scale = 2.0 ** (1.0 - zeta)
+        e = torch.exp(-beta * z)
+        p.append(scale * base ** zeta * e)
+        dp.append(torch.where(arg > 0, scale * zeta * gamma
+                              * base ** (zeta - 1.0), 0.0) * e)
+        pe.append(-beta * p[-1])
+    w = _slot_cotangent(gbar, aslotf, mask, n_slots) * mask[..., None]
+    coef_c, coef_z, coef_v = (torch.sum(w * torch.stack(t, dim=-1), dim=-1)
+                              for t in (dp, pe, p))
+    two_ab = 2.0 * a * b
+    dcos = ((a2 - b2 + c2) / (two_ab * a), (b2 - a2 + c2) / (two_ab * b),
+            -c / (a * b))
+    slopes = (da * fb * fcc, fa * db * fcc, fa * fb * dc)
+    return tuple(
+        torch.where(real, fc3 * (coef_c * dc_x + coef_z * 2.0 * x
+                                 / (acut * acut)) + coef_v * s_x, 0.0)
+        for x, dc_x, s_x in zip((a, b, c), dcos, slopes))
+
+
+def g4_vjp_kernel(gbar, rij, rik, rjk, aslotf, mask, grid, acut: float,
+                  cutoff: str, n_slots: int):
+    """`g4_vjp_reference` through the CUDA kernel `g4_vjp_kernel`
+    (csrc/sf_vjp.cu, the backward of the Pallas `_g4_kernel`,
+    tensoralloy_tpu/ops/fused.py:412); the closed form for CPU
+    tensors."""
+    if rij.device.type == "cpu":
+        return g4_vjp_reference(gbar, rij, rik, rjk, aslotf, mask, grid,
+                                acut, cutoff, n_slots)
+    if rij.device.type != "cuda":
+        raise ValueError(f"g4_vjp_kernel: no kernel for device "
+                         f"{rij.device}")
+    _check_cuda_inputs("g4_vjp_kernel", rij, rik, rjk, aslotf, mask)
+    fn, tail, n_params, _ = _bound_sf("g4_vjp", grid, acut, cutoff, n_slots,
+                                      rij.dtype)
+    rows, n = rij.shape
+    gbar = _check_cotangent("g4_vjp_kernel", gbar, rows,
+                            n_slots * n_params, rij)
+    batch = gbar.shape[0]
+    outs = tuple(torch.empty((batch, rows, n), dtype=rij.dtype,
+                             device=rij.device) for _ in range(3))
+    if rows == 0 or batch == 0:
+        return outs
+    _launch("g4_vjp", fn, rij.device, gbar.data_ptr(), rij.data_ptr(),
+            rik.data_ptr(), rjk.data_ptr(), aslotf.data_ptr(),
+            mask.data_ptr(), *(o.data_ptr() for o in outs), batch, rows, n,
+            *tail)
+    return outs
+
+
 class G4Function(torch.autograd.Function):
     """Differentiable G4 w.r.t. `rij`, `rik`, `rjk`."""
+
+    n_diff = 3
+    twin = g4_reference
+    kernel_vjp = g4_vjp_kernel
 
     @staticmethod
     def forward(ctx, rij, rik, rjk, aslotf, mask, grid, acut, cutoff,
                 n_slots):
         ctx.save_for_backward(rij, rik, rjk, aslotf, mask)
         ctx.spec = (grid, acut, cutoff, n_slots)
-        return g4_kernel(rij, rik, rjk, aslotf, mask, grid, acut, cutoff,
-                         n_slots)
+        out = g4_kernel(rij, rik, rjk, aslotf, mask, grid, acut, cutoff,
+                        n_slots)
+        _record(G4Function, (rij, rik, rjk, aslotf, mask), ctx.spec, out)
+        return out
 
     @staticmethod
     def backward(ctx, gbar):
-        rij, rik, rjk, aslotf, mask = ctx.saved_tensors
-        grads = _twin_vjp(g4_reference, [rij, rik, rjk], [aslotf, mask],
-                          ctx.spec, gbar)
+        grads = _backward(G4Function, ctx, gbar)
         return (*grads, None, None, None, None, None, None)
 
 
@@ -475,6 +749,100 @@ def grap_reference(rij, ux, uy, uz, islotf, mask, desc, rcut: float,
     p = torch.einsum("anx,and->axd", hs, m)
     p = p.reshape(a * n_slots, k, m.shape[-1])
     return desc.invariants_from_p(p, a, n_slots)
+
+
+def grap_filter_and_slope(desc, r, rcut: float):
+    """-> (h [..., K], dh/dr [..., K]): the descriptor's filter bank
+    before the cutoff (its own `_filter_values`) and its slope written
+    out, for the grid algorithms."""
+    h = desc._filter_values(r, rcut)
+    cols = {k: torch.as_tensor(desc._grid[:, i], dtype=r.dtype,
+                               device=r.device)
+            for i, k in enumerate(desc._grid_keys)}
+    r = r[..., None]
+    if desc.algorithm == "sf":
+        return h, -2.0 * cols["eta"] * (r - cols["omega"]) / (rcut * rcut) * h
+    if desc.algorithm == "density":
+        return h, -cols["beta"] / cols["re"] * h
+    if desc.algorithm == "morse":
+        x = cols["gamma"] * (r - cols["r0"])
+        return h, 2.0 * cols["D"] * cols["gamma"] * (torch.exp(-x)
+                                                     - torch.exp(-2.0 * x))
+    if desc.algorithm == "pexp":
+        x = (r / cols["rl"]) ** cols["pl"]
+        return h, -cols["pl"] * x / r * h
+    raise ValueError(f"no closed-form slope for algorithm "
+                     f"{desc.algorithm!r}")
+
+
+def monomial_slopes(max_moment: int) -> Tuple[np.ndarray, np.ndarray]:
+    """-> (index [3, D], count [3, D]): d m_d / d u_axis = count *
+    m_index, the monomial with one factor `axis` less (count 0 where the
+    monomial has none)."""
+    from ..nn.grap import moment_monomials
+    monos = moment_monomials(max_moment)
+    where = {mono: d for d, mono in enumerate(monos)}
+    index = np.zeros((3, len(monos)), np.int64)
+    count = np.zeros((3, len(monos)))
+    for d, mono in enumerate(monos):
+        for ax in set(mono):
+            rest = list(mono)
+            rest.remove(ax)
+            index[ax, d] = where[tuple(rest)]
+            count[ax, d] = mono.count(ax)
+    return index, count
+
+
+def grap_vjp_reference(gbar, rij, ux, uy, uz, islotf, mask, desc,
+                       rcut: float, n_slots: int):
+    """Closed-form VJP of `grap_reference` w.r.t. (rij, ux, uy, uz) along
+    `gbar` [B, A, S * K * M] -> four [B, A, N]. P[s, k, d] is recomputed
+    as the twin forms it; with the invariants' weights w [D, M],
+      Pbar[s, k, d] = P[s, k, d] sum_m c[s, k, m] w[d, m],
+      c = 2 gbar for a moment above 0, and for moment 0
+      gbar sign(P0) / sqrt(Q0 + 1e-16), Q0 = sum_d w[d, 0] P^2;
+    then for an entry of slot s with h_k = filter_k(r) fc(r) mask and
+    monomials m_d(u):
+      d/dr   = sum_k h_k'(r) sum_d Pbar[s, k, d] m_d
+      d/du_x = sum_d (d m_d / d u_x) sum_k Pbar[s, k, d] h_k,
+    each times the entry's selection weight; exactly 0 where the mask
+    is 0."""
+    from ..nn.grap import moment_basis_c, multiplicity_tensor
+    bsz, a = gbar.shape[:2]
+    n = rij.shape[1]
+    real = mask > 0
+    r = torch.where(real, rij, 1.0)
+    fc, slope = cutoff_and_slope(desc.cutoff_function, r, rcut)
+    fc, slope = fc * mask, slope * mask
+    f, df = grap_filter_and_slope(desc, r, rcut)
+    h = f * fc[..., None]                                  # [A, N, K]
+    dh = df * fc[..., None] + f * slope[..., None]
+    m = moment_basis_c((ux, uy, uz), desc.max_moment)      # [A, N, D]
+    k = desc.n_filters
+    eye = torch.arange(n_slots, dtype=islotf.dtype, device=islotf.device)
+    sel = (islotf[..., None] == eye) * mask[..., None]     # [A, N, S]
+    hs = sel[..., None] * h[..., None, :]                  # [A, N, S, K]
+    p = torch.einsum("ansk,and->askd", hs, m)
+    t = torch.as_tensor(multiplicity_tensor(desc.max_moment, desc.symmetric),
+                        dtype=rij.dtype, device=rij.device)   # [D, mm + 1]
+    moments = list(desc.moment_tensors)
+    full = gbar.new_zeros((bsz, a, n_slots, k, desc.max_moment + 1))
+    full[..., moments] = gbar.reshape(bsz, a, n_slots, k, len(moments))
+    coef = 2.0 * full
+    if 0 in moments:
+        q0 = torch.square(p) @ t[:, 0]                     # [A, S, K]
+        c0 = torch.sign(p[..., 0]) / torch.sqrt(q0 + 1e-16)
+        coef[..., 0] = full[..., 0] * c0
+    pbar = p * (coef @ t.T)                                # [B, A, S, K, D]
+    x = torch.einsum("bgskd,gnd->bgnsk", pbar, m)          # [B, A, N, S, K]
+    dr = torch.einsum("bgnsk,gnsk->bgn", x, sel[..., None] * dh[..., None, :])
+    dm = torch.einsum("gnsk,bgskd->bgnd", hs, pbar)        # [B, A, N, D]
+    index, count = monomial_slopes(desc.max_moment)
+    count = torch.as_tensor(count, dtype=rij.dtype, device=rij.device)
+    index = torch.as_tensor(index, device=rij.device)
+    grads = [dr] + [torch.sum(dm * m[..., index[ax]] * count[ax], dim=-1)
+                    for ax in range(3)]
+    return tuple(torch.where(real, g, 0.0) for g in grads)
 
 
 def monomial_codes(max_moment: int) -> np.ndarray:
@@ -537,20 +905,21 @@ def kept_grap_tables(desc):
     return tables
 
 
-def _bound_grap(desc, rcut: float, n_slots: int, dtype, device) -> tuple:
+def _bound_grap(desc, rcut: float, n_slots: int, dtype, device,
+                kind: str = "grap") -> tuple:
     """-> (the C entry point of GRAP for `dtype`, the [D, M] weights on
     `device` (a copy from host memory at each call would wait for the
     work already queued on the stream), the constant arguments that
     follow (rows, n), the output columns), bound once per
     (specification, cutoff, rcut, n_slots, dtype, device). The tuple
     holds the host tables so that the pointers stay valid."""
-    key = ("grap", grap_spec(desc), desc.cutoff_function, rcut, n_slots,
+    key = (kind, grap_spec(desc), desc.cutoff_function, rcut, n_slots,
            dtype, device)
     bound = _bound.get(key)
     if bound is None:
         tables = kept_grap_tables(desc)
         algorithm, cols, codes, weights, moments = tables
-        fn = getattr(_library(), f"grap_{_SUFFIX[dtype]}")
+        fn = getattr(_library(), f"{kind}_{_SUFFIX[dtype]}")
         w = torch.as_tensor(weights.copy(), dtype=dtype, device=device)
         k = len(cols[0])
         tail = (n_slots, algorithm, k, *(c.ctypes.data for c in cols),
@@ -586,20 +955,55 @@ def grap_kernel(rij, ux, uy, uz, islotf, mask, desc, rcut: float,
     return out
 
 
+def grap_vjp_kernel(gbar, rij, ux, uy, uz, islotf, mask, desc,
+                    rcut: float, n_slots: int):
+    """`grap_vjp_reference` through the CUDA kernel `grap_vjp_kernel`
+    (csrc/grap_vjp.cu, the backward of the Pallas `_grap_kernel`,
+    tensoralloy_tpu/ops/fused.py:170); the closed form for CPU tensors.
+    A block per atom row recomputes P, forms Pbar in shared memory and
+    walks the row's pairs again (see the source)."""
+    if rij.device.type == "cpu":
+        return grap_vjp_reference(gbar, rij, ux, uy, uz, islotf, mask,
+                                  desc, rcut, n_slots)
+    if rij.device.type != "cuda":
+        raise ValueError(f"grap_vjp_kernel: no kernel for device "
+                         f"{rij.device}")
+    _check_cuda_inputs("grap_vjp_kernel", rij, ux, uy, uz, islotf, mask)
+    fn, w, tail, n_out, _ = _bound_grap(desc, rcut, n_slots, rij.dtype,
+                                        rij.device, kind="grap_vjp")
+    rows, n = rij.shape
+    gbar = _check_cotangent("grap_vjp_kernel", gbar, rows, n_out, rij)
+    batch = gbar.shape[0]
+    outs = tuple(torch.empty((batch, rows, n), dtype=rij.dtype,
+                             device=rij.device) for _ in range(4))
+    if rows == 0 or batch == 0:
+        return outs
+    _launch("grap_vjp", fn, rij.device, gbar.data_ptr(), rij.data_ptr(),
+            ux.data_ptr(), uy.data_ptr(), uz.data_ptr(), islotf.data_ptr(),
+            mask.data_ptr(), w.data_ptr(), *(o.data_ptr() for o in outs),
+            batch, rows, n, *tail)
+    return outs
+
+
 class GrapFunction(torch.autograd.Function):
     """Differentiable GRAP w.r.t. `rij`, `ux`, `uy`, `uz` (the JAX op's
     `n_diff=4`); no gradient for slots or mask."""
+
+    n_diff = 4
+    twin = grap_reference
+    kernel_vjp = grap_vjp_kernel
 
     @staticmethod
     def forward(ctx, rij, ux, uy, uz, islotf, mask, desc, rcut, n_slots):
         ctx.save_for_backward(rij, ux, uy, uz, islotf, mask)
         ctx.spec = (desc, rcut, n_slots)
-        return grap_kernel(rij, ux, uy, uz, islotf, mask, desc, rcut,
-                           n_slots)
+        out = grap_kernel(rij, ux, uy, uz, islotf, mask, desc, rcut,
+                          n_slots)
+        _record(GrapFunction, (rij, ux, uy, uz, islotf, mask), ctx.spec,
+                out)
+        return out
 
     @staticmethod
     def backward(ctx, gbar):
-        rij, ux, uy, uz, islotf, mask = ctx.saved_tensors
-        grads = _twin_vjp(grap_reference, [rij, ux, uy, uz],
-                          [islotf, mask], ctx.spec, gbar)
+        grads = _backward(GrapFunction, ctx, gbar)
         return (*grads, None, None, None, None, None)
