@@ -683,6 +683,21 @@ def _random_triples(rng, rows, n, n_slots, rc, dtype, device):
     return [t(d) for d in dists] + [t(slot), t(real.astype(np.float64))]
 
 
+def _with_holes(rng, diff, slot, mask):
+    """The same rows with each row's entries in a seeded random order, so
+    that real entries and slots interleave along the row, and about a
+    third of the real entries masked: holes between real entries, which
+    keep their finite geometry (a kernel must not read it)."""
+    shape = tuple(mask.shape)
+    perm = torch.as_tensor(np.argsort(rng.uniform(size=shape), axis=1),
+                           device=mask.device)
+    keep = torch.as_tensor(rng.uniform(size=shape) < 0.65, dtype=mask.dtype,
+                           device=mask.device)
+    shuffled = [torch.gather(x, 1, perm).contiguous()
+                for x in (*diff, slot, mask)]
+    return shuffled[:-2], shuffled[-2], (shuffled[-1] * keep).contiguous()
+
+
 # G2 cases (N, slots, wide grid): the featurizer's bucket widths, widths
 # that are no multiple of 4 (unaligned rows, a partial second span), 1-3
 # slots and more than one pass holds (6), the served 5-row grid and a
@@ -690,6 +705,16 @@ def _random_triples(rng, rows, n, n_slots, rc, dtype, device):
 G2_CASES = ((32, 1, False), (64, 2, False), (128, 1, False),
             (128, 2, False), (256, 3, False), (130, 3, False),
             (77, 1, True), (128, 2, True), (64, 6, False))
+
+
+# G4 cases (N, slots, the clamp grid, holes): the served widths, one slot
+# and three, |gamma| = 2 where the clamp of 1 + gamma cos(theta) at 0
+# is active, and rows with holes and interleaved slots, one of them no
+# multiple of 4 (the scalar loads)
+G4_CASES = ((256, 3, False, False), (384, 1, False, False),
+            (384, 3, False, False), (256, 3, True, False),
+            (256, 3, False, True), (384, 1, True, True),
+            (130, 2, False, True))
 
 
 def check_kernels(device="cuda", rows=4001) -> None:
@@ -720,18 +745,22 @@ def check_kernels(device="cuda", rows=4001) -> None:
                 _compare(*g2_case)
                 _compare_vjp(*g2_case)
             _compare_second_order(*g2_case)
-            for n, n_slots, g4_sf in ((256, 3, sf), (384, 1, sf),
-                                      (384, 3, sf), (256, 3, clamp)):
-                g4_args = (g4_sf.angular_grid, 4.0, cutoff, n_slots)
+            for n, n_slots, clamp_grid, holes in G4_CASES:
+                g4_args = ((clamp if clamp_grid else sf).angular_grid, 4.0,
+                           cutoff, n_slots)
                 *dists, slot, mask = _random_triples(rng, rows, n, n_slots,
                                                      4.0, dtype, device)
+                if holes:
+                    dists, slot, mask = _with_holes(rng, dists, slot, mask)
                 g4_case = ("g4", f"{cutoff} N={n} S={n_slots} "
-                           f"T4={len(g4_args[0])}",
+                           f"T4={len(g4_args[0])}{' holes' if holes else ''}",
                            fused.G4Function, fused.g4_reference, dists,
                            [slot, mask], g4_args, dtype, tol)
                 _compare(*g4_case)
                 _compare_vjp(*g4_case)
-            _compare_second_order(*g4_case)
+                if not holes:
+                    second_order = g4_case
+            _compare_second_order(*second_order)
     check_grap_kernel(device, rows)
 
 
@@ -761,6 +790,9 @@ GRAP_CASES = (
     ("pexp", _WIDE_PEXP, [0, 1, 2], False, "cosine", 128, 1),
     ("sf", {"eta": [0.5, 2.0, 8.0], "omega": [0.0, 0.0, 0.0]}, [0, 1, 2, 3],
      False, "cosine", 128, 3),
+    # a filter that is 0 everywhere: P0 = 0, where sign(0) = 0
+    ("density", {"A": [1.0, 0.0], "beta": [2.0, 4.0], "re": [3.0, 3.0]},
+     [0, 1, 2, 3], False, "cosine", 96, 2),
 )
 
 
@@ -788,18 +820,23 @@ def check_grap_kernel(device="cuda", rows=4001) -> None:
                 ["Mo", "Ni"], algorithm=algorithm, parameters=params,
                 moment_tensors=moments, symmetric=symmetric,
                 cutoff_function=cutoff, backend="dense")
-            *diff, slot, mask = _random_unit_pairs(rng, rows, n, n_slots,
-                                                   6.0, dtype, device)
-            label = (f"{algorithm} K={desc.n_filters} moments={moments}"
-                     f"{' symmetric' if symmetric else ''} {cutoff} N={n} "
-                     f"S={n_slots}")
-            grap_case = ("grap", label, fused.GrapFunction,
-                         fused.grap_reference, diff, [slot, mask],
-                         (desc, 6.0, n_slots), dtype, tol)
-            _compare(*grap_case)
-            _compare_vjp(*grap_case)
-            if desc.n_filters <= 16:
-                _compare_second_order(*grap_case)
+            # each case on rows filled from the front, then on rows with
+            # holes and interleaved slots
+            for holes in (False, True):
+                *diff, slot, mask = _random_unit_pairs(rng, rows, n, n_slots,
+                                                       6.0, dtype, device)
+                if holes:
+                    diff, slot, mask = _with_holes(rng, diff, slot, mask)
+                label = (f"{algorithm} K={desc.n_filters} moments={moments}"
+                         f"{' symmetric' if symmetric else ''} {cutoff} "
+                         f"N={n} S={n_slots}{' holes' if holes else ''}")
+                grap_case = ("grap", label, fused.GrapFunction,
+                             fused.grap_reference, diff, [slot, mask],
+                             (desc, 6.0, n_slots), dtype, tol)
+                _compare(*grap_case)
+                _compare_vjp(*grap_case)
+                if desc.n_filters <= 16 and not holes:
+                    _compare_second_order(*grap_case)
 
 
 def _compare(name, label, function, reference, diff, rest, spec, dtype,
@@ -836,19 +873,24 @@ def assert_close_scaled(got, want, tol) -> None:
 def _compare_vjp(name, label, function, reference, diff, rest, spec, dtype,
                  tol):
     """The VJP kernel (`function.kernel_vjp` on the card) against its
-    closed form and against the twin's own autograd, for B = 1 and B = 3
-    seeded cotangents; masked entries exactly 0."""
+    closed form and against the twin's own autograd, for B = 1, 3 and 8
+    seeded cotangents; masked entries exactly 0; a second launch on the
+    same inputs bit for bit the first."""
     from tensoralloy_tpu_torch.ops import fused
     closed = getattr(fused, f"{name}_vjp_reference")
     mask = rest[-1]
     y = reference(*diff, *rest, *spec)
     gen = torch.Generator(device=y.device).manual_seed(SEED + 3)
     err, top = 0.0, 0.0
-    for batch in (1, 3):
+    for batch in (1, 3, 8):
         gbar = torch.randn((batch, *y.shape), generator=gen, dtype=dtype,
                            device=y.device)
         got = function.kernel_vjp(gbar, *diff, *rest, *spec)
+        again = function.kernel_vjp(gbar, *diff, *rest, *spec)
         torch.cuda.synchronize()
+        if not all(torch.equal(g, a) for g, a in zip(got, again)):
+            raise AssertionError(f"{name}_vjp {label} B={batch}: a second "
+                                 "launch differs from the first")
         want = closed(gbar, *diff, *rest, *spec)
         x = [d.clone().requires_grad_() for d in diff]
         y_twin = reference(*x, *rest, *spec)
@@ -864,9 +906,10 @@ def _compare_vjp(name, label, function, reference, diff, rest, spec, dtype,
             err = max(err, (g - w).abs().max().item(),
                       (g - t).abs().max().item())
             top = max(top, t.abs().max().item())
-    print(f"  {name}_vjp {str(dtype)[6:]} {label} B=1,3: max_abs_err "
+    print(f"  {name}_vjp {str(dtype)[6:]} {label} B=1,3,8: max_abs_err "
           f"{err:.3e} against the closed form and the twin's autograd at "
-          f"max|value| {top:.3e} (rtol/atol {tol['rtol']:g}) ok")
+          f"max|value| {top:.3e} (rtol/atol {tol['rtol']:g}), a second "
+          "launch bit for bit ok")
 
 
 def _compare_second_order(name, label, function, reference, diff, rest,

@@ -10,10 +10,12 @@ snap_ni_sfa (G2, G4) and snap_ni_v5_readapt (GRAP) on jittered fcc Ni of
 4000 and 32000 atoms on the host lists, and the GRAP 32000-atom request
 on the device lists (where "auto" sends it), float32, backend "pallas".
 Device E/F/S is the median host-clock time of the calculator's E/F/S
-function on features made once, each call waited for (10 calls at 4000
-atoms, 5 at 32000, after a warm-up request). Prints one JSON line per
-request with the launches of one request by kernel. Run two checkouts in
-turns (A, B, B, A) in one call to compare them on one card.
+function on features made once, each call waited for (40 calls at 4000
+atoms, 15 at 32000, after a warm-up request: a 4000-atom request's host
+clock varies by a millisecond or more from call to call). Prints one
+JSON line per request with the launches of one request by kernel. Run
+two checkouts in turns (A, B, B, A) in one call to compare them on one
+card.
 """
 from __future__ import annotations
 
@@ -70,7 +72,7 @@ def main() -> int:
                                      backend="pallas", **options)
         structure = chip_smoke._structure(reps)
         ms, device, launches = device_efs(calc, structure,
-                                          10 if reps < 20 else 5)
+                                          40 if reps < 20 else 15)
         print(json.dumps({"root": str(root), "card": card,
                           "request": label, "atoms": len(structure),
                           "device_lists": device, "device_efs_ms": ms,

@@ -32,6 +32,8 @@ struct Cutoff {
 
 __device__ __forceinline__ float d_exp(float x) { return expf(x); }
 __device__ __forceinline__ double d_exp(double x) { return exp(x); }
+__device__ __forceinline__ float d_exp2(float x) { return exp2f(x); }
+__device__ __forceinline__ double d_exp2(double x) { return exp2(x); }
 __device__ __forceinline__ float d_cospi(float x) { return cospif(x); }
 __device__ __forceinline__ double d_cospi(double x) { return cospi(x); }
 __device__ __forceinline__ float d_sinpi(float x) { return sinpif(x); }
@@ -40,6 +42,17 @@ __device__ __forceinline__ float d_pow(float x, float y) { return powf(x, y); }
 __device__ __forceinline__ double d_pow(double x, double y) { return pow(x, y); }
 __device__ __forceinline__ float d_sqrt(float x) { return sqrtf(x); }
 __device__ __forceinline__ double d_sqrt(double x) { return sqrt(x); }
+
+constexpr unsigned kFull = 0xffffffffu;   // every lane of a warp
+
+// The entry's slot as an index, or -1 where the entry is masked or its
+// slot is no integer in [0, n_slots) (the twins' [slot == s] mask).
+template <typename T>
+__device__ __forceinline__ int entry_slot(T mk, T sl, int n_slots) {
+  if (!(mk > T(0)) || !(sl >= T(0)) || !(sl < T(n_slots))) return -1;
+  const int s = static_cast<int>(sl);
+  return T(s) == sl ? s : -1;
+}
 
 template <typename T>
 __device__ __forceinline__ T clamp_to(T x, T lo, T hi) {
@@ -117,6 +130,36 @@ __device__ __forceinline__ T cutoff_slope(const Cutoff<T>& c, T r) {
                  ? T(-0.25) * kPi * c.inv_d * d_cospi(T(0.5) * z)
                  : T(0);
     }
+  }
+}
+
+__device__ __forceinline__ void d_sincospi(float x, float* s, float* c) {
+  sincospif(x, s, c);
+}
+__device__ __forceinline__ void d_sincospi(double x, double* s, double* c) {
+  sincospi(x, s, c);
+}
+
+// `cutoff_value` and `cutoff_slope` together; the cosine cutoff takes
+// both from one sincospi.
+template <typename T>
+__device__ __forceinline__ void cutoff_value_and_slope(const Cutoff<T>& c,
+                                                       T r, T& f, T& s) {
+  if (c.id != 0) {
+    f = cutoff_value(c, r);
+    s = cutoff_slope(c, r);
+    return;
+  }
+  constexpr T kPi = T(3.14159265358979323846);
+  const T z = r * c.inv_rc;
+  if (z < T(1)) {
+    T sn, cs;
+    d_sincospi(z, &sn, &cs);
+    f = T(0.5) * (cs + T(1));
+    s = T(-0.5) * kPi * c.inv_rc * sn;
+  } else {   // cos(pi) = -1: the value is 0 past rc, and so is the slope
+    f = T(0);
+    s = T(0);
   }
 }
 

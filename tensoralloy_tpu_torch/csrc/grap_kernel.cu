@@ -61,10 +61,6 @@
 #include <cuda_runtime.h>
 
 #include <cstddef>
-#include <map>
-#include <mutex>
-#include <tuple>
-#include <utility>
 
 #include "common.cuh"
 #include "grap_common.cuh"
@@ -76,17 +72,11 @@ constexpr int kThreads = 32 * kWarps;
 constexpr int kBatch = 32;                // pairs per h / m tile
 constexpr int kSpan = 64;                 // entries compacted per step
 constexpr int kList = kSpan + kBatch;     // stage: a step + carry
-constexpr int kMaxFilters = 64;
-constexpr int kMaxMoments = 6;
 constexpr int kTileK = 4;                 // a lane's tile: 4 filters
 constexpr int kTileD = 8;                 //   x 8 monomials
 constexpr int kMaxTilesPerLane = 2;
 constexpr int kDp = 64;                   // monomials padded: 8 tiles of 8
 constexpr int kTilesD = kDp / kTileD;     // lanes of one filter block
-
-// Elements of T in a 16-byte chunk of shared memory: 4 floats, 2 doubles.
-template <typename T>
-constexpr int kChunk = 16 / sizeof(T);
 
 // Row stride of the monomial tile: kDp and one chunk more, so that row
 // p starts p chunks further round the banks: the lanes' stores (one
@@ -94,21 +84,6 @@ constexpr int kChunk = 16 / sizeof(T);
 // both meet no bank conflicts.
 template <typename T>
 constexpr int kMs = kDp + kChunk<T>;
-constexpr unsigned kFull = 0xffffffffu;
-
-enum Algorithm { kSf = 0, kDensity = 1, kMorse = 2, kPexp = 3 };
-
-template <typename T>
-struct GrapSpec {
-  int algorithm;
-  int n_filters;   // K
-  int n_mono;      // D
-  int n_moments;   // M
-  T c0[kMaxFilters];   // sf: eta   density: A     morse: D      pexp: rl
-  T c1[kMaxFilters];   // sf: omega density: beta  morse: gamma  pexp: pl
-  T c2[kMaxFilters];   //           density: re    morse: r0
-  int moment[kMaxMoments];
-};
 
 // Launch shape, fixed on the host from (K, D).
 struct Shape {
@@ -136,59 +111,6 @@ size_t smem_bytes(const Shape& sh, int n_filters, int n_moments) {
          sizeof(double) * n_filters +
          sizeof(T) * (kDp * n_moments + 3 * n_filters) +
          sizeof(int) * n_moments;
-}
-
-__device__ __forceinline__ float d_exp2(float x) { return exp2f(x); }
-__device__ __forceinline__ double d_exp2(double x) { return exp2(x); }
-
-// A filter at distance r, before the cutoff (ops/fused.py twin), from
-// its grid row (c0, c1, c2). pexp's exp(-(r / rl)^pl) is taken as
-// exp(-2^(pl (log2 r - log2 rl))), with log2 r (`lr`, once per pair),
-// log2 rl (`lrl`, once per block) and their difference in double: one
-// exp2 a filter in place of a division and a pow.
-template <typename T>
-__device__ __forceinline__ T filter_value(int algorithm, T c0, T c1, T c2,
-                                          double lrl, T r, double lr,
-                                          T rc2) {
-  switch (algorithm) {
-    case kSf: {
-      const T d = r - c1;
-      return d_exp(-c0 * (d * d) / rc2);
-    }
-    case kDensity:
-      return c0 * d_exp(-c1 * (r / c2 - T(1)));
-    case kMorse: {
-      const T x = c1 * (r - c2);
-      return c0 * (d_exp(T(-2) * x) - T(2) * d_exp(-x));
-    }
-    default:
-      return d_exp(-d_exp2(T(double(c1) * (lr - lrl))));
-  }
-}
-
-__device__ __forceinline__ void load_chunk(const float* p, float* v) {
-  const float4 q = *reinterpret_cast<const float4*>(p);
-  v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
-}
-
-__device__ __forceinline__ void load_chunk(const double* p, double* v) {
-  const double2 q = *reinterpret_cast<const double2*>(p);
-  v[0] = q.x; v[1] = q.y;
-}
-
-__device__ __forceinline__ void store_chunk(float* p, const float* v) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-}
-
-__device__ __forceinline__ void store_chunk(double* p, const double* v) {
-  *reinterpret_cast<double2*>(p) = make_double2(v[0], v[1]);
-}
-
-// v[0, 4) = p[0, 4), 16-byte aligned.
-template <typename T>
-__device__ __forceinline__ void load4(const T* p, T* v) {
-#pragma unroll
-  for (int q = 0; q < 4; q += kChunk<T>) load_chunk(p + q, v + q);
 }
 
 template <typename T, int TPL>
@@ -486,45 +408,6 @@ grap_kernel(const T* __restrict__ rij, const T* __restrict__ ux,
   }
 }
 
-// Blocks of `kernel` resident on the current device at `smem` bytes of
-// dynamic shared memory a block, after raising the kernel's shared-memory
-// limit to `smem` (a launch asking for more than the limit is refused, so
-// the limit only grows). Asked of the runtime once per (device, kernel,
-// smem) and kept: a server launches one kernel at one size again and
-// again.
-cudaError_t resident_blocks(const void* kernel, size_t smem, int* blocks) {
-  static std::mutex lock;
-  static std::map<std::pair<int, const void*>, size_t> limits;
-  static std::map<std::tuple<int, const void*, size_t>, int> resident;
-  int device = 0;
-  cudaError_t e = cudaGetDevice(&device);
-  if (e != cudaSuccess) return e;
-  const std::lock_guard<std::mutex> guard(lock);
-  const auto key = std::make_tuple(device, kernel, smem);
-  const auto hit = resident.find(key);
-  if (hit != resident.end()) {
-    *blocks = hit->second;
-    return cudaSuccess;
-  }
-  size_t& limit = limits[std::make_pair(device, kernel)];
-  if (smem > limit) {
-    e = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
-    limit = smem;
-  }
-  int sms = 0, per_sm = 0;
-  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (e != cudaSuccess) return e;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                    kThreads, smem);
-  if (e != cudaSuccess) return e;
-  *blocks = sms * (per_sm > 0 ? per_sm : 1);
-  resident.emplace(key, *blocks);
-  return cudaSuccess;
-}
-
 template <typename T>
 int launch_grap(const T* rij, const T* ux, const T* uy, const T* uz,
                 const T* slot, const T* mask, const T* w, T* out, int rows,
@@ -540,21 +423,9 @@ int launch_grap(const T* rij, const T* ux, const T* uy, const T* uz,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   GrapSpec<T> spec;
-  spec.algorithm = algorithm;
-  spec.n_filters = n_filters;
-  spec.n_mono = n_mono;
-  spec.n_moments = n_moments;
-  for (int k = 0; k < kMaxFilters; ++k) {
-    const bool in = k < n_filters;
-    spec.c0[k] = T(in ? c0[k] : 0.0);
-    spec.c1[k] = T(in ? c1[k] : 0.0);
-    spec.c2[k] = T(in ? c2[k] : 0.0);
-  }
-  for (int d = 0; d < n_mono; ++d) {
-    if (codes[d] != kCodes[d]) return static_cast<int>(cudaErrorInvalidValue);
-  }
-  for (int m = 0; m < kMaxMoments; ++m) {
-    spec.moment[m] = m < n_moments ? moments[m] : -1;
+  if (!make_spec(spec, algorithm, n_filters, c0, c1, c2, n_mono, codes,
+                 n_moments, moments)) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
 
   Shape sh;
@@ -573,7 +444,7 @@ int launch_grap(const T* rij, const T* ux, const T* uy, const T* uz,
     // each block stages its tables once for all the rows it takes
     int resident = 0;
     const cudaError_t e = resident_blocks(
-        reinterpret_cast<const void*>(kernel), smem, &resident);
+        reinterpret_cast<const void*>(kernel), kThreads, smem, &resident);
     if (e != cudaSuccess) return static_cast<int>(e);
     const int needed = (rows + kWarps - 1) / kWarps;
     const int blocks = needed < resident ? needed : resident;

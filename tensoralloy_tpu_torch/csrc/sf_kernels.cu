@@ -55,17 +55,15 @@
 #include <cuda_runtime.h>
 
 #include <cmath>
-#include <cstdint>
-#include <type_traits>
 
 #include "common.cuh"
+#include "sf_common.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxParams = 64;
-constexpr unsigned kFull = 0xffffffffu;
 
 template <typename T>
 struct G2Grid {
@@ -81,9 +79,6 @@ struct G4Grid {
   T scale[kMaxParams];  // 2^(1 - zeta)
   int izeta[kMaxParams];  // zeta where it is an integer in 1..16, else 0
 };
-
-__device__ __forceinline__ float d_exp2(float x) { return exp2f(x); }
-__device__ __forceinline__ double d_exp2(double x) { return exp2(x); }
 
 constexpr int kG2Entries = 4;                 // G2 entries a lane owns
 constexpr int kG2Span = 32 * kG2Entries;      // G2 entries a warp reads
@@ -266,44 +261,6 @@ __device__ __forceinline__ T warp_allsum(T v) {
   return v;
 }
 
-constexpr int kLaneEntries = 8;                    // G4 entries a lane owns
-constexpr int kSpan = 32 * kLaneEntries;           // G4 entries a warp reads
-
-// A lane's 8 entries of the span at j0: v[0, 4) = p[j0 + 4 lane, + 4)
-// and v[4, 8) = p[j0 + 128 + 4 lane, + 4), zero past n, so each warp
-// load reads 512 contiguous bytes. 16-byte loads where `vec` (row and
-// pointer aligned) and the 4 entries lie inside the row.
-__device__ __forceinline__ void load_quad(const float* p, int j, int n,
-                                          bool vec, float* v) {
-  if (vec && j + 4 <= n) {
-    const float4 a = *reinterpret_cast<const float4*>(p + j);
-    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  } else {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) v[i] = j + i < n ? p[j + i] : 0.f;
-  }
-}
-
-__device__ __forceinline__ void load_quad(const double* p, int j, int n,
-                                          bool vec, double* v) {
-  if (vec && j + 4 <= n) {
-    const double2 a = *reinterpret_cast<const double2*>(p + j);
-    const double2 b = *reinterpret_cast<const double2*>(p + j + 2);
-    v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
-  } else {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) v[i] = j + i < n ? p[j + i] : 0.0;
-  }
-}
-
-template <typename T>
-__device__ __forceinline__ void load8(const T* p, int j0, int n, bool vec,
-                                      T (&v)[kLaneEntries]) {
-  const int lane = threadIdx.x & 31;
-  load_quad(p, j0 + 4 * lane, n, vec, v);
-  load_quad(p, j0 + kSpan / 2 + 4 * lane, n, vec, v + 4);
-}
-
 // x^k by k - 1 multiplies, k >= 1.
 template <typename T>
 __device__ __forceinline__ T int_pow(T x, int k) {
@@ -414,23 +371,9 @@ g4_kernel(const T* __restrict__ rij, const T* __restrict__ rik,
   }
 }
 
-[[maybe_unused]] bool aligned16(const void* p) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
-}
-
 bool bad_args(int rows, int n, int n_slots, int n_params, int cutoff_id) {
   return rows <= 0 || n <= 0 || n_slots <= 0 || n_params <= 0 ||
          n_params > kMaxParams || cutoff_id < 0 || cutoff_id > 4;
-}
-
-// Smallest register-array bound P >= n_params.
-template <typename F>
-int dispatch_params(int n_params, F&& launch) {
-  if (n_params <= 4) return launch(std::integral_constant<int, 4>());
-  if (n_params <= 8) return launch(std::integral_constant<int, 8>());
-  if (n_params <= 16) return launch(std::integral_constant<int, 16>());
-  if (n_params <= 32) return launch(std::integral_constant<int, 32>());
-  return launch(std::integral_constant<int, 64>());
 }
 
 // Streaming multiprocessors of the current device, or 0 with `*e` set.

@@ -21,26 +21,39 @@
 // its geometry is not read.
 //
 // What binds them on an H100: the bytes, as in the forwards. A pass
-// reads the three (G2) or five (G4) input rows once and writes one (G2)
-// or three (G4) output rows per batch member; the gbar row of an atom
-// (S * T values) is read by the warp's lanes from L1. Per entry G2
-// costs a cutoff and its slope and per grid row one exp2; G4 three
-// cutoffs and slopes and per grid row an exp and a power or two (integer
-// zeta by multiplies). What the design does about it:
-//   * one warp per atom row, 4 rows a block, lanes on neighbouring
+// reads the slot and mask rows and the real entries' three (G2: one)
+// distances once, and writes one (G2) or three (G4) output rows per
+// batch member; the gbar row of an atom (S * T values) is read by the
+// warp's lanes from L1. Per entry G2 costs a cutoff and its slope and
+// per grid row one exp2; G4 three cutoffs and slopes and per grid row
+// an exp2 and a power or two (integer zeta by multiplies).
+//   * G2: one warp per atom row, 4 rows a block, lanes on neighbouring
 //     entries, so every load and store of the warp is 32 neighbouring
-//     elements; no shared memory and no barrier;
-//   * a lane's entry is computed once for all batch members: the
-//     geometry, cutoffs and slopes are kept in registers and only the
-//     grid loop (which reads each member's gbar row) repeats;
-//   * the constants of the grid (-eta log2(e) / rc^2, 2 eta / rc^2 for
-//     G2; 2^(1-zeta) and the integer zeta for G4) are folded on the host
-//     in double and arrive as a kernel argument.
-// A simple kernel first: the padding of a row still costs its lanes a
-// read of mask and slot (rows are filled from the front, so a warp skips
-// no work but issues no math for them).
-// Full-precision exp/pow (common.cuh): float64 parity with the closed
-// form depends on them.
+//     elements; no shared memory and no barrier. A lane's entry is
+//     computed once for all batch members: its geometry, cutoff and
+//     slope stay in registers and only the grid loop (which reads each
+//     member's gbar row) repeats. -eta log2(e) / rc^2 and 2 eta / rc^2
+//     are folded on the host in double. The padding of a row still costs
+//     its lanes a read of mask and slot.
+//   * G4 (the forward's shape): one warp per atom row, 4 rows a block.
+//     A lane reads 8 entries of a 256-entry span as two 16-byte loads of
+//     mask and of slot (each warp load 512 contiguous bytes), all issued
+//     before any math. A warp prefix sum of each lane's count places the
+//     span's real entries (mask > 0, a slot in range: holes and
+//     interleaved slots are fine) in row order in a per-warp stage with
+//     their index, slot and mask; entries of no slot get 0 as they are
+//     found, a quad with none as one 16-byte store a member. Then one
+//     lane per real triple gathers its three distances (neighbouring
+//     lanes, neighbouring entries), so no lane works on padding, and
+//     computes the geometry once for all members: one reciprocal of
+//     a b for the cosine and its three slopes, each cosine cutoff's
+//     value and slope from one sincospi, and per grid row P_t E_t and
+//     P_t' E_t with E_t one exp2 (-beta log2(e) / rc^2 and 2^(1-zeta)
+//     zeta gamma folded on the host in double). A member then costs three
+//     FMAs a grid row and the three stores, which go to the triple's own
+//     entries: neighbouring lanes write neighbouring entries of the row.
+// Full-precision exp/exp2/pow/sincospi (common.cuh): float64 parity with
+// the closed form depends on them.
 
 #include <cuda_runtime.h>
 
@@ -48,6 +61,7 @@
 #include <cstddef>
 
 #include "common.cuh"
+#include "sf_common.cuh"
 
 namespace {
 
@@ -64,32 +78,14 @@ struct G2VjpGrid {
 
 template <typename T>
 struct G4VjpGrid {
+  T scale_e[kMaxParams];  // -beta log2(e) / rc^2
   T beta[kMaxParams];
   T gamma[kMaxParams];
   T zeta[kMaxParams];
   T scale[kMaxParams];    // 2^(1 - zeta)
+  T szg[kMaxParams];      // 2^(1 - zeta) zeta gamma
   int izeta[kMaxParams];  // zeta where it is an integer in 1..16, else 0
 };
-
-__device__ __forceinline__ float d_exp2(float x) { return exp2f(x); }
-__device__ __forceinline__ double d_exp2(double x) { return exp2(x); }
-
-// x^k by multiplies, k >= 0.
-template <typename T>
-__device__ __forceinline__ T int_pow(T x, int k) {
-  T r = T(1);
-  for (int i = 0; i < k; ++i) r *= x;
-  return r;
-}
-
-// The entry's slot as an index, or -1 where the entry is masked or its
-// slot is no integer in [0, n_slots) (the twins' [slot == s] mask).
-template <typename T>
-__device__ __forceinline__ int entry_slot(T mk, T sl, int n_slots) {
-  if (!(mk > T(0)) || !(sl >= T(0)) || !(sl < T(n_slots))) return -1;
-  const int s = static_cast<int>(sl);
-  return T(s) == sl ? s : -1;
-}
 
 // d<gbar, G2>/d rij[b, row, j] = mask^2 sum_t gbar[b, row, s, t]
 //   e_t (fc'(r) - fc(r) 2 eta_t (r - omega_t) / rc^2),
@@ -130,12 +126,32 @@ g2_vjp_kernel(const T* __restrict__ gbar, const T* __restrict__ rij,
   }
 }
 
+// Zeros at p[0, 4), 16-byte aligned where `vec`.
+__device__ __forceinline__ void store_zero_quad(float* p, bool vec) {
+  if (vec) {
+    *reinterpret_cast<float4*>(p) = make_float4(0.f, 0.f, 0.f, 0.f);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) p[i] = 0.f;
+  }
+}
+
+__device__ __forceinline__ void store_zero_quad(double* p, bool vec) {
+  if (vec) {
+    *reinterpret_cast<double2*>(p) = make_double2(0.0, 0.0);
+    *reinterpret_cast<double2*>(p + 2) = make_double2(0.0, 0.0);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) p[i] = 0.0;
+  }
+}
+
 // d<gbar, G4>/d(rij, rik, rjk) of each triple (ops/fused.py
 // `g4_vjp_reference`): with a, b, c the three distances,
 //   d/da = fc3 (C dcos/da + Z 2a / rc^2) + V fc'(a) fc(b) fc(c), ...
 // C = sum_t w_t P_t' E_t, Z = -sum_t w_t beta_t P_t E_t, V = sum_t w_t
-// P_t E_t, w_t = gbar[b, row, s, t] mask^2.
-template <typename T>
+// P_t E_t, w_t = gbar[b, row, s, t] mask^2. P bounds the grid rows.
+template <typename T, int P>
 __global__ void __launch_bounds__(kThreads)
 g4_vjp_kernel(const T* __restrict__ gbar, const T* __restrict__ rij,
               const T* __restrict__ rik, const T* __restrict__ rjk,
@@ -143,68 +159,144 @@ g4_vjp_kernel(const T* __restrict__ gbar, const T* __restrict__ rij,
               T* __restrict__ out_a, T* __restrict__ out_b,
               T* __restrict__ out_c, int batch, int rows, int n,
               int n_slots, int n_params, G4VjpGrid<T> grid, Cutoff<T> cut,
-              T inv_rc2) {
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (row >= rows) return;
+              T inv_rc2, bool vec) {
+  // per warp: the span's real entries in row order, their slot and mask
+  __shared__ int stage_j[kWarps][kSpan];
+  __shared__ int stage_s[kWarps][kSpan];
+  __shared__ T stage_m[kWarps][kSpan];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int row = blockIdx.x * kWarps + warp;
+  if (row >= rows) return;   // the whole warp leaves together
+  int* st_j = stage_j[warp];
+  int* st_s = stage_s[warp];
+  T* st_m = stage_m[warp];
   const size_t base = static_cast<size_t>(row) * n;
   const size_t width = static_cast<size_t>(n_slots) * n_params;
   const size_t plane = static_cast<size_t>(rows) * n;
-  for (int j = lane; j < n; j += 32) {
-    const T mk = mask[base + j];
-    const int s = entry_slot(mk, slot[base + j], n_slots);
-    if (s < 0) {
-      for (int b = 0; b < batch; ++b) {
-        const size_t o = b * plane + base + j;
-        out_a[o] = T(0);
-        out_b[o] = T(0);
-        out_c[o] = T(0);
-      }
-      continue;
+  for (int j0 = 0; j0 < n; j0 += kSpan) {
+    T mk[kLaneEntries], sl[kLaneEntries];
+    load8(mask + base, j0, n, vec, mk);
+    load8(slot + base, j0, n, vec, sl);
+    int sv[kLaneEntries];
+#pragma unroll
+    for (int i = 0; i < kLaneEntries; ++i) {
+      sv[i] = entry_slot(mk[i], sl[i], n_slots);   // -1 past n (mask 0)
     }
-    const T a = rij[base + j], b_ = rik[base + j], c = rjk[base + j];
-    const T a2 = a * a, b2 = b_ * b_, c2 = c * c;
-    const T z = (a2 + b2 + c2) * inv_rc2;
-    const T two_ab = T(2) * a * b_;
-    const T cos_theta = (a2 + b2 - c2) / two_ab;
-    const T dcos_a = (a2 - b2 + c2) / (two_ab * a);
-    const T dcos_b = (b2 - a2 + c2) / (two_ab * b_);
-    const T dcos_c = -c / (a * b_);
-    const T fa = cutoff_value(cut, a), fb = cutoff_value(cut, b_),
-            fcc = cutoff_value(cut, c);
-    const T sa = cutoff_slope(cut, a), sb = cutoff_slope(cut, b_),
-            sc = cutoff_slope(cut, c);
-    const T fc3 = fa * fb * fcc;
-    const T mm = mk * mk;
-    for (int bb = 0; bb < batch; ++bb) {
-      const T* g = gbar + (static_cast<size_t>(bb) * rows + row) * width +
-                   static_cast<size_t>(s) * n_params;
-      T coef_c = T(0), coef_z = T(0), coef_v = T(0);
-      for (int t = 0; t < n_params; ++t) {
+    // Compact the real entries in row order: the lanes' first quads, then
+    // their second, each placed by a warp prefix sum of its count.
+    __syncwarp();   // the last span's readers are done with the stage
+    int count = 0;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int c = (sv[4 * h] >= 0) + (sv[4 * h + 1] >= 0) +
+                    (sv[4 * h + 2] >= 0) + (sv[4 * h + 3] >= 0);
+      int incl = c;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const int y = __shfl_up_sync(kFull, incl, off);
+        if (lane >= off) incl += y;
+      }
+      int pos = count + incl - c;
+#pragma unroll
+      for (int i = 4 * h; i < 4 * h + 4; ++i) {
+        if (sv[i] >= 0) {
+          st_j[pos] = j0 + h * (kSpan / 2) + 4 * lane + (i - 4 * h);
+          st_s[pos] = sv[i];
+          st_m[pos] = mk[i];
+          ++pos;
+        }
+      }
+      count += __shfl_sync(kFull, incl, 31);
+    }
+    // the span's entries of no slot get 0: a quad with none as one store
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int j = j0 + h * (kSpan / 2) + 4 * lane;
+      const bool none = sv[4 * h] < 0 && sv[4 * h + 1] < 0 &&
+                        sv[4 * h + 2] < 0 && sv[4 * h + 3] < 0;
+      for (int bb = 0; bb < batch; ++bb) {
+        const size_t o = bb * plane + base + j;
+        if (none && j + 4 <= n) {
+          store_zero_quad(out_a + o, vec);
+          store_zero_quad(out_b + o, vec);
+          store_zero_quad(out_c + o, vec);
+          continue;
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          if (sv[4 * h + i] < 0 && j + i < n) {
+            out_a[o + i] = T(0);
+            out_b[o + i] = T(0);
+            out_c[o + i] = T(0);
+          }
+        }
+      }
+    }
+    __syncwarp();
+    // one lane a real triple; its geometry once for all members
+    for (int p = lane; p < count; p += 32) {
+      const int j = st_j[p], s = st_s[p];
+      const T mk = st_m[p];
+      const T a = rij[base + j], b_ = rik[base + j], c = rjk[base + j];
+      const T a2 = a * a, b2 = b_ * b_, c2 = c * c;
+      const T s2 = a2 + b2 + c2;
+      const T r_ab = T(1) / (a * b_);
+      const T cos_theta = (a2 + b2 - c2) * T(0.5) * r_ab;
+      const T half_r2 = T(0.5) * r_ab * r_ab;
+      const T dcos_a = (a2 - b2 + c2) * half_r2 * b_;
+      const T dcos_b = (b2 - a2 + c2) * half_r2 * a;
+      const T dcos_c = -c * r_ab;
+      T fa, sa, fb, sb, fcc, sc;
+      cutoff_value_and_slope(cut, a, fa, sa);
+      cutoff_value_and_slope(cut, b_, fb, sb);
+      cutoff_value_and_slope(cut, c, fcc, sc);
+      const T fc3 = fa * fb * fcc;
+      const T mm = mk * mk;
+      // each grid row's P_t E_t and P_t' E_t (the clamp's slope is 0
+      // where 1 + gamma cos <= 0)
+      T pe[P], dpe[P];
+#pragma unroll
+      for (int t = 0; t < P; ++t) {
+        pe[t] = T(0);
+        dpe[t] = T(0);
+        if (t >= n_params) continue;
         const T arg = T(1) + grid.gamma[t] * cos_theta;
         const T base_t = arg > T(0) ? arg : T(0);
         const int iz = grid.izeta[t];
-        const T pw = iz > 0 ? int_pow(base_t, iz) : d_pow(base_t, grid.zeta[t]);
-        const T pw1 = arg > T(0)
-                          ? (iz > 0 ? int_pow(base_t, iz - 1)
-                                    : d_pow(base_t, grid.zeta[t] - T(1)))
-                          : T(0);
-        const T e = d_exp(-grid.beta[t] * z) * g[t];
-        const T p = grid.scale[t] * pw * e;
-        coef_v += p;
-        coef_z -= grid.beta[t] * p;
-        coef_c += grid.scale[t] * grid.zeta[t] * grid.gamma[t] * pw1 * e;
+        T pw, pw1;
+        if (iz > 0) {   // base^(iz - 1) by multiplies, then one more
+          pw1 = T(1);
+          for (int i = 1; i < iz; ++i) pw1 *= base_t;
+          pw = pw1 * base_t;
+        } else {
+          pw = d_pow(base_t, grid.zeta[t]);
+          pw1 = d_pow(base_t, grid.zeta[t] - T(1));
+        }
+        const T e = d_exp2(grid.scale_e[t] * s2);
+        pe[t] = grid.scale[t] * pw * e;
+        dpe[t] = arg > T(0) ? grid.szg[t] * pw1 * e : T(0);
       }
-      coef_c *= mm;
-      coef_z *= mm;
-      coef_v *= mm;
-      const size_t o = bb * plane + base + j;
-      out_a[o] = fc3 * (coef_c * dcos_a + coef_z * T(2) * a * inv_rc2) +
-                 coef_v * sa * fb * fcc;
-      out_b[o] = fc3 * (coef_c * dcos_b + coef_z * T(2) * b_ * inv_rc2) +
-                 coef_v * fa * sb * fcc;
-      out_c[o] = fc3 * (coef_c * dcos_c + coef_z * T(2) * c * inv_rc2) +
-                 coef_v * fa * fb * sc;
+      for (int bb = 0; bb < batch; ++bb) {
+        const T* g = gbar + (static_cast<size_t>(bb) * rows + row) * width +
+                     static_cast<size_t>(s) * n_params;
+        T coef_c = T(0), coef_z = T(0), coef_v = T(0);
+#pragma unroll
+        for (int t = 0; t < P; ++t) {
+          if (t >= n_params) continue;
+          const T gt = g[t];
+          coef_v = fma(gt, pe[t], coef_v);
+          coef_z = fma(-gt * grid.beta[t], pe[t], coef_z);
+          coef_c = fma(gt, dpe[t], coef_c);
+        }
+        coef_c *= mm;
+        coef_z *= mm;
+        coef_v *= mm;
+        const T z2 = T(2) * coef_z * inv_rc2;
+        const size_t o = bb * plane + base + j;
+        out_a[o] = fc3 * (coef_c * dcos_a + z2 * a) + coef_v * sa * fb * fcc;
+        out_b[o] = fc3 * (coef_c * dcos_b + z2 * b_) + coef_v * fa * sb * fcc;
+        out_c[o] = fc3 * (coef_c * dcos_c + z2 * c) + coef_v * fa * fb * sc;
+      }
     }
   }
 }
@@ -257,23 +349,34 @@ template <typename T>
   if (bad_args(batch, rows, n, n_slots, n_params, cutoff_id)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  constexpr double kLog2E = 1.4426950408889634074;
   G4VjpGrid<T> grid;
   for (int t = 0; t < n_params; ++t) {
+    const double scale = std::pow(2.0, 1.0 - zeta[t]);
+    grid.scale_e[t] = T(-beta[t] * kLog2E / (rc * rc));
     grid.beta[t] = T(beta[t]);
     grid.gamma[t] = T(gamma[t]);
     grid.zeta[t] = T(zeta[t]);
-    grid.scale[t] = T(std::pow(2.0, 1.0 - zeta[t]));
+    grid.scale[t] = T(scale);
+    grid.szg[t] = T(scale * zeta[t] * gamma[t]);
     const bool whole = zeta[t] >= 1.0 && zeta[t] <= 16.0 &&
                        zeta[t] == std::floor(zeta[t]);
     grid.izeta[t] = whole ? static_cast<int>(zeta[t]) : 0;
   }
   const Cutoff<T> cut = make_cutoff<T>(cutoff_id, rc);
   const T inv_rc2 = T(1.0 / (rc * rc));
-  g4_vjp_kernel<T><<<blocks_for(rows), kThreads, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-      gbar, rij, rik, rjk, slot, mask, out_a, out_b, out_c, batch, rows, n,
-      n_slots, n_params, grid, cut, inv_rc2);
-  return static_cast<int>(cudaGetLastError());
+  const bool vec = n * sizeof(T) % 16 == 0 && aligned16(rij) &&
+                   aligned16(rik) && aligned16(rjk) && aligned16(slot) &&
+                   aligned16(mask) && aligned16(out_a) && aligned16(out_b) &&
+                   aligned16(out_c);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return dispatch_params(n_params, [&](auto p) {
+    constexpr int P = decltype(p)::value;
+    g4_vjp_kernel<T, P><<<blocks_for(rows), kThreads, 0, st>>>(
+        gbar, rij, rik, rjk, slot, mask, out_a, out_b, out_c, batch, rows,
+        n, n_slots, n_params, grid, cut, inv_rc2, vec);
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
 }  // namespace

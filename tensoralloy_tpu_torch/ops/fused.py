@@ -960,8 +960,10 @@ def grap_vjp_kernel(gbar, rij, ux, uy, uz, islotf, mask, desc,
     """`grap_vjp_reference` through the CUDA kernel `grap_vjp_kernel`
     (csrc/grap_vjp.cu, the backward of the Pallas `_grap_kernel`,
     tensoralloy_tpu/ops/fused.py:170); the closed form for CPU tensors.
-    A block per atom row recomputes P, forms Pbar in shared memory and
-    walks the row's pairs again (see the source)."""
+    A warp per atom row compacts the slot's pairs, recomputes P in
+    register tiles as the forward does, forms Pbar in shared memory and
+    walks the pairs again, each lane a 4-pair x 8-monomial tile of both
+    products over the filters (see the source)."""
     if rij.device.type == "cpu":
         return grap_vjp_reference(gbar, rij, ux, uy, uz, islotf, mask,
                                   desc, rcut, n_slots)

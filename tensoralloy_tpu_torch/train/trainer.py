@@ -401,7 +401,13 @@ class Trainer:
         flat = tree_flatten(params)
         leaves = {k: v.detach().requires_grad_() for k, v in flat.items()}
         n = self.mesh.size
-        with torch.enable_grad():
+        # Every backward of the step runs on this thread, not on the
+        # device's worker thread: the nodes that a `create_graph` backward
+        # makes are then numbered after the forward's from one counter, so
+        # the engine runs them, and adds their gradients, in the same order
+        # at every step, whatever the process ran before.
+        with torch.enable_grad(), \
+                torch.autograd.set_multithreading_enabled(False):
             loss, metrics = self.total_loss(tree_unflatten(leaves), feats,
                                             labels, step)
             target = loss if n == 1 else sum(

@@ -46,14 +46,14 @@ def _jax_vjps(op, diff, rest, gbars):
             for i in range(len(diff))]
 
 
-def _check_closed_form(closed, op, diff, rest, spec, seed):
-    """The closed form at B = 3 against jax.vjp per cotangent, masked
-    entries exactly 0, every value finite, and B = 3 equal to three
-    B = 1 calls."""
+def _check_closed_form(closed, op, diff, rest, spec, seed, batch=BATCH):
+    """The closed form at B = `batch` against jax.vjp per cotangent,
+    masked entries exactly 0, every value finite, and B = `batch` equal
+    to as many B = 1 calls."""
     rng = np.random.RandomState(seed)
     shape = op(*(jnp.asarray(d) for d in diff),
                *(jnp.asarray(r) for r in rest)).shape
-    gbars = rng.normal(size=(BATCH, *shape))
+    gbars = rng.normal(size=(batch, *shape))
     want = _jax_vjps(op, diff, rest, gbars)
     t_args = [torch.as_tensor(x) for x in (*diff, *rest)]
     got = closed(torch.as_tensor(gbars), *t_args, *spec)
@@ -61,12 +61,12 @@ def _check_closed_form(closed, op, diff, rest, spec, seed):
     assert len(got) == len(diff)
     for g, w in zip(got, want):
         g = g.numpy()
-        assert g.shape == (BATCH, *mask.shape)
+        assert g.shape == (batch, *mask.shape)
         assert np.isfinite(g).all()
         assert (g[:, mask <= 0] == 0).all()
         np.testing.assert_allclose(g, w, **TOL)
     assert np.abs(want[0]).max() > 0
-    for b in range(BATCH):
+    for b in range(batch):
         one = closed(torch.as_tensor(gbars[b:b + 1]), *t_args, *spec)
         for g, o in zip(got, one):
             np.testing.assert_array_equal(o[0].numpy(), g[b].numpy())
@@ -132,6 +132,74 @@ def test_grap_closed_form_matches_jax_vjp(algorithm, moments, symmetric,
         functools.partial(jax_fused._grap_pallas, jdesc, 4.5, 2), ref, 4)
     _check_closed_form(fused.grap_vjp_reference, op, diff, [slot, mask],
                        (desc, 4.5, 2), seed=3)
+
+
+LAYOUTS = ("holes", "interleaved", "long")
+
+
+def _laid_out(rng, layout, rows, n, n_slots, rc, triples=False):
+    """Seeded rows (`seeded_rows`) in a layout the compacting VJP kernels
+    must meet, which fixes the semantics they are held to: 'holes' masks
+    about a third of the real entries, so masked entries (with their
+    distances left in place) lie between real ones; 'interleaved' gives
+    entry j the slot j mod n_slots, so the slots alternate along each
+    row; 'long' makes row 1 all real entries of slot 0, more than two
+    batches of 32 pairs of one slot."""
+    diff, slot, mask = seeded_rows(rng, rows, n, n_slots, rc,
+                                   triples=triples)
+    if layout == "holes":
+        mask = mask * (rng.uniform(size=mask.shape) < 0.65)
+        assert ((mask[:, :-1] == 0) & (mask[:, 1:] > 0)).any()
+    elif layout == "interleaved":
+        slot = np.broadcast_to(np.arange(n) % n_slots,
+                               mask.shape).astype(np.float64)
+    else:
+        assert n > 64
+        full, _, _ = seeded_rows(rng, 2, n, 1, rc, triples=triples)
+        while not (full[0][1] > 0).all():   # a row of n real entries
+            full, _, _ = seeded_rows(rng, 2, n, 1, rc, triples=triples)
+        for d, f in zip(diff, full):
+            d[1] = f[1]
+        mask[1], slot[1] = 1.0, 0.0
+    return diff, np.ascontiguousarray(slot), mask
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_g4_closed_form_on_row_layouts(layout):
+    """`g4_vjp_reference` against jax.vjp at B = 8 on rows with holes,
+    interleaved slots, or a long row of one slot; |gamma| = 2 (the
+    clamp active), integer and non-integer zeta."""
+    rng = np.random.RandomState(45)
+    diff, slot, mask = _laid_out(rng, layout, 5, 72, 3, 3.5, triples=True)
+    sf = JaxSF(["Mo", "Ni"], beta=[0.005, 0.05], gamma=[2.0, -1.0],
+               zeta=[1.0, 2.5, 4.0], backend="pallas")
+    ref = functools.partial(jax_fused._g4_ref_dense, sf, 3.5, 3)
+    op = jax_fused._custom_vjp_op(
+        functools.partial(jax_fused._g4_pallas, sf, 3.5, 3), ref, 3)
+    _check_closed_form(fused.g4_vjp_reference, op, diff, [slot, mask],
+                       (sf.angular_grid, 3.5, "cosine", 3), seed=6,
+                       batch=8)
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_grap_closed_form_on_row_layouts(layout):
+    """`grap_vjp_reference` against jax.vjp at B = 8 on rows with holes,
+    interleaved slots, or a long row of one slot, for the served
+    pexp bank's algorithm at moments with gaps up to 5."""
+    rng = np.random.RandomState(46)
+    (rij,), slot, mask = _laid_out(rng, layout, 4, 72, 2, 4.5)
+    unit = rng.normal(size=(3, *rij.shape))
+    unit /= np.linalg.norm(unit, axis=0)
+    diff = [rij, *(unit * (rij > 0))]
+    kw = dict(algorithm="pexp", parameters=PARAMS["pexp"],
+              moment_tensors=[0, 2, 5], cutoff_function="polynomial")
+    jdesc = JaxGRAP(["Mo", "Ni"], backend="pallas", **kw)
+    desc = GenericRadialAtomicPotential(["Mo", "Ni"], backend="dense", **kw)
+    ref = functools.partial(jax_fused._grap_ref_dense, jdesc, 4.5, 2)
+    op = jax_fused._custom_vjp_op(
+        functools.partial(jax_fused._grap_pallas, jdesc, 4.5, 2), ref, 4)
+    _check_closed_form(fused.grap_vjp_reference, op, diff, [slot, mask],
+                       (desc, 4.5, 2), seed=7, batch=8)
 
 
 @pytest.mark.parametrize("name", sorted(cutoffs.CUTOFFS))
