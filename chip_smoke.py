@@ -29,8 +29,15 @@ failure ends the run with a non-zero exit and no result line:
              and 64 filters. Each VJP kernel on the same inputs with
              B = 1 and B = 3 seeded cotangents against its closed form
              and against the twin's autograd, to the same limits, its
-             masked entries exactly 0; the second-order gradients (the
-             twin's VJP in the graph) against the all-twin path
+             masked entries exactly 0; each second-order kernel of G2
+             and G4 (also on rows with holes and interleaved slots, G2
+             and G4 with the clamp) against its closed form and the
+             twins' double autograd, its masked geometry entries
+             exactly 0, a second launch bit for bit, and with the
+             geometry term skipped; the second-order gradients through
+             the kernel Functions (G2, G4: one VJP and one second-order
+             launch; GRAP: the twin's VJP in the graph) against the
+             all-twin path, to the gradients' limits
   5. serve   the port's calculator in float32 with backend="pallas" on
              its default device, which must be cuda, one path after
              another, each with the launch counts reset before it and
@@ -64,9 +71,11 @@ failure ends the run with a non-zero exit and no result line:
              parameters: every loss and the first gradient norm against
              the JAX trainer's fixture, 1e-8; (b) float32 steps from
              `init_params`: finite losses, a fixed batch's loss falls,
-             one launch of each kernel per forward and none of a VJP
-             kernel (the force loss differentiates the twin's VJP), and
-             the same run on
+             each step launches each forward kernel once, the VJP
+             kernel of G2 and G4 once (the forces, `create_graph`) and
+             their second-order kernel once (the force loss's
+             backward), GRAP's VJP kernel never (its `create_graph`
+             backward takes the twin's VJP), and the same run on
              the twins agrees (1e-4 over 5 steps, 1e-3 after); the
              parameter gradient through the kernels against the twins';
              (c) sf: `evaluate` of the saved weights on the test set
@@ -82,8 +91,8 @@ failure ends the run with a non-zero exit and no result line:
              checkpoint: TrainingManager -> train_and_evaluate -> export
              -> evaluate_run -> the exported file served by the
              calculator. The device must be cuda, the run's files must
-             exist, every train step must launch each kernel once and
-             no VJP kernel,
+             exist, every train step must launch what a train step of
+             the train phase launches,
              evaluate_run's overall MAE must equal the trainer's own
              evaluation of the same checkpoint, and a second
              train_and_evaluate with more steps must resume from the
@@ -183,7 +192,7 @@ failure ends the run with a non-zero exit and no result line:
              with backend 'pallas', warm-started from the saved model and
              cut to 20 steps with one evaluation and one checkpoint, then
              `export --checkpoint`, `evaluate` and `print` of the run's
-             metrics: one launch of g2 and g4 in each train step, the
+             metrics: a train step's launches in each train step, the
              run's files, the exported file says 'pallas'; `python -m
              tensoralloy_tpu_torch.cli compute latt` of the exported model
              exits 0; (b) latt, eos, elastic, relax --cell, defect (3x3x3),
@@ -273,10 +282,14 @@ failure ends the run with a non-zero exit and no result line:
              the larger of its
              bytes (mask and slot read once, the geometry of the real
              entries only, a cotangent read once, outputs written once)
-             at 3.35 TB/s and its useful FLOP at the FP32 67 TFLOP/s
+             at 3.35 TB/s and its useful FLOP at the FP32 67 TFLOP/s;
+             the second-order kernels on (v, gbar) of the same shapes,
+             also queued without the geometry term, beside the closed
+             form and the twins' double autograd
 
 The line before the last is a JSON object of per-kernel results, the
-three forward kernels and their three VJP kernels (the launches of the
+three forward kernels, their three VJP kernels and the two second-order
+kernels of G2 and G4 (the launches of the
 serve, train, manager, large, md, analysis, cli, descriptors and
 parallel phases, each counted from 0; "cli", "descriptors" and
 "parallel" those phases' alone, "parallel" summed over the ranks);
@@ -308,21 +321,45 @@ SOURCES = {"g2": "tensoralloy_tpu_torch/csrc/sf_kernels.cu",
            "grap": "tensoralloy_tpu_torch/csrc/grap_kernel.cu",
            "g2_vjp": "tensoralloy_tpu_torch/csrc/sf_vjp.cu",
            "g4_vjp": "tensoralloy_tpu_torch/csrc/sf_vjp.cu",
-           "grap_vjp": "tensoralloy_tpu_torch/csrc/grap_vjp.cu"}
+           "grap_vjp": "tensoralloy_tpu_torch/csrc/grap_vjp.cu",
+           "g2_vjp_bwd": "tensoralloy_tpu_torch/csrc/sf_vjp_bwd.cu",
+           "g4_vjp_bwd": "tensoralloy_tpu_torch/csrc/sf_vjp_bwd.cu"}
 # a VJP kernel replaces the backward of the JAX op around the Pallas
 # kernel: `_custom_vjp_op`'s bwd (jax.vjp of `_g2_ref_dense` :310,
-# `_g4_ref_dense` :397, `_grap_ref_dense` :151)
+# `_g4_ref_dense` :397, `_grap_ref_dense` :151); a second-order kernel
+# replaces that bwd differentiated again (jax.grad through the jax.vjp)
 REPLACES = {"g2": "tensoralloy_tpu/ops/fused.py:326",
             "g4": "tensoralloy_tpu/ops/fused.py:412",
             "grap": "tensoralloy_tpu/ops/fused.py:170",
             "g2_vjp": "tensoralloy_tpu/ops/fused.py:91",
             "g4_vjp": "tensoralloy_tpu/ops/fused.py:91",
-            "grap_vjp": "tensoralloy_tpu/ops/fused.py:91"}
+            "grap_vjp": "tensoralloy_tpu/ops/fused.py:91",
+            "g2_vjp_bwd": "tensoralloy_tpu/ops/fused.py:91",
+            "g4_vjp_bwd": "tensoralloy_tpu/ops/fused.py:91"}
+# the forward kernels whose VJP has a second-order kernel (GRAP's
+# create_graph backward still takes the twin)
+SECOND_ORDER = ("g2", "g4")
 
 
 def vjps(kernels) -> tuple:
     """The VJP kernels of the forward kernels `kernels`."""
     return tuple(f"{k}_vjp" for k in kernels)
+
+
+def bwds(kernels) -> tuple:
+    """The second-order kernels of the forward kernels `kernels`."""
+    return tuple(f"{k}_vjp_bwd" for k in kernels if k in SECOND_ORDER)
+
+
+def step_launches(kernels) -> dict:
+    """The launches of each kernel a train step makes: each forward
+    kernel once; the VJP kernel of G2 and G4 once (the first backward,
+    `create_graph`), and their second-order kernel once (the loss
+    backward); GRAP's VJP none (its `create_graph` backward takes the
+    twin's VJP)."""
+    return {**{k: 1 for k in kernels},
+            **{f"{k}_vjp": int(k in SECOND_ORDER) for k in kernels},
+            **{k: 1 for k in bwds(kernels)}}
 
 # the main path's paths: model, the kernels every request must launch,
 # and the JAX-reference fixture of its first request with the fixture's
@@ -698,13 +735,18 @@ def _with_holes(rng, diff, slot, mask):
     return shuffled[:-2], shuffled[-2], (shuffled[-1] * keep).contiguous()
 
 
-# G2 cases (N, slots, wide grid): the featurizer's bucket widths, widths
-# that are no multiple of 4 (unaligned rows, a partial second span), 1-3
-# slots and more than one pass holds (6), the served 5-row grid and a
-# wide one of 18 rows (the 32-row instantiation)
-G2_CASES = ((32, 1, False), (64, 2, False), (128, 1, False),
-            (128, 2, False), (256, 3, False), (130, 3, False),
-            (77, 1, True), (128, 2, True), (64, 6, False))
+# G2 cases (N, slots, wide grid, holes): the featurizer's bucket widths,
+# widths that are no multiple of 4 (unaligned rows, a partial second
+# span), 1-3 slots and more than one pass holds (6), the served 5-row
+# grid and a wide one of 18 rows (the 32-row instantiation), and rows
+# with holes and interleaved slots
+G2_CASES = ((32, 1, False, False), (64, 2, False, False),
+            (128, 1, False, False), (128, 2, False, False),
+            (256, 3, False, False), (130, 3, False, False),
+            (77, 1, True, False), (128, 2, True, False),
+            (64, 6, False, False), (130, 3, False, True),
+            (128, 2, True, True), (96, 6, False, True),
+            (91, 1, False, True))
 
 
 # G4 cases (N, slots, the clamp grid, holes): the served widths, one slot
@@ -734,16 +776,20 @@ def check_kernels(device="cuda", rows=4001) -> None:
     rng = np.random.default_rng(SEED)
     for dtype, tol in ((torch.float32, F32), (torch.float64, F64)):
         for cutoff in ("cosine", "polynomial"):
-            for n, n_slots, is_wide in G2_CASES:
+            for n, n_slots, is_wide, holes in G2_CASES:
                 grid = (wide if is_wide else sf).radial_grid
                 rij, slot, mask = _random_pairs(rng, rows, n, n_slots, 6.0,
                                                 dtype, device)
+                if holes:
+                    (rij,), slot, mask = _with_holes(rng, [rij], slot, mask)
                 g2_case = ("g2", f"{cutoff} N={n} S={n_slots} "
-                           f"T2={len(grid)}", fused.G2Function,
-                           fused.g2_reference, [rij], [slot, mask],
-                           (grid, 6.0, cutoff, n_slots), dtype, tol)
+                           f"T2={len(grid)}{' holes' if holes else ''}",
+                           fused.G2Function, fused.g2_reference, [rij],
+                           [slot, mask], (grid, 6.0, cutoff, n_slots),
+                           dtype, tol)
                 _compare(*g2_case)
                 _compare_vjp(*g2_case)
+                _compare_vjp_bwd(*g2_case)
             _compare_second_order(*g2_case)
             for n, n_slots, clamp_grid, holes in G4_CASES:
                 g4_args = ((clamp if clamp_grid else sf).angular_grid, 4.0,
@@ -758,6 +804,7 @@ def check_kernels(device="cuda", rows=4001) -> None:
                            [slot, mask], g4_args, dtype, tol)
                 _compare(*g4_case)
                 _compare_vjp(*g4_case)
+                _compare_vjp_bwd(*g4_case)
                 if not holes:
                     second_order = g4_case
             _compare_second_order(*second_order)
@@ -912,18 +959,97 @@ def _compare_vjp(name, label, function, reference, diff, rest, spec, dtype,
           "launch bit for bit ok")
 
 
+def _at_knots(diff, spec):
+    """The entries with a distance within 4 ulp of a point where the
+    cutoff's curvature jumps (its ends: rc, and 2/3 rc for deepmd, 0.8 rc
+    for tersoff, 0 for meam). There the second derivative does not
+    exist: the twin's autograd of its clamp takes one side, the closed
+    form and the kernels (0 outside the open interval, their z from a
+    product with 1/rc) may take the other."""
+    rc, cutoff = spec[1], spec[2]
+    knots = {"deepmd": (2.0 / 3.0 * rc, rc), "tersoff": (0.8 * rc, rc),
+             "meam": (0.0, rc)}.get(cutoff, (rc,))
+    eps = torch.finfo(diff[0].dtype).eps
+    out = torch.zeros_like(diff[0], dtype=torch.bool)
+    for d in diff:
+        for k in knots:
+            out |= (d - k).abs() <= 4 * eps * max(k, 1.0)
+    return out
+
+
+def _compare_vjp_bwd(name, label, function, reference, diff, rest, spec,
+                     dtype, tol):
+    """The second-order kernel (`{name}_vjp_bwd_kernel` on the card: the
+    VJP of the VJP along seeded v, gbar) against its closed form and
+    against the twin's double autograd; the geometry terms' masked
+    entries exactly 0; a second launch bit for bit the first; with the
+    geometry term skipped, no geometry and gbar_bar as with it."""
+    from tensoralloy_tpu_torch.ops import fused
+    kernel = getattr(fused, f"{name}_vjp_bwd_kernel")
+    closed = getattr(fused, f"{name}_vjp_bwd_reference")
+    mask = rest[-1]
+    y = reference(*diff, *rest, *spec)
+    gen = torch.Generator(device=y.device).manual_seed(SEED + 5)
+    rand = lambda shape: torch.randn(shape, generator=gen, dtype=dtype,
+                                     device=y.device)
+    gbar = rand(y.shape)
+    v = tuple(rand(d.shape) for d in diff)
+    before = fused.launch_counts[f"{name}_vjp_bwd"]
+    got = kernel(v, gbar, *diff, *rest, *spec)
+    again = kernel(v, gbar, *diff, *rest, *spec)
+    flat = kernel(v, gbar, *diff, *rest, *spec, geometry=False)
+    torch.cuda.synchronize()
+    if fused.launch_counts[f"{name}_vjp_bwd"] != before + 3:
+        raise AssertionError(f"{name}_vjp_bwd {label}: not launched")
+    if not all(torch.equal(g, a) for g, a in zip(got, again)):
+        raise AssertionError(f"{name}_vjp_bwd {label}: a second launch "
+                             "differs from the first")
+    if any(f is not None for f in flat[1:]):
+        raise AssertionError(f"{name}_vjp_bwd {label}: a geometry term "
+                             "where it was skipped")
+    want = closed(v, gbar, *diff, *rest, *spec)
+    g_req = gbar.clone().requires_grad_()
+    x = [d.clone().requires_grad_() for d in diff]
+    first = fused._twin_vjp_of(function)(g_req, *x, *rest, *spec)
+    twin = torch.autograd.grad(first, [g_req] + x, v)
+    err, top = 0.0, 0.0
+    knots = _at_knots(diff, spec)
+    for i, (g, w, t) in enumerate(zip(got, want, twin)):
+        if not torch.isfinite(g).all() or (i and (g[mask <= 0] != 0).any()):
+            raise AssertionError(f"{name}_vjp_bwd {label}: not finite, or "
+                                 "a masked entry is not 0")
+        if i:   # a geometry term: a knot's entries held to be finite
+            g, w, t = (torch.where(knots, 0.0, x) for x in (g, w, t))
+        assert_close_scaled(g, w, tol)
+        assert_close_scaled(g, t, tol)
+        err = max(err, (g - w).abs().max().item(),
+                  (g - t).abs().max().item())
+        top = max(top, t.abs().max().item())
+    assert_close_scaled(flat[0], want[0], tol)
+    print(f"  {name}_vjp_bwd {str(dtype)[6:]} {label}: max_abs_err "
+          f"{err:.3e} against the closed form and the twin's double "
+          f"autograd at max|value| {top:.3e} (rtol/atol {tol['rtol']:g}; "
+          f"{int(knots.sum())} entries at a cutoff's end only finite), "
+          "masked entries 0, a second launch bit for bit, the geometry "
+          "term skipped ok")
+
+
 def _compare_second_order(name, label, function, reference, diff, rest,
                           spec, dtype, tol):
     """The scalar sum_i <u_i, dY/dx_i . gbar> of the first-order
     gradients (seeded u, gbar), differentiated w.r.t. gbar and the
-    inputs: kernel forward against the all-twin path."""
+    inputs: kernel forward against the all-twin path. Through the kernel
+    Function, G2 and G4 launch their VJP kernel once (the `create_graph`
+    backward) and their second-order kernel once; GRAP neither."""
+    from tensoralloy_tpu_torch.ops import fused
     gen = torch.Generator(device=diff[0].device).manual_seed(SEED + 2)
     rand = lambda shape: torch.randn(shape, generator=gen, dtype=dtype,
                                      device=diff[0].device)
     us = [rand(d.shape) for d in diff]
     gbar0 = None
     results = []
-    for fn in (function.apply, reference):
+    for kernel_path, fn in ((True, function.apply), (False, reference)):
+        before = dict(fused.launch_counts)
         x = [d.clone().requires_grad_() for d in diff]
         y = fn(*x, *rest, *spec)
         if gbar0 is None:
@@ -932,15 +1058,29 @@ def _compare_second_order(name, label, function, reference, diff, rest,
         grads = torch.autograd.grad(y, x, gbar, create_graph=True)
         scalar = sum((u * g).sum() for u, g in zip(us, grads))
         results.append(torch.autograd.grad(scalar, [gbar] + x))
-    for got, want in zip(*results):
+        if kernel_path:
+            launched = {k: fused.launch_counts[k] - before[k]
+                        for k in (f"{name}_vjp", f"{name}_vjp_bwd")
+                        if k in before}
+            expected = ({f"{name}_vjp": 1, f"{name}_vjp_bwd": 1}
+                        if name in SECOND_ORDER else {f"{name}_vjp": 0})
+            if launched != expected:
+                raise AssertionError(f"{name} {label}: second order "
+                                     f"launched {launched}, expected "
+                                     f"{expected}")
+    knots = (_at_knots(diff, spec) if name in SECOND_ORDER
+             else torch.zeros_like(diff[0], dtype=torch.bool))
+    for i, (got, want) in enumerate(zip(*results)):
         if not torch.isfinite(got).all():
             raise AssertionError(f"{name} {label}: second-order gradient "
                                  "is not finite")
-        torch.testing.assert_close(got, want, **tol)
+        if i:   # w.r.t. a distance: a knot's entries held to be finite
+            got, want = (torch.where(knots, 0.0, x) for x in (got, want))
+        assert_close_scaled(got, want, tol)
     top = max(w.abs().max().item() for w in results[1])
     print(f"  {name} {str(dtype)[6:]} {label}: second-order gradients "
           f"w.r.t. gbar and {len(diff)} input(s) finite, max|value| "
-          f"{top:.3e}, kernel forward vs twins ok")
+          f"{top:.3e}, kernel path ({launched}) vs twins ok")
 
 
 def _structure(reps, symbols=None):
@@ -1274,13 +1414,12 @@ def train_path(name, workdir, card):
           f"{fixture['grad_norm_first_step']:.10g}: rel err {gerr:.2e} "
           f"(limit {grad_rel:g}); "
           f"launches over {len(losses64)} steps {counts}")
-    if gerr > grad_rel or any(
-            counts[k] != len(losses64) for k in kernels) or any(
-            counts[k] for k in vjps(kernels)):
-        raise AssertionError("float64 training disagrees with the fixture, "
-                             "a step did not launch each kernel once, or "
-                             "one launched a VJP kernel (the force loss "
-                             "takes the twin's differentiable VJP)")
+    per_step = step_launches(kernels)
+    if gerr > grad_rel or any(counts[k] != n * len(losses64)
+                              for k, n in per_step.items()):
+        raise AssertionError(f"float64 training disagrees with the "
+                             f"fixture, or a step did not launch "
+                             f"{per_step}")
     # kernel path against twin path at seeded parameters (away from a
     # converged model, whose gradient is ill-conditioned, see above)
     seeded64 = t64._tree_to_device(seeded_params(
@@ -1326,12 +1465,10 @@ def train_path(name, workdir, card):
     print(f"  float32, {steps} steps from init_params: loss on a fixed "
           f"batch {before:.6f} -> {after:.6f}; launches {launches}")
     if not all(np.isfinite(losses32)) or not after < before or any(
-            launches[k] != steps for k in kernels) or any(
-            launches[k] for k in vjps(kernels)):
-        raise AssertionError("float32 training: a loss is not finite, the "
-                             "fixed batch's loss did not fall, a forward "
-                             "did not launch each kernel once, or a step "
-                             "launched a VJP kernel")
+            launches[k] != n * steps for k, n in per_step.items()):
+        raise AssertionError(f"float32 training: a loss is not finite, the "
+                             f"fixed batch's loss did not fall, or a step "
+                             f"did not launch {per_step}")
     _, losses_twin, _ = _fit_losses(twin32, arrays, params_init)
     _check_losses(f"train_{name} float32, kernels vs twins, steps 1-5",
                   losses32[:5], losses_twin[:5], TRAIN_F32_REL_FIRST)
@@ -1428,7 +1565,7 @@ def train(card):
         for name in TRAIN_CONFIGS:
             measured[name] = m = train_path(name, workdir, card)
             kernels = TRAIN_CONFIGS[name]["kernels"]
-            for k in kernels + vjps(kernels):
+            for k in step_launches(kernels):
                 per_step[k] = m["launches"][k] // m["steps"]
     return measured, per_step
 
@@ -1449,19 +1586,19 @@ def _count_step_launches(trainer, kernels, rows):
         out = step_fn(state, feats, labels)
         rows.append((int(state["step"]),
                      {k: fused.launch_counts[k] - before[k]
-                      for k in kernels + vjps(kernels)}))
+                      for k in step_launches(kernels)}))
         return out
 
     trainer.train_step = counted
 
 
 def _bad_steps(rows, kernels) -> list:
-    """The rows of `_count_step_launches` whose step did not launch each
-    forward kernel once and no VJP kernel (a train step's force loss
-    takes the twin's differentiable VJP)."""
-    return [row for row in rows
-            if any(row[1][k] != 1 for k in kernels)
-            or any(row[1][k] for k in vjps(kernels))]
+    """The rows of `_count_step_launches` whose step did not launch
+    `step_launches(kernels)`: each forward kernel once, the VJP kernel
+    and the second-order kernel of G2 and G4 once each, no VJP kernel of
+    GRAP."""
+    want = step_launches(kernels)
+    return [row for row in rows if row[1] != want]
 
 
 def manager_path(name, workdir, card):
@@ -1520,13 +1657,11 @@ def manager_path(name, workdir, card):
     bad = _bad_steps(step_rows, kernels)
     if len(step_rows) != MANAGER_STEPS or bad:
         raise AssertionError(f"manager_{name}: {len(step_rows)} steps, "
-                             f"not one launch of each kernel and none of "
-                             f"a VJP kernel in {bad}")
+                             f"not {step_launches(kernels)} in {bad}")
     print(f"  train_and_evaluate: {MANAGER_STEPS} steps in {fit_s:.1f} s "
           f"(min/max sweep, one evaluation and the checkpoints included), "
-          f"{result['throughput']:.1f} structures/s; one launch of "
-          f"{kernels} and none of their VJP kernels in each step; files "
-          f"{wanted} ({card})")
+          f"{result['throughput']:.1f} structures/s; launches in each step "
+          f"{step_launches(kernels)}; files {wanted} ({card})")
 
     # evaluate_run reads the run's directory again: input.toml, the
     # cached dataset, the newest numbered checkpoint
@@ -1585,7 +1720,7 @@ def manager_path(name, workdir, card):
         raise AssertionError(f"manager_{name}: the run did not resume "
                              "from its newest checkpoint")
     launches = dict(fused.launch_counts)
-    return ({k: launches[k] for k in kernels + vjps(kernels)},
+    return ({k: launches[k] for k in step_launches(kernels)},
             {"build_s": build_s, "fit_s": fit_s,
              "structures_per_s": result["throughput"]})
 
@@ -2553,8 +2688,11 @@ def analysis_phonons(card):
         print(f"  snap_ni_sfa Hessian of {int(np.prod(PHONON_SUPERCELL))} "
               f"atoms, {backend}: {time.perf_counter() - t0:.2f} s, "
               f"launches {launched} ({card})")
-        if backend == "pallas" and (launched["g2"] != 1
-                                    or launched["g4"] != 1):
+        # the forces once (create_graph: the VJP kernels), a row's
+        # backward through the second-order kernels
+        if backend == "pallas" and (
+                launched["g2"] != 1 or launched["g4"] != 1
+                or not launched["g2_vjp_bwd"] or not launched["g4_vjp_bwd"]):
             raise AssertionError(f"the Hessian launched {launched}")
     err = rel_err(fcs["pallas"], fcs["dense"])
     print(f"    kernels vs twins {err:.2e} (limit {F64_REL})")
@@ -3319,7 +3457,7 @@ def _add_launches(totals: dict, launched: dict) -> None:
 def _launch_check(label, launched, kernels):
     """The kernels that `label` names launched, no others but their VJP
     kernels."""
-    allowed = set(kernels) | set(vjps(kernels))
+    allowed = set(kernels) | set(vjps(kernels)) | set(bwds(kernels))
     if any(not launched[k] for k in kernels) or any(
             launched[k] for k in launched if k not in allowed):
         raise AssertionError(f"{label} launched {launched}, expected "
@@ -3356,9 +3494,9 @@ def cli_experiment(work, card, times) -> dict:
     run_launches = _launched({})
     bad = _bad_steps(rows, ("g2", "g4"))
     if [r[0] for r in rows] != list(range(CLI_STEPS)) or bad:
-        raise AssertionError(f"run: steps {[r[0] for r in rows]}, not one "
-                             f"launch of g2 and g4 and none of a VJP "
-                             f"kernel in each of {bad}")
+        raise AssertionError(f"run: steps {[r[0] for r in rows]}, not "
+                             f"{step_launches(('g2', 'g4'))} in each of "
+                             f"{bad}")
     model_dir = Path(config["train"]["model_dir"])
     ckpt = model_dir / f"ckpt-{CLI_STEPS}.npz"
     rec = _timed_verb("export", main, ["export", str(toml), "--checkpoint",
@@ -3388,8 +3526,8 @@ def cli_experiment(work, card, times) -> dict:
                              f"{report['step']}, launches {eval_launches}")
     overall = report["splits"]["test"]["overall"]
     print(f"  (a) run: {CLI_STEPS} steps warm-started from the saved "
-          f"model, one launch of g2 and g4 in each ({run_launches} with the "
-          f"evaluation's); export -> "
+          f"model, launches in each {step_launches(('g2', 'g4'))} "
+          f"({run_launches} with the evaluation's); export -> "
           f"{exported.name} (backend {backend!r}); evaluate at step "
           f"{report['step']}: test {overall['energy_meV_per_atom']:.3f} "
           f"meV/atom, {overall['force_eV_A']:.4f} eV/A ({eval_launches}); "
@@ -3889,8 +4027,8 @@ def descriptors_training(workdir, card) -> dict:
               f"{steps - 1} after 1: segment {spread(seconds)}, pallas "
               f"{spread(seconds_k)}, dense {spread(seconds_t)}; pallas "
               f"launches {launched} ({card})")
-        if any(launched[k] != steps for k in cfg["kernels"]) or any(
-                launched[k] for k in vjps(cfg["kernels"])):
+        if any(launched[k] != n * steps
+               for k, n in step_launches(cfg["kernels"]).items()):
             raise AssertionError(f"pallas launches {launched}")
     return totals
 
@@ -4373,9 +4511,10 @@ def parallel(card):
         totals = parallel_nccl(specs, refs, card)
         _add_launches(totals, parallel_ranks(specs, refs, card))
         parallel_verb(work, card)
-    # SF runs only train steps here, whose force loss takes the twin's
-    # differentiable VJP: its VJP kernels need not launch
-    for kernel in ("g2", "g4", "grap", "grap_vjp"):
+    # SF runs only train steps here (their first backward launches the
+    # VJP kernels, the loss backward the second-order ones)
+    for kernel in ("g2", "g4", "grap", "grap_vjp", *vjps(SECOND_ORDER),
+                   *bwds(SECOND_ORDER)):
         if totals[kernel] == 0:
             raise AssertionError(f"parallel: {kernel} never launched")
     print(f"  launches over the parallel phase (a and every rank of b): "
@@ -4427,8 +4566,12 @@ def _rotated(args, copies: int):
     """Endless turns over `copies` copies of `args`, its tensors cloned:
     a launch then finds none of its inputs in the L2 cache, as a served
     request's launch does."""
-    sets = [args] + [tuple(a.clone() if isinstance(a, torch.Tensor) else a
-                           for a in args) for _ in range(copies - 1)]
+    def copy(a):
+        if isinstance(a, tuple):
+            return tuple(copy(x) for x in a)
+        return a.clone() if isinstance(a, torch.Tensor) else a
+
+    sets = [args] + [copy(args) for _ in range(copies - 1)]
     return itertools.cycle(sets)
 
 
@@ -4443,24 +4586,63 @@ def _median_host_ms(fn, reps: int) -> float:
     return float(np.median(times))
 
 
-def kernel_cases(sf_calc, sf_structure, grap_calc, grap_structure):
-    """{kernel: (args, kernel wrapper, plain version)} at the shapes the
-    SF and GRAP calculators give the kernels for these structures; a VJP
-    kernel's cotangent [1, rows, F] is seeded and normal."""
+def sf_kernel_cases(feats, sf, rcut, acut, n_radial, n_angular, gen):
+    """{kernel: (args, kernel wrapper, plain version)} of G2, G4, their
+    VJP kernels and their second-order kernels at the shapes an SF
+    descriptor gives them for these features (one structure's or a
+    batch's); cotangents seeded and normal, a VJP kernel's [1, rows, F],
+    a second-order kernel's gbar [rows, F] and v like the distances.
+    The second-order kernels only where the checkout has them."""
     from tensoralloy_tpu_torch.ops import fused
-    from tensoralloy_tpu_torch.ops.dense import (dense_pair_geometry,
+    from tensoralloy_tpu_torch.ops.dense import (as_rows, dense_pair_geometry,
                                                  dense_triple_geometry)
-    s = sf_structure
-    feats = sf_calc.featurize(s, sf_calc._get_vap(s))
-    sf, fz = sf_calc.model.descriptor, sf_calc.featurizer
     rij, _, islot, mask = dense_pair_geometry(feats, with_unit=False)
     cases = {
-        "g2": ((rij, islot, mask, sf.radial_grid, fz.rcut,
-                sf.cutoff_function, fz.n_radial_slots), fused.g2_kernel,
+        "g2": ((*as_rows(rij, islot, mask), sf.radial_grid, rcut,
+                sf.cutoff_function, n_radial), fused.g2_kernel,
                fused.g2_reference),
-        "g4": ((*dense_triple_geometry(feats), sf.angular_grid, fz.acut,
-                sf.cutoff_function, fz.n_angular_slots), fused.g4_kernel,
+        "g4": ((*as_rows(*dense_triple_geometry(feats)), sf.angular_grid,
+                acut, sf.cutoff_function, n_angular), fused.g4_kernel,
                fused.g4_reference)}
+    _add_vjp_cases(cases, ("g2", "g4"), gen)
+    return cases
+
+
+def _add_vjp_cases(cases, names, gen):
+    """Add the VJP (and second-order) cases of the forward cases
+    `names`."""
+    from tensoralloy_tpu_torch.ops import fused
+    for name in names:
+        args, kernel, _ = cases[name]
+        out = kernel(*args)
+        rand = lambda shape: torch.randn(shape, generator=gen,  # noqa: E731
+                                         dtype=out.dtype, device=out.device)
+        gbar = rand((1, *out.shape))
+        cases[f"{name}_vjp"] = ((gbar, *args),
+                                getattr(fused, f"{name}_vjp_kernel"),
+                                getattr(fused, f"{name}_vjp_reference"))
+        if name in SECOND_ORDER and hasattr(fused, f"{name}_vjp_bwd_kernel"):
+            n = {"g2": 1, "g4": 3}[name]
+            v = tuple(rand(args[0].shape) for _ in range(n))
+            cases[f"{name}_vjp_bwd"] = (
+                (v, gbar[0], *args),
+                getattr(fused, f"{name}_vjp_bwd_kernel"),
+                getattr(fused, f"{name}_vjp_bwd_reference"))
+
+
+def kernel_cases(sf_calc, sf_structure, grap_calc, grap_structure):
+    """{kernel: (args, kernel wrapper, plain version)} at the shapes the
+    SF and GRAP calculators give the kernels for these structures
+    (`sf_kernel_cases`; GRAP and its VJP kernel likewise)."""
+    from tensoralloy_tpu_torch.ops import fused
+    from tensoralloy_tpu_torch.ops.dense import dense_pair_geometry
+    s = sf_structure
+    feats = sf_calc.featurize(s, sf_calc._get_vap(s))
+    fz = sf_calc.featurizer
+    gen = torch.Generator(device=sf_calc.device).manual_seed(SEED + 4)
+    cases = sf_kernel_cases(feats, sf_calc.model.descriptor, fz.rcut,
+                            fz.acut, fz.n_radial_slots, fz.n_angular_slots,
+                            gen)
     s = grap_structure
     feats = grap_calc.featurize(s, grap_calc._get_vap(s))
     fz = grap_calc.featurizer
@@ -4468,24 +4650,26 @@ def kernel_cases(sf_calc, sf_structure, grap_calc, grap_structure):
     cases["grap"] = ((rij, *unit, islot, mask, grap_calc.model.descriptor,
                       fz.rcut, fz.n_radial_slots), fused.grap_kernel,
                      fused.grap_reference)
-    gen = torch.Generator(device=rij.device).manual_seed(SEED + 4)
-    for name in ("g2", "g4", "grap"):
-        args, kernel, _ = cases[name]
-        out = kernel(*args)
-        gbar = torch.randn((1, *out.shape), generator=gen, dtype=out.dtype,
-                           device=out.device)
-        cases[f"{name}_vjp"] = ((gbar, *args),
-                                getattr(fused, f"{name}_vjp_kernel"),
-                                getattr(fused, f"{name}_vjp_reference"))
-    return cases
+    _add_vjp_cases(cases, ("grap",), gen)
+    order = list(SOURCES)
+    return dict(sorted(cases.items(), key=lambda kv: order.index(kv[0])))
 
 
 def twin_vjp(name, args):
     """The VJP of the twin by its autograd, as the backward took it
-    before the VJP kernels: a VJP case's args -> its gradients."""
+    before the VJP kernels (a VJP case's args -> its gradients); for a
+    second-order case the twin's VJP of that VJP, as the `create_graph`
+    backward took it before the second-order kernels."""
     from tensoralloy_tpu_torch.ops import fused
-    function = {"g2_vjp": fused.G2Function, "g4_vjp": fused.G4Function,
-                "grap_vjp": fused.GrapFunction}[name]
+    function = {"g2": fused.G2Function, "g4": fused.G4Function,
+                "grap": fused.GrapFunction}[name.split("_")[0]]
+    if name.endswith("_bwd"):
+        v, gbar, *inputs = args
+        n = function.n_diff
+        with torch.enable_grad():
+            xs = [t.detach().requires_grad_() for t in (gbar, *inputs[:n])]
+            first = fused._twin_vjp_of(function)(*xs, *inputs[n:])
+            return torch.autograd.grad(first, xs, v)
     gbar, *inputs = args
     n = function.n_diff
     with torch.enable_grad():
@@ -4542,16 +4726,23 @@ def time_kernels(cases, card, launches=None):
         rotated = _queued_ms(lambda: kernel(*next(turns)),
                              12 * ROTATED_COPIES)
         del turns
+        derived = name.endswith(("_vjp", "_vjp_bwd"))
         twin_ms = (_median_ms(lambda: twin_vjp(name, args), 5)
-                   if name.endswith("_vjp") else None)
-        print(f"  {name} {tuple(args[0].shape)} float32: kernel {ms:.4f} / "
+                   if derived else None)
+        # a train step's loss backward skips the geometry term
+        flat = (_queued_ms(lambda: kernel(*args, geometry=False), 50)
+                if name.endswith("_bwd") else None)
+        first = args[0][0] if isinstance(args[0], tuple) else args[0]
+        print(f"  {name} {tuple(first.shape)} float32: kernel {ms:.4f} / "
               f"{ms2:.4f} ms median of single launches "
               f"({n_bytes / ms * 1e-6:.1f} GB/s, "
               f"{flop / ms * 1e-9:.2f} TFLOP/s), {queued:.4f} ms "
               f"queued ({n_bytes / queued * 1e-6:.1f} GB/s, "
               f"{flop / queued * 1e-9:.2f} TFLOP/s), {rotated:.4f} ms queued "
               f"over {ROTATED_COPIES} copies of the inputs in turn; "
-              f"{'closed form' if twin_ms else 'twin'} {plain_ms:.4f} ms"
+              + (f"{flat:.4f} ms queued without the geometry term; "
+                 if flat is not None else "")
+              + f"{'closed form' if twin_ms else 'twin'} {plain_ms:.4f} ms"
               f"{f', the twin by autograd {twin_ms:.4f} ms' if twin_ms else ''}; "
               f"bound {bound[bound_by]:.4f} ms by {bound_by} "
               f"({n_bytes / 1e6:.1f} MB, {flop / 1e9:.3f} GFLOP; single "
@@ -4571,18 +4762,21 @@ def time_kernels(cases, card, launches=None):
                     "library_ms": None})
         if twin_ms is not None:
             row["twin_vjp_ms"] = twin_ms
+        if flat is not None:
+            row["ms_queued_no_geometry"] = flat
         rows.append(row)
     return rows
 
 
 def kernel_work(name, args, outs):
     """-> (bytes, useful FLOP) of one kernel call on these inputs (a VJP
-    case's args start with its cotangent [B, rows, F]). Bytes: the slot
-    and the mask read once in full, the geometry (distances, unit
-    vectors) of the real entries (mask > 0) only, since a masked entry's
-    geometry need not be read, the cotangent read once, and the outputs
-    written once; the kernels' small host tables aside. FLOP for the
-    real entries only, a transcendental as one:
+    case's args start with its cotangent [B, rows, F], a second-order
+    case's with v, one or three [rows, n], and gbar [rows, F]). Bytes:
+    the slot and the mask read once in full, the geometry (distances,
+    unit vectors) and v of the real entries (mask > 0) only, since a
+    masked entry's need not be read, the cotangent read once, and the
+    outputs written once; the kernels' small host tables aside. FLOP for
+    the real entries only, a transcendental as one:
       g2   per pair 4 (cutoff) + 7 per (eta, omega) row
       g4   per triple 23 (geometry, three cutoffs) + 11 per grid row
       grap per pair 4 (cutoff), D - 1 (monomials), 5 per filter (its
@@ -4597,18 +4791,29 @@ def kernel_work(name, args, outs):
                12 per filter (value and slope), 4 K D (both sums over
                Pbar) and 4 D (the monomials' adjoint); per member and
                (row, slot, filter) 2 D M + 3 D (the coefficients and
-               Pbar)"""
-    batch = 1
-    if name.endswith("_vjp"):
+               Pbar)
+      g2_vjp_bwd per pair 14 (cutoff, slope and curvature, the weight
+               mask^2 v) + 22 per grid row (e_t by one exp2, k_t, g_t',
+               its share of gbar_bar, g_t'' and its product with gbar)
+      g4_vjp_bwd per triple 130 (g4_vjp's geometry, three curvatures,
+               the three products with v, the Hessians of cos and F, the
+               geometry terms from the six sums) + 32 per grid row (P_t,
+               P_t', P_t'' and E_t, gbar_bar's share, the six sums)"""
+    batch, v = 1, ()
+    if name.endswith("_bwd"):
+        v, gbar, *args = args
+    elif name.endswith("_vjp"):
         gbar, *args = args
         batch = gbar.shape[0]
     tensors = [a for a in args if isinstance(a, torch.Tensor)]
     *geometry, slot, mask = tensors
     size = mask.element_size()
     real = int((mask > 0).sum().item())
-    n_bytes = ((slot.numel() + mask.numel() + len(geometry) * real) * size
-               + sum(o.numel() * o.element_size() for o in outs))
-    if name.endswith("_vjp"):
+    n_bytes = ((slot.numel() + mask.numel()
+                + (len(geometry) + len(v)) * real) * size
+               + sum(o.numel() * o.element_size() for o in outs
+                     if o is not None))
+    if name.endswith(("_vjp", "_bwd")):
         n_bytes += gbar.numel() * gbar.element_size()
     if name == "g2":
         flop = real * (4 + 7 * len(args[3]))
@@ -4618,6 +4823,10 @@ def kernel_work(name, args, outs):
         flop = real * (8 + batch * 10 * len(args[3]))
     elif name == "g4_vjp":
         flop = real * (50 + batch * 14 * len(args[5]))
+    elif name == "g2_vjp_bwd":
+        flop = real * (14 + 22 * len(args[3]))
+    elif name == "g4_vjp_bwd":
+        flop = real * (130 + 32 * len(args[5]))
     else:
         from tensoralloy_tpu_torch.nn.grap import multiplicity_tensor
         desc, n_slots = args[6], args[8]

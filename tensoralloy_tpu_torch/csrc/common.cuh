@@ -163,6 +163,76 @@ __device__ __forceinline__ void cutoff_value_and_slope(const Cutoff<T>& c,
   }
 }
 
+// d2 cutoff_value / d r2, written out as ops/cutoffs.py
+// `cutoff_slope_and_curvature` does: 0 where a clamped argument lies
+// outside its open interval.
+template <typename T>
+__device__ __forceinline__ T cutoff_curvature(const Cutoff<T>& c, T r) {
+  constexpr T kPi = T(3.14159265358979323846);
+  switch (c.id) {
+    case 0: {  // cosine
+      const T z = r * c.inv_rc;
+      const T w = kPi * c.inv_rc;
+      return z < T(1) ? T(-0.5) * w * w * d_cospi(z) : T(0);
+    }
+    case 1: {  // polynomial, gamma = 5
+      const T z = r * c.inv_rc;
+      if (!(z < T(1))) return T(0);
+      return z * z * z * (T(150) * z - T(120)) * c.inv_rc * c.inv_rc;
+    }
+    case 2: {  // meam, window = rc
+      const T x = (c.rc - r) * c.inv_rc;
+      if (!(x > T(0) && x < T(1))) return T(0);
+      const T u2 = (T(1) - x) * (T(1) - x);
+      return T(8) * c.inv_rc * c.inv_rc * (T(7) * u2 * u2 * u2 - T(3) * u2);
+    }
+    case 3: {  // deepmd, rcs = 2/3 rc
+      const T z = (r - c.rcs) * c.inv_rc_rcs;
+      const T zc = clamp_to(z, T(0), T(1));
+      const T recip = r > T(0) ? T(1) / r : T(0);
+      const T w = kPi * c.inv_rc_rcs;
+      const bool inside = z > T(0) && z < T(1);
+      const T ramp = inside ? T(-0.5) * w * d_sinpi(zc) : T(0);
+      const T bend = inside ? T(-0.5) * w * w * d_cospi(zc) : T(0);
+      const T s = T(0.5) * d_cospi(zc) + T(0.5);
+      return (T(2) * s * recip - T(2) * ramp) * recip * recip + bend * recip;
+    }
+    default: {  // tersoff, d = 0.1 rc
+      const T z = (r - c.big_r) * c.inv_d;
+      const T w = kPi * c.inv_d;
+      return z > T(-1) && z < T(1) ? T(0.125) * w * w * d_sinpi(T(0.5) * z)
+                                   : T(0);
+    }
+  }
+}
+
+// `cutoff_value`, `cutoff_slope` and `cutoff_curvature` together; the
+// cosine cutoff takes all three from one sincospi.
+template <typename T>
+__device__ __forceinline__ void cutoff_value_slope_curvature(
+    const Cutoff<T>& c, T r, T& f, T& s, T& k) {
+  if (c.id != 0) {
+    f = cutoff_value(c, r);
+    s = cutoff_slope(c, r);
+    k = cutoff_curvature(c, r);
+    return;
+  }
+  constexpr T kPi = T(3.14159265358979323846);
+  const T z = r * c.inv_rc;
+  if (z < T(1)) {
+    T sn, cs;
+    d_sincospi(z, &sn, &cs);
+    const T w = kPi * c.inv_rc;
+    f = T(0.5) * (cs + T(1));
+    s = T(-0.5) * w * sn;
+    k = T(-0.5) * w * w * cs;
+  } else {   // past rc the value, slope and curvature are 0
+    f = T(0);
+    s = T(0);
+    k = T(0);
+  }
+}
+
 template <typename T>
 Cutoff<T> make_cutoff(int id, double rc) {
   Cutoff<T> c;

@@ -171,56 +171,6 @@ __device__ __forceinline__ void g2_span(const G2Span<T>& v, int s0, int ns,
   }
 }
 
-// Sum each of the SB * P accumulators over the warp and store the
-// columns of slots < ns and parameters < n_params to
-// out[ss * n_params + t]. A reduce-scatter: each xor step halves the
-// values a lane holds (the lane keeps one half and adds its partner's),
-// so V values cost V - 1 shuffles, not 5 V; once one value is left, the
-// remaining steps add it across the lanes that share its column.
-template <typename T, int P, int SB>
-__device__ __forceinline__ void g2_reduce_store(const T (&acc)[SB][P],
-                                                int ns, int n_params,
-                                                T* out) {
-  constexpr int V = SB * P;
-  const int lane = threadIdx.x & 31;
-  T a[V];
-#pragma unroll
-  for (int ss = 0; ss < SB; ++ss) {
-#pragma unroll
-    for (int t = 0; t < P; ++t) a[ss * P + t] = acc[ss][t];
-  }
-  int width = V;   // values the lane holds: a[0, width)
-  int first = 0;   // flat index (ss * P + t) of a[0]
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    if (width > 1) {
-      const int half = width / 2;
-      const bool upper = (lane & off) != 0;
-#pragma unroll
-      for (int i = 0; i < V / 2; ++i) {
-        if (i < half) {
-          const T send = upper ? a[i] : a[i + half];
-          const T keep = upper ? a[i + half] : a[i];
-          a[i] = keep + __shfl_xor_sync(kFull, send, off);
-        }
-      }
-      if (upper) first += half;
-      width = half;
-    } else {
-      a[0] += __shfl_xor_sync(kFull, a[0], off);
-    }
-  }
-  // a value summed over the steps left after width reached 1 is the same
-  // in the lanes that differ in the low bits: the lowest of them stores
-  constexpr int kSharing = V >= 32 ? 1 : 32 / V;
-  if ((lane & (kSharing - 1)) != 0) return;
-#pragma unroll
-  for (int i = 0; i < (V + 31) / 32; ++i) {
-    const int ss = (first + i) / P, t = (first + i) % P;
-    if (ss < ns && t < n_params) out[ss * n_params + t] = a[i];
-  }
-}
-
 // G2[a, s, t] = sum_j [slot_aj == s] mask_aj fc(r_aj)
 //               exp(-eta_t (r_aj - omega_t)^2 / rc^2)
 template <typename T, int P, int SB>
@@ -246,7 +196,7 @@ g2_kernel(const T* __restrict__ rij, const T* __restrict__ slot,
         g2_load(rij, slot, mask, base, j0, n, v);
         g2_span<T, P, SB>(v, s0, ns, n_params, grid, cut, acc);
       }
-      g2_reduce_store<T, P, SB>(acc, ns, n_params, out_row + s0 * n_params);
+      reduce_store<T, P, SB>(acc, ns, n_params, out_row + s0 * n_params);
     }
   }
 }

@@ -18,23 +18,34 @@
 // and on its slot's row of gbar only, so each is written once to its own
 // place: no scatter, no atomic, the same bits at every run. A masked
 // entry, or one whose slot is outside [0, n_slots), gets exactly 0 and
-// its geometry is not read.
+// its geometry is not used (G4 does not read it).
 //
 // What binds them on an H100: the bytes, as in the forwards. A pass
 // reads the slot and mask rows and the real entries' three (G2: one)
 // distances once, and writes one (G2) or three (G4) output rows per
-// batch member; the gbar row of an atom (S * T values) is read by the
-// warp's lanes from L1. Per entry G2 costs a cutoff and its slope and
-// per grid row one exp2; G4 three cutoffs and slopes and per grid row
-// an exp2 and a power or two (integer zeta by multiplies).
-//   * G2: one warp per atom row, 4 rows a block, lanes on neighbouring
-//     entries, so every load and store of the warp is 32 neighbouring
-//     elements; no shared memory and no barrier. A lane's entry is
-//     computed once for all batch members: its geometry, cutoff and
-//     slope stay in registers and only the grid loop (which reads each
-//     member's gbar row) repeats. -eta log2(e) / rc^2 and 2 eta / rc^2
-//     are folded on the host in double. The padding of a row still costs
-//     its lanes a read of mask and slot.
+// batch member; the gbar row of an atom (S * T values) is read from a
+// stage in shared memory (G2) or by the warp's lanes from L1 (G4). Per
+// entry G2 costs a cutoff and its slope and per grid row one exp2; G4
+// three cutoffs and slopes and per grid row an exp2 and a power or two
+// (integer zeta by multiplies).
+//   * G2 (redesigned with the second-order kernels, whose row walk it
+//     shares: `walk_quads` in sf_common.cuh): one warp per atom row, 4
+//     rows a block (the forward's persistent warps made no difference
+//     here, and the second-order kernel slower; PERF.md). The row's
+//     cotangent (S * T values a member) is copied once into the warp's
+//     stage in shared memory, for as many members as 8 KB hold (more
+//     members take the row again). A lane takes quads of 4 neighbouring entries, 128 entries
+//     a warp pass, and issues the 16-byte loads of mask, slot and
+//     distance of a quad before any math, as the forward does; its four
+//     outputs go out as one 16-byte store a member, a quad of padding as
+//     zeros. Each real entry's cutoff and
+//     slope and, per grid row, one exp2 (the constants folded on the
+//     host in double) are computed once: one member takes each term into
+//     its sum as it is made; more members keep the terms in registers
+//     and cost an FMA a grid row each, the gbar row read from the stage.
+//     No compaction and no load that waits on the mask: on an H100 both
+//     cost G2, whose work an entry is small, more than they saved
+//     (PERF.md).
 //   * G4 (the forward's shape): one warp per atom row, 4 rows a block.
 //     A lane reads 8 entries of a 256-entry span as two 16-byte loads of
 //     mask and of slot (each warp load 512 contiguous bytes), all issued
@@ -57,6 +68,7 @@
 
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cmath>
 #include <cstddef>
 
@@ -68,13 +80,6 @@ namespace {
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxParams = 64;
-
-template <typename T>
-struct G2VjpGrid {
-  T scale[kMaxParams];  // -eta log2(e) / rc^2
-  T slope[kMaxParams];  // 2 eta / rc^2
-  T omega[kMaxParams];
-};
 
 template <typename T>
 struct G4VjpGrid {
@@ -89,60 +94,96 @@ struct G4VjpGrid {
 
 // d<gbar, G2>/d rij[b, row, j] = mask^2 sum_t gbar[b, row, s, t]
 //   e_t (fc'(r) - fc(r) 2 eta_t (r - omega_t) / rc^2),
-//   e_t = exp(-eta_t (r - omega_t)^2 / rc^2), s the entry's slot
-template <typename T>
+//   e_t = exp(-eta_t (r - omega_t)^2 / rc^2), s the entry's slot; the
+// members in chunks of `members`. P bounds the grid rows; MULTI (more
+// than one member) keeps each entry's g_t' in registers for the members,
+// one member takes each term into its sum as it is made.
+template <typename T, int P, bool MULTI>
 __global__ void __launch_bounds__(kThreads)
 g2_vjp_kernel(const T* __restrict__ gbar, const T* __restrict__ rij,
               const T* __restrict__ slot, const T* __restrict__ mask,
               T* __restrict__ out, int batch, int rows, int n, int n_slots,
-              int n_params, G2VjpGrid<T> grid, Cutoff<T> cut) {
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (row >= rows) return;
-  const size_t base = static_cast<size_t>(row) * n;
-  const size_t width = static_cast<size_t>(n_slots) * n_params;
+              int n_params, G2VjpGrid<T> grid, Cutoff<T> cut, int members,
+              bool vec) {
+  extern __shared__ __align__(16) unsigned char gbar_stages[];
+  const int warp = threadIdx.x >> 5;
+  const int width = n_slots * n_params;
+  T* gs = reinterpret_cast<T*>(gbar_stages) + warp * members * width;
   const size_t plane = static_cast<size_t>(rows) * n;
-  for (int j = lane; j < n; j += 32) {
-    const T mk = mask[base + j];
-    const int s = entry_slot(mk, slot[base + j], n_slots);
-    if (s < 0) {
-      for (int b = 0; b < batch; ++b) out[b * plane + base + j] = T(0);
-      continue;
+  const int row = blockIdx.x * kWarps + warp;
+  if (row >= rows) return;   // the whole warp leaves together
+  const size_t base = static_cast<size_t>(row) * n;
+  for (int b0 = 0; b0 < batch; b0 += members) {
+    const int b1 = min(batch, b0 + members);
+    __syncwarp();   // the last chunk's readers are done with the stage
+    for (int b = b0; b < b1; ++b) {
+      warp_copy(gs + (b - b0) * width,
+                gbar + (static_cast<size_t>(b) * rows + row) * width, width);
     }
-    const T r = rij[base + j];
-    const T fc = cutoff_value(cut, r) * mk;
-    const T dfc = cutoff_slope(cut, r) * mk;
-    for (int b = 0; b < batch; ++b) {
-      const T* g = gbar + (static_cast<size_t>(b) * rows + row) * width +
-                   static_cast<size_t>(s) * n_params;
-      T acc = T(0);
-      for (int t = 0; t < n_params; ++t) {
-        const T d = r - grid.omega[t];
-        const T e = d_exp2(grid.scale[t] * (d * d));
-        acc += g[t] * e * (dfc - fc * grid.slope[t] * d);
+    __syncwarp();
+    walk_quads(mask + base, slot + base, rij + base,
+               static_cast<const T*>(nullptr), n, n_slots, vec,
+               [&](int j, const T (&mk)[4], const int (&sv)[4], bool any,
+                   const T (&r)[4], const T (&)[4]) {
+      T o[4] = {T(0), T(0), T(0), T(0)};
+      if (!any) {
+        for (int b = b0; b < b1; ++b) {
+          store_quad(out + b * plane + base, j, n, vec, o);
+        }
+        return;
       }
-      out[b * plane + base + j] = acc * mk;
-    }
-  }
-}
-
-// Zeros at p[0, 4), 16-byte aligned where `vec`.
-__device__ __forceinline__ void store_zero_quad(float* p, bool vec) {
-  if (vec) {
-    *reinterpret_cast<float4*>(p) = make_float4(0.f, 0.f, 0.f, 0.f);
-  } else {
+      if (!MULTI) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) p[i] = 0.f;
-  }
-}
-
-__device__ __forceinline__ void store_zero_quad(double* p, bool vec) {
-  if (vec) {
-    *reinterpret_cast<double2*>(p) = make_double2(0.0, 0.0);
-    *reinterpret_cast<double2*>(p + 2) = make_double2(0.0, 0.0);
-  } else {
+        for (int i = 0; i < 4; ++i) {
+          if (sv[i] < 0) continue;
+          T fc, dfc;
+          cutoff_value_and_slope(cut, r[i], fc, dfc);
+          const T* g = gs + sv[i] * n_params;
+          T acc = T(0);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) p[i] = 0.0;
+          for (int t = 0; t < P; ++t) {
+            if (t >= n_params) continue;
+            const T d = r[i] - grid.omega[t];
+            const T e = d_exp2(grid.scale[t] * (d * d));
+            acc = fma(g[t], e * (dfc - fc * grid.slope[t] * d), acc);
+          }
+          o[i] = acc * (mk[i] * mk[i]);
+        }
+        store_quad(out + b0 * plane + base, j, n, vec, o);
+        return;
+      }
+      // each real entry's geometry once for all members
+      T dg[4][P];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        T fc = T(0), dfc = T(0);
+        if (sv[i] >= 0) cutoff_value_and_slope(cut, r[i], fc, dfc);
+        const T mm = mk[i] * mk[i];
+#pragma unroll
+        for (int t = 0; t < P; ++t) {
+          dg[i][t] = T(0);
+          if (t >= n_params || sv[i] < 0) continue;
+          const T d = r[i] - grid.omega[t];
+          const T e = d_exp2(grid.scale[t] * (d * d));
+          dg[i][t] = mm * e * (dfc - fc * grid.slope[t] * d);
+        }
+      }
+      for (int b = b0; b < b1; ++b) {
+        const T* g = gs + (b - b0) * width;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          if (sv[i] < 0) continue;
+          const T* gr = g + sv[i] * n_params;
+          T acc = T(0);
+#pragma unroll
+          for (int t = 0; t < P; ++t) {
+            if (t < n_params) acc = fma(gr[t], dg[i][t], acc);
+          }
+          o[i] = acc;
+        }
+        store_quad(out + b * plane + base, j, n, vec, o);
+      }
+    });
   }
 }
 
@@ -160,83 +201,25 @@ g4_vjp_kernel(const T* __restrict__ gbar, const T* __restrict__ rij,
               T* __restrict__ out_c, int batch, int rows, int n,
               int n_slots, int n_params, G4VjpGrid<T> grid, Cutoff<T> cut,
               T inv_rc2, bool vec) {
-  // per warp: the span's real entries in row order, their slot and mask
-  __shared__ int stage_j[kWarps][kSpan];
-  __shared__ int stage_s[kWarps][kSpan];
-  __shared__ T stage_m[kWarps][kSpan];
+  __shared__ SpanStage<T> stages[kWarps];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int row = blockIdx.x * kWarps + warp;
   if (row >= rows) return;   // the whole warp leaves together
-  int* st_j = stage_j[warp];
-  int* st_s = stage_s[warp];
-  T* st_m = stage_m[warp];
+  SpanStage<T>& st = stages[warp];
   const size_t base = static_cast<size_t>(row) * n;
   const size_t width = static_cast<size_t>(n_slots) * n_params;
   const size_t plane = static_cast<size_t>(rows) * n;
+  T* const outs[3] = {out_a, out_b, out_c};
   for (int j0 = 0; j0 < n; j0 += kSpan) {
-    T mk[kLaneEntries], sl[kLaneEntries];
-    load8(mask + base, j0, n, vec, mk);
-    load8(slot + base, j0, n, vec, sl);
     int sv[kLaneEntries];
-#pragma unroll
-    for (int i = 0; i < kLaneEntries; ++i) {
-      sv[i] = entry_slot(mk[i], sl[i], n_slots);   // -1 past n (mask 0)
-    }
-    // Compact the real entries in row order: the lanes' first quads, then
-    // their second, each placed by a warp prefix sum of its count.
-    __syncwarp();   // the last span's readers are done with the stage
-    int count = 0;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int c = (sv[4 * h] >= 0) + (sv[4 * h + 1] >= 0) +
-                    (sv[4 * h + 2] >= 0) + (sv[4 * h + 3] >= 0);
-      int incl = c;
-#pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const int y = __shfl_up_sync(kFull, incl, off);
-        if (lane >= off) incl += y;
-      }
-      int pos = count + incl - c;
-#pragma unroll
-      for (int i = 4 * h; i < 4 * h + 4; ++i) {
-        if (sv[i] >= 0) {
-          st_j[pos] = j0 + h * (kSpan / 2) + 4 * lane + (i - 4 * h);
-          st_s[pos] = sv[i];
-          st_m[pos] = mk[i];
-          ++pos;
-        }
-      }
-      count += __shfl_sync(kFull, incl, 31);
-    }
-    // the span's entries of no slot get 0: a quad with none as one store
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int j = j0 + h * (kSpan / 2) + 4 * lane;
-      const bool none = sv[4 * h] < 0 && sv[4 * h + 1] < 0 &&
-                        sv[4 * h + 2] < 0 && sv[4 * h + 3] < 0;
-      for (int bb = 0; bb < batch; ++bb) {
-        const size_t o = bb * plane + base + j;
-        if (none && j + 4 <= n) {
-          store_zero_quad(out_a + o, vec);
-          store_zero_quad(out_b + o, vec);
-          store_zero_quad(out_c + o, vec);
-          continue;
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          if (sv[4 * h + i] < 0 && j + i < n) {
-            out_a[o + i] = T(0);
-            out_b[o + i] = T(0);
-            out_c[o + i] = T(0);
-          }
-        }
-      }
-    }
+    const int count = stage_span(mask + base, slot + base, j0, n, n_slots,
+                                 0, n_slots, vec, st, sv);
+    zero_unslotted<T, 3>(sv, j0, n, vec, outs, base, plane, 0, batch);
     __syncwarp();
     // one lane a real triple; its geometry once for all members
     for (int p = lane; p < count; p += 32) {
-      const int j = st_j[p], s = st_s[p];
-      const T mk = st_m[p];
+      const int j = st.j[p], s = st.s[p];
+      const T mk = st.m[p];
       const T a = rij[base + j], b_ = rik[base + j], c = rjk[base + j];
       const T a2 = a * a, b2 = b_ * b_, c2 = c * c;
       const T s2 = a2 + b2 + c2;
@@ -322,19 +305,26 @@ template <typename T>
   if (bad_args(batch, rows, n, n_slots, n_params, cutoff_id)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  constexpr double kLog2E = 1.4426950408889634074;
-  G2VjpGrid<T> grid;
-  for (int t = 0; t < n_params; ++t) {
-    grid.scale[t] = T(-eta[t] * kLog2E / (rc * rc));
-    grid.slope[t] = T(2.0 * eta[t] / (rc * rc));
-    grid.omega[t] = T(omega[t]);
-  }
+  const int width = n_slots * n_params;
+  const int members = std::min(
+      batch, kGbarStageBytes / (width * static_cast<int>(sizeof(T))));
+  if (members < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const G2VjpGrid<T> grid = make_g2_vjp_grid<T>(eta, omega, rc, n_params);
   const Cutoff<T> cut = make_cutoff<T>(cutoff_id, rc);
-  g2_vjp_kernel<T><<<blocks_for(rows), kThreads, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-      gbar, rij, slot, mask, out, batch, rows, n, n_slots, n_params, grid,
-      cut);
-  return static_cast<int>(cudaGetLastError());
+  const bool vec = n * sizeof(T) % 16 == 0 && aligned16(slot) &&
+                   aligned16(mask) && aligned16(out);
+  const size_t shared = static_cast<size_t>(kWarps) * members * width *
+                        sizeof(T);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return dispatch_params(n_params, [&](auto p) {
+    constexpr int P = decltype(p)::value;
+    auto kernel = batch == 1 ? g2_vjp_kernel<T, P, false>
+                             : g2_vjp_kernel<T, P, true>;
+    kernel<<<blocks_for(rows), kThreads, shared, st>>>(
+        gbar, rij, slot, mask, out, batch, rows, n, n_slots, n_params, grid,
+        cut, members, vec);
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
 template <typename T>

@@ -120,3 +120,47 @@ def cutoff_and_slope(name: str, r, rc):
         slope = -0.25 * math.pi / d * torch.cos(0.5 * math.pi * z)
         return fc, torch.where((z > -1.0) & (z < 1.0), slope, zero)
     raise KeyError(name)
+
+
+def cutoff_slope_and_curvature(name: str, r, rc):
+    """-> (fc(r), dfc/dr, d2fc/dr2) of a registered cutoff with its
+    default keywords, written out (the second-order closed forms of
+    `ops.fused` and `cutoff_curvature` in csrc/common.cuh). As in
+    `cutoff_and_slope`, a clamped argument has slope and curvature 0
+    outside its open interval."""
+    fc, slope = cutoff_and_slope(name, r, rc)
+    zero = torch.zeros_like(r)
+    if name == "cosine":
+        z = r / rc
+        curv = -0.5 * (math.pi / rc) ** 2 * torch.cos(math.pi * z)
+        return fc, slope, torch.where(z < 1.0, curv, zero)
+    if name == "polynomial":
+        z = r / rc
+        curv = (150.0 * z ** 4 - 120.0 * z ** 3) / (rc * rc)
+        return fc, slope, torch.where(z < 1.0, curv, zero)
+    if name == "meam":
+        x = (rc - r) / rc
+        u2 = (1.0 - x) ** 2
+        curv = 8.0 / (rc * rc) * (7.0 * u2 * u2 * u2 - 3.0 * u2)
+        return fc, slope, torch.where((x > 0.0) & (x < 1.0), curv, zero)
+    if name == "deepmd":
+        rcs = (2.0 / 3.0) * rc
+        w = math.pi / (rc - rcs)
+        z = (r - rcs) / (rc - rcs)
+        zc = torch.clamp(z, 0.0, 1.0)
+        inside = (z > 0.0) & (z < 1.0)
+        positive = r > 0
+        recip = torch.where(positive, 1.0 / torch.where(positive, r, 1.0),
+                            0.0)
+        s = 0.5 * torch.cos(math.pi * zc) + 0.5
+        ramp = torch.where(inside, -0.5 * w * torch.sin(math.pi * zc), zero)
+        bend = torch.where(inside, -0.5 * w * w * torch.cos(math.pi * zc),
+                           zero)
+        curv = (2.0 * s * recip - 2.0 * ramp) * recip * recip + bend * recip
+        return fc, slope, curv
+    if name == "tersoff":
+        d = 0.1 * rc
+        z = (r - (rc - d)) / d
+        curv = 0.125 * (math.pi / d) ** 2 * torch.sin(0.5 * math.pi * z)
+        return fc, slope, torch.where((z > -1.0) & (z < 1.0), curv, zero)
+    raise KeyError(name)

@@ -17,19 +17,34 @@ Each descriptor has five pieces:
     `csrc/sf_vjp.cu` / `csrc/grap_vjp.cu` or an error on CUDA ones;
   * an autograd Function (`G2Function`, `G4Function`, `GrapFunction`),
     the port of `_custom_vjp_op`: forward is the kernel wrapper.
+G2 and G4 have a second order as well: the closed form of the VJP's
+own VJP (`g2_vjp_bwd_reference`, `g4_vjp_bwd_reference`), its kernel
+wrapper (`g2_vjp_bwd_kernel`, `g4_vjp_bwd_kernel`, `csrc/sf_vjp_bwd.cu`)
+and an autograd Function of the VJP (`G2VjpFunction`, `G4VjpFunction`:
+forward the VJP kernel wrapper, backward the second-order one).
 
-The Functions' backward takes one of two routes, chosen by the order of
-the derivative the caller asked for, never by what failed:
+The Functions' backward takes one of three routes, chosen by the order
+of the derivative the caller asked for, never by what failed:
   * grad mode off (`torch.autograd.grad` without `create_graph`: every
     calculator request, MD, FIRE and NEB step, committee and chunked
     block, and a Hessian row's term through the descriptors): the VJP
     kernel wrapper, one launch a backward, no graph;
   * grad mode on (`create_graph=True`: a force loss in training, the
-    elastic constraint, a Hessian's forces): the twin is rebuilt on the
-    saved inputs and its autograd VJP stays in the graph, differentiable
-    to any order as the JAX op's `jax.vjp` of the reference is.
+    elastic constraint, a Hessian's forces), G2 and G4: the VJP Function
+    on the saved inputs, one VJP launch, in the graph; its backward
+    (the loss backward of a train step, a Hessian row) is the
+    second-order kernel wrapper, one launch, which skips the geometry
+    term where the running backward does not use it
+    (`torch._C._will_engine_execute_node`);
+  * grad mode on in a backward of the VJP Function (third order: the
+    elastic constraint's strain Hessian differentiated for the
+    parameters, `make_hessian_fn(create_graph=True)`), and GRAP under
+    grad mode at any order: the twin is rebuilt on the saved inputs and
+    its autograd VJP (of the VJP) stays in the graph, differentiable to
+    any order as the JAX op's `jax.vjp` of the reference is.
 A cotangent batched by `is_grads_batched` (legacy vmap) has no storage
-a kernel can be given: on CUDA the backward raises. The callers that
+a kernel can be given: on the CPU the twin route takes it, on CUDA the
+backward raises. The callers that
 batch cotangents (`ensemble`, `linear.model`) record the Functions'
 calls while the descriptors are computed (`record_calls`) and take the
 batched VJP through the kernels with `descriptor_vjp`.
@@ -58,7 +73,8 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from .cutoffs import CUTOFF_IDS, apply_cutoff, cutoff_and_slope
+from .cutoffs import (CUTOFF_IDS, apply_cutoff, cutoff_and_slope,
+                      cutoff_slope_and_curvature)
 
 _PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PACKAGE_DIR / "csrc"
@@ -74,12 +90,14 @@ LINK_FLAGS = ARCH_FLAGS + ("-shared",)
 # that its instantiations are shared between as many compilers
 SPLIT_SOURCES = {"sf_kernels.cu": ("SF_ENTRY", 4),
                  "sf_vjp.cu": ("SF_VJP_ENTRY", 4),
+                 "sf_vjp_bwd.cu": ("SF_VJP_BWD_ENTRY", 4),
                  "grap_vjp.cu": ("GRAP_VJP_ENTRY", 2)}
 
 # Launches of each kernel since the last `reset_launch_counts()`; a
 # wrapper adds one where it launches its kernel and nowhere else.
 launch_counts: Dict[str, int] = {"g2": 0, "g4": 0, "grap": 0, "g2_vjp": 0,
-                                 "g4_vjp": 0, "grap_vjp": 0}
+                                 "g4_vjp": 0, "grap_vjp": 0,
+                                 "g2_vjp_bwd": 0, "g4_vjp_bwd": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 build_log = ""
@@ -107,26 +125,82 @@ def _is_vmapped(t: torch.Tensor) -> bool:
                 or functorch.is_batchedtensor(t))
 
 
-def _backward(function, ctx, gbar):
-    """The gradients of `function`'s differentiable inputs along `gbar`
-    (module docstring): the twin's VJP in the graph under grad mode, the
-    VJP kernel wrapper otherwise."""
-    saved = ctx.saved_tensors
-    n = function.n_diff
-    vmapped = _is_vmapped(gbar)
+def _refuse_vmapped(function, saved, cotangents) -> bool:
+    """Whether a cotangent is batched by a vmap; raise if it is and the
+    inputs are not on the CPU."""
+    vmapped = any(_is_vmapped(g) for g in cotangents)
     if vmapped and saved[0].device.type != "cpu":
         raise RuntimeError(
             f"{function.__name__}: a cotangent batched by "
             "is_grads_batched cannot be given to the VJP kernel; record "
             "the calls (ops.fused.record_calls) and take the batched VJP "
             "with ops.fused.descriptor_vjp")
-    if torch.is_grad_enabled() or vmapped:
+    return vmapped
+
+
+def _backward(function, ctx, gbar):
+    """The gradients of `function`'s differentiable inputs along `gbar`
+    (module docstring): under grad mode the VJP Function where the kernel
+    has one, else the twin's VJP in the graph; the VJP kernel wrapper
+    otherwise."""
+    saved = ctx.saved_tensors
+    n = function.n_diff
+    vmapped = _refuse_vmapped(function, saved, (gbar,))
+    if vmapped or (torch.is_grad_enabled() and function.vjp_function is None):
         # vmap batches the twin's ops on CPU tensors (not the closed
         # form's einsums)
         return _twin_vjp(function.twin, saved[:n], saved[n:], ctx.spec,
                          gbar)
+    if torch.is_grad_enabled():
+        out = function.vjp_function.apply(gbar, *saved, *ctx.spec)
+        return out if isinstance(out, tuple) else (out,)
     return tuple(g[0] for g in function.kernel_vjp(gbar[None], *saved,
                                                    *ctx.spec))
+
+
+def _engine_uses(t: torch.Tensor) -> bool:
+    """Whether the backward being run needs the gradient of `t`: false
+    where `t`'s node leads to none of the inputs the caller asked for
+    (the loss backward of a train step asks for the parameters, not the
+    positions the distances come from). A leaf cannot be asked under
+    `autograd.grad`: true."""
+    if not t.requires_grad:
+        return False
+    if t.grad_fn is None:
+        return True
+    return bool(torch._C._will_engine_execute_node(t.grad_fn))
+
+
+def _vjp_backward(function, ctx, vs):
+    """The gradients of a VJP Function's inputs (gbar, the distances)
+    along the cotangents `vs` of its outputs (module docstring): the
+    second-order kernel wrapper with grad mode off, the twin's VJP of
+    the VJP in the graph under grad mode (third order)."""
+    saved = ctx.saved_tensors
+    n = 1 + function.first.n_diff
+    vmapped = _refuse_vmapped(function, saved[1:], vs)
+    if vmapped or torch.is_grad_enabled():
+        return _twin_vjp(function.twin, saved[:n], saved[n:], ctx.spec,
+                         tuple(vs))
+    geometry = any(need and _engine_uses(x) for need, x in
+                   zip(ctx.needs_input_grad[1:n], saved[1:n]))
+    gbar_bar, *grads = function.kernel_bwd(tuple(vs), *saved, *ctx.spec,
+                                           geometry=geometry)
+    return (gbar_bar if ctx.needs_input_grad[0] else None, *grads)
+
+
+def _twin_vjp_of(function):
+    """The first-order VJP of `function.twin` by its autograd, as a
+    function (gbar, *diff, *rest, *spec) -> the gradients of `diff`,
+    differentiable: the twin of `function`'s VJP Function."""
+    n = function.n_diff
+
+    def vjp(gbar, *args):
+        with torch.enable_grad():
+            y = function.twin(*args)
+            return torch.autograd.grad(y, args[:n], gbar, create_graph=True)
+
+    return vjp
 
 
 class Call(NamedTuple):
@@ -182,8 +256,9 @@ def descriptor_vjp(g: torch.Tensor, g_bar: torch.Tensor, calls, leaves):
 
 
 def _twin_vjp(twin, diff, rest, spec, gbar):
-    """VJP of `twin(*diff, *rest, *spec)` w.r.t. `diff` along `gbar`, for
-    the backward of a kernel's autograd Function. Under grad mode (the
+    """VJP of `twin(*diff, *rest, *spec)` w.r.t. `diff` along `gbar` (a
+    tuple where the twin has several outputs), for the backward of a
+    kernel's autograd Function. Under grad mode (the
     caller differentiates with `create_graph=True`) the twin is rebuilt
     on the saved inputs themselves and the result stays in the graph:
     it depends differentiably on `gbar` and on the inputs. Otherwise the
@@ -304,6 +379,12 @@ def _library() -> ctypes.CDLL:
             grapv.argtypes = [p] * 12 + [i] * 6 + [p] * 3 + [i, p, i, p,
                                                               d, i, p]
             grapv.restype = i
+            g2b = getattr(lib, f"sf_g2_vjp_bwd_{dt}")
+            g2b.argtypes = [p] * 7 + [i] * 4 + [p, p, d, i, p]
+            g2b.restype = i
+            g4b = getattr(lib, f"sf_g4_vjp_bwd_{dt}")
+            g4b.argtypes = [p] * 13 + [i] * 4 + [p, p, p, d, i, p]
+            g4b.restype = i
         _lib = lib
     return _lib
 
@@ -533,12 +614,86 @@ def g2_vjp_kernel(gbar, rij, islotf, mask, grid, rcut: float, cutoff: str,
     return (out,)
 
 
+def g2_vjp_bwd_reference(v, gbar, rij, islotf, mask, grid, rcut: float,
+                         cutoff: str, n_slots: int, geometry: bool = True):
+    """Closed-form VJP of `g2_vjp_reference` (B = 1) w.r.t. (gbar, rij)
+    along `v` = (v [A, N],) -> (gbar_bar [A, S * T2], r_bar [A, N] or
+    None where not `geometry`). With g_t = e_t fc,
+    e_t = exp(-eta_t (r - omega_t)^2 / rc^2), k_t = 2 eta_t (r - omega_t)
+    / rc^2:
+      g_t'  = e_t (fc' - fc k_t),
+      g_t'' = e_t (fc'' - 2 fc' k_t + fc (k_t^2 - 2 eta_t / rc^2)),
+      gbar_bar[s, t] = sum_j [slot_j = s] mask_j^2 g_t'(r_j) v_j,
+      r_bar[j] = mask_j^2 v_j sum_t gbar[s_j, t] g_t''(r_j);
+    a masked entry gives exactly 0 and its distance is not read."""
+    (v,) = v
+    a = rij.shape[0]
+    real = mask > 0
+    r = torch.where(real, rij, 1.0)
+    fc, slope, curv = (x[..., None] for x in
+                       cutoff_slope_and_curvature(cutoff, r, rcut))
+    grid = torch.as_tensor(np.asarray(grid), dtype=rij.dtype,
+                           device=rij.device)
+    eta, omega = grid[:, 0], grid[:, 1]
+    d = r[..., None] - omega                               # [A, N, T2]
+    e = torch.exp(-eta * torch.square(d) / (rcut * rcut))
+    k = 2.0 * eta * d / (rcut * rcut)
+    vm = torch.where(real, v, 0.0) * mask * mask
+    eye = torch.arange(n_slots, dtype=islotf.dtype, device=islotf.device)
+    sel = (islotf[..., None] == eye) * vm[..., None]       # [A, N, S]
+    gbar_bar = torch.einsum("ans,ant->ast", sel, e * (slope - fc * k))
+    gbar_bar = gbar_bar.reshape(a, -1)
+    if not geometry:
+        return gbar_bar, None
+    d2g = e * (curv - 2.0 * slope * k
+               + fc * (k * k - 2.0 * eta / (rcut * rcut)))
+    w = _slot_cotangent(gbar[None], islotf, mask, n_slots)[0]
+    return gbar_bar, torch.where(real, torch.sum(w * d2g, dim=-1)
+                                 * mask * v, 0.0)
+
+
+def g2_vjp_bwd_kernel(v, gbar, rij, islotf, mask, grid, rcut: float,
+                      cutoff: str, n_slots: int, geometry: bool = True):
+    """`g2_vjp_bwd_reference` through the CUDA kernel `g2_vjp_bwd_kernel`
+    (csrc/sf_vjp_bwd.cu: the backward of `g2_vjp_kernel`, which JAX takes
+    by `jax.grad` through `jax.vjp` of `_g2_ref_dense`,
+    tensoralloy_tpu/ops/fused.py:310); the closed form for CPU tensors.
+    G2's row walk: a warp a row, each entry's geometry once, its r_bar to
+    its own place, gbar_bar summed in registers and reduced by xor
+    shuffles; no atomic."""
+    if rij.device.type == "cpu":
+        return g2_vjp_bwd_reference(v, gbar, rij, islotf, mask, grid, rcut,
+                                    cutoff, n_slots, geometry)
+    if rij.device.type != "cuda":
+        raise ValueError(f"g2_vjp_bwd_kernel: no kernel for device "
+                         f"{rij.device}")
+    (v,) = v
+    _check_cuda_inputs("g2_vjp_bwd_kernel", rij, islotf, mask)
+    fn, tail, n_params, _ = _bound_sf("g2_vjp_bwd", grid, rcut, cutoff,
+                                      n_slots, rij.dtype)
+    rows, n = rij.shape
+    gbar = _check_cotangent("g2_vjp_bwd_kernel", gbar[None], rows,
+                            n_slots * n_params, rij)
+    v = _check_cotangent("g2_vjp_bwd_kernel", v[None], rows, n, rij)
+    gbar_bar = torch.empty((rows, n_slots * n_params), dtype=rij.dtype,
+                           device=rij.device)
+    r_bar = torch.empty_like(rij) if geometry else None
+    if rows == 0:
+        return gbar_bar, r_bar
+    _launch("g2_vjp_bwd", fn, rij.device, v.data_ptr(), gbar.data_ptr(),
+            rij.data_ptr(), islotf.data_ptr(), mask.data_ptr(),
+            gbar_bar.data_ptr(), 0 if r_bar is None else r_bar.data_ptr(),
+            rows, n, *tail)
+    return gbar_bar, r_bar
+
+
 class G2Function(torch.autograd.Function):
     """Differentiable G2 w.r.t. `rij`; no gradient for slots or mask."""
 
     n_diff = 1
     twin = g2_reference
     kernel_vjp = g2_vjp_kernel
+    vjp_function = None      # G2VjpFunction, below
 
     @staticmethod
     def forward(ctx, rij, islotf, mask, grid, rcut, cutoff, n_slots):
@@ -552,6 +707,32 @@ class G2Function(torch.autograd.Function):
     def backward(ctx, gbar):
         (grad,) = _backward(G2Function, ctx, gbar)
         return grad, None, None, None, None, None, None
+
+
+class G2VjpFunction(torch.autograd.Function):
+    """G2's VJP (B = 1) as a differentiable op of (gbar, rij): forward
+    `G2Function.kernel_vjp`, backward `kernel_bwd` (or the twin's VJP of
+    the VJP under grad mode: module docstring)."""
+
+    first = G2Function
+    twin = _twin_vjp_of(G2Function)
+    kernel_bwd = g2_vjp_bwd_kernel
+
+    @staticmethod
+    def forward(ctx, gbar, rij, islotf, mask, grid, rcut, cutoff, n_slots):
+        ctx.save_for_backward(gbar, rij, islotf, mask)
+        ctx.spec = (grid, rcut, cutoff, n_slots)
+        (out,) = G2Function.kernel_vjp(gbar[None], rij, islotf, mask,
+                                       *ctx.spec)
+        return out[0]
+
+    @staticmethod
+    def backward(ctx, v):
+        grads = _vjp_backward(G2VjpFunction, ctx, (v,))
+        return (*grads, None, None, None, None, None, None)
+
+
+G2Function.vjp_function = G2VjpFunction
 
 
 # ----------------------------------------------------------------------
@@ -695,12 +876,146 @@ def g4_vjp_kernel(gbar, rij, rik, rjk, aslotf, mask, grid, acut: float,
     return outs
 
 
+def g4_vjp_bwd_reference(v, gbar, rij, rik, rjk, aslotf, mask, grid,
+                         acut: float, cutoff: str, n_slots: int,
+                         geometry: bool = True):
+    """Closed-form VJP of `g4_vjp_reference` (B = 1) w.r.t. (gbar, rij,
+    rik, rjk) along `v` = (v_a, v_b, v_c), three [A, Nt] -> (gbar_bar
+    [A, S * T4], and the three geometry terms [A, Nt], or None each where
+    not `geometry`). Per triple of distances x = (a, b, c) the terms are
+    T_t = P_t(cos) E_t(z) F with F = fc(a) fc(b) fc(c), z = |x|^2 / rc^2,
+    E_t = exp(-beta_t z), P_t = 2^(1-zeta) max(1 + gamma cos, 0)^zeta
+    (P', P'' 0 where 1 + gamma cos <= 0). With w_t = gbar[s, t] mask^2:
+      gbar_bar[s, t] = sum_triples [slot = s] mask^2 E_t
+          (P_t' F grad(cos).v + P_t (grad(F).v - beta_t F grad(z).v)),
+      x_bar = sum_t w_t Hess(T_t) v
+            = S2 F gc (gc.v) + S1 (F Hc v + gc (gF.v) + gF (gc.v))
+              - B1 F (gc (gz.v) + gz (gc.v)) + B2 F gz (gz.v)
+              - B0 (F Hz v + gz (gF.v) + gF (gz.v)) + S0 HF v,
+    gc, gz, gF the gradients of cos, z, F in (a, b, c) and Hc, Hz, HF
+    their Hessians, S_k = sum_t w_t P_t^(k) E_t (k = 0, 1, 2), B0 =
+    sum_t w_t beta_t P_t E_t, B1 = sum_t w_t beta_t P_t' E_t, B2 =
+    sum_t w_t beta_t^2 P_t E_t. Exactly 0 where the mask is 0."""
+    real = mask > 0
+
+    def safe(x):
+        return torch.where(real, x, 1.0)
+
+    a, b, c = safe(rij), safe(rik), safe(rjk)
+    a2, b2, c2 = a * a, b * b, c * c
+    inv_rc2 = 1.0 / (acut * acut)
+    z = (a2 + b2 + c2) * inv_rc2
+    cos = (a2 + b2 - c2) / (2.0 * a * b)
+    (fa, da, ka), (fb, db, kb), (fcc, dc, kc) = (
+        cutoff_slope_and_curvature(cutoff, x, acut) for x in (a, b, c))
+    f = fa * fb * fcc
+    gf = (da * fb * fcc, fa * db * fcc, fa * fb * dc)
+    gc = ((a2 - b2 + c2) / (2.0 * a2 * b), (b2 - a2 + c2) / (2.0 * a * b2),
+          -c / (a * b))
+    gz = (2.0 * a * inv_rc2, 2.0 * b * inv_rc2, 2.0 * c * inv_rc2)
+    vs = [torch.where(real, x, 0.0) for x in v]
+    dot = lambda g: g[0] * vs[0] + g[1] * vs[1] + g[2] * vs[2]  # noqa: E731
+    gc_v, gz_v, gf_v = dot(gc), dot(gz), dot(gf)
+    p, dp, ddp, e, beta = [], [], [], [], []
+    for bt, gamma, zeta in np.asarray(grid, dtype=np.float64).tolist():
+        arg = 1.0 + gamma * cos
+        base = torch.clamp(arg, min=0.0)
+        scale = 2.0 ** (1.0 - zeta)
+        p.append(scale * base ** zeta)
+        dp.append(torch.where(arg > 0, scale * zeta * gamma
+                              * base ** (zeta - 1.0), 0.0))
+        ddp.append(torch.where(arg > 0, scale * zeta * (zeta - 1.0)
+                               * gamma * gamma * base ** (zeta - 2.0), 0.0))
+        e.append(torch.exp(-bt * z))
+        beta.append(bt)
+    p, dp, ddp, e = (torch.stack(t, dim=-1) for t in (p, dp, ddp, e))
+    beta = torch.as_tensor(beta, dtype=rij.dtype, device=rij.device)
+    mm = mask * mask
+    # gbar_bar: each triple's directional derivative of each T_t
+    dt = e * (dp * (f * gc_v)[..., None]
+              + p * (gf_v[..., None] - beta * (f * gz_v)[..., None]))
+    eye = torch.arange(n_slots, dtype=aslotf.dtype, device=aslotf.device)
+    sel = (aslotf[..., None] == eye) * (real * mm)[..., None]
+    gbar_bar = torch.einsum("ans,ant->ast", sel, dt).reshape(rij.shape[0],
+                                                             -1)
+    if not geometry:
+        return gbar_bar, None, None, None
+    w = _slot_cotangent(gbar[None], aslotf, mask, n_slots)[0] \
+        * mask[..., None]
+    s0, s1, s2 = (torch.sum(w * t * e, dim=-1) for t in (p, dp, ddp))
+    sb0, sb1 = (torch.sum(w * beta * t * e, dim=-1) for t in (p, dp))
+    sb2 = torch.sum(w * beta * beta * p * e, dim=-1)
+    # Hessians of cos and F in (a, b, c), each a symmetric 3 x 3
+    hc = {(0, 0): (b2 - c2) / (a2 * a * b),
+          (0, 1): -(a2 + b2 + c2) / (2.0 * a2 * b2),
+          (0, 2): c / (a2 * b), (1, 1): (a2 - c2) / (a * b2 * b),
+          (1, 2): c / (a * b2), (2, 2): -1.0 / (a * b)}
+    hf = {(0, 0): ka * fb * fcc, (1, 1): fa * kb * fcc,
+          (2, 2): fa * fb * kc, (0, 1): da * db * fcc,
+          (0, 2): da * fb * dc, (1, 2): fa * db * dc}
+
+    def hess_v(h, i):
+        return sum(h[min(i, j), max(i, j)] * vs[j] for j in range(3))
+
+    out = []
+    for i in range(3):
+        x_bar = (s2 * f * gc[i] * gc_v
+                 + s1 * (f * hess_v(hc, i) + gc[i] * gf_v + gf[i] * gc_v)
+                 - sb1 * f * (gc[i] * gz_v + gz[i] * gc_v)
+                 + sb2 * f * gz[i] * gz_v
+                 - sb0 * (f * 2.0 * inv_rc2 * vs[i] + gz[i] * gf_v
+                          + gf[i] * gz_v)
+                 + s0 * hess_v(hf, i))
+        out.append(torch.where(real, x_bar, 0.0))
+    return (gbar_bar, *out)
+
+
+def g4_vjp_bwd_kernel(v, gbar, rij, rik, rjk, aslotf, mask, grid,
+                      acut: float, cutoff: str, n_slots: int,
+                      geometry: bool = True):
+    """`g4_vjp_bwd_reference` through the CUDA kernel `g4_vjp_bwd_kernel`
+    (csrc/sf_vjp_bwd.cu: the backward of `g4_vjp_kernel`, which JAX takes
+    by `jax.grad` through `jax.vjp` of `_g4_ref_dense`,
+    tensoralloy_tpu/ops/fused.py:397); the closed form for CPU tensors.
+    G4's compacted span walk: one lane a real triple, its gradients and
+    Hessians of cos, z and F once, six sums over the grid, its geometry
+    terms to its own entries, gbar_bar in registers reduced by xor
+    shuffles; no atomic."""
+    if rij.device.type == "cpu":
+        return g4_vjp_bwd_reference(v, gbar, rij, rik, rjk, aslotf, mask,
+                                    grid, acut, cutoff, n_slots, geometry)
+    if rij.device.type != "cuda":
+        raise ValueError(f"g4_vjp_bwd_kernel: no kernel for device "
+                         f"{rij.device}")
+    _check_cuda_inputs("g4_vjp_bwd_kernel", rij, rik, rjk, aslotf, mask)
+    fn, tail, n_params, _ = _bound_sf("g4_vjp_bwd", grid, acut, cutoff,
+                                      n_slots, rij.dtype)
+    rows, n = rij.shape
+    gbar = _check_cotangent("g4_vjp_bwd_kernel", gbar[None], rows,
+                            n_slots * n_params, rij)
+    v = [_check_cotangent("g4_vjp_bwd_kernel", x[None], rows, n, rij)
+         for x in v]
+    gbar_bar = torch.empty((rows, n_slots * n_params), dtype=rij.dtype,
+                           device=rij.device)
+    outs = tuple(torch.empty_like(rij) if geometry else None
+                 for _ in range(3))
+    if rows == 0:
+        return (gbar_bar, *outs)
+    _launch("g4_vjp_bwd", fn, rij.device, *(x.data_ptr() for x in v),
+            gbar.data_ptr(), rij.data_ptr(), rik.data_ptr(), rjk.data_ptr(),
+            aslotf.data_ptr(), mask.data_ptr(), gbar_bar.data_ptr(),
+            *(0 if o is None else o.data_ptr() for o in outs), rows, n,
+            *tail)
+    return (gbar_bar, *outs)
+
+
 class G4Function(torch.autograd.Function):
     """Differentiable G4 w.r.t. `rij`, `rik`, `rjk`."""
 
     n_diff = 3
     twin = g4_reference
     kernel_vjp = g4_vjp_kernel
+    vjp_function = None      # G4VjpFunction, below
 
     @staticmethod
     def forward(ctx, rij, rik, rjk, aslotf, mask, grid, acut, cutoff,
@@ -716,6 +1031,33 @@ class G4Function(torch.autograd.Function):
     def backward(ctx, gbar):
         grads = _backward(G4Function, ctx, gbar)
         return (*grads, None, None, None, None, None, None)
+
+
+class G4VjpFunction(torch.autograd.Function):
+    """G4's VJP (B = 1) as a differentiable op of (gbar, rij, rik, rjk):
+    forward `G4Function.kernel_vjp`, backward `kernel_bwd` (or the twin's
+    VJP of the VJP under grad mode: module docstring)."""
+
+    first = G4Function
+    twin = _twin_vjp_of(G4Function)
+    kernel_bwd = g4_vjp_bwd_kernel
+
+    @staticmethod
+    def forward(ctx, gbar, rij, rik, rjk, aslotf, mask, grid, acut, cutoff,
+                n_slots):
+        ctx.save_for_backward(gbar, rij, rik, rjk, aslotf, mask)
+        ctx.spec = (grid, acut, cutoff, n_slots)
+        grads = G4Function.kernel_vjp(gbar[None], rij, rik, rjk, aslotf,
+                                      mask, *ctx.spec)
+        return tuple(g[0] for g in grads)
+
+    @staticmethod
+    def backward(ctx, va, vb, vc):
+        grads = _vjp_backward(G4VjpFunction, ctx, (va, vb, vc))
+        return (*grads, None, None, None, None, None, None)
+
+
+G4Function.vjp_function = G4VjpFunction
 
 
 # ----------------------------------------------------------------------
@@ -989,11 +1331,13 @@ def grap_vjp_kernel(gbar, rij, ux, uy, uz, islotf, mask, desc,
 
 class GrapFunction(torch.autograd.Function):
     """Differentiable GRAP w.r.t. `rij`, `ux`, `uy`, `uz` (the JAX op's
-    `n_diff=4`); no gradient for slots or mask."""
+    `n_diff=4`); no gradient for slots or mask. It has no second-order
+    kernel yet: under grad mode its backward takes the twin's VJP."""
 
     n_diff = 4
     twin = grap_reference
     kernel_vjp = grap_vjp_kernel
+    vjp_function = None      # grad mode: the twin's VJP, any order
 
     @staticmethod
     def forward(ctx, rij, ux, uy, uz, islotf, mask, desc, rcut, n_slots):

@@ -342,9 +342,15 @@ def check_second_order(op, ref, function, diff, rest, spec, seed=5):
     assert np.abs(np.asarray(want_gbar)).max() > 0
     for got, want in zip([got_gbar] + got_x, [want_gbar] + list(want_x)):
         assert torch.isfinite(got).all()
-        scale = max(np.abs(np.asarray(want)).max(), 1.0)
-        np.testing.assert_allclose(got.numpy() / scale,
-                                   np.asarray(want) / scale, **SECOND)
+        # JAX's second derivative of max(1 + gamma cos, 0)^1 where the
+        # clamp is active is 0 * inf: those entries are left out here
+        # (tests/test_torch_second_order.py holds them to the twin)
+        want = np.asarray(want)
+        finite = np.isfinite(want)
+        assert finite.mean() > 0.5
+        scale = max(np.abs(want[finite]).max(), 1.0)
+        np.testing.assert_allclose(got.numpy()[finite] / scale,
+                                   want[finite] / scale, **SECOND)
     # with grad mode off in the backward (serving) no graph is kept
     (first,) = torch.autograd.grad(function.apply(
         *x, *(torch.as_tensor(np.array(r)) for r in rest), *spec).sum(),

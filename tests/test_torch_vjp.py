@@ -233,8 +233,9 @@ def _g2_case():
 def test_first_order_backward_is_the_closed_form(monkeypatch):
     """With grad mode off the backward is the VJP wrapper (the closed
     form on CPU tensors), bit for bit, and keeps no graph; with
-    `create_graph` it is the twin's autograd VJP, which stays in the
-    graph; the two agree."""
+    `create_graph` it is the VJP wrapper again, inside the VJP Function
+    (`G2VjpFunction`), which stays in the graph; the two agree bit for
+    bit."""
     rij, slot, mask, spec = _g2_case()
     calls = []
     wrapper = fused.G2Function.kernel_vjp
@@ -250,9 +251,9 @@ def test_first_order_backward_is_the_closed_form(monkeypatch):
     (second,) = torch.autograd.grad(
         fused.G2Function.apply(x, slot, mask, *spec), x, gbar,
         create_graph=True)
-    assert len(calls) == 1 and second.requires_grad
-    np.testing.assert_allclose(second.detach().numpy(), first.numpy(),
-                               rtol=1e-12, atol=1e-14)
+    assert calls == [(1, *y.shape)] * 2 and second.requires_grad
+    assert type(second.grad_fn).__name__ == "G2VjpFunctionBackward"
+    np.testing.assert_array_equal(second.detach().numpy(), first.numpy())
 
 
 def test_batched_cotangent_is_refused_off_the_cpu():
