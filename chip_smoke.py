@@ -29,15 +29,18 @@ failure ends the run with a non-zero exit and no result line:
              and 64 filters. Each VJP kernel on the same inputs with
              B = 1 and B = 3 seeded cotangents against its closed form
              and against the twin's autograd, to the same limits, its
-             masked entries exactly 0; each second-order kernel of G2
-             and G4 (also on rows with holes and interleaved slots, G2
-             and G4 with the clamp) against its closed form and the
+             masked entries exactly 0; each second-order kernel (G2,
+             G4 and GRAP on every case, also on rows with holes and
+             interleaved slots, G4 with the clamp, GRAP with moments
+             with gaps and 64 filters) against its closed form and the
              twins' double autograd, its masked geometry entries
              exactly 0, a second launch bit for bit, and with the
-             geometry term skipped; the second-order gradients through
-             the kernel Functions (G2, G4: one VJP and one second-order
-             launch; GRAP: the twin's VJP in the graph) against the
-             all-twin path, to the gradients' limits
+             geometry term skipped; each second-order kernel on rows
+             with a sixth of the distances exactly on a knot of each of
+             the five cutoffs, against the closed form (JAX's
+             curvature there); the second-order gradients through the
+             kernel Functions (one VJP and one second-order launch)
+             against the all-twin path, to the gradients' limits
   5. serve   the port's calculator in float32 with backend="pallas" on
              its default device, which must be cuda, one path after
              another, each with the launch counts reset before it and
@@ -71,11 +74,11 @@ failure ends the run with a non-zero exit and no result line:
              parameters: every loss and the first gradient norm against
              the JAX trainer's fixture, 1e-8; (b) float32 steps from
              `init_params`: finite losses, a fixed batch's loss falls,
-             each step launches each forward kernel once, the VJP
-             kernel of G2 and G4 once (the forces, `create_graph`) and
-             their second-order kernel once (the force loss's
-             backward), GRAP's VJP kernel never (its `create_graph`
-             backward takes the twin's VJP), and the same run on
+             each step launches each forward kernel once, its VJP
+             kernel once (the forces, `create_graph`) and its
+             second-order kernel once (the force loss's backward), no
+             descriptor's backward runs the twin's VJP, and the same
+             run on
              the twins agrees (1e-4 over 5 steps, 1e-3 after); the
              parameter gradient through the kernels against the twins';
              (c) sf: `evaluate` of the saved weights on the test set
@@ -132,8 +135,8 @@ failure ends the run with a non-zero exit and no result line:
              the monolithic route, two launches of each kernel a block
              and one of its VJP kernel; each device-list request one of
              each kernel and of its VJP kernel;
-             get_hessian of the 108-atom Ni cell (mleam_ni, snap_ni_sfa)
-             in float64 against the JAX fixtures
+             get_hessian of the 108-atom Ni cell (mleam_ni, snap_ni_sfa,
+             snap_ni_v5_readapt) in float64 against the JAX fixtures
              `tests/data/torch_port_ref_hessian_*.json` (1e-10),
              symmetric
  10. md      the dynamics on the default device (cuda): (a) float64 NVE
@@ -159,8 +162,10 @@ failure ends the run with a non-zero exit and no result line:
              mleam_ni (fcc primitive cell, 3x3x3 supercell): Gamma
              acoustic modes below 0.05 THz, X and L and the QHA's inputs
              over 5 scales against the fixture (1e-8), the QHA's fits to
-             their solver's precision (`QHA_REL`); a snap_ni_sfa supercell
-             Hessian through the kernels against the twins (1e-10); (c)
+             their solver's precision (`QHA_REL`); the snap_ni_sfa and
+             snap_ni_v5_readapt supercell Hessians through the kernels
+             against the twins (1e-10), every row a second-order launch
+             with the geometry term; (c)
              `vacancy_diffusivity` of mleam_ni on fcc Ni 3x3x3 (relax ->
              NEB -> Vineyard, exactly one imaginary mode) against
              `torch_port_ref_kinetics.json` (1e-6); (d) the GRAP band of
@@ -288,8 +293,8 @@ failure ends the run with a non-zero exit and no result line:
              form and the twins' double autograd
 
 The line before the last is a JSON object of per-kernel results, the
-three forward kernels, their three VJP kernels and the two second-order
-kernels of G2 and G4 (the launches of the
+three forward kernels, their three VJP kernels and their three
+second-order kernels (the launches of the
 serve, train, manager, large, md, analysis, cli, descriptors and
 parallel phases, each counted from 0; "cli", "descriptors" and
 "parallel" those phases' alone, "parallel" summed over the ranks);
@@ -297,6 +302,7 @@ the last is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import contextlib
 import itertools
 import json
 import os
@@ -323,7 +329,8 @@ SOURCES = {"g2": "tensoralloy_tpu_torch/csrc/sf_kernels.cu",
            "g4_vjp": "tensoralloy_tpu_torch/csrc/sf_vjp.cu",
            "grap_vjp": "tensoralloy_tpu_torch/csrc/grap_vjp.cu",
            "g2_vjp_bwd": "tensoralloy_tpu_torch/csrc/sf_vjp_bwd.cu",
-           "g4_vjp_bwd": "tensoralloy_tpu_torch/csrc/sf_vjp_bwd.cu"}
+           "g4_vjp_bwd": "tensoralloy_tpu_torch/csrc/sf_vjp_bwd.cu",
+           "grap_vjp_bwd": "tensoralloy_tpu_torch/csrc/grap_vjp_bwd.cu"}
 # a VJP kernel replaces the backward of the JAX op around the Pallas
 # kernel: `_custom_vjp_op`'s bwd (jax.vjp of `_g2_ref_dense` :310,
 # `_g4_ref_dense` :397, `_grap_ref_dense` :151); a second-order kernel
@@ -335,10 +342,10 @@ REPLACES = {"g2": "tensoralloy_tpu/ops/fused.py:326",
             "g4_vjp": "tensoralloy_tpu/ops/fused.py:91",
             "grap_vjp": "tensoralloy_tpu/ops/fused.py:91",
             "g2_vjp_bwd": "tensoralloy_tpu/ops/fused.py:91",
-            "g4_vjp_bwd": "tensoralloy_tpu/ops/fused.py:91"}
-# the forward kernels whose VJP has a second-order kernel (GRAP's
-# create_graph backward still takes the twin)
-SECOND_ORDER = ("g2", "g4")
+            "g4_vjp_bwd": "tensoralloy_tpu/ops/fused.py:91",
+            "grap_vjp_bwd": "tensoralloy_tpu/ops/fused.py:91"}
+# each forward kernel's autograd Function in ops.fused
+FUNCTIONS = {"g2": "G2Function", "g4": "G4Function", "grap": "GrapFunction"}
 
 
 def vjps(kernels) -> tuple:
@@ -348,18 +355,14 @@ def vjps(kernels) -> tuple:
 
 def bwds(kernels) -> tuple:
     """The second-order kernels of the forward kernels `kernels`."""
-    return tuple(f"{k}_vjp_bwd" for k in kernels if k in SECOND_ORDER)
+    return tuple(f"{k}_vjp_bwd" for k in kernels)
 
 
 def step_launches(kernels) -> dict:
     """The launches of each kernel a train step makes: each forward
-    kernel once; the VJP kernel of G2 and G4 once (the first backward,
-    `create_graph`), and their second-order kernel once (the loss
-    backward); GRAP's VJP none (its `create_graph` backward takes the
-    twin's VJP)."""
-    return {**{k: 1 for k in kernels},
-            **{f"{k}_vjp": int(k in SECOND_ORDER) for k in kernels},
-            **{k: 1 for k in bwds(kernels)}}
+    kernel once, its VJP kernel once (the first backward, `create_graph`)
+    and its second-order kernel once (the loss backward)."""
+    return {k: 1 for k in (*kernels, *vjps(kernels), *bwds(kernels))}
 
 # the main path's paths: model, the kernels every request must launch,
 # and the JAX-reference fixture of its first request with the fixture's
@@ -809,6 +812,7 @@ def check_kernels(device="cuda", rows=4001) -> None:
                     second_order = g4_case
             _compare_second_order(*second_order)
     check_grap_kernel(device, rows)
+    check_knots(device, rows)
 
 
 # GRAP cases: the served snap_Ni filter bank (16 pexp filters) and the
@@ -882,8 +886,51 @@ def check_grap_kernel(device="cuda", rows=4001) -> None:
                              (desc, 6.0, n_slots), dtype, tol)
                 _compare(*grap_case)
                 _compare_vjp(*grap_case)
+                _compare_vjp_bwd(*grap_case)
                 if desc.n_filters <= 16 and not holes:
                     _compare_second_order(*grap_case)
+
+
+def check_knots(device="cuda", rows=4001) -> None:
+    """Each second-order kernel on rows with about a sixth of the real
+    entries' distances exactly on a knot of the cutoff (`_on_knots`),
+    every cutoff, float32 and float64: there the kernels equal the
+    closed form, JAX's curvature (`_compare_vjp_bwd`)."""
+    from tensoralloy_tpu_torch.nn.grap import GenericRadialAtomicPotential
+    from tensoralloy_tpu_torch.nn.sf import SymmetryFunction
+    from tensoralloy_tpu_torch.ops import fused
+    rng = np.random.default_rng(SEED + 7)
+    sf = SymmetryFunction(["Ni"], eta=[0.01, 0.1, 0.5, 1.0, 4.0],
+                          omega=[0.0], beta=[0.005], gamma=[1.0, -1.0],
+                          zeta=[1.0, 4.0], backend="dense")
+    for dtype, tol in ((torch.float32, F32), (torch.float64, F64)):
+        for cutoff in ("cosine", "polynomial", "meam", "deepmd", "tersoff"):
+            label = f"{cutoff} on the knots"
+            spec = (sf.radial_grid, 4.0, cutoff, 2)
+            rij, slot, mask = _random_pairs(rng, rows, 91, 2, 4.0, dtype,
+                                            device)
+            _compare_vjp_bwd("g2", f"{label} N=91 S=2", fused.G2Function,
+                             fused.g2_reference,
+                             _on_knots(rng, "g2", [rij], spec),
+                             [slot, mask], spec, dtype, tol)
+            spec = (sf.angular_grid, 4.0, cutoff, 2)
+            *dists, slot, mask = _random_triples(rng, rows, 130, 2, 4.0,
+                                                 dtype, device)
+            _compare_vjp_bwd("g4", f"{label} N=130 S=2", fused.G4Function,
+                             fused.g4_reference,
+                             _on_knots(rng, "g4", dists, spec),
+                             [slot, mask], spec, dtype, tol)
+            desc = GenericRadialAtomicPotential(
+                ["Mo", "Ni"], algorithm="pexp", parameters=_SNAP_PEXP,
+                moment_tensors=_ALL, cutoff_function=cutoff,
+                backend="dense")
+            spec = (desc, 4.0, 2)
+            *diff, slot, mask = _random_unit_pairs(rng, rows, 96, 2, 4.0,
+                                                   dtype, device)
+            _compare_vjp_bwd("grap", f"{label} N=96 S=2",
+                             fused.GrapFunction, fused.grap_reference,
+                             _on_knots(rng, "grap", diff, spec),
+                             [slot, mask], spec, dtype, tol)
 
 
 def _compare(name, label, function, reference, diff, rest, spec, dtype,
@@ -959,31 +1006,66 @@ def _compare_vjp(name, label, function, reference, diff, rest, spec, dtype,
           "launch bit for bit ok")
 
 
-def _at_knots(diff, spec):
-    """The entries with a distance within 4 ulp of a point where the
-    cutoff's curvature jumps (its ends: rc, and 2/3 rc for deepmd, 0.8 rc
-    for tersoff, 0 for meam). There the second derivative does not
-    exist: the twin's autograd of its clamp takes one side, the closed
-    form and the kernels (0 outside the open interval, their z from a
-    product with 1/rc) may take the other."""
-    rc, cutoff = spec[1], spec[2]
-    knots = {"deepmd": (2.0 / 3.0 * rc, rc), "tersoff": (0.8 * rc, rc),
-             "meam": (0.0, rc)}.get(cutoff, (rc,))
+def _cutoff_of(spec):
+    """-> (rc, cutoff name) of a kernel case's constant arguments: G2 /
+    G4 (grid, rc, cutoff, n_slots), GRAP (descriptor, rc, n_slots)."""
+    if isinstance(spec[2], str):
+        return spec[1], spec[2]
+    return spec[1], spec[0].cutoff_function
+
+
+def _knots(rc, cutoff):
+    """The distances where a cutoff's curvature jumps: its ends (rc, and
+    2/3 rc for deepmd, 0.8 rc for tersoff, 0 for meam)."""
+    return {"deepmd": (2.0 / 3.0 * rc, rc), "tersoff": (0.8 * rc, rc),
+            "meam": (0.0, rc)}.get(cutoff, (rc,))
+
+
+def _at_knots(name, diff, spec):
+    """The entries with a distance within 4 ulp of a knot of the cutoff
+    (`_knots`; GRAP's first input alone is a distance). There the second
+    derivative jumps. The closed form and the kernels take JAX's value
+    (its clamps pass half the gradient at a tie: a quarter of the
+    curvature exactly at a knot), the twin's autograd of its clamp takes
+    one side, and a distance an ulp off the knot lies on the side its
+    rounding put it."""
+    rc, cutoff = _cutoff_of(spec)
     eps = torch.finfo(diff[0].dtype).eps
     out = torch.zeros_like(diff[0], dtype=torch.bool)
-    for d in diff:
-        for k in knots:
+    for d in (diff[:1] if name == "grap" else diff):
+        for k in _knots(rc, cutoff):
             out |= (d - k).abs() <= 4 * eps * max(k, 1.0)
+    return out
+
+
+def _on_knots(rng, name, diff, spec, share=0.15):
+    """The same inputs with about `share` of the entries' distances (each
+    of G4's three; GRAP's only) set exactly on a knot of the cutoff, in
+    the inputs' dtype."""
+    rc, cutoff = _cutoff_of(spec)
+    knots = [k for k in _knots(rc, cutoff) if k > 0]
+    out = []
+    for i, d in enumerate(diff):
+        if i and name == "grap":
+            out.append(d)
+            continue
+        pick = torch.as_tensor(rng.uniform(size=tuple(d.shape)) < share,
+                               device=d.device)
+        k = torch.as_tensor(rng.choice(knots, size=tuple(d.shape)),
+                            dtype=d.dtype, device=d.device)
+        out.append(torch.where(pick & (d > 0), k, d).contiguous())
     return out
 
 
 def _compare_vjp_bwd(name, label, function, reference, diff, rest, spec,
                      dtype, tol):
     """The second-order kernel (`{name}_vjp_bwd_kernel` on the card: the
-    VJP of the VJP along seeded v, gbar) against its closed form and
-    against the twin's double autograd; the geometry terms' masked
-    entries exactly 0; a second launch bit for bit the first; with the
-    geometry term skipped, no geometry and gbar_bar as with it."""
+    VJP of the VJP along seeded v, gbar) against its closed form
+    everywhere, cutoff knots included, and against the twin's double
+    autograd away from the knots (`_at_knots`: there the twin takes a
+    side and is held to be finite); the geometry terms' masked entries
+    exactly 0; a second launch bit for bit the first; with the geometry
+    term skipped, no geometry and gbar_bar as with it."""
     from tensoralloy_tpu_torch.ops import fused
     kernel = getattr(fused, f"{name}_vjp_bwd_kernel")
     closed = getattr(fused, f"{name}_vjp_bwd_reference")
@@ -1013,25 +1095,25 @@ def _compare_vjp_bwd(name, label, function, reference, diff, rest, spec,
     first = fused._twin_vjp_of(function)(g_req, *x, *rest, *spec)
     twin = torch.autograd.grad(first, [g_req] + x, v)
     err, top = 0.0, 0.0
-    knots = _at_knots(diff, spec)
+    knots = _at_knots(name, diff, spec)
     for i, (g, w, t) in enumerate(zip(got, want, twin)):
         if not torch.isfinite(g).all() or (i and (g[mask <= 0] != 0).any()):
             raise AssertionError(f"{name}_vjp_bwd {label}: not finite, or "
                                  "a masked entry is not 0")
-        if i:   # a geometry term: a knot's entries held to be finite
-            g, w, t = (torch.where(knots, 0.0, x) for x in (g, w, t))
         assert_close_scaled(g, w, tol)
+        err = max(err, (g - w).abs().max().item())
+        if i:   # a geometry term: the twin's entries at a knot only finite
+            g, t = (torch.where(knots, 0.0, x) for x in (g, t))
         assert_close_scaled(g, t, tol)
-        err = max(err, (g - w).abs().max().item(),
-                  (g - t).abs().max().item())
+        err = max(err, (g - t).abs().max().item())
         top = max(top, t.abs().max().item())
     assert_close_scaled(flat[0], want[0], tol)
     print(f"  {name}_vjp_bwd {str(dtype)[6:]} {label}: max_abs_err "
-          f"{err:.3e} against the closed form and the twin's double "
-          f"autograd at max|value| {top:.3e} (rtol/atol {tol['rtol']:g}; "
-          f"{int(knots.sum())} entries at a cutoff's end only finite), "
-          "masked entries 0, a second launch bit for bit, the geometry "
-          "term skipped ok")
+          f"{err:.3e} against the closed form (all entries) and the twin's "
+          f"double autograd at max|value| {top:.3e} (rtol/atol "
+          f"{tol['rtol']:g}; {int(knots.sum())} entries at a cutoff's knot "
+          f"only finite for the twin), masked entries 0, a second launch "
+          f"bit for bit, the geometry term skipped ok")
 
 
 def _compare_second_order(name, label, function, reference, diff, rest,
@@ -1039,8 +1121,8 @@ def _compare_second_order(name, label, function, reference, diff, rest,
     """The scalar sum_i <u_i, dY/dx_i . gbar> of the first-order
     gradients (seeded u, gbar), differentiated w.r.t. gbar and the
     inputs: kernel forward against the all-twin path. Through the kernel
-    Function, G2 and G4 launch their VJP kernel once (the `create_graph`
-    backward) and their second-order kernel once; GRAP neither."""
+    Function, each launches its VJP kernel once (the `create_graph`
+    backward) and its second-order kernel once."""
     from tensoralloy_tpu_torch.ops import fused
     gen = torch.Generator(device=diff[0].device).manual_seed(SEED + 2)
     rand = lambda shape: torch.randn(shape, generator=gen, dtype=dtype,
@@ -1062,14 +1144,12 @@ def _compare_second_order(name, label, function, reference, diff, rest,
             launched = {k: fused.launch_counts[k] - before[k]
                         for k in (f"{name}_vjp", f"{name}_vjp_bwd")
                         if k in before}
-            expected = ({f"{name}_vjp": 1, f"{name}_vjp_bwd": 1}
-                        if name in SECOND_ORDER else {f"{name}_vjp": 0})
+            expected = {f"{name}_vjp": 1, f"{name}_vjp_bwd": 1}
             if launched != expected:
                 raise AssertionError(f"{name} {label}: second order "
                                      f"launched {launched}, expected "
                                      f"{expected}")
-    knots = (_at_knots(diff, spec) if name in SECOND_ORDER
-             else torch.zeros_like(diff[0], dtype=torch.bool))
+    knots = _at_knots(name, diff, spec)
     for i, (got, want) in enumerate(zip(*results)):
         if not torch.isfinite(got).all():
             raise AssertionError(f"{name} {label}: second-order gradient "
@@ -1341,6 +1421,25 @@ def _step_split(trainer, state, dev_feats, dev_labels, batches_idx, card):
     return dict(zip(names, med.tolist()))
 
 
+@contextlib.contextmanager
+def _counted_twin_vjp():
+    """Inside the block, record the Function of each backward that runs
+    the twin's VJP (`ops.fused._twin_vjp`, where no kernel takes it) into
+    the list it yields."""
+    from tensoralloy_tpu_torch.ops import fused
+    calls, twin_vjp = [], fused._twin_vjp
+
+    def counted(twin, *args, **kwargs):
+        calls.append(getattr(twin, "__name__", repr(twin)))
+        return twin_vjp(twin, *args, **kwargs)
+
+    fused._twin_vjp = counted
+    try:
+        yield calls
+    finally:
+        fused._twin_vjp = twin_vjp
+
+
 def train_path(name, workdir, card):
     """One training configuration through the kernels; the launch counts
     are reset before each measured run and read after it."""
@@ -1454,8 +1553,9 @@ def train_path(name, workdir, card):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fused.reset_launch_counts()
-    out, losses32, seconds = _fit_losses(t32, arrays, params_init,
-                                         timed=True)
+    with _counted_twin_vjp() as twin_calls:
+        out, losses32, seconds = _fit_losses(t32, arrays, params_init,
+                                             timed=True)
     launches = dict(fused.launch_counts)
     peak = torch.cuda.max_memory_allocated()
     state = out["state"]
@@ -1463,12 +1563,15 @@ def train_path(name, workdir, card):
         after = float(t32.total_loss(state["params"], fixed_f, fixed_l,
                                      steps)[0])
     print(f"  float32, {steps} steps from init_params: loss on a fixed "
-          f"batch {before:.6f} -> {after:.6f}; launches {launches}")
+          f"batch {before:.6f} -> {after:.6f}; launches {launches}; the "
+          f"twin's VJP run {len(twin_calls)} times")
     if not all(np.isfinite(losses32)) or not after < before or any(
-            launches[k] != n * steps for k, n in per_step.items()):
+            launches[k] != n * steps for k, n in per_step.items()) \
+            or twin_calls:
         raise AssertionError(f"float32 training: a loss is not finite, the "
-                             f"fixed batch's loss did not fall, or a step "
-                             f"did not launch {per_step}")
+                             f"fixed batch's loss did not fall, a step "
+                             f"did not launch {per_step}, or a backward "
+                             f"ran the twin's VJP ({twin_calls})")
     _, losses_twin, _ = _fit_losses(twin32, arrays, params_init)
     _check_losses(f"train_{name} float32, kernels vs twins, steps 1-5",
                   losses32[:5], losses_twin[:5], TRAIN_F32_REL_FIRST)
@@ -1594,9 +1697,8 @@ def _count_step_launches(trainer, kernels, rows):
 
 def _bad_steps(rows, kernels) -> list:
     """The rows of `_count_step_launches` whose step did not launch
-    `step_launches(kernels)`: each forward kernel once, the VJP kernel
-    and the second-order kernel of G2 and G4 once each, no VJP kernel of
-    GRAP."""
+    `step_launches(kernels)`: each forward kernel, its VJP kernel and
+    its second-order kernel once each."""
     want = step_launches(kernels)
     return [row for row in rows if row[1] != want]
 
@@ -2053,7 +2155,8 @@ DEVICE_NL_REQUESTS = (
 )
 CHUNK_ROWS = 4096          # chunk_size of the chunked requests
 HESSIAN_MODELS = {"mleam_ni": EAM_PATHS["mleam_ni"][0],
-                  "snap_ni_sfa": PATHS["sf"][0]}
+                  "snap_ni_sfa": PATHS["sf"][0],
+                  "snap_ni_v5_readapt": PATHS["grap"][0]}
 
 
 def _lattice_structure(kind, element, a, reps):
@@ -2220,8 +2323,8 @@ def hessians(card):
         s, _ = _fixture((DATA / f"torch_port_ref_hessian_{name}.json",
                          "Ni"))
         calc = TensorAlloyCalculator(str(path), dtype="high",
-                                     backend="pallas" if name ==
-                                     "snap_ni_sfa" else None)
+                                     backend=None if name == "mleam_ni"
+                                     else "pallas")
         t0 = time.perf_counter()
         h = calc.get_hessian(s)
         ms = (time.perf_counter() - t0) * 1e3
@@ -2648,8 +2751,9 @@ def analysis_elastic(card):
 
 def analysis_phonons(card):
     """(b) phonons and the QHA of mleam_ni (fcc primitive cell, 3x3x3
-    supercell) in float64 against the JAX fixture; one snap_ni_sfa
-    supercell Hessian through the kernels against the twins."""
+    supercell) in float64 against the JAX fixture; the snap_ni_sfa and
+    snap_ni_v5_readapt supercell Hessians through the kernels against
+    the twins."""
     from tensoralloy_tpu_torch.atoms import Structure
     from tensoralloy_tpu_torch.calculator import TensorAlloyCalculator
     from tensoralloy_tpu_torch.ops import fused
@@ -2676,28 +2780,78 @@ def analysis_phonons(card):
             or any(qha[k] > QHA_REL[k] for k in qha):
         raise AssertionError(f"phonons: {gamma}, {errs}, {qha}")
 
+    for name in ("sf", "grap"):
+        supercell_hessians(name, prim, card)
+
+
+@contextlib.contextmanager
+def _recorded_geometry(kernels):
+    """Inside the block, record whether each call of the second-order
+    wrappers of the forward kernels `kernels` computed the geometry term
+    into the list it yields."""
+    from tensoralloy_tpu_torch.ops import fused
+    geometry = []
+    functions = [getattr(fused, FUNCTIONS[k]).vjp_function for k in kernels]
+    saved = [f.kernel_bwd for f in functions]
+
+    def recorded(second):
+        def bwd(*args, **kwargs):
+            geometry.append(kwargs.get("geometry", True))
+            return second(*args, **kwargs)
+        return bwd
+
+    for f, second in zip(functions, saved):
+        f.kernel_bwd = recorded(second)
+    try:
+        yield geometry
+    finally:
+        for f, second in zip(functions, saved):
+            f.kernel_bwd = second
+
+
+def supercell_hessians(name, prim, card):
+    """The float64 PHONON_SUPERCELL Hessian of the main path's model
+    `name` (sf: snap_ni_sfa, grap: snap_ni_v5_readapt) through the
+    kernels against the twins (1e-10): the forces once (`create_graph`:
+    each VJP kernel once), then every row's backward one second-order
+    launch a descriptor kernel, with the geometry term, and one VJP
+    launch (the term through the descriptors)."""
+    from tensoralloy_tpu_torch.calculator import TensorAlloyCalculator
+    from tensoralloy_tpu_torch.ops import fused
+    kernels = PATHS[name][1]
     fcs = {}
     for backend in ("pallas", "dense"):
-        sf = TensorAlloyCalculator(str(PATHS["sf"][0]), dtype="high",
-                                   backend=backend)
+        calc = TensorAlloyCalculator(str(PATHS[name][0]), dtype="high",
+                                     backend=backend)
         before = dict(fused.launch_counts)
         t0 = time.perf_counter()
-        fcs[backend] = port_analysis().phonon.PhononCalculator(
-            sf, prim, supercell=PHONON_SUPERCELL).fc
+        with _recorded_geometry(kernels) as geometry:
+            fcs[backend] = port_analysis().phonon.PhononCalculator(
+                calc, prim, supercell=PHONON_SUPERCELL).fc
         launched = _launched(before)
-        print(f"  snap_ni_sfa Hessian of {int(np.prod(PHONON_SUPERCELL))} "
-              f"atoms, {backend}: {time.perf_counter() - t0:.2f} s, "
-              f"launches {launched} ({card})")
-        # the forces once (create_graph: the VJP kernels), a row's
-        # backward through the second-order kernels
-        if backend == "pallas" and (
-                launched["g2"] != 1 or launched["g4"] != 1
-                or not launched["g2_vjp_bwd"] or not launched["g4_vjp_bwd"]):
-            raise AssertionError(f"the Hessian launched {launched}")
+        print(f"  {PATHS[name][0].parts[-3]} Hessian of "
+              f"{int(np.prod(PHONON_SUPERCELL))} atoms, {backend}: "
+              f"{time.perf_counter() - t0:.2f} s, launches {launched}"
+              + (f", second-order calls with the geometry term "
+                 f"{sum(geometry)} of {len(geometry)}"
+                 if backend == "pallas" else "") + f" ({card})")
+        if backend != "pallas":
+            continue
+        # the forces once (create_graph: the VJP kernels), each row's
+        # backward through the second-order kernels with the geometry
+        # term, and through the VJP kernels back to the distances
+        rows = launched[f"{kernels[0]}_vjp_bwd"]
+        if any(launched[k] != 1 or launched[f"{k}_vjp_bwd"] != rows
+               or launched[f"{k}_vjp"] != rows + 1 for k in kernels) \
+                or rows < 3 * int(np.prod(PHONON_SUPERCELL)) \
+                or not all(geometry) \
+                or len(geometry) != rows * len(kernels):
+            raise AssertionError(f"the {name} Hessian launched {launched}, "
+                                 f"geometry terms {geometry}")
     err = rel_err(fcs["pallas"], fcs["dense"])
     print(f"    kernels vs twins {err:.2e} (limit {F64_REL})")
     if err > F64_REL:
-        raise AssertionError(f"snap_ni_sfa Hessian: {err}")
+        raise AssertionError(f"{name} Hessian: {err}")
 
 
 def analysis_kinetics(card):
@@ -2991,7 +3145,8 @@ def analysis_surfaces(card):
 
 
 ANALYSIS_PARTS = (("a elastic + EOS", analysis_elastic, ("g2", "g4")),
-                  ("b phonons + QHA", analysis_phonons, ("g2", "g4")),
+                  ("b phonons + QHA", analysis_phonons,
+                   ("g2", "g4", "grap")),
                   ("c vacancy kinetics", analysis_kinetics, ()),
                   ("d GRAP NEB", analysis_neb, ("grap",)),
                   ("e committees", analysis_committees, ("g2", "grap")),
@@ -4511,10 +4666,9 @@ def parallel(card):
         totals = parallel_nccl(specs, refs, card)
         _add_launches(totals, parallel_ranks(specs, refs, card))
         parallel_verb(work, card)
-    # SF runs only train steps here (their first backward launches the
-    # VJP kernels, the loss backward the second-order ones)
-    for kernel in ("g2", "g4", "grap", "grap_vjp", *vjps(SECOND_ORDER),
-                   *bwds(SECOND_ORDER)):
+    # the train steps launch every VJP kernel (the first backward) and
+    # every second-order kernel (the loss backward)
+    for kernel in (*FUNCTIONS, *vjps(FUNCTIONS), *bwds(FUNCTIONS)):
         if totals[kernel] == 0:
             raise AssertionError(f"parallel: {kernel} never launched")
     print(f"  launches over the parallel phase (a and every rank of b): "
@@ -4621,13 +4775,26 @@ def _add_vjp_cases(cases, names, gen):
         cases[f"{name}_vjp"] = ((gbar, *args),
                                 getattr(fused, f"{name}_vjp_kernel"),
                                 getattr(fused, f"{name}_vjp_reference"))
-        if name in SECOND_ORDER and hasattr(fused, f"{name}_vjp_bwd_kernel"):
-            n = {"g2": 1, "g4": 3}[name]
+        if hasattr(fused, f"{name}_vjp_bwd_kernel"):
+            n = {"g2": 1, "g4": 3, "grap": 4}[name]
             v = tuple(rand(args[0].shape) for _ in range(n))
             cases[f"{name}_vjp_bwd"] = (
                 (v, gbar[0], *args),
                 getattr(fused, f"{name}_vjp_bwd_kernel"),
                 getattr(fused, f"{name}_vjp_bwd_reference"))
+
+
+def grap_kernel_cases(feats, desc, rcut, n_radial, gen):
+    """{kernel: (args, kernel wrapper, plain version)} of GRAP, its VJP
+    kernel and its second-order kernel at the shapes a GRAP descriptor
+    gives them for these features (`sf_kernel_cases`' conventions)."""
+    from tensoralloy_tpu_torch.ops import fused
+    from tensoralloy_tpu_torch.ops.dense import as_rows, dense_pair_geometry
+    rij, unit, islot, mask = dense_pair_geometry(feats)
+    cases = {"grap": ((*as_rows(rij, *unit, islot, mask), desc, rcut,
+                       n_radial), fused.grap_kernel, fused.grap_reference)}
+    _add_vjp_cases(cases, ("grap",), gen)
+    return cases
 
 
 def kernel_cases(sf_calc, sf_structure, grap_calc, grap_structure):
@@ -4646,11 +4813,8 @@ def kernel_cases(sf_calc, sf_structure, grap_calc, grap_structure):
     s = grap_structure
     feats = grap_calc.featurize(s, grap_calc._get_vap(s))
     fz = grap_calc.featurizer
-    rij, unit, islot, mask = dense_pair_geometry(feats)
-    cases["grap"] = ((rij, *unit, islot, mask, grap_calc.model.descriptor,
-                      fz.rcut, fz.n_radial_slots), fused.grap_kernel,
-                     fused.grap_reference)
-    _add_vjp_cases(cases, ("grap",), gen)
+    cases.update(grap_kernel_cases(feats, grap_calc.model.descriptor,
+                                   fz.rcut, fz.n_radial_slots, gen))
     order = list(SOURCES)
     return dict(sorted(cases.items(), key=lambda kv: order.index(kv[0])))
 
@@ -4661,8 +4825,7 @@ def twin_vjp(name, args):
     second-order case the twin's VJP of that VJP, as the `create_graph`
     backward took it before the second-order kernels."""
     from tensoralloy_tpu_torch.ops import fused
-    function = {"g2": fused.G2Function, "g4": fused.G4Function,
-                "grap": fused.GrapFunction}[name.split("_")[0]]
+    function = getattr(fused, FUNCTIONS[name.split("_")[0]])
     if name.endswith("_bwd"):
         v, gbar, *inputs = args
         n = function.n_diff
@@ -4798,7 +4961,17 @@ def kernel_work(name, args, outs):
       g4_vjp_bwd per triple 130 (g4_vjp's geometry, three curvatures,
                the three products with v, the Hessians of cos and F, the
                geometry terms from the six sums) + 32 per grid row (P_t,
-               P_t', P_t'' and E_t, gbar_bar's share, the six sums)"""
+               P_t', P_t'' and E_t, gbar_bar's share, the six sums)
+      grap_vjp_bwd per pair 8 (cutoff and slope), 3 (D - 1) (the
+               monomials and their derivative along a), 12 per filter
+               (value, slope, h, v h'), 6 K D (P and Z's two products);
+               per (row, slot, filter) 3 D + 3 D M (Q0, Z P and its sums
+               over the weights); with the geometry term per pair 14
+               (cutoff, slope and curvature), 6 (D - 1) (the dual
+               monomials twice), 20 per filter (value, slope, curvature,
+               h, h', v h''), 10 K D (the five products over Pbar and
+               Pb2), 15 D (d/dr's sums, v H' Pbar and the dual adjoint);
+               per (row, slot, filter) 2 D M + 5 D (Pbar and Pb2)"""
     batch, v = 1, ()
     if name.endswith("_bwd"):
         v, gbar, *args = args
@@ -4838,6 +5011,13 @@ def kernel_work(name, args, outs):
         if name == "grap":
             flop = forward + 3 * rows * n_slots * k * int(
                 np.count_nonzero(weights))
+        elif name == "grap_vjp_bwd":
+            flop = (real * (8 + 3 * (d - 1) + 12 * k + 6 * k * d)
+                    + rows * n_slots * k * (3 * d + 3 * d * m))
+            if outs[1] is not None:
+                flop += (real * (14 + 6 * (d - 1) + 20 * k + 10 * k * d
+                                 + 15 * d)
+                         + rows * n_slots * k * (2 * d * m + 5 * d))
         else:
             flop = forward + batch * (
                 real * (8 + (d - 1) + 12 * k + 4 * k * d + 4 * d)

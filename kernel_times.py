@@ -7,9 +7,9 @@ NVIDIA GPU, at the main path's largest shapes, to compare two checkouts.
 `--root` is the root of the checkout whose `tensoralloy_tpu_torch` is
 timed (default: this script's own). The inputs, the timing and the work
 counts are `chip_smoke.py`'s (`kernel_cases`, `time_kernels`): the
-32000-atom jittered fcc Ni request of the SF model (G2, G4, their VJP
-and, where the checkout has them, second-order kernels) and of the GRAP
-model, float32. Run two checkouts in turns (A, B, B, A) in one call
+32000-atom jittered fcc Ni request of the SF model (G2, G4) and of the
+GRAP model, each kernel with its VJP kernel and, where the checkout has
+it, its second-order kernel, float32. Run two checkouts in turns (A, B, B, A) in one call
 to compare them on one card. Prints one JSON line per kernel, then one
 per kernel with the host's share of a wrapper call (`host_us`: the
 median host-clock time of one call that does not wait for the device)

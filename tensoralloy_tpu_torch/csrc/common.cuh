@@ -25,8 +25,10 @@ struct Cutoff {
   T rc;
   T inv_rc;      // 1 / rc
   T rcs;         // deepmd: 2/3 rc
+  T rc_rcs;      // deepmd: rc - rcs
   T inv_rc_rcs;  // deepmd: 1 / (rc - rcs)
-  T inv_d;       // tersoff: 1 / d, d = 0.1 rc
+  T d;           // tersoff: d = 0.1 rc
+  T inv_d;       // tersoff: 1 / d
   T big_r;       // tersoff: rc - d
 };
 
@@ -163,9 +165,32 @@ __device__ __forceinline__ void cutoff_value_and_slope(const Cutoff<T>& c,
   }
 }
 
+// JAX's derivative of a clamp (ops/cutoffs.py `clamp_weight`): 1 inside
+// the open interval, 1/2 at a bound (jnp.minimum and jnp.maximum pass
+// half the gradient at a tie), 0 outside. JAX clamps z = t / s, a
+// division; t / s meets a bound +-1 (or 0) exactly where t == +-s (or
+// t == 0), so the test is made on t, not on z: a product with 1 / s may
+// round onto a bound or off it. Each cutoff's t and s:
+//   cosine, polynomial  r / rc to (., 1]: r against rc;
+//   meam        (rc - r) / rc to [0, 1]: rc - r against 0 and rc;
+//   deepmd      (r - rcs) / (rc - rcs) to [0, 1]: r - rcs against 0 and
+//               rc - rcs;
+//   tersoff     (r - (rc - d)) / d to [-1, 1]: r - (rc - d) against -d, d.
+template <typename T>
+__device__ __forceinline__ T band_weight(T t, T lo, T hi) {
+  return t > lo && t < hi ? T(1) : (t == lo || t == hi ? T(0.5) : T(0));
+}
+
+template <typename T>
+__device__ __forceinline__ T below_weight(T r, T rc) {
+  return r < rc ? T(1) : (r == rc ? T(0.5) : T(0));
+}
+
 // d2 cutoff_value / d r2, written out as ops/cutoffs.py
-// `cutoff_slope_and_curvature` does: 0 where a clamped argument lies
-// outside its open interval.
+// `cutoff_slope_and_curvature` does, JAX's also at the knots: with w the
+// clamp's derivative (`band_weight`), the clamp's part of the curvature
+// takes w^2 (a quarter at a knot, 0 outside), deepmd's ramp through 1/r'
+// takes w and its 1/r part stays whole.
 template <typename T>
 __device__ __forceinline__ T cutoff_curvature(const Cutoff<T>& c, T r) {
   constexpr T kPi = T(3.14159265358979323846);
@@ -173,35 +198,38 @@ __device__ __forceinline__ T cutoff_curvature(const Cutoff<T>& c, T r) {
     case 0: {  // cosine
       const T z = r * c.inv_rc;
       const T w = kPi * c.inv_rc;
-      return z < T(1) ? T(-0.5) * w * w * d_cospi(z) : T(0);
+      const T cw = below_weight(r, c.rc);
+      return cw * cw * (T(-0.5) * w * w * d_cospi(z < T(1) ? z : T(1)));
     }
     case 1: {  // polynomial, gamma = 5
-      const T z = r * c.inv_rc;
-      if (!(z < T(1))) return T(0);
-      return z * z * z * (T(150) * z - T(120)) * c.inv_rc * c.inv_rc;
+      T z = r * c.inv_rc;
+      if (z > T(1)) z = T(1);
+      const T cw = below_weight(r, c.rc);
+      return cw * cw *
+             (z * z * z * (T(150) * z - T(120)) * c.inv_rc * c.inv_rc);
     }
     case 2: {  // meam, window = rc
-      const T x = (c.rc - r) * c.inv_rc;
-      if (!(x > T(0) && x < T(1))) return T(0);
+      const T x = clamp_to((c.rc - r) * c.inv_rc, T(0), T(1));
       const T u2 = (T(1) - x) * (T(1) - x);
-      return T(8) * c.inv_rc * c.inv_rc * (T(7) * u2 * u2 * u2 - T(3) * u2);
+      const T cw = band_weight(c.rc - r, T(0), c.rc);
+      return cw * cw *
+             (T(8) * c.inv_rc * c.inv_rc * (T(7) * u2 * u2 * u2 - T(3) * u2));
     }
     case 3: {  // deepmd, rcs = 2/3 rc
-      const T z = (r - c.rcs) * c.inv_rc_rcs;
-      const T zc = clamp_to(z, T(0), T(1));
+      const T zc = clamp_to((r - c.rcs) * c.inv_rc_rcs, T(0), T(1));
       const T recip = r > T(0) ? T(1) / r : T(0);
       const T w = kPi * c.inv_rc_rcs;
-      const bool inside = z > T(0) && z < T(1);
-      const T ramp = inside ? T(-0.5) * w * d_sinpi(zc) : T(0);
-      const T bend = inside ? T(-0.5) * w * w * d_cospi(zc) : T(0);
+      const T cw = band_weight(r - c.rcs, T(0), c.rc_rcs);
+      const T ramp = cw * (T(-0.5) * w * d_sinpi(zc));
+      const T bend = cw * cw * (T(-0.5) * w * w * d_cospi(zc));
       const T s = T(0.5) * d_cospi(zc) + T(0.5);
       return (T(2) * s * recip - T(2) * ramp) * recip * recip + bend * recip;
     }
     default: {  // tersoff, d = 0.1 rc
-      const T z = (r - c.big_r) * c.inv_d;
+      const T z = clamp_to((r - c.big_r) * c.inv_d, T(-1), T(1));
       const T w = kPi * c.inv_d;
-      return z > T(-1) && z < T(1) ? T(0.125) * w * w * d_sinpi(T(0.5) * z)
-                                   : T(0);
+      const T cw = band_weight(r - c.big_r, -c.d, c.d);
+      return cw * cw * (T(0.125) * w * w * d_sinpi(T(0.5) * z));
     }
   }
 }
@@ -219,10 +247,10 @@ __device__ __forceinline__ void cutoff_value_slope_curvature(
   }
   constexpr T kPi = T(3.14159265358979323846);
   const T z = r * c.inv_rc;
+  const T w = kPi * c.inv_rc;
   if (z < T(1)) {
     T sn, cs;
     d_sincospi(z, &sn, &cs);
-    const T w = kPi * c.inv_rc;
     f = T(0.5) * (cs + T(1));
     s = T(-0.5) * w * sn;
     k = T(-0.5) * w * w * cs;
@@ -231,6 +259,9 @@ __device__ __forceinline__ void cutoff_value_slope_curvature(
     s = T(0);
     k = T(0);
   }
+  // at r == rc JAX's curvature is a quarter of the inside value (cos(pi)
+  // = -1), past it 0; decided on r, as the product z may round either way
+  if (!(r < c.rc)) k = r == c.rc ? T(0.125) * w * w : T(0);
 }
 
 template <typename T>
@@ -241,8 +272,10 @@ Cutoff<T> make_cutoff(int id, double rc) {
   c.inv_rc = T(1.0 / rc);
   const double rcs = (2.0 / 3.0) * rc;
   c.rcs = T(rcs);
+  c.rc_rcs = T(rc - rcs);
   c.inv_rc_rcs = T(1.0 / (rc - rcs));
   const double d = 0.1 * rc;
+  c.d = T(d);
   c.inv_d = T(1.0 / d);
   c.big_r = T(rc - d);
   return c;

@@ -1,8 +1,11 @@
-// What the GRAP kernels (grap_kernel.cu, grap_vjp.cu) share: the
-// compressed monomial basis up to moment 5, its host codes and its
-// recurrence; the filter bank's values and slopes; the launch
-// specification; 16-byte chunks of shared memory; and the launchers'
-// query of resident blocks.
+// What the GRAP kernels (grap_kernel.cu, grap_vjp.cu, grap_vjp_bwd.cu)
+// share: the compressed monomial basis up to moment 5, its host codes,
+// its recurrence, the recurrence's adjoint, the recurrence on dual
+// numbers (the monomials' derivative along a direction) and its adjoint;
+// the filter bank's values, slopes and curvatures; the launch
+// specification; 16-byte chunks of shared memory; the VJP kernels' walk
+// of a row's pairs of one slot, compacted; and the launchers' query of
+// resident blocks.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -158,6 +161,49 @@ __device__ __forceinline__ void filter_value_and_slope(
   }
 }
 
+// `filter_value_and_slope` and the curvature d2/dr2 (ops/fused.py
+// `grap_filter_slope_and_curvature`) together. pexp takes one exp2 and
+// one exp for all three: with x = (r / rl)^pl and t = pl x / r,
+// f' = -t f and f'' = f (t^2 - pl (pl - 1) x / r^2).
+template <typename T>
+__device__ __forceinline__ void filter_value_slope_curvature(
+    int algorithm, T c0, T c1, T c2, double lrl, T r, double lr, T inv_r,
+    T rc2, T& f, T& df, T& d2f) {
+  switch (algorithm) {
+    case kSf: {
+      const T d = r - c1;
+      f = d_exp(-c0 * (d * d) / rc2);
+      const T k = T(2) * c0 * d / rc2;
+      df = -k * f;
+      d2f = (k * k - T(2) * c0 / rc2) * f;
+      return;
+    }
+    case kDensity: {
+      f = c0 * d_exp(-c1 * (r / c2 - T(1)));
+      const T b = c1 / c2;
+      df = -b * f;
+      d2f = b * b * f;
+      return;
+    }
+    case kMorse: {
+      const T x = c1 * (r - c2);
+      const T e1 = d_exp(-x), e2 = d_exp(T(-2) * x);
+      f = c0 * (e2 - T(2) * e1);
+      df = T(2) * c0 * c1 * (e1 - e2);
+      d2f = T(2) * c0 * c1 * c1 * (T(2) * e2 - e1);
+      return;
+    }
+    default: {
+      const T x = d_exp2(T(double(c1) * (lr - lrl)));
+      f = d_exp(-x);
+      const T t = c1 * x * inv_r;
+      df = -t * f;
+      d2f = f * (t * t - c1 * (c1 - T(1)) * x * inv_r * inv_r);
+      return;
+    }
+  }
+}
+
 // Elements of T in a 16-byte chunk of shared memory: 4 floats, 2 doubles.
 template <typename T>
 constexpr int kChunk = 16 / sizeof(T);
@@ -193,6 +239,203 @@ __device__ __forceinline__ void store4(T* p, const T* v) {
 #pragma unroll
   for (int q = 0; q < 4; q += kChunk<T>) store_chunk(p + q, v + q);
 }
+
+// (gx, gy, gz) += the gradient of sum_d dm[d] m_d(x, y, z) w.r.t. the
+// unit vector, by running `monomials` backwards: each m[d] = m[p] * a
+// sends dm[d] * m[p] to a's gradient and dm[d] * a to dm[p]. `dm` is
+// consumed.
+#define TAT_ADJ(d, p, a) \
+  g##a += dm[d] * m[p];  \
+  dm[p] += dm[d] * a;
+template <typename T>
+__device__ __forceinline__ void monomials_adjoint(
+    T x, T y, T z, const T (&m)[kMaxMonomials], T (&dm)[kMaxMonomials],
+    T& gx, T& gy, T& gz) {
+  TAT_ADJ(55, 34, z) TAT_ADJ(54, 33, z) TAT_ADJ(53, 32, z)
+  TAT_ADJ(52, 31, z) TAT_ADJ(51, 30, z) TAT_ADJ(50, 30, y)
+  TAT_ADJ(49, 29, z) TAT_ADJ(48, 28, z) TAT_ADJ(47, 27, z)
+  TAT_ADJ(46, 26, z) TAT_ADJ(45, 26, y) TAT_ADJ(44, 25, z)
+  TAT_ADJ(43, 24, z) TAT_ADJ(42, 23, z) TAT_ADJ(41, 23, y)
+  TAT_ADJ(40, 22, z) TAT_ADJ(39, 21, z) TAT_ADJ(38, 21, y)
+  TAT_ADJ(37, 20, z) TAT_ADJ(36, 20, y) TAT_ADJ(35, 20, x)
+  TAT_ADJ(34, 19, z) TAT_ADJ(33, 18, z) TAT_ADJ(32, 17, z)
+  TAT_ADJ(31, 16, z) TAT_ADJ(30, 16, y) TAT_ADJ(29, 15, z)
+  TAT_ADJ(28, 14, z) TAT_ADJ(27, 13, z) TAT_ADJ(26, 13, y)
+  TAT_ADJ(25, 12, z) TAT_ADJ(24, 11, z) TAT_ADJ(23, 11, y)
+  TAT_ADJ(22, 10, z) TAT_ADJ(21, 10, y) TAT_ADJ(20, 10, x)
+  TAT_ADJ(19, 9, z) TAT_ADJ(18, 8, z) TAT_ADJ(17, 7, z)
+  TAT_ADJ(16, 7, y) TAT_ADJ(15, 6, z) TAT_ADJ(14, 5, z)
+  TAT_ADJ(13, 5, y) TAT_ADJ(12, 4, z) TAT_ADJ(11, 4, y)
+  TAT_ADJ(10, 4, x) TAT_ADJ(9, 3, z) TAT_ADJ(8, 2, z)
+  TAT_ADJ(7, 2, y) TAT_ADJ(6, 1, z) TAT_ADJ(5, 1, y)
+  TAT_ADJ(4, 1, x)
+  gx += dm[1];
+  gy += dm[2];
+  gz += dm[3];
+}
+#undef TAT_ADJ
+
+// The row's pairs of one slot, compacted (`for_each_batch`): `v`
+// [5, kList] holds r, mask, ux, uy, uz of each and `entry` [kList] its
+// index in the row.
+template <typename T>
+struct Stage {
+  T* v;
+  int* entry;
+};
+
+// Calls batch(first, nb) for each run stage[first, first + nb) of at most
+// Batch compacted pairs of `slot_value` in the row at `base`, in row
+// order, with the stage written; returns the pairs. The warp reads mask
+// and slot of Span entries at once, and each lane the geometry of its
+// own pairs (a masked entry's is never read); ballots place them. The
+// stage holds Span + Batch pairs (`kList`).
+template <int Batch, int Span, typename T, typename F>
+__device__ __forceinline__ int for_each_batch(
+    const T* __restrict__ rij, const T* __restrict__ ux,
+    const T* __restrict__ uy, const T* __restrict__ uz,
+    const T* __restrict__ slot, const T* __restrict__ mask, size_t base,
+    int n, T slot_value, const Stage<T>& st, F&& batch) {
+  constexpr int kList = Span + Batch;
+  const int lane = threadIdx.x & 31;
+  const unsigned lanes_below = (1u << lane) - 1u;
+  __syncwarp();   // the last walk's readers are done with the stage
+  int count = 0, total = 0;   // pairs waiting in the stage; pairs run
+  for (int j0 = 0; j0 < n; j0 += Span) {
+    constexpr int kE = Span / 32;   // entries a lane
+    T mk[kE], sl[kE];
+#pragma unroll
+    for (int i = 0; i < kE; ++i) {
+      const int j = j0 + lane + 32 * i;
+      mk[i] = j < n ? mask[base + j] : T(0);
+      sl[i] = j < n ? slot[base + j] : T(-1);
+    }
+    bool act[kE];
+    T v[5][kE];
+#pragma unroll
+    for (int i = 0; i < kE; ++i) {
+      const size_t idx = base + j0 + lane + 32 * i;
+      act[i] = mk[i] > T(0) && sl[i] == slot_value;
+      v[0][i] = act[i] ? rij[idx] : T(0);
+      v[1][i] = mk[i];
+      v[2][i] = act[i] ? ux[idx] : T(0);
+      v[3][i] = act[i] ? uy[idx] : T(0);
+      v[4][i] = act[i] ? uz[idx] : T(0);
+    }
+#pragma unroll
+    for (int i = 0; i < kE; ++i) {
+      const unsigned ballot = __ballot_sync(kFull, act[i]);
+      if (act[i]) {
+        const int q = count + __popc(ballot & lanes_below);
+#pragma unroll
+        for (int a = 0; a < 5; ++a) st.v[a * kList + q] = v[a][i];
+        st.entry[q] = j0 + lane + 32 * i;
+      }
+      count += __popc(ballot);
+    }
+    const bool last = j0 + Span >= n;
+    int done = 0;
+    while (count - done >= Batch || (last && count > done)) {
+      const int nb = min(Batch, count - done);
+      __syncwarp();   // the stage is written; the last batch is done
+      batch(done, nb);
+      done += nb;
+    }
+    total += done;
+    if (done > 0 && !last) {   // carry the rest to the stage's front
+      const int rest = count - done;
+      __syncwarp();
+      T c[5];
+      int e = 0;
+      if (lane < rest) {
+#pragma unroll
+        for (int a = 0; a < 5; ++a) c[a] = st.v[a * kList + done + lane];
+        e = st.entry[done + lane];
+      }
+      __syncwarp();
+      if (lane < rest) {
+#pragma unroll
+        for (int a = 0; a < 5; ++a) st.v[a * kList + lane] = c[a];
+        st.entry[lane] = e;
+      }
+      count = rest;
+    }
+  }
+  return total;
+}
+
+// The monomials and their derivative along a = (ax, ay, az) as dual
+// numbers: md[d] = a . grad_u m_d, run with `monomials`' recurrence
+// (each m[d] = m[p] * u_axis gives md[d] = md[p] * u_axis + m[p] a_axis).
+#define TAT_DUAL(d, p, a) \
+  m[d] = m[p] * a;        \
+  md[d] = md[p] * a + m[p] * t##a;
+template <typename T>
+__device__ __forceinline__ void monomials_dual(T x, T y, T z, T tx, T ty,
+                                               T tz, T (&m)[kMaxMonomials],
+                                               T (&md)[kMaxMonomials]) {
+  m[0] = T(1); m[1] = x; m[2] = y; m[3] = z;
+  md[0] = T(0); md[1] = tx; md[2] = ty; md[3] = tz;
+  TAT_DUAL(4, 1, x) TAT_DUAL(5, 1, y) TAT_DUAL(6, 1, z)
+  TAT_DUAL(7, 2, y) TAT_DUAL(8, 2, z) TAT_DUAL(9, 3, z)
+  TAT_DUAL(10, 4, x) TAT_DUAL(11, 4, y) TAT_DUAL(12, 4, z)
+  TAT_DUAL(13, 5, y) TAT_DUAL(14, 5, z) TAT_DUAL(15, 6, z)
+  TAT_DUAL(16, 7, y) TAT_DUAL(17, 7, z) TAT_DUAL(18, 8, z)
+  TAT_DUAL(19, 9, z) TAT_DUAL(20, 10, x) TAT_DUAL(21, 10, y)
+  TAT_DUAL(22, 10, z) TAT_DUAL(23, 11, y) TAT_DUAL(24, 11, z)
+  TAT_DUAL(25, 12, z) TAT_DUAL(26, 13, y) TAT_DUAL(27, 13, z)
+  TAT_DUAL(28, 14, z) TAT_DUAL(29, 15, z) TAT_DUAL(30, 16, y)
+  TAT_DUAL(31, 16, z) TAT_DUAL(32, 17, z) TAT_DUAL(33, 18, z)
+  TAT_DUAL(34, 19, z) TAT_DUAL(35, 20, x) TAT_DUAL(36, 20, y)
+  TAT_DUAL(37, 20, z) TAT_DUAL(38, 21, y) TAT_DUAL(39, 21, z)
+  TAT_DUAL(40, 22, z) TAT_DUAL(41, 23, y) TAT_DUAL(42, 23, z)
+  TAT_DUAL(43, 24, z) TAT_DUAL(44, 25, z) TAT_DUAL(45, 26, y)
+  TAT_DUAL(46, 26, z) TAT_DUAL(47, 27, z) TAT_DUAL(48, 28, z)
+  TAT_DUAL(49, 29, z) TAT_DUAL(50, 30, y) TAT_DUAL(51, 30, z)
+  TAT_DUAL(52, 31, z) TAT_DUAL(53, 32, z) TAT_DUAL(54, 33, z)
+  TAT_DUAL(55, 34, z)
+}
+#undef TAT_DUAL
+
+// (gx, gy, gz) += the gradient w.r.t. the unit vector of
+// sum_d (dm[d] m_d + dmd[d] md_d), md the monomials' derivative along
+// (tx, ty, tz) (`monomials_dual`, whose values m, md it takes): the dual
+// recurrence run backwards. Each m[d] = m[p] * a sends dm[d] m[p] to a's
+// gradient and dm[d] a to dm[p]; each md[d] = md[p] * a + m[p] ta sends
+// dmd[d] md[p] to a's gradient, dmd[d] a to dmd[p] and dmd[d] ta to
+// dm[p]. `dm` and `dmd` are consumed.
+#define TAT_DUAL_ADJ(d, p, a)                  \
+  g##a += dm[d] * m[p] + dmd[d] * md[p];       \
+  dm[p] += dm[d] * a + dmd[d] * t##a;          \
+  dmd[p] += dmd[d] * a;
+template <typename T>
+__device__ __forceinline__ void monomials_dual_adjoint(
+    T x, T y, T z, T tx, T ty, T tz, const T (&m)[kMaxMonomials],
+    const T (&md)[kMaxMonomials], T (&dm)[kMaxMonomials],
+    T (&dmd)[kMaxMonomials], T& gx, T& gy, T& gz) {
+  TAT_DUAL_ADJ(55, 34, z) TAT_DUAL_ADJ(54, 33, z) TAT_DUAL_ADJ(53, 32, z)
+  TAT_DUAL_ADJ(52, 31, z) TAT_DUAL_ADJ(51, 30, z) TAT_DUAL_ADJ(50, 30, y)
+  TAT_DUAL_ADJ(49, 29, z) TAT_DUAL_ADJ(48, 28, z) TAT_DUAL_ADJ(47, 27, z)
+  TAT_DUAL_ADJ(46, 26, z) TAT_DUAL_ADJ(45, 26, y) TAT_DUAL_ADJ(44, 25, z)
+  TAT_DUAL_ADJ(43, 24, z) TAT_DUAL_ADJ(42, 23, z) TAT_DUAL_ADJ(41, 23, y)
+  TAT_DUAL_ADJ(40, 22, z) TAT_DUAL_ADJ(39, 21, z) TAT_DUAL_ADJ(38, 21, y)
+  TAT_DUAL_ADJ(37, 20, z) TAT_DUAL_ADJ(36, 20, y) TAT_DUAL_ADJ(35, 20, x)
+  TAT_DUAL_ADJ(34, 19, z) TAT_DUAL_ADJ(33, 18, z) TAT_DUAL_ADJ(32, 17, z)
+  TAT_DUAL_ADJ(31, 16, z) TAT_DUAL_ADJ(30, 16, y) TAT_DUAL_ADJ(29, 15, z)
+  TAT_DUAL_ADJ(28, 14, z) TAT_DUAL_ADJ(27, 13, z) TAT_DUAL_ADJ(26, 13, y)
+  TAT_DUAL_ADJ(25, 12, z) TAT_DUAL_ADJ(24, 11, z) TAT_DUAL_ADJ(23, 11, y)
+  TAT_DUAL_ADJ(22, 10, z) TAT_DUAL_ADJ(21, 10, y) TAT_DUAL_ADJ(20, 10, x)
+  TAT_DUAL_ADJ(19, 9, z) TAT_DUAL_ADJ(18, 8, z) TAT_DUAL_ADJ(17, 7, z)
+  TAT_DUAL_ADJ(16, 7, y) TAT_DUAL_ADJ(15, 6, z) TAT_DUAL_ADJ(14, 5, z)
+  TAT_DUAL_ADJ(13, 5, y) TAT_DUAL_ADJ(12, 4, z) TAT_DUAL_ADJ(11, 4, y)
+  TAT_DUAL_ADJ(10, 4, x) TAT_DUAL_ADJ(9, 3, z) TAT_DUAL_ADJ(8, 2, z)
+  TAT_DUAL_ADJ(7, 2, y) TAT_DUAL_ADJ(6, 1, z) TAT_DUAL_ADJ(5, 1, y)
+  TAT_DUAL_ADJ(4, 1, x)
+  gx += dm[1];
+  gy += dm[2];
+  gz += dm[3];
+}
+#undef TAT_DUAL_ADJ
 
 // Blocks of `kernel` resident on the current device at `threads` threads
 // and `smem` bytes of dynamic shared memory a block, after raising the

@@ -130,127 +130,6 @@ size_t table_bytes(int n_filters, int n_moments) {
          sizeof(double) * n_filters + sizeof(int) * n_moments;
 }
 
-// (gx, gy, gz) += the gradient of sum_d dm[d] m_d(x, y, z) w.r.t. the
-// unit vector, by running `monomials` backwards: each m[d] = m[p] * a
-// sends dm[d] * m[p] to a's gradient and dm[d] * a to dm[p]. `dm` is
-// consumed.
-#define TAT_ADJ(d, p, a) \
-  g##a += dm[d] * m[p];  \
-  dm[p] += dm[d] * a;
-template <typename T>
-__device__ __forceinline__ void monomials_adjoint(
-    T x, T y, T z, const T (&m)[kMaxMonomials], T (&dm)[kMaxMonomials],
-    T& gx, T& gy, T& gz) {
-  TAT_ADJ(55, 34, z) TAT_ADJ(54, 33, z) TAT_ADJ(53, 32, z)
-  TAT_ADJ(52, 31, z) TAT_ADJ(51, 30, z) TAT_ADJ(50, 30, y)
-  TAT_ADJ(49, 29, z) TAT_ADJ(48, 28, z) TAT_ADJ(47, 27, z)
-  TAT_ADJ(46, 26, z) TAT_ADJ(45, 26, y) TAT_ADJ(44, 25, z)
-  TAT_ADJ(43, 24, z) TAT_ADJ(42, 23, z) TAT_ADJ(41, 23, y)
-  TAT_ADJ(40, 22, z) TAT_ADJ(39, 21, z) TAT_ADJ(38, 21, y)
-  TAT_ADJ(37, 20, z) TAT_ADJ(36, 20, y) TAT_ADJ(35, 20, x)
-  TAT_ADJ(34, 19, z) TAT_ADJ(33, 18, z) TAT_ADJ(32, 17, z)
-  TAT_ADJ(31, 16, z) TAT_ADJ(30, 16, y) TAT_ADJ(29, 15, z)
-  TAT_ADJ(28, 14, z) TAT_ADJ(27, 13, z) TAT_ADJ(26, 13, y)
-  TAT_ADJ(25, 12, z) TAT_ADJ(24, 11, z) TAT_ADJ(23, 11, y)
-  TAT_ADJ(22, 10, z) TAT_ADJ(21, 10, y) TAT_ADJ(20, 10, x)
-  TAT_ADJ(19, 9, z) TAT_ADJ(18, 8, z) TAT_ADJ(17, 7, z)
-  TAT_ADJ(16, 7, y) TAT_ADJ(15, 6, z) TAT_ADJ(14, 5, z)
-  TAT_ADJ(13, 5, y) TAT_ADJ(12, 4, z) TAT_ADJ(11, 4, y)
-  TAT_ADJ(10, 4, x) TAT_ADJ(9, 3, z) TAT_ADJ(8, 2, z)
-  TAT_ADJ(7, 2, y) TAT_ADJ(6, 1, z) TAT_ADJ(5, 1, y)
-  TAT_ADJ(4, 1, x)
-  gx += dm[1];
-  gy += dm[2];
-  gz += dm[3];
-}
-#undef TAT_ADJ
-
-// The row's pairs of one slot, compacted: `v` [5, kList] holds r, mask,
-// ux, uy, uz of each and `entry` [kList] its index in the row.
-template <typename T>
-struct Stage {
-  T* v;
-  int* entry;
-};
-
-// Calls batch(first, nb) for each run stage[first, first + nb) of at most
-// kBatch compacted pairs of `slot_value` in the row at `base`, in row
-// order, with the stage written; returns the pairs. The warp reads mask
-// and slot of kSpan entries at once, and each lane the geometry of its
-// own pairs (a masked entry's is never read); ballots place them.
-template <typename T, typename F>
-__device__ __forceinline__ int for_each_batch(
-    const T* __restrict__ rij, const T* __restrict__ ux,
-    const T* __restrict__ uy, const T* __restrict__ uz,
-    const T* __restrict__ slot, const T* __restrict__ mask, size_t base,
-    int n, T slot_value, const Stage<T>& st, F&& batch) {
-  const int lane = threadIdx.x & 31;
-  const unsigned lanes_below = (1u << lane) - 1u;
-  __syncwarp();   // the last walk's readers are done with the stage
-  int count = 0, total = 0;   // pairs waiting in the stage; pairs run
-  for (int j0 = 0; j0 < n; j0 += kSpan) {
-    constexpr int kE = kSpan / 32;   // entries a lane
-    T mk[kE], sl[kE];
-#pragma unroll
-    for (int i = 0; i < kE; ++i) {
-      const int j = j0 + lane + 32 * i;
-      mk[i] = j < n ? mask[base + j] : T(0);
-      sl[i] = j < n ? slot[base + j] : T(-1);
-    }
-    bool act[kE];
-    T v[5][kE];
-#pragma unroll
-    for (int i = 0; i < kE; ++i) {
-      const size_t idx = base + j0 + lane + 32 * i;
-      act[i] = mk[i] > T(0) && sl[i] == slot_value;
-      v[0][i] = act[i] ? rij[idx] : T(0);
-      v[1][i] = mk[i];
-      v[2][i] = act[i] ? ux[idx] : T(0);
-      v[3][i] = act[i] ? uy[idx] : T(0);
-      v[4][i] = act[i] ? uz[idx] : T(0);
-    }
-#pragma unroll
-    for (int i = 0; i < kE; ++i) {
-      const unsigned ballot = __ballot_sync(kFull, act[i]);
-      if (act[i]) {
-        const int q = count + __popc(ballot & lanes_below);
-#pragma unroll
-        for (int a = 0; a < 5; ++a) st.v[a * kList + q] = v[a][i];
-        st.entry[q] = j0 + lane + 32 * i;
-      }
-      count += __popc(ballot);
-    }
-    const bool last = j0 + kSpan >= n;
-    int done = 0;
-    while (count - done >= kBatch || (last && count > done)) {
-      const int nb = min(kBatch, count - done);
-      __syncwarp();   // the stage is written; the last batch is done
-      batch(done, nb);
-      done += nb;
-    }
-    total += done;
-    if (done > 0 && !last) {   // carry the rest to the stage's front
-      const int rest = count - done;
-      __syncwarp();
-      T c[5];
-      int e = 0;
-      if (lane < rest) {
-#pragma unroll
-        for (int a = 0; a < 5; ++a) c[a] = st.v[a * kList + done + lane];
-        e = st.entry[done + lane];
-      }
-      __syncwarp();
-      if (lane < rest) {
-#pragma unroll
-        for (int a = 0; a < 5; ++a) st.v[a * kList + lane] = c[a];
-        st.entry[lane] = e;
-      }
-      count = rest;
-    }
-  }
-  return total;
-}
-
 template <typename T, int TPL>
 __global__ void __launch_bounds__(kThreads, kMinBlocks<T>)
 grap_vjp_kernel(const T* __restrict__ gbar, const T* __restrict__ rij,
@@ -395,7 +274,7 @@ grap_vjp_kernel(const T* __restrict__ gbar, const T* __restrict__ rij,
             for (int b = 0; b < kTileD; ++b) acc[t][a][b] = T(0);
           }
         }
-        pairs = for_each_batch(
+        pairs = for_each_batch<kBatch, kSpan>(
             rij, ux, uy, uz, slot, mask, base, n, slot_value, st,
             [&](int first, int nb) {
               prep(first, nb, false);
@@ -524,7 +403,7 @@ grap_vjp_kernel(const T* __restrict__ gbar, const T* __restrict__ rij,
         T* out_xb = out_x + b * plane + base;
         T* out_yb = out_y + b * plane + base;
         T* out_zb = out_z + b * plane + base;
-        for_each_batch(
+        for_each_batch<kBatch, kSpan>(
             rij, ux, uy, uz, slot, mask, base, n, slot_value, st,
             [&](int first, int nb) {
               prep(first, nb, true);

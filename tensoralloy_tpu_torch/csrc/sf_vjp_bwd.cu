@@ -194,6 +194,12 @@ __device__ __forceinline__ T int_pow(T x, int k) {
   return r;
 }
 
+// Resident blocks an SM the compiler plans registers for: the served
+// float grid of 4 rows fits 7 blocks (72 registers), where the cutoffs'
+// curvature at their knots would otherwise leave it 80 and 6 blocks.
+template <typename T, int P>
+constexpr int kG4BwdBlocks = sizeof(T) == 4 && P <= 4 ? 7 : 1;
+
 // Per triple of distances x = (a, b, c), T_t = P_t(cos) E_t(z) F (ops/
 // fused.py `g4_vjp_bwd_reference`):
 //   gbar_bar[row, s, t] = sum_triples [slot = s] mask^2 E_t
@@ -207,7 +213,7 @@ __device__ __forceinline__ T int_pow(T x, int k) {
 // sum_t w_t beta_t^2 P_t E_t. P bounds the grid rows, SB the slots a
 // pass. `exp2_scale` is -log2(e) / rc^2.
 template <typename T, int P, int SB>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, (kG4BwdBlocks<T, P>))
 g4_vjp_bwd_kernel(const T* __restrict__ va, const T* __restrict__ vb,
                   const T* __restrict__ vc, const T* __restrict__ gbar,
                   const T* __restrict__ rij, const T* __restrict__ rik,

@@ -122,45 +122,73 @@ def cutoff_and_slope(name: str, r, rc):
     raise KeyError(name)
 
 
+def clamp_weight(z, lo=None, hi=None):
+    """JAX's derivative of the clamp of `z` to [lo, hi] (a bound None is
+    no bound), as jnp.minimum / jnp.maximum give it: 1 inside the open
+    interval, 1/2 at a bound (a tie passes half the gradient to each
+    side), 0 outside. `z` must be formed as JAX forms it (r / rc, a
+    division), so that it meets a bound where JAX's does."""
+    inside = torch.ones_like(z, dtype=torch.bool)
+    tie = torch.zeros_like(inside)
+    if lo is not None:
+        inside = inside & (z > lo)
+        tie = tie | (z == lo)
+    if hi is not None:
+        inside = inside & (z < hi)
+        tie = tie | (z == hi)
+    return torch.where(inside, 1.0, torch.where(tie, 0.5, 0.0)).to(z.dtype)
+
+
 def cutoff_slope_and_curvature(name: str, r, rc):
     """-> (fc(r), dfc/dr, d2fc/dr2) of a registered cutoff with its
     default keywords, written out (the second-order closed forms of
-    `ops.fused` and `cutoff_curvature` in csrc/common.cuh). As in
-    `cutoff_and_slope`, a clamped argument has slope and curvature 0
-    outside its open interval."""
+    `ops.fused` and `cutoff_curvature` in csrc/common.cuh). The value and
+    slope are `cutoff_and_slope`'s. The curvature is JAX's
+    `jax.grad(jax.grad(apply_cutoff))` also at the knots, where a clamped
+    argument z meets a bound: a clamp's derivative w is 1 inside its
+    open interval, 1/2 at the bound and 0 outside (`clamp_weight`), so
+    the clamp's part of the curvature, the function's own second
+    derivative times z'^2, takes w^2 (1/4 at a knot), its part through
+    the slope (deepmd's ramp times 1/r') takes w, and a part outside the
+    clamp (deepmd's 1/r) stays whole."""
     fc, slope = cutoff_and_slope(name, r, rc)
-    zero = torch.zeros_like(r)
     if name == "cosine":
         z = r / rc
-        curv = -0.5 * (math.pi / rc) ** 2 * torch.cos(math.pi * z)
-        return fc, slope, torch.where(z < 1.0, curv, zero)
+        w = clamp_weight(z, hi=1.0)
+        curv = -0.5 * (math.pi / rc) ** 2 * torch.cos(
+            math.pi * torch.clamp(z, max=1.0))
+        return fc, slope, w * w * curv
     if name == "polynomial":
         z = r / rc
-        curv = (150.0 * z ** 4 - 120.0 * z ** 3) / (rc * rc)
-        return fc, slope, torch.where(z < 1.0, curv, zero)
+        w = clamp_weight(z, hi=1.0)
+        zc = torch.clamp(z, max=1.0)
+        curv = (150.0 * zc ** 4 - 120.0 * zc ** 3) / (rc * rc)
+        return fc, slope, w * w * curv
     if name == "meam":
         x = (rc - r) / rc
-        u2 = (1.0 - x) ** 2
+        w = clamp_weight(x, 0.0, 1.0)
+        u2 = (1.0 - torch.clamp(x, 0.0, 1.0)) ** 2
         curv = 8.0 / (rc * rc) * (7.0 * u2 * u2 * u2 - 3.0 * u2)
-        return fc, slope, torch.where((x > 0.0) & (x < 1.0), curv, zero)
+        return fc, slope, w * w * curv
     if name == "deepmd":
         rcs = (2.0 / 3.0) * rc
-        w = math.pi / (rc - rcs)
+        om = math.pi / (rc - rcs)
         z = (r - rcs) / (rc - rcs)
         zc = torch.clamp(z, 0.0, 1.0)
-        inside = (z > 0.0) & (z < 1.0)
+        w = clamp_weight(z, 0.0, 1.0)
         positive = r > 0
         recip = torch.where(positive, 1.0 / torch.where(positive, r, 1.0),
                             0.0)
         s = 0.5 * torch.cos(math.pi * zc) + 0.5
-        ramp = torch.where(inside, -0.5 * w * torch.sin(math.pi * zc), zero)
-        bend = torch.where(inside, -0.5 * w * w * torch.cos(math.pi * zc),
-                           zero)
+        ramp = w * (-0.5 * om * torch.sin(math.pi * zc))
+        bend = w * w * (-0.5 * om * om * torch.cos(math.pi * zc))
         curv = (2.0 * s * recip - 2.0 * ramp) * recip * recip + bend * recip
         return fc, slope, curv
     if name == "tersoff":
         d = 0.1 * rc
         z = (r - (rc - d)) / d
-        curv = 0.125 * (math.pi / d) ** 2 * torch.sin(0.5 * math.pi * z)
-        return fc, slope, torch.where((z > -1.0) & (z < 1.0), curv, zero)
+        w = clamp_weight(z, -1.0, 1.0)
+        curv = 0.125 * (math.pi / d) ** 2 * torch.sin(
+            0.5 * math.pi * torch.clamp(z, -1.0, 1.0))
+        return fc, slope, w * w * curv
     raise KeyError(name)

@@ -17,11 +17,13 @@ Each descriptor has five pieces:
     `csrc/sf_vjp.cu` / `csrc/grap_vjp.cu` or an error on CUDA ones;
   * an autograd Function (`G2Function`, `G4Function`, `GrapFunction`),
     the port of `_custom_vjp_op`: forward is the kernel wrapper.
-G2 and G4 have a second order as well: the closed form of the VJP's
-own VJP (`g2_vjp_bwd_reference`, `g4_vjp_bwd_reference`), its kernel
-wrapper (`g2_vjp_bwd_kernel`, `g4_vjp_bwd_kernel`, `csrc/sf_vjp_bwd.cu`)
-and an autograd Function of the VJP (`G2VjpFunction`, `G4VjpFunction`:
-forward the VJP kernel wrapper, backward the second-order one).
+Each has a second order as well: the closed form of the VJP's own VJP
+(`g2_vjp_bwd_reference`, `g4_vjp_bwd_reference`,
+`grap_vjp_bwd_reference`), its kernel wrapper (`g2_vjp_bwd_kernel`,
+`g4_vjp_bwd_kernel`, `csrc/sf_vjp_bwd.cu`; `grap_vjp_bwd_kernel`,
+`csrc/grap_vjp_bwd.cu`) and an autograd Function of the VJP
+(`G2VjpFunction`, `G4VjpFunction`, `GrapVjpFunction`: forward the VJP
+kernel wrapper, backward the second-order one).
 
 The Functions' backward takes one of three routes, chosen by the order
 of the derivative the caller asked for, never by what failed:
@@ -30,7 +32,7 @@ of the derivative the caller asked for, never by what failed:
     block, and a Hessian row's term through the descriptors): the VJP
     kernel wrapper, one launch a backward, no graph;
   * grad mode on (`create_graph=True`: a force loss in training, the
-    elastic constraint, a Hessian's forces), G2 and G4: the VJP Function
+    elastic constraint, a Hessian's forces): the VJP Function
     on the saved inputs, one VJP launch, in the graph; its backward
     (the loss backward of a train step, a Hessian row) is the
     second-order kernel wrapper, one launch, which skips the geometry
@@ -38,10 +40,10 @@ of the derivative the caller asked for, never by what failed:
     (`torch._C._will_engine_execute_node`);
   * grad mode on in a backward of the VJP Function (third order: the
     elastic constraint's strain Hessian differentiated for the
-    parameters, `make_hessian_fn(create_graph=True)`), and GRAP under
-    grad mode at any order: the twin is rebuilt on the saved inputs and
-    its autograd VJP (of the VJP) stays in the graph, differentiable to
-    any order as the JAX op's `jax.vjp` of the reference is.
+    parameters, `make_hessian_fn(create_graph=True)`): the twin is
+    rebuilt on the saved inputs and its autograd VJP (of the VJP) stays
+    in the graph, differentiable to any order as the JAX op's `jax.vjp`
+    of the reference is.
 A cotangent batched by `is_grads_batched` (legacy vmap) has no storage
 a kernel can be given: on the CPU the twin route takes it, on CUDA the
 backward raises. The callers that
@@ -91,13 +93,15 @@ LINK_FLAGS = ARCH_FLAGS + ("-shared",)
 SPLIT_SOURCES = {"sf_kernels.cu": ("SF_ENTRY", 4),
                  "sf_vjp.cu": ("SF_VJP_ENTRY", 4),
                  "sf_vjp_bwd.cu": ("SF_VJP_BWD_ENTRY", 4),
-                 "grap_vjp.cu": ("GRAP_VJP_ENTRY", 2)}
+                 "grap_vjp.cu": ("GRAP_VJP_ENTRY", 2),
+                 "grap_vjp_bwd.cu": ("GRAP_VJP_BWD_ENTRY", 2)}
 
 # Launches of each kernel since the last `reset_launch_counts()`; a
 # wrapper adds one where it launches its kernel and nowhere else.
 launch_counts: Dict[str, int] = {"g2": 0, "g4": 0, "grap": 0, "g2_vjp": 0,
                                  "g4_vjp": 0, "grap_vjp": 0,
-                                 "g2_vjp_bwd": 0, "g4_vjp_bwd": 0}
+                                 "g2_vjp_bwd": 0, "g4_vjp_bwd": 0,
+                                 "grap_vjp_bwd": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 build_log = ""
@@ -140,13 +144,12 @@ def _refuse_vmapped(function, saved, cotangents) -> bool:
 
 def _backward(function, ctx, gbar):
     """The gradients of `function`'s differentiable inputs along `gbar`
-    (module docstring): under grad mode the VJP Function where the kernel
-    has one, else the twin's VJP in the graph; the VJP kernel wrapper
-    otherwise."""
+    (module docstring): under grad mode the VJP Function, the VJP kernel
+    wrapper otherwise."""
     saved = ctx.saved_tensors
     n = function.n_diff
     vmapped = _refuse_vmapped(function, saved, (gbar,))
-    if vmapped or (torch.is_grad_enabled() and function.vjp_function is None):
+    if vmapped:
         # vmap batches the twin's ops on CPU tensors (not the closed
         # form's einsums)
         return _twin_vjp(function.twin, saved[:n], saved[n:], ctx.spec,
@@ -385,6 +388,10 @@ def _library() -> ctypes.CDLL:
             g4b = getattr(lib, f"sf_g4_vjp_bwd_{dt}")
             g4b.argtypes = [p] * 13 + [i] * 4 + [p, p, p, d, i, p]
             g4b.restype = i
+            grapb = getattr(lib, f"grap_vjp_bwd_{dt}")
+            grapb.argtypes = [p] * 17 + [i] * 5 + [p] * 3 + [i, p, i, p,
+                                                              d, i, p]
+            grapb.restype = i
         _lib = lib
     return _lib
 
@@ -1117,6 +1124,33 @@ def grap_filter_and_slope(desc, r, rcut: float):
                      f"{desc.algorithm!r}")
 
 
+def grap_filter_slope_and_curvature(desc, r, rcut: float):
+    """-> (h, dh/dr, d2h/dr2), each [..., K]: `grap_filter_and_slope`
+    and the filters' curvature written out, for the grid algorithms:
+      sf       h'' = (k^2 - 2 eta / rc^2) h, k = 2 eta (r - omega) / rc^2
+      density  h'' = (beta / re)^2 h
+      morse    h'' = 2 D gamma^2 (2 e^(-2x) - e^(-x)), x = gamma (r - r0)
+      pexp     h'' = h ((pl x / r)^2 - pl (pl - 1) x / r^2),
+               x = (r / rl)^pl."""
+    h, dh = grap_filter_and_slope(desc, r, rcut)
+    cols = {k: torch.as_tensor(desc._grid[:, i], dtype=r.dtype,
+                               device=r.device)
+            for i, k in enumerate(desc._grid_keys)}
+    r = r[..., None]
+    if desc.algorithm == "sf":
+        k = 2.0 * cols["eta"] * (r - cols["omega"]) / (rcut * rcut)
+        return h, dh, (k * k - 2.0 * cols["eta"] / (rcut * rcut)) * h
+    if desc.algorithm == "density":
+        return h, dh, torch.square(cols["beta"] / cols["re"]) * h
+    if desc.algorithm == "morse":
+        x = cols["gamma"] * (r - cols["r0"])
+        return h, dh, 2.0 * cols["D"] * cols["gamma"] ** 2 * (
+            2.0 * torch.exp(-2.0 * x) - torch.exp(-x))
+    x = (r / cols["rl"]) ** cols["pl"]
+    return h, dh, h * (torch.square(cols["pl"] * x / r)
+                       - cols["pl"] * (cols["pl"] - 1.0) * x / (r * r))
+
+
 def monomial_slopes(max_moment: int) -> Tuple[np.ndarray, np.ndarray]:
     """-> (index [3, D], count [3, D]): d m_d / d u_axis = count *
     m_index, the monomial with one factor `axis` less (count 0 where the
@@ -1185,6 +1219,105 @@ def grap_vjp_reference(gbar, rij, ux, uy, uz, islotf, mask, desc,
     grads = [dr] + [torch.sum(dm * m[..., index[ax]] * count[ax], dim=-1)
                     for ax in range(3)]
     return tuple(torch.where(real, g, 0.0) for g in grads)
+
+
+def grap_vjp_bwd_reference(v, gbar, rij, ux, uy, uz, islotf, mask, desc,
+                           rcut: float, n_slots: int,
+                           geometry: bool = True):
+    """Closed-form VJP of `grap_vjp_reference` (B = 1) w.r.t. (gbar, rij,
+    ux, uy, uz) along `v` = (v_r, a_x, a_y, a_z), four [A, N] ->
+    (gbar_bar [A, S * K * M], and r_bar, ux_bar, uy_bar, uz_bar [A, N],
+    or None each where not `geometry`). In `grap_vjp_reference`'s
+    notation, per (row, slot): H [p, K] the filters times the cutoff and
+    the mask of the slot's p pairs, H', H'' their first two derivatives
+    in r, M [p, D] the monomials, P = H^T M, Pbar = P o C with C[k, d] =
+    sum_m c[k, m] w[d, m]; sigma_j the pair's selection weight, and with
+    a_j = (a_x, a_y, a_z) the monomials' derivative along a_j,
+    Mdot_j = a_j . grad_u M_j. The VJP is <v, VJP> = sum_kd Pbar Z with
+      Z[k, d] = sum_j sigma_j (v_j H'_jk M_jd + H_jk Mdot_jd),
+    so, with kappa[k, m] = 2 for a moment above 0 and sign(P0) /
+    sqrt(Q0 + 1e-16) for moment 0 (only the requested moments; sign's
+    derivative is 0), gbar_bar does not depend on gbar:
+      gbar_bar[k, m] = kappa[k, m] sum_d Z[k, d] P[k, d] w[d, m];
+    the geometry term through P,
+      Pb2[k, d] = Z[k, d] C[k, d] - [moment 0] gbar[k, 0] sign(P0)
+                  (Q0 + 1e-16)^(-3/2) (sum_d' Z[k, d'] P[k, d'] w[d', 0])
+                  w[d, 0] P[k, d],
+    goes back to the pairs as `grap_vjp_reference` sends Pbar back, and
+    the direct terms add, per pair (X . Y)_d = sum_k X_jk Y[k, d]:
+      r_bar_j = sigma_j [(H' . Pb2 + v_j H'' . Pbar) . M_j
+                         + (H' . Pbar) . Mdot_j],
+      u_bar_j = sigma_j [(d M_j)^T (H . Pb2 + v_j H' . Pbar)
+                         + (d^2 M_j : a_j)^T (H . Pbar)],
+    the last the adjoint of the monomial recurrence run on the dual
+    numbers (M, Mdot). A masked entry, or one of no slot, gives exactly
+    0; its geometry is not read."""
+    from ..nn.grap import moment_basis_c, multiplicity_tensor
+    a, n = rij.shape
+    real = mask > 0
+    vr, vx, vy, vz = (torch.where(real, x, 0.0) for x in v)
+    r = torch.where(real, rij, 1.0)
+    fc, slope, curv = (x * mask for x in cutoff_slope_and_curvature(
+        desc.cutoff_function, r, rcut))
+    f, df, d2f = grap_filter_slope_and_curvature(desc, r, rcut)
+    fc, slope, curv = fc[..., None], slope[..., None], curv[..., None]
+    h = f * fc                                             # [A, N, K]
+    dh = df * fc + f * slope
+    d2h = d2f * fc + 2.0 * df * slope + f * curv
+    m = moment_basis_c((ux, uy, uz), desc.max_moment)      # [A, N, D]
+    index, count = monomial_slopes(desc.max_moment)
+    count = torch.as_tensor(count, dtype=rij.dtype, device=rij.device)
+    index = torch.as_tensor(index, device=rij.device)
+    dirs = (vx, vy, vz)
+    # d m_d / d u_ax and the monomials' derivative along a
+    dm = [m[..., index[ax]] * count[ax] for ax in range(3)]
+    mdot = sum(dirs[ax][..., None] * dm[ax] for ax in range(3))
+    k = desc.n_filters
+    eye = torch.arange(n_slots, dtype=islotf.dtype, device=islotf.device)
+    sel = (islotf[..., None] == eye) * mask[..., None]     # [A, N, S]
+
+    def to_p(x, y):
+        """sum_j sigma_j x_jk y_jd -> [A, S, K, D]."""
+        return torch.einsum("ans,ank,and->askd", sel, x, y)
+
+    def to_pairs(x, y):
+        """sum_k sigma_j x_jk y[s_j, k, d] -> [A, N, D]."""
+        return torch.einsum("ans,ank,askd->and", sel, x, y)
+
+    p = to_p(h, m)
+    t = torch.as_tensor(multiplicity_tensor(desc.max_moment, desc.symmetric),
+                        dtype=rij.dtype, device=rij.device)   # [D, mm + 1]
+    moments = list(desc.moment_tensors)
+    full = gbar.new_zeros((a, n_slots, k, desc.max_moment + 1))
+    full[..., moments] = gbar.reshape(a, n_slots, k, len(moments))
+    kappa = torch.full_like(full, 2.0)
+    if 0 in moments:
+        q0 = torch.square(p) @ t[:, 0]                     # [A, S, K]
+        kappa[..., 0] = torch.sign(p[..., 0]) / torch.sqrt(q0 + 1e-16)
+    z = to_p(vr[..., None] * dh, m) + to_p(h, mdot)
+    zpw = (z * p) @ t                                      # [A, S, K, mm + 1]
+    gbar_bar = (kappa * zpw)[..., moments].reshape(a, -1)
+    if not geometry:
+        return gbar_bar, None, None, None, None
+    c = (kappa * full) @ t.T                               # [A, S, K, D]
+    pbar = p * c
+    pb2 = z * c
+    if 0 in moments:
+        pb2 = pb2 - (full[..., 0] * torch.sign(p[..., 0])
+                     * (q0 + 1e-16) ** -1.5 * zpw[..., 0])[..., None] \
+            * t[:, 0] * p
+    e1 = to_pairs(dh, pbar)                                # H' . Pbar
+    e2 = to_pairs(vr[..., None] * d2h, pbar) + to_pairs(dh, pb2)
+    e3 = to_pairs(h, pbar)                                 # H . Pbar
+    e4 = to_pairs(h, pb2) + vr[..., None] * e1
+    r_bar = torch.sum(e2 * m + e1 * mdot, dim=-1)
+    grads = [r_bar]
+    for ax in range(3):
+        # d/du_ax of Mdot_d = sum_b a_b count[b, d] m[index[b, d]]
+        d2m = sum(dirs[b][..., None] * count[b] * count[ax][index[b]]
+                  * m[..., index[ax][index[b]]] for b in range(3))
+        grads.append(torch.sum(dm[ax] * e4 + d2m * e3, dim=-1))
+    return (gbar_bar, *(torch.where(real, g, 0.0) for g in grads))
 
 
 def monomial_codes(max_moment: int) -> np.ndarray:
@@ -1329,15 +1462,54 @@ def grap_vjp_kernel(gbar, rij, ux, uy, uz, islotf, mask, desc,
     return outs
 
 
+def grap_vjp_bwd_kernel(v, gbar, rij, ux, uy, uz, islotf, mask, desc,
+                        rcut: float, n_slots: int, geometry: bool = True):
+    """`grap_vjp_bwd_reference` through the CUDA kernel
+    `grap_vjp_bwd_kernel` (csrc/grap_vjp_bwd.cu: the backward of
+    `grap_vjp_kernel`, which JAX takes by `jax.grad` through `jax.vjp` of
+    `_grap_ref_dense`, tensoralloy_tpu/ops/fused.py:151); the closed form
+    for CPU tensors. `grap_vjp_kernel`'s shape: a warp a row compacts the
+    slot's pairs, recomputes P and accumulates Z in register tiles,
+    finishes gbar_bar in registers; with the geometry term it forms Pbar
+    and Pb2 and walks the pairs again, one lane a pair running the
+    monomials' dual adjoint; no atomic."""
+    if rij.device.type == "cpu":
+        return grap_vjp_bwd_reference(v, gbar, rij, ux, uy, uz, islotf,
+                                      mask, desc, rcut, n_slots, geometry)
+    if rij.device.type != "cuda":
+        raise ValueError(f"grap_vjp_bwd_kernel: no kernel for device "
+                         f"{rij.device}")
+    _check_cuda_inputs("grap_vjp_bwd_kernel", rij, ux, uy, uz, islotf, mask)
+    fn, w, tail, n_out, _ = _bound_grap(desc, rcut, n_slots, rij.dtype,
+                                        rij.device, kind="grap_vjp_bwd")
+    rows, n = rij.shape
+    gbar = _check_cotangent("grap_vjp_bwd_kernel", gbar[None], rows, n_out,
+                            rij)
+    v = [_check_cotangent("grap_vjp_bwd_kernel", x[None], rows, n, rij)
+         for x in v]
+    gbar_bar = torch.empty((rows, n_out), dtype=rij.dtype,
+                           device=rij.device)
+    outs = tuple(torch.empty_like(rij) if geometry else None
+                 for _ in range(4))
+    if rows == 0:
+        return (gbar_bar, *outs)
+    _launch("grap_vjp_bwd", fn, rij.device, *(x.data_ptr() for x in v),
+            gbar.data_ptr(), rij.data_ptr(), ux.data_ptr(), uy.data_ptr(),
+            uz.data_ptr(), islotf.data_ptr(), mask.data_ptr(), w.data_ptr(),
+            gbar_bar.data_ptr(),
+            *(0 if o is None else o.data_ptr() for o in outs), rows, n,
+            *tail)
+    return (gbar_bar, *outs)
+
+
 class GrapFunction(torch.autograd.Function):
     """Differentiable GRAP w.r.t. `rij`, `ux`, `uy`, `uz` (the JAX op's
-    `n_diff=4`); no gradient for slots or mask. It has no second-order
-    kernel yet: under grad mode its backward takes the twin's VJP."""
+    `n_diff=4`); no gradient for slots or mask."""
 
     n_diff = 4
     twin = grap_reference
     kernel_vjp = grap_vjp_kernel
-    vjp_function = None      # grad mode: the twin's VJP, any order
+    vjp_function = None      # GrapVjpFunction, below
 
     @staticmethod
     def forward(ctx, rij, ux, uy, uz, islotf, mask, desc, rcut, n_slots):
@@ -1353,3 +1525,30 @@ class GrapFunction(torch.autograd.Function):
     def backward(ctx, gbar):
         grads = _backward(GrapFunction, ctx, gbar)
         return (*grads, None, None, None, None, None)
+
+
+class GrapVjpFunction(torch.autograd.Function):
+    """GRAP's VJP (B = 1) as a differentiable op of (gbar, rij, ux, uy,
+    uz): forward `GrapFunction.kernel_vjp`, backward `kernel_bwd` (or the
+    twin's VJP of the VJP under grad mode: module docstring)."""
+
+    first = GrapFunction
+    twin = _twin_vjp_of(GrapFunction)
+    kernel_bwd = grap_vjp_bwd_kernel
+
+    @staticmethod
+    def forward(ctx, gbar, rij, ux, uy, uz, islotf, mask, desc, rcut,
+                n_slots):
+        ctx.save_for_backward(gbar, rij, ux, uy, uz, islotf, mask)
+        ctx.spec = (desc, rcut, n_slots)
+        grads = GrapFunction.kernel_vjp(gbar[None], rij, ux, uy, uz, islotf,
+                                        mask, *ctx.spec)
+        return tuple(g[0] for g in grads)
+
+    @staticmethod
+    def backward(ctx, vr, vx, vy, vz):
+        grads = _vjp_backward(GrapVjpFunction, ctx, (vr, vx, vy, vz))
+        return (*grads, None, None, None, None, None)
+
+
+GrapFunction.vjp_function = GrapVjpFunction

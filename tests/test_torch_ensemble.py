@@ -50,6 +50,15 @@ def one_torch_thread():
     torch.set_num_threads(n)
 
 
+@pytest.fixture(autouse=True)
+def jax_high_precision():
+    """The JAX references at float64 ('high'), whatever an earlier test in
+    the same process left: the JAX TrainingManager sets the global
+    policy from its run's TOML."""
+    from tensoralloy_tpu import set_precision
+    set_precision("high")
+
+
 def _close(got, want, rel=REL, what=""):
     got, want = np.asarray(got, float), np.asarray(want, float)
     scale = max(np.max(np.abs(want)), 1e-300)

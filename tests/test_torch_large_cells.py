@@ -45,7 +45,8 @@ MODELS = {
 }
 # the chip's float64 Hessians of the serve phase's 108-atom Ni cell: the
 # fixture's name and the model
-HESSIAN_MODELS = {"mleam_ni": "eam", "snap_ni_sfa": "sf"}
+HESSIAN_MODELS = {"mleam_ni": "eam", "snap_ni_sfa": "sf",
+                  "snap_ni_v5_readapt": "grap"}
 
 
 def _rel(a, b) -> float:
@@ -221,12 +222,14 @@ def _jax_hessian(name, js):
     return np.asarray(JaxCalculator(*_models(name)[:2]).get_hessian(js))
 
 
-@pytest.mark.parametrize("name", ["eam", "sf"])
+@pytest.mark.parametrize("name", ["eam", "sf", "grap"])
 def test_hessian_matches_jax(name):
     """get_hessian on a 32-atom cell, flat and phonopy layouts, against
-    the JAX calculator's; symmetric."""
+    the JAX calculator's; symmetric. GRAP on 'pallas': its 96 rows run
+    through the second-order closed form (`GrapVjpFunction`)."""
     js, s = _both(*_cell(name))
-    calc = TensorAlloyCalculator(MODELS[name], device="cpu")
+    calc = TensorAlloyCalculator(MODELS[name], device="cpu",
+                                 backend="pallas" if name == "grap" else None)
     h = calc.get_hessian(s)
     want = _jax_hessian(name, js)
     assert h.shape == (3 * len(s), 3 * len(s))

@@ -431,3 +431,25 @@ def test_function_inputs_computed_from_each_other():
     for got, want in zip(*results):
         np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-10,
                                    atol=1e-12)
+    # GRAP through its VJP Function: the unit vector computed from the
+    # distance (ux = vx / rij)
+    rng = np.random.RandomState(24)
+    (r0,), slot, mask = seeded_rows(rng, 5, 9, 2, 4.5)
+    vec = rng.normal(size=(3, *r0.shape)) * mask
+    desc = GenericRadialAtomicPotential(
+        ["Mo", "Ni"], algorithm="pexp", backend="dense",
+        parameters={"rl": [1.0, 2.0, 3.0], "pl": [4.0, 3.0, 2.0]},
+        moment_tensors=[0, 1, 2, 3])
+    rest = [torch.as_tensor(slot), torch.as_tensor(mask)]
+    results = []
+    for fn in (fused.GrapFunction.apply, fused.grap_reference):
+        vs = [torch.as_tensor(v).requires_grad_() for v in vec]
+        r = torch.sqrt(sum(v * v for v in vs) + (1.0 - torch.as_tensor(
+            mask)))
+        y = fn(r, *(v / r for v in vs), *rest, desc, 4.5, 2)
+        grads = torch.autograd.grad(y.sum(), vs, create_graph=True)
+        second = torch.autograd.grad(sum((g * g).sum() for g in grads), vs)
+        results.append((*(g.detach() for g in grads), *second))
+    for got, want in zip(*results):
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-10,
+                                   atol=1e-12)

@@ -5,12 +5,14 @@ versions of the second-order kernels) against JAX's second derivatives of
 at float64, 1e-10 of the largest value, over every cutoff, zeta 1, 2, 4
 and 2.5, |gamma| = 2 (the clamp active), masked tails of zero distances,
 an empty row, holes and interleaved slots; the cutoffs' curvature
-against double autograd; the routing of the Functions' backward by
-derivative order (a `create_graph` backward through the VJP Function, its
-backward through the second-order wrapper with the geometry term only
-where the backward uses it, third order through the twin, matching JAX's
-third derivative); and one snap_ni_sfa train step at full width against
-the JAX trainer's fixture through that route.
+against double autograd, and at every knot against JAX's; the routing
+of the Functions' backward by derivative order, for G2, G4 and GRAP (a
+`create_graph` backward through the VJP Function, its backward through
+the second-order wrapper with the geometry term only where the backward
+uses it, third order through the twin, matching JAX's third
+derivative); and one snap_ni_sfa train step at full width against the
+JAX trainer's fixture through that route. GRAP's closed form is held to
+JAX in tests/test_torch_grap_second_order.py.
 
 On the CPU the wrappers take the closed forms:
 `python -m pytest tests/test_torch_second_order.py -q`.
@@ -25,8 +27,12 @@ import numpy as np
 import pytest
 import torch
 
+from tensoralloy_tpu.nn.grap import \
+    GenericRadialAtomicPotential as JaxGRAP
 from tensoralloy_tpu.nn.sf import SymmetryFunction as JaxSF
+from tensoralloy_tpu.ops import cutoffs as jax_cutoffs
 from tensoralloy_tpu.ops import fused as jax_fused
+from tensoralloy_tpu_torch.nn.grap import GenericRadialAtomicPotential
 from tensoralloy_tpu_torch.ops import cutoffs, fused
 
 from test_torch_ops import seeded_rows
@@ -55,10 +61,16 @@ def _close(got, want, what=""):
 def _rows(kind, holes, seed):
     """Seeded rows (masked tails of zero distances, row 0 empty); with
     `holes` each row's entries shuffled (interleaved slots) and about a
-    third of the real ones masked, keeping their finite geometry."""
+    third of the real ones masked, keeping their finite geometry. GRAP's
+    rows are (rij, ux, uy, uz) with unit vectors on the real entries."""
     rng = np.random.RandomState(seed)
     if kind == "g2":
         diff, slot, mask = seeded_rows(rng, 7, 13, 3, 4.5)
+    elif kind == "grap":
+        (rij,), slot, mask = seeded_rows(rng, 6, 9, 2, 4.5)
+        unit = rng.normal(size=(3, *rij.shape))
+        unit /= np.linalg.norm(unit, axis=0)
+        diff = [rij, *(unit * mask)]
     else:
         diff, slot, mask = seeded_rows(rng, 9, 11, 3, 3.5, triples=True)
     if holes:
@@ -73,6 +85,16 @@ def _rows(kind, holes, seed):
 
 def _case(kind, cutoff, grid="clamp"):
     """-> (JAX reference, JAX custom-VJP op, the port's spec)."""
+    if kind == "grap":
+        kw = dict(algorithm="pexp", cutoff_function=cutoff,
+                  parameters={"rl": [1.0, 2.0, 3.0], "pl": [4.0, 3.0, 2.0]},
+                  moment_tensors=[0, 1, 2, 3])
+        jdesc = JaxGRAP(["Mo", "Ni"], backend="pallas", **kw)
+        ref = functools.partial(jax_fused._grap_ref_dense, jdesc, 4.5, 2)
+        op = jax_fused._custom_vjp_op(
+            functools.partial(jax_fused._grap_pallas, jdesc, 4.5, 2), ref, 4)
+        return ref, op, (GenericRadialAtomicPotential(
+            ["Mo", "Ni"], backend="dense", **kw), 4.5, 2)
     if kind == "g2":
         sf = JaxSF(["Mo", "Ni"], eta=[0.05, 0.5, 4.0], omega=[0.0, 1.0],
                    cutoff_function=cutoff, backend="pallas")
@@ -183,12 +205,42 @@ def test_cutoff_curvature_matches_double_autograd(name):
     assert (got[2].numpy()[r.detach().numpy() > 6.0] == 0).all()
 
 
+@pytest.mark.parametrize("name", CUTOFFS)
+def test_cutoff_curvature_at_the_knots_matches_jax(name):
+    """`cutoff_slope_and_curvature` at every knot of each cutoff (its
+    ends: rc, 2/3 rc for deepmd, 0.8 rc for tersoff, 0 for meam), an ulp
+    to each side and 1e-9 off, against JAX's `jax.grad(jax.grad(
+    apply_cutoff))` in float64: a quarter of the clamp's curvature
+    exactly at a knot (a tie of jnp.minimum / jnp.maximum passes half
+    the gradient), deepmd's 1/r part whole. The slope, continuous at the
+    knots, against JAX's too; the value exactly."""
+    for rc in (3.5, 4.0, 4.5, 6.0):
+        knots = {"deepmd": [2.0 / 3.0 * rc, rc], "meam": [0.0, rc],
+                 "tersoff": [0.8 * rc, (rc - 0.1 * rc) - 0.1 * rc, rc]
+                 }.get(name, [rc])
+        r = np.array([x for k in knots for x in (
+            np.nextafter(k, -np.inf), k, np.nextafter(k, np.inf),
+            k - 1e-9, k + 1e-9)])
+        f = lambda x: jax_cutoffs.apply_cutoff(name, x, rc)  # noqa: E731
+        want_f = np.asarray(f(jnp.asarray(r)))
+        want_s, want_c = (np.asarray(jax.vmap(g)(jnp.asarray(r))) for g in
+                          (jax.grad(f), jax.grad(jax.grad(f))))
+        got = [x.numpy() for x in cutoffs.cutoff_slope_and_curvature(
+            name, torch.as_tensor(r), rc)]
+        np.testing.assert_allclose(got[0], want_f, rtol=1e-15, atol=1e-15)
+        np.testing.assert_allclose(got[1], want_s, rtol=1e-12, atol=1e-14)
+        np.testing.assert_allclose(got[2], want_c, rtol=1e-12, atol=1e-12)
+        exact = r == np.repeat(knots, 5)
+        assert (got[2][exact] != 0).any() or name == "tersoff"
+
+
 # ----------------------------------------------------------------------
 # Routing by derivative order
 # ----------------------------------------------------------------------
 
 FUNCTIONS = {"g2": (fused.G2Function, fused.G2VjpFunction),
-             "g4": (fused.G4Function, fused.G4VjpFunction)}
+             "g4": (fused.G4Function, fused.G4VjpFunction),
+             "grap": (fused.GrapFunction, fused.GrapVjpFunction)}
 
 
 @pytest.fixture
@@ -219,7 +271,7 @@ def _inputs(kind):
             [torch.as_tensor(slot), torch.as_tensor(mask)], spec)
 
 
-@pytest.mark.parametrize("kind", ["g2", "g4"])
+@pytest.mark.parametrize("kind", ["g2", "g4", "grap"])
 def test_create_graph_backward_takes_the_vjp_function(kind, counted):
     """A `create_graph` backward of the kernel Function calls the VJP
     wrapper once and leaves the VJP Function in the graph; a backward
@@ -248,7 +300,7 @@ def test_create_graph_backward_takes_the_vjp_function(kind, counted):
         _close(got.numpy(), want.numpy())
 
 
-@pytest.mark.parametrize("kind", ["g2", "g4"])
+@pytest.mark.parametrize("kind", ["g2", "g4", "grap"])
 def test_loss_backward_skips_the_geometry(kind, counted):
     """A force-loss-like backward that asks for a parameter only skips
     the geometry term (the distances' node does not run); asking for the
@@ -274,7 +326,7 @@ def test_loss_backward_skips_the_geometry(kind, counted):
         _close(a.numpy(), b.numpy())
 
 
-@pytest.mark.parametrize("kind", ["g2", "g4"])
+@pytest.mark.parametrize("kind", ["g2", "g4", "grap"])
 def test_third_order_takes_the_twin_and_matches_jax(kind, counted):
     """s = sum <u, VJP(x; gbar)>, q = <p, ds/dx> + <h, ds/dgbar>: dq/dx
     and dq/dgbar (third derivatives of the descriptor) through the
@@ -321,7 +373,7 @@ def test_third_order_takes_the_twin_and_matches_jax(kind, counted):
         _close(g.numpy(), np.asarray(w), "d3/dx")
 
 
-@pytest.mark.parametrize("kind", ["g2", "g4"])
+@pytest.mark.parametrize("kind", ["g2", "g4", "grap"])
 def test_batched_cotangent_of_the_vjp(kind):
     """A cotangent of the VJP Function batched by `is_grads_batched`: on
     the CPU the twin route takes it, row for row the unbatched

@@ -15,14 +15,16 @@ step waited for, the median after 3), the launches a step by kernel,
 and the step split from CUDA events (`chip_smoke._step_split`, medians
 of 6 steps after 2). Then the float64 Hessian of snap_ni_sfa on the
 27-atom supercell (3x3x3 primitive fcc Ni cells, a = 3.52 A, as the
-analysis phase's phonons), the median of 3 after one, with its launches.
-`--profile` adds one `torch.profiler` pass of a train_sf step: the
-device time of the step's kernels, of those launched inside the first
-backward (forces) and, of both, what the descriptors' plain twins ran
+analysis phase's phonons), the median of 3 after one, with its launches,
+and the same of snap_ni_v5_readapt (GRAP). `--profile` adds one
+`torch.profiler` pass of a step of each configuration: the device time
+of the step's kernels, of those launched inside the first backward
+(forces) and, of both, what the descriptors' plain twins ran
 (`fused._twin_vjp` and, in the loss backward, the backward of the nodes
-it made), and the largest ops. With train_sf, the part `kernels`
-times G2, G4 and their VJP and second-order kernels at a train_sf
-batch's shapes (`chip_smoke.time_kernels`). `--parts` picks among
+it made), and the largest ops. The part `kernels` times each
+configuration's descriptor kernels, their VJP and second-order kernels
+at a batch's shapes (`chip_smoke.time_kernels`): G2 and G4 with
+train_sf, GRAP with train_grap. `--parts` picks among
 train_sf, train_grap, hessian and kernels (all by default). Prints one
 JSON line per measurement. Run two checkouts in
 turns (A, B, B, A) in one call to compare them on one card.
@@ -95,9 +97,13 @@ def train_times(name, workdir, card, profile, kernels):
         fz, model = trainer.model.featurizer, trainer.model
         gen = torch.Generator(device=trainer.device).manual_seed(
             chip_smoke.SEED + 4)
-        cases = chip_smoke.sf_kernel_cases(
-            feats, model.descriptor, fz.rcut, fz.acut, fz.n_radial_slots,
-            fz.n_angular_slots, gen)
+        if name == "sf":
+            cases = chip_smoke.sf_kernel_cases(
+                feats, model.descriptor, fz.rcut, fz.acut,
+                fz.n_radial_slots, fz.n_angular_slots, gen)
+        else:
+            cases = chip_smoke.grap_kernel_cases(
+                feats, model.descriptor, fz.rcut, fz.n_radial_slots, gen)
         rows += [{"measure": f"kernel at the train_{name} batch shape",
                   **r} for r in chip_smoke.time_kernels(cases, card)]
     return rows
@@ -190,14 +196,16 @@ def profile_step(trainer, state, feats, labels) -> dict:
             "twin_sequence_numbers": len(twin_seq)}
 
 
-def hessian_times(card) -> dict:
-    """The float64 Hessian of snap_ni_sfa on the 27-atom supercell."""
+def hessian_times(card, name) -> dict:
+    """The float64 Hessian of the main path's model `name` (sf:
+    snap_ni_sfa, grap: snap_ni_v5_readapt) on the 27-atom supercell."""
     from tensoralloy_tpu_torch.analysis.phonon import \
         supercell_force_constants
     from tensoralloy_tpu_torch.atoms import Structure
     from tensoralloy_tpu_torch.calculator import TensorAlloyCalculator
     from tensoralloy_tpu_torch.ops import fused
-    calc = TensorAlloyCalculator(str(chip_smoke.PATHS["sf"][0]),
+    path = chip_smoke.PATHS[name][0]
+    calc = TensorAlloyCalculator(str(path),
                                  dtype="high", backend="pallas")
     prim = chip_smoke.fcc_primitive(Structure, chip_smoke.PHONON_A)
     times, launches = [], None
@@ -210,7 +218,7 @@ def hessian_times(card) -> dict:
         if i:
             times.append((time.perf_counter() - t0) * 1e3)
         launches = dict(fused.launch_counts)
-    return {"measure": "hessian snap_ni_sfa 27 atoms float64",
+    return {"measure": f"hessian {path.parts[-3]} 27 atoms float64",
             "ms": float(np.median(times)), "ms_all": times,
             "launches": launches}
 
@@ -233,11 +241,10 @@ def main() -> int:
         rows = [r for name in chip_smoke.TRAIN_CONFIGS
                 if f"train_{name}" in args.parts
                 for r in train_times(name, workdir, card,
-                                     args.profile and name == "sf",
-                                     name == "sf"
-                                     and "kernels" in args.parts)]
+                                     args.profile,
+                                     "kernels" in args.parts)]
     if "hessian" in args.parts:
-        rows.append(hessian_times(card))
+        rows += [hessian_times(card, name) for name in ("sf", "grap")]
     for row in rows:
         print(json.dumps({"root": str(root), "card": card, **row}),
               flush=True)
