@@ -575,6 +575,30 @@ def check_card() -> str:
     return card
 
 
+def kernel_registers(log: str) -> list:
+    """ptxas' report in a build log (`fused.build_log`) -> one dict per
+    compiled kernel: its compile unit, its mangled name, registers and
+    spill bytes (stores, loads)."""
+    rows, unit, row = [], None, None
+    for line in log.splitlines():
+        if line.startswith("== "):
+            unit = line[3:].strip()
+        elif "Compiling entry function" in line:
+            row = {"unit": unit, "function": line.split("'")[1]}
+        elif row is not None and "spill stores" in line:
+            words = line.replace(",", "").split()
+            row["spill_stores"] = int(words[words.index("spill") - 2])
+            row["spill_loads"] = int(words[-4])
+        elif row is not None and "Used" in line and "registers" in line:
+            words = line.split()
+            row["registers"] = int(words[words.index("registers,") - 1]
+                                   if "registers," in words else
+                                   words[words.index("registers") - 1])
+            rows.append(row)
+            row = None
+    return rows
+
+
 def build() -> None:
     phase("build")
     from tensoralloy_tpu_torch.ops import fused
@@ -582,11 +606,10 @@ def build() -> None:
     path = fused.build_kernels()
     fused._library()
     print(f"built {path.name} in {time.perf_counter() - t0:.1f} s")
-    for line in fused.build_log.splitlines():
-        if line.startswith("== ") or "entry function" in line:
-            print("  " + line.strip().replace("ptxas info    : ", ""))
-        elif "Used" in line or "spill" in line:
-            print("    " + line.strip().replace("ptxas info    : ", ""))
+    for row in kernel_registers(fused.build_log):
+        print(f"  {row['unit']}: {row['function']}: {row['registers']} "
+              f"registers, spill {row.get('spill_stores', '?')} / "
+              f"{row.get('spill_loads', '?')} bytes stored / loaded")
 
 
 def _numpy_lists(on: bool):
@@ -1065,7 +1088,8 @@ def _compare_vjp_bwd(name, label, function, reference, diff, rest, spec,
     autograd away from the knots (`_at_knots`: there the twin takes a
     side and is held to be finite); the geometry terms' masked entries
     exactly 0; a second launch bit for bit the first; with the geometry
-    term skipped, no geometry and gbar_bar as with it."""
+    term skipped (the build without it), no geometry, gbar_bar against
+    the closed form and a second launch bit for bit the first."""
     from tensoralloy_tpu_torch.ops import fused
     kernel = getattr(fused, f"{name}_vjp_bwd_kernel")
     closed = getattr(fused, f"{name}_vjp_bwd_reference")
@@ -1080,10 +1104,12 @@ def _compare_vjp_bwd(name, label, function, reference, diff, rest, spec,
     got = kernel(v, gbar, *diff, *rest, *spec)
     again = kernel(v, gbar, *diff, *rest, *spec)
     flat = kernel(v, gbar, *diff, *rest, *spec, geometry=False)
+    flat_again = kernel(v, gbar, *diff, *rest, *spec, geometry=False)
     torch.cuda.synchronize()
-    if fused.launch_counts[f"{name}_vjp_bwd"] != before + 3:
+    if fused.launch_counts[f"{name}_vjp_bwd"] != before + 4:
         raise AssertionError(f"{name}_vjp_bwd {label}: not launched")
-    if not all(torch.equal(g, a) for g, a in zip(got, again)):
+    if not all(torch.equal(g, a) for g, a in zip(got, again)) \
+            or not torch.equal(flat[0], flat_again[0]):
         raise AssertionError(f"{name}_vjp_bwd {label}: a second launch "
                              "differs from the first")
     if any(f is not None for f in flat[1:]):
@@ -4892,9 +4918,16 @@ def time_kernels(cases, card, launches=None):
         derived = name.endswith(("_vjp", "_vjp_bwd"))
         twin_ms = (_median_ms(lambda: twin_vjp(name, args), 5)
                    if derived else None)
-        # a train step's loss backward skips the geometry term
-        flat = (_queued_ms(lambda: kernel(*args, geometry=False), 50)
-                if name.endswith("_bwd") else None)
+        # a train step's loss backward skips the geometry term: its own
+        # time, bound and share
+        flat = flat_bound = None
+        if name.endswith("_bwd"):
+            flat = _queued_ms(lambda: kernel(*args, geometry=False), 50)
+            flat_bytes, flat_flop = kernel_work(
+                name, args, kernel(*args, geometry=False))
+            flat_bound = {
+                "bytes": flat_bytes / PEAK_BYTES_PER_S * 1e3,
+                "operations": flat_flop / PEAK_FP32_FLOP_PER_S * 1e3}
         first = args[0][0] if isinstance(args[0], tuple) else args[0]
         print(f"  {name} {tuple(first.shape)} float32: kernel {ms:.4f} / "
               f"{ms2:.4f} ms median of single launches "
@@ -4903,7 +4936,10 @@ def time_kernels(cases, card, launches=None):
               f"queued ({n_bytes / queued * 1e-6:.1f} GB/s, "
               f"{flop / queued * 1e-9:.2f} TFLOP/s), {rotated:.4f} ms queued "
               f"over {ROTATED_COPIES} copies of the inputs in turn; "
-              + (f"{flat:.4f} ms queued without the geometry term; "
+              + (f"{flat:.4f} ms queued without the geometry term "
+                 f"(bound {max(flat_bound.values()):.4f} ms by "
+                 f"{max(flat_bound, key=flat_bound.get)}, at "
+                 f"{100 * max(flat_bound.values()) / flat:.1f} % of it); "
                  if flat is not None else "")
               + f"{'closed form' if twin_ms else 'twin'} {plain_ms:.4f} ms"
               f"{f', the twin by autograd {twin_ms:.4f} ms' if twin_ms else ''}; "
@@ -4927,6 +4963,9 @@ def time_kernels(cases, card, launches=None):
             row["twin_vjp_ms"] = twin_ms
         if flat is not None:
             row["ms_queued_no_geometry"] = flat
+            row["bound_ms_no_geometry"] = max(flat_bound.values())
+            row["bound_by_no_geometry"] = max(flat_bound,
+                                              key=flat_bound.get)
         rows.append(row)
     return rows
 

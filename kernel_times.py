@@ -2,15 +2,19 @@
 """Time the descriptor kernels of one checkout of the PyTorch port on one
 NVIDIA GPU, at the main path's largest shapes, to compare two checkouts.
 
-    python3 kernel_times.py [--root DIR]
+    python3 kernel_times.py [--root DIR] [--kernels NAME ...]
 
 `--root` is the root of the checkout whose `tensoralloy_tpu_torch` is
-timed (default: this script's own). The inputs, the timing and the work
-counts are `chip_smoke.py`'s (`kernel_cases`, `time_kernels`): the
-32000-atom jittered fcc Ni request of the SF model (G2, G4) and of the
-GRAP model, each kernel with its VJP kernel and, where the checkout has
-it, its second-order kernel, float32. Run two checkouts in turns (A, B, B, A) in one call
-to compare them on one card. Prints one JSON line per kernel, then one
+timed (default: this script's own); `--kernels` times only the named
+kernels (`chip_smoke.SOURCES`' names; all by default). Where this run
+builds the checkout's library, it first prints ptxas' registers and
+spills of each compiled kernel (`chip_smoke.kernel_registers`). The
+inputs, the timing and the work counts are `chip_smoke.py`'s
+(`kernel_cases`, `time_kernels`): the 32000-atom jittered fcc Ni
+request of the SF model (G2, G4) and of the GRAP model, each kernel
+with its VJP kernel and, where the checkout has it, its second-order
+kernel, float32. Run two checkouts in turns (A, B, B, A) in one call to
+compare them on one card. Prints one JSON line per kernel, then one
 per kernel with the host's share of a wrapper call (`host_us`: the
 median host-clock time of one call that does not wait for the device)
 and its pieces, each timed alone in a loop: the input checks, the host
@@ -117,7 +121,10 @@ def host_pieces(cases):
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--root", default=str(HERE))
-    root = Path(parser.parse_args().root).resolve()
+    parser.add_argument("--kernels", nargs="+", default=None,
+                        choices=list(chip_smoke.SOURCES))
+    args = parser.parse_args()
+    root = Path(args.root).resolve()
     card = chip_smoke.check_card()
     sys.path.insert(0, str(root))
     import tensoralloy_tpu_torch
@@ -125,12 +132,19 @@ def main() -> int:
         raise SystemExit(f"imported {tensoralloy_tpu_torch.__file__}, "
                          f"not the package under {root}")
     from tensoralloy_tpu_torch.calculator import TensorAlloyCalculator
+    from tensoralloy_tpu_torch.ops import fused
+    fused.build_kernels()
+    for row in chip_smoke.kernel_registers(fused.build_log):
+        print(json.dumps({"root": str(root), "card": card, "build": row}),
+              flush=True)
     structure = chip_smoke._structure(chip_smoke.TIMED_REPS)
     sf, grap = (TensorAlloyCalculator(str(chip_smoke.PATHS[name][0]),
                                       device="cuda", dtype="medium",
                                       backend="pallas")
                 for name in ("sf", "grap"))
     cases = chip_smoke.kernel_cases(sf, structure, grap, structure)
+    if args.kernels:
+        cases = {k: v for k, v in cases.items() if k in args.kernels}
     for row in chip_smoke.time_kernels(cases, card) + host_pieces(cases):
         print(json.dumps({"root": str(root), "card": card, **row}),
               flush=True)

@@ -276,8 +276,9 @@ __device__ __forceinline__ void monomials_adjoint(
 #undef TAT_ADJ
 
 // The row's pairs of one slot, compacted (`for_each_batch`): `v`
-// [5, kList] holds r, mask, ux, uy, uz of each and `entry` [kList] its
-// index in the row.
+// [5 + Extra, kList] holds r, mask, ux, uy, uz of each (then the Extra
+// arrays `for_each_batch_staging` stages) and `entry` [kList] its index
+// in the row.
 template <typename T>
 struct Stage {
   T* v;
@@ -288,15 +289,18 @@ struct Stage {
 // Batch compacted pairs of `slot_value` in the row at `base`, in row
 // order, with the stage written; returns the pairs. The warp reads mask
 // and slot of Span entries at once, and each lane the geometry of its
-// own pairs (a masked entry's is never read); ballots place them. The
-// stage holds Span + Batch pairs (`kList`).
-template <int Batch, int Span, typename T, typename F>
-__device__ __forceinline__ int for_each_batch(
+// own pairs, and their entries of the Extra arrays `extra`, in one round
+// (a masked entry's is never read); ballots place them. The stage holds
+// Span + Batch pairs (`kList`).
+template <int Batch, int Span, int Extra, typename T, typename F>
+__device__ __forceinline__ int for_each_batch_staging(
     const T* __restrict__ rij, const T* __restrict__ ux,
     const T* __restrict__ uy, const T* __restrict__ uz,
-    const T* __restrict__ slot, const T* __restrict__ mask, size_t base,
-    int n, T slot_value, const Stage<T>& st, F&& batch) {
+    const T* __restrict__ slot, const T* __restrict__ mask,
+    const T* const* extra, size_t base, int n, T slot_value,
+    const Stage<T>& st, F&& batch) {
   constexpr int kList = Span + Batch;
+  constexpr int kVals = 5 + Extra;
   const int lane = threadIdx.x & 31;
   const unsigned lanes_below = (1u << lane) - 1u;
   __syncwarp();   // the last walk's readers are done with the stage
@@ -311,7 +315,7 @@ __device__ __forceinline__ int for_each_batch(
       sl[i] = j < n ? slot[base + j] : T(-1);
     }
     bool act[kE];
-    T v[5][kE];
+    T v[kVals][kE];
 #pragma unroll
     for (int i = 0; i < kE; ++i) {
       const size_t idx = base + j0 + lane + 32 * i;
@@ -321,6 +325,10 @@ __device__ __forceinline__ int for_each_batch(
       v[2][i] = act[i] ? ux[idx] : T(0);
       v[3][i] = act[i] ? uy[idx] : T(0);
       v[4][i] = act[i] ? uz[idx] : T(0);
+#pragma unroll
+      for (int e = 0; e < Extra; ++e) {
+        v[5 + e][i] = act[i] ? extra[e][idx] : T(0);
+      }
     }
 #pragma unroll
     for (int i = 0; i < kE; ++i) {
@@ -328,7 +336,7 @@ __device__ __forceinline__ int for_each_batch(
       if (act[i]) {
         const int q = count + __popc(ballot & lanes_below);
 #pragma unroll
-        for (int a = 0; a < 5; ++a) st.v[a * kList + q] = v[a][i];
+        for (int a = 0; a < kVals; ++a) st.v[a * kList + q] = v[a][i];
         st.entry[q] = j0 + lane + 32 * i;
       }
       count += __popc(ballot);
@@ -345,23 +353,35 @@ __device__ __forceinline__ int for_each_batch(
     if (done > 0 && !last) {   // carry the rest to the stage's front
       const int rest = count - done;
       __syncwarp();
-      T c[5];
+      T c[kVals];
       int e = 0;
       if (lane < rest) {
 #pragma unroll
-        for (int a = 0; a < 5; ++a) c[a] = st.v[a * kList + done + lane];
+        for (int a = 0; a < kVals; ++a) c[a] = st.v[a * kList + done + lane];
         e = st.entry[done + lane];
       }
       __syncwarp();
       if (lane < rest) {
 #pragma unroll
-        for (int a = 0; a < 5; ++a) st.v[a * kList + lane] = c[a];
+        for (int a = 0; a < kVals; ++a) st.v[a * kList + lane] = c[a];
         st.entry[lane] = e;
       }
       count = rest;
     }
   }
   return total;
+}
+
+// `for_each_batch_staging` of the geometry alone.
+template <int Batch, int Span, typename T, typename F>
+__device__ __forceinline__ int for_each_batch(
+    const T* __restrict__ rij, const T* __restrict__ ux,
+    const T* __restrict__ uy, const T* __restrict__ uz,
+    const T* __restrict__ slot, const T* __restrict__ mask, size_t base,
+    int n, T slot_value, const Stage<T>& st, F&& batch) {
+  return for_each_batch_staging<Batch, Span, 0>(
+      rij, ux, uy, uz, slot, mask, static_cast<const T* const*>(nullptr),
+      base, n, slot_value, st, static_cast<F&&>(batch));
 }
 
 // The monomials and their derivative along a = (ax, ay, az) as dual

@@ -33,20 +33,27 @@
 // v, a_x, a_y, a_z [rows, n] of the VJP's outputs, gbar [rows, n_slots *
 // K * M] and the forward's [rows, n] rows; outputs gbar_bar [rows,
 // n_slots * K * M] and the four geometry terms [rows, n]. A null geometry
-// pointer skips the geometry term (gbar is then not read): the loss
-// backward of a train step asks for the parameters only. A masked entry,
-// or one of no slot, gets exactly 0 and its geometry is not read.
+// pointer launches the build without the geometry term (gbar is then not
+// read): the loss backward of a train step asks for the parameters only.
+// A masked entry, or one of no slot, gets exactly 0 and its geometry is
+// not read.
 //
-// What binds it on an H100: FP32 FMAs, as grap_vjp. Without the geometry
-// term, three products a pair of the forward's size (P and Z's two);
-// with it, five more (H' Pbar, v H'' Pbar, H' Pb2, H Pbar, H Pb2) and the
-// dual adjoint. The design is grap_vjp's:
+// What binds it on an H100: FP32 FMAs in principle, as grap_vjp: without
+// the geometry term three products a pair of the forward's size (P and
+// Z's two); with it five more (H' Pbar, v H'' Pbar, H' Pb2, H Pbar,
+// H Pb2) and the dual adjoint. In practice latency: at one warp a row the
+// compaction's two dependent reads a span, the gathers of v and a a
+// batch and the filters' transcendentals stall the warp, and the
+// products are a third of the launch without the geometry term. So each
+// mode is a build of its own (`kGeometry`) with its own batch and launch
+// bounds:
 //   * one warp per atom row, up to kWarps rows a block, persistent warps;
 //     one block barrier stages the small tables;
-//   * `for_each_batch` (grap_common.cuh) compacts the slot's real pairs
-//     by ballots, 16 a batch; one lane a pair builds its monomials and
-//     their derivative along a into two tiles of 16-byte chunks, its
-//     cutoff's value, slope (and curvature) times the mask and reads v;
+//   * `for_each_batch_staging` (grap_common.cuh) compacts the slot's real
+//     pairs by ballots, 16 a batch with the geometry term, 8 without; one
+//     lane a pair builds its monomials and their derivative along a into
+//     two tiles of 16-byte chunks, its cutoff's value, slope (and
+//     curvature) times the mask;
 //   * pass 1 takes up to 16 filters a walk (one 4 filter x 8 monomial
 //     tile a lane, so P and Z's tiles are 64 registers): the lanes
 //     compute each (pair, filter) h and v h' once, and each lane adds
@@ -54,13 +61,26 @@
 //     loads). The moment-0 scale comes from the P tiles by xor shuffles
 //     over the 8 lanes of a filter block, and each moment's sum of
 //     Z P w likewise: gbar_bar is finished in registers and written once;
-//   * with the geometry term, P and Z go to per-warp tiles, which become
-//     Pbar and Pb2; pass 3 walks the pairs again, the filters' values and
-//     two derivatives filter-major, and each lane holds 4 pairs x 8
-//     monomials of two products at a time over the filters (H' Pbar and
-//     v H'' Pbar + H' Pb2, whose sums with M and Mdot give d/dr; then
-//     H Pbar and H Pb2 + v H' Pbar into the monomial tiles); one lane a
-//     pair runs the dual adjoint and writes its four outputs.
+//   * the build without the geometry term (a train step's loss backward)
+//     is pass 1 alone, at 168 registers and 8 pairs a batch: 3 blocks of
+//     4 warps an SM. v and a are staged with the pairs' geometry, read in
+//     the same round as r and u (no gather a batch), and a lane's four
+//     filter items are computed in registers before they are stored, so
+//     that their latencies overlap;
+//   * the build with the geometry term (2 blocks of 4 warps an SM: its
+//     tiles are 23 KB a warp at K = 16 in float32, and it takes 242
+//     registers) gathers v and a a batch and computes its filter items
+//     one at a time, which measured faster there. P and Z go to per-warp
+//     tiles, which become Pbar and Pb2; pass 3 walks the pairs again, the
+//     filters' values and two derivatives filter-major, and each lane
+//     holds 4 pairs x 8 monomials of two products at a time over the
+//     filters (H' Pbar and v H'' Pbar + H' Pb2, whose sums with M and
+//     Mdot give d/dr; then H Pbar and H Pb2 + v H' Pbar into the monomial
+//     tiles); one lane a pair runs the dual adjoint and writes its four
+//     outputs. A d/du from H Pbar lowered one degree through a table of
+//     each monomial's neighbours, on all 32 lanes, measured slower: its
+//     gathers from the monomial tile load shared memory more than the
+//     products do.
 // No atomics: each output is written once, so a second launch gives the
 // same bits. Entries of no slot are written as zeros before the slots
 // run. float64 runs the same template. Full-precision exp/exp2/log2/sqrt
@@ -77,9 +97,7 @@ namespace {
 
 constexpr int kWarps = 4;                 // atom rows a block, at most
 constexpr int kThreads = 32 * kWarps;
-constexpr int kBatch = 16;                // compacted pairs a tile
 constexpr int kSpan = 64;                 // entries compacted a step
-constexpr int kList = kSpan + kBatch;     // stage: a step + carry
 constexpr int kTileK = 4;                 // pass 1: a lane's tile of 4
 constexpr int kTileD = 8;                 //   filters x 8 monomials
 constexpr int kPairs = 4;                 // pass 3: 4 pairs x 8 monomials
@@ -89,35 +107,53 @@ constexpr int kAlpha = 8;                 // row stride of the coefficients
 constexpr int kFiltersPerWalk = 16;       // pass 1: one tile a lane
 constexpr size_t kMaxSmem = 232448;       // an H100 block's shared memory
 
+// Compacted pairs a batch: pass 3's layout of 4 pairs x 8 monomials a
+// lane takes 16; the build without the geometry term takes 8, whose
+// smaller tiles fit 3 blocks an SM.
+template <bool kGeometry>
+constexpr int kBatchOf = kGeometry ? 16 : 8;
+template <bool kGeometry>
+constexpr int kListOf = kSpan + kBatchOf<kGeometry>;   // a step + carry
+// Cotangents staged with a pair's geometry (r, mask, ux, uy, uz): v, a_x,
+// a_y, a_z without the geometry term; with it the parent's gathers a
+// batch measured faster.
+template <bool kGeometry>
+constexpr int kCotangentsOf = kGeometry ? 0 : 4;
+
 // Row stride of the monomial tiles: kDp and one chunk more (no bank
 // conflicts for a lane a row nor for 8 lanes on one row).
 template <typename T>
 constexpr int kMs = kDp + kChunk<T>;
 
-// Resident blocks an SM the compiler plans registers for: the dual
-// adjoint holds four arrays of 56 values a lane.
-template <typename T>
-constexpr int kMinBlocks = sizeof(T) == 4 ? 2 : 1;
+// Resident blocks an SM the compiler plans registers for. With the
+// geometry term the tiles fit 2 blocks of 4 warps (23 KB a warp at K = 16
+// in float32), and the dual adjoint and pass 1's prep may take the
+// registers of 2; without it 3 (168 registers a thread).
+template <typename T, bool kGeometry>
+constexpr int kMinBlocks = sizeof(T) == 4 ? (kGeometry ? 2 : 3) : 1;
 
-// Launch shape, fixed on the host from (K, geometry).
+// Launch shape, fixed on the host from K and the build.
 struct Shape {
   int kp;      // K padded to 4: rows of the P and Z tiles
   int hsz;     // elements of the h tiles: 2 [kBatch, 16] or 3 [kp, kBatch]
-  int geo;     // 1: the geometry term (P and Z tiles of their own)
 };
 
 // Bytes of one warp's tiles, in this order: P and Z [kp, kDp] each (with
 // the geometry term), the monomial tiles M and Mdot [kBatch, kMs] each,
-// the h tiles, the stage (r, mask, ux, uy, uz [5, kList] and the entries
-// [kList] int), per-pair fc, fc', fc'', 1/r, v and d/dr [6, kBatch], log2 r
-// [kBatch] double, the moment-0 scale and sum_d Z P w[., 0] [2, kp] and
-// the coefficients [kp, kAlpha]. Each piece is a multiple of 16 bytes.
-template <typename T>
+// the h tiles, the stage (r, mask, ux, uy, uz and, without the geometry
+// term, v, a_x, a_y, a_z [kStaged, kList]; the entries [kList] int),
+// per-pair fc, fc', fc'',
+// 1/r, v and d/dr [6, kBatch], log2 r [kBatch] double, the moment-0 scale
+// and sum_d Z P w[., 0] [2, kp] and the coefficients [kp, kAlpha]. Each
+// piece is a multiple of 16 bytes.
+template <typename T, bool kGeometry>
 __host__ __device__ __forceinline__ size_t warp_bytes(const Shape& sh) {
-  return sizeof(T) * (static_cast<size_t>(sh.kp) * kDp * 2 * sh.geo +
-                      2 * kBatch * kMs<T> + sh.hsz + 5 * kList +
-                      6 * kBatch + sh.kp * (2 + kAlpha)) +
-         sizeof(int) * kList + sizeof(double) * kBatch;
+  constexpr int B = kBatchOf<kGeometry>, L = kListOf<kGeometry>;
+  constexpr int kStaged = 5 + kCotangentsOf<kGeometry>;
+  return sizeof(T) * (static_cast<size_t>(sh.kp) * kDp * 2 * kGeometry +
+                      2 * B * kMs<T> + sh.hsz + kStaged * L + 6 * B +
+                      sh.kp * (2 + kAlpha)) +
+         sizeof(int) * L + sizeof(double) * B;
 }
 
 // The block's tables after the warps' tiles: the invariant weights
@@ -142,8 +178,8 @@ __device__ __forceinline__ void store_row8(T* row, int db, const T* v) {
   store4(row + 32 + 4 * db, v + 4);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads, kMinBlocks<T>)
+template <typename T, bool kGeometry>
+__global__ void __launch_bounds__(kThreads, (kMinBlocks<T, kGeometry>))
 grap_vjp_bwd_kernel(const T* __restrict__ vr, const T* __restrict__ vx,
                     const T* __restrict__ vy, const T* __restrict__ vz,
                     const T* __restrict__ gbar, const T* __restrict__ rij,
@@ -157,10 +193,13 @@ grap_vjp_bwd_kernel(const T* __restrict__ vr, const T* __restrict__ vx,
                     const __grid_constant__ Cutoff<T> cut, T rc2) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr int V = kChunk<T>;
+  constexpr int kBatch = kBatchOf<kGeometry>;
+  constexpr int kList = kListOf<kGeometry>;
+  constexpr int kCotangents = kCotangentsOf<kGeometry>;
+  constexpr int kStaged = 5 + kCotangents;
   const int K = spec.n_filters, D = spec.n_mono, M = spec.n_moments;
-  const bool geometry = out_r != nullptr;
   const int warps = blockDim.x >> 5;
-  const size_t wb = warp_bytes<T>(sh);
+  const size_t wb = warp_bytes<T, kGeometry>(sh);
   T* w_s = reinterpret_cast<T*>(smem_raw + warps * wb);   // [M, kDp]
   double* lrl_s = reinterpret_cast<double*>(w_s + kDp * M);   // [K]
   T* f_s = reinterpret_cast<T*>(lrl_s + K);   // [3, K] filter grid
@@ -182,12 +221,12 @@ grap_vjp_bwd_kernel(const T* __restrict__ vr, const T* __restrict__ vx,
 
   const int lane = tid & 31, warp = tid >> 5;
   T* p_s = reinterpret_cast<T*>(smem_raw + warp * wb);   // [kp, kDp] P
-  T* z_s = p_s + sh.geo * sh.kp * kDp;                   // [kp, kDp] Z
-  T* m_s = z_s + sh.geo * sh.kp * kDp;                   // [kBatch, kMs] M
+  T* z_s = p_s + kGeometry * sh.kp * kDp;                // [kp, kDp] Z
+  T* m_s = z_s + kGeometry * sh.kp * kDp;                // [kBatch, kMs] M
   T* md_s = m_s + kBatch * kMs<T>;                       // Mdot
   T* h_s = md_s + kBatch * kMs<T>;
-  const Stage<T> st{h_s + sh.hsz, reinterpret_cast<int*>(h_s + sh.hsz +
-                                                        5 * kList)};
+  const Stage<T> st{h_s + sh.hsz, reinterpret_cast<int*>(
+                                       h_s + sh.hsz + kStaged * kList)};
   T* fc_s = reinterpret_cast<T*>(st.entry + kList);      // [kBatch]
   T* dfc_s = fc_s + kBatch;                              // fc'
   T* d2fc_s = dfc_s + kBatch;                            // fc''
@@ -209,6 +248,8 @@ grap_vjp_bwd_kernel(const T* __restrict__ vr, const T* __restrict__ vx,
   const int kb = lane / kTilesD;   // pass 1: the lane's filter block
   const int pq = lane >> 3;        // pass 3: the lane's pairs 4 pq + i
   const size_t width = static_cast<size_t>(n_slots) * K * M;
+  // the cotangents v, a_x, a_y, a_z, staged without the geometry term
+  const T* const cotangents[4] = {vr, vx, vy, vz};
 
   // Pair prep of a batch: one lane a pair stores its monomials and their
   // derivative along a to row `lane` of the tiles (zeros past D), its
@@ -219,7 +260,7 @@ grap_vjp_bwd_kernel(const T* __restrict__ vr, const T* __restrict__ vx,
     const int q = first + lane;
     const T r = st_r[q], mk = st_mk[q];
     T f, df, d2f = T(0);
-    if (curvature) {
+    if (kGeometry && curvature) {
       cutoff_value_slope_curvature(cut, r, f, df, d2f);
     } else {
       cutoff_value_and_slope(cut, r, f, df);
@@ -229,11 +270,22 @@ grap_vjp_bwd_kernel(const T* __restrict__ vr, const T* __restrict__ vx,
     d2fc_s[lane] = d2f * mk;
     ir_s[lane] = T(1) / r;
     if (pexp) lr_s[lane] = log2(double(r));
-    const size_t j = base + st.entry[q];
-    v_s[lane] = vr[j];
+    // v and a: gathered with the geometry term, staged without
+    T a[4];
+    if (kGeometry) {
+      const size_t j = base + st.entry[q];
+      a[0] = vr[j];
+      a[1] = vx[j];
+      a[2] = vy[j];
+      a[3] = vz[j];
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = st.v[(5 + i) * kList + q];
+    }
+    v_s[lane] = a[0];
     T m[kMaxMonomials], md[kMaxMonomials];
     monomials_dual(st.v[2 * kList + q], st.v[3 * kList + q],
-                   st.v[4 * kList + q], vx[j], vy[j], vz[j], m, md);
+                   st.v[4 * kList + q], a[1], a[2], a[3], m, md);
     T* m_row = m_s + lane * kMs<T>;
     T* md_row = md_s + lane * kMs<T>;
 #pragma unroll
@@ -255,7 +307,7 @@ grap_vjp_bwd_kernel(const T* __restrict__ vr, const T* __restrict__ vx,
   for (int row = blockIdx.x * warps + warp; row < rows;
        row += gridDim.x * warps) {
     const size_t base = static_cast<size_t>(row) * n;
-    if (geometry) {   // entries of no slot: 0 in every output
+    if (kGeometry) {   // entries of no slot: 0 in every output
       for (int j = lane; j < n; j += 32) {
         if (entry_slot(mask[base + j], slot[base + j], n_slots) >= 0) {
           continue;
@@ -299,23 +351,41 @@ grap_vjp_bwd_kernel(const T* __restrict__ vr, const T* __restrict__ vx,
             acc_z[a][b] = T(0);
           }
         }
-        pairs = for_each_batch<kBatch, kSpan>(
-            rij, ux, uy, uz, slot, mask, base, n, slot_value, st,
-            [&](int first, int nb) {
+        pairs = for_each_batch_staging<kBatch, kSpan, kCotangents>(
+            rij, ux, uy, uz, slot, mask, cotangents, base, n, slot_value,
+            st, [&](int first, int nb) {
               prep(first, nb, false, base);
               __syncwarp();
-              for (int p = lane >> k_shift; p < nb; p += 32 >> k_shift) {
-                T hv = T(0), hd = T(0);
-                if (k_on) {
-                  T f, df;
-                  filter_value_and_slope(spec.algorithm, c0, c1, c2, lrl,
-                                         st_r[first + p], lr_s[p], ir_s[p],
-                                         rc2, f, df);
-                  hv = f * fc_s[p];
-                  hd = v_s[p] * (df * fc_s[p] + f * dfc_s[p]);
+              // a lane's (pair, filter) items: without the geometry term
+              // in registers first, so that their latencies overlap; with
+              // it one at a time, which measured faster there
+              constexpr int kItems =
+                  kGeometry ? 1 : kBatch * kFiltersPerWalk / 32;
+              for (int p0 = lane >> k_shift; p0 < nb;
+                   p0 += kItems * (32 >> k_shift)) {
+                T hvi[kItems], hdi[kItems];
+#pragma unroll
+                for (int t = 0; t < kItems; ++t) {
+                  const int p = p0 + t * (32 >> k_shift);
+                  hvi[t] = T(0);
+                  hdi[t] = T(0);
+                  if (k_on && p < nb) {
+                    T f, df;
+                    filter_value_and_slope(spec.algorithm, c0, c1, c2, lrl,
+                                           st_r[first + p], lr_s[p],
+                                           ir_s[p], rc2, f, df);
+                    hvi[t] = f * fc_s[p];
+                    hdi[t] = v_s[p] * (df * fc_s[p] + f * dfc_s[p]);
+                  }
                 }
-                hv_s[(p << k_shift) + kk_h] = hv;
-                hd_s[(p << k_shift) + kk_h] = hd;
+#pragma unroll
+                for (int t = 0; t < kItems; ++t) {
+                  const int p = p0 + t * (32 >> k_shift);
+                  if (p < nb) {
+                    hv_s[(p << k_shift) + kk_h] = hvi[t];
+                    hd_s[(p << k_shift) + kk_h] = hdi[t];
+                  }
+                }
               }
               __syncwarp();
               if (!on) return;
@@ -385,11 +455,11 @@ grap_vjp_bwd_kernel(const T* __restrict__ vr, const T* __restrict__ vx,
             const int k = k0 + kb * kTileK + a;
             if (on && db == 0 && k < K) {
               gb_row[k * M + mi] = (zero ? sc[a] : T(2)) * part;
-              if (zero && geometry) zw_s[k] = part;
+              if (zero && kGeometry) zw_s[k] = part;
             }
           }
         }
-        if (geometry && on) {
+        if (kGeometry && on) {
 #pragma unroll
           for (int a = 0; a < kTileK; ++a) {
             const int k = k0 + kb * kTileK + a;
@@ -404,7 +474,7 @@ grap_vjp_bwd_kernel(const T* __restrict__ vr, const T* __restrict__ vx,
         for (int i = lane; i < K * M; i += 32) gb_row[i] = T(0);
         continue;
       }
-      if (!geometry) continue;
+      if (!kGeometry) continue;
       __syncwarp();   // P, Z, the scale and sum_d Z P w0 are written
 
       // ---- the coefficients c[k, m], then Pbar = P o C and Pb2 = Z o C
@@ -619,7 +689,12 @@ grap_vjp_bwd_kernel(const T* __restrict__ vr, const T* __restrict__ vx,
   }
 }
 
-template <typename T>
+// The launch of one (type, build): the arguments checked, the launch
+// specification filled, as many rows a block as its tiles fit in shared
+// memory (up to kWarps), as many blocks as fit on the card at once or
+// fewer for few rows (each block stages its tables once for all the rows
+// it takes).
+template <typename T, bool kGeometry>
 [[maybe_unused]] int launch_grap_vjp_bwd(
     const T* vr, const T* vx, const T* vy, const T* vz, const T* gbar,
     const T* rij, const T* ux, const T* uy, const T* uz, const T* slot,
@@ -628,13 +703,12 @@ template <typename T>
     const double* c0, const double* c1, const double* c2, int n_mono,
     const unsigned short* codes, int n_moments, const int* moments,
     double rc, int cutoff_id, void* stream) {
-  const bool geometry = out_r != nullptr;
   if (rows <= 0 || n <= 0 || n_slots <= 0 || algorithm < kSf ||
       algorithm > kPexp || n_filters <= 0 || n_filters > kMaxFilters ||
       n_mono <= 0 || n_mono > kMaxMonomials || n_moments <= 0 ||
       n_moments > kMaxMoments || cutoff_id < 0 || cutoff_id > 4 ||
-      geometry != (out_x != nullptr) || geometry != (out_y != nullptr) ||
-      geometry != (out_z != nullptr)) {
+      kGeometry != (out_r != nullptr) || kGeometry != (out_x != nullptr) ||
+      kGeometry != (out_y != nullptr) || kGeometry != (out_z != nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   GrapSpec<T> spec;
@@ -642,33 +716,30 @@ template <typename T>
                  n_moments, moments)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  constexpr int kBatch = kBatchOf<kGeometry>;
   Shape sh;
   sh.kp = (n_filters + 3) / 4 * 4;
   sh.hsz = 2 * kBatch * kFiltersPerWalk;
-  if (3 * sh.kp * kBatch > sh.hsz) sh.hsz = 3 * sh.kp * kBatch;
-  sh.geo = geometry ? 1 : 0;
-  // as many rows a block as its tiles fit in shared memory, up to kWarps
+  if (kGeometry && 3 * sh.kp * kBatch > sh.hsz) sh.hsz = 3 * sh.kp * kBatch;
   const size_t tables = table_bytes<T>(n_filters, n_moments);
+  const size_t wb = warp_bytes<T, kGeometry>(sh);
   int warps = kWarps;
-  while (warps > 1 && warps * warp_bytes<T>(sh) + tables > kMaxSmem) {
-    --warps;
-  }
-  const size_t smem = warps * warp_bytes<T>(sh) + tables;
+  while (warps > 1 && warps * wb + tables > kMaxSmem) --warps;
+  const size_t smem = warps * wb + tables;
   if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
   const Cutoff<T> cut = make_cutoff<T>(cutoff_id, rc);
   const T rc2 = T(rc * rc);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  // as many blocks as fit on the card at once, or fewer for few rows:
-  // each block stages its tables once for all the rows it takes
-  const void* kernel = reinterpret_cast<const void*>(grap_vjp_bwd_kernel<T>);
+  const void* kernel =
+      reinterpret_cast<const void*>(grap_vjp_bwd_kernel<T, kGeometry>);
   int resident = 0;
   const cudaError_t e = resident_blocks(kernel, 32 * warps, smem, &resident);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int needed = (rows + warps - 1) / warps;
   const int blocks = needed < resident ? needed : resident;
-  grap_vjp_bwd_kernel<T><<<blocks, 32 * warps, smem, st>>>(
-      vr, vx, vy, vz, gbar, rij, ux, uy, uz, slot, mask, w, gbar_bar, out_r,
-      out_x, out_y, out_z, rows, n, n_slots, sh, spec, cut, rc2);
+  grap_vjp_bwd_kernel<T, kGeometry>
+      <<<blocks, 32 * warps, smem, static_cast<cudaStream_t>(stream)>>>(
+          vr, vx, vy, vz, gbar, rij, ux, uy, uz, slot, mask, w, gbar_bar,
+          out_r, out_x, out_y, out_z, rows, n, n_slots, sh, spec, cut, rc2);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -678,51 +749,68 @@ template <typename T>
 // the cudaError_t of the launch (0 on success). `w` is a device array
 // [n_mono, n_moments] of the input type; the parameter tables and the
 // monomial codes are host arrays copied into the launch. Null geometry
-// outputs (all four) skip the geometry term. A build that defines
-// GRAP_VJP_BWD_ENTRY as 0 or 1 compiles that one entry point only.
+// outputs (all four) launch the build without the geometry term. Each
+// (type, build) is a function of its own; a build that defines
+// GRAP_VJP_BWD_ENTRY as 0-3 compiles one of them (0 float32 with the
+// geometry term, 1 float32 without, 2 and 3 float64 likewise), and
+// units 0 and 2 also the entry points, which pick the build.
 #ifdef GRAP_VJP_BWD_ENTRY
 #define GRAP_VJP_BWD_HAS_ENTRY(i) (GRAP_VJP_BWD_ENTRY == (i))
 #else
 #define GRAP_VJP_BWD_HAS_ENTRY(i) 1
 #endif
 
+#define GRAP_VJP_BWD_PARAMS(T)                                               \
+  const T *vr, const T *vx, const T *vy, const T *vz, const T *gbar,        \
+      const T *rij, const T *ux, const T *uy, const T *uz, const T *slot,   \
+      const T *mask, const T *w, T *gbar_bar, T *out_r, T *out_x,           \
+      T *out_y, T *out_z, int rows, int n, int n_slots, int algorithm,      \
+      int n_filters, const double *c0, const double *c1, const double *c2, \
+      int n_mono, const unsigned short *codes, int n_moments,               \
+      const int *moments, double rc, int cutoff_id, void *stream
+#define GRAP_VJP_BWD_ARGS                                                   \
+  vr, vx, vy, vz, gbar, rij, ux, uy, uz, slot, mask, w, gbar_bar, out_r,    \
+      out_x, out_y, out_z, rows, n, n_slots, algorithm, n_filters, c0, c1, \
+      c2, n_mono, codes, n_moments, moments, rc, cutoff_id, stream
+
 extern "C" {
 
+int grap_vjp_bwd_f32_geometry(GRAP_VJP_BWD_PARAMS(float));
+int grap_vjp_bwd_f32_flat(GRAP_VJP_BWD_PARAMS(float));
+int grap_vjp_bwd_f64_geometry(GRAP_VJP_BWD_PARAMS(double));
+int grap_vjp_bwd_f64_flat(GRAP_VJP_BWD_PARAMS(double));
+
 #if GRAP_VJP_BWD_HAS_ENTRY(0)
-int grap_vjp_bwd_f32(const float* vr, const float* vx, const float* vy,
-                     const float* vz, const float* gbar, const float* rij,
-                     const float* ux, const float* uy, const float* uz,
-                     const float* slot, const float* mask, const float* w,
-                     float* gbar_bar, float* out_r, float* out_x,
-                     float* out_y, float* out_z, int rows, int n,
-                     int n_slots, int algorithm, int n_filters,
-                     const double* c0, const double* c1, const double* c2,
-                     int n_mono, const unsigned short* codes, int n_moments,
-                     const int* moments, double rc, int cutoff_id,
-                     void* stream) {
-  return launch_grap_vjp_bwd<float>(
-      vr, vx, vy, vz, gbar, rij, ux, uy, uz, slot, mask, w, gbar_bar, out_r,
-      out_x, out_y, out_z, rows, n, n_slots, algorithm, n_filters, c0, c1,
-      c2, n_mono, codes, n_moments, moments, rc, cutoff_id, stream);
+int grap_vjp_bwd_f32_geometry(GRAP_VJP_BWD_PARAMS(float)) {
+  return launch_grap_vjp_bwd<float, true>(GRAP_VJP_BWD_ARGS);
+}
+
+int grap_vjp_bwd_f32(GRAP_VJP_BWD_PARAMS(float)) {
+  return out_r != nullptr ? grap_vjp_bwd_f32_geometry(GRAP_VJP_BWD_ARGS)
+                          : grap_vjp_bwd_f32_flat(GRAP_VJP_BWD_ARGS);
 }
 #endif
 
 #if GRAP_VJP_BWD_HAS_ENTRY(1)
-int grap_vjp_bwd_f64(const double* vr, const double* vx, const double* vy,
-                     const double* vz, const double* gbar, const double* rij,
-                     const double* ux, const double* uy, const double* uz,
-                     const double* slot, const double* mask, const double* w,
-                     double* gbar_bar, double* out_r, double* out_x,
-                     double* out_y, double* out_z, int rows, int n,
-                     int n_slots, int algorithm, int n_filters,
-                     const double* c0, const double* c1, const double* c2,
-                     int n_mono, const unsigned short* codes, int n_moments,
-                     const int* moments, double rc, int cutoff_id,
-                     void* stream) {
-  return launch_grap_vjp_bwd<double>(
-      vr, vx, vy, vz, gbar, rij, ux, uy, uz, slot, mask, w, gbar_bar, out_r,
-      out_x, out_y, out_z, rows, n, n_slots, algorithm, n_filters, c0, c1,
-      c2, n_mono, codes, n_moments, moments, rc, cutoff_id, stream);
+int grap_vjp_bwd_f32_flat(GRAP_VJP_BWD_PARAMS(float)) {
+  return launch_grap_vjp_bwd<float, false>(GRAP_VJP_BWD_ARGS);
+}
+#endif
+
+#if GRAP_VJP_BWD_HAS_ENTRY(2)
+int grap_vjp_bwd_f64_geometry(GRAP_VJP_BWD_PARAMS(double)) {
+  return launch_grap_vjp_bwd<double, true>(GRAP_VJP_BWD_ARGS);
+}
+
+int grap_vjp_bwd_f64(GRAP_VJP_BWD_PARAMS(double)) {
+  return out_r != nullptr ? grap_vjp_bwd_f64_geometry(GRAP_VJP_BWD_ARGS)
+                          : grap_vjp_bwd_f64_flat(GRAP_VJP_BWD_ARGS);
+}
+#endif
+
+#if GRAP_VJP_BWD_HAS_ENTRY(3)
+int grap_vjp_bwd_f64_flat(GRAP_VJP_BWD_PARAMS(double)) {
+  return launch_grap_vjp_bwd<double, false>(GRAP_VJP_BWD_ARGS);
 }
 #endif
 

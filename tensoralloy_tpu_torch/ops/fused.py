@@ -94,7 +94,7 @@ SPLIT_SOURCES = {"sf_kernels.cu": ("SF_ENTRY", 4),
                  "sf_vjp.cu": ("SF_VJP_ENTRY", 4),
                  "sf_vjp_bwd.cu": ("SF_VJP_BWD_ENTRY", 4),
                  "grap_vjp.cu": ("GRAP_VJP_ENTRY", 2),
-                 "grap_vjp_bwd.cu": ("GRAP_VJP_BWD_ENTRY", 2)}
+                 "grap_vjp_bwd.cu": ("GRAP_VJP_BWD_ENTRY", 4)}
 
 # Launches of each kernel since the last `reset_launch_counts()`; a
 # wrapper adds one where it launches its kernel and nowhere else.
@@ -1468,11 +1468,13 @@ def grap_vjp_bwd_kernel(v, gbar, rij, ux, uy, uz, islotf, mask, desc,
     `grap_vjp_bwd_kernel` (csrc/grap_vjp_bwd.cu: the backward of
     `grap_vjp_kernel`, which JAX takes by `jax.grad` through `jax.vjp` of
     `_grap_ref_dense`, tensoralloy_tpu/ops/fused.py:151); the closed form
-    for CPU tensors. `grap_vjp_kernel`'s shape: a warp a row compacts the
-    slot's pairs, recomputes P and accumulates Z in register tiles,
-    finishes gbar_bar in registers; with the geometry term it forms Pbar
-    and Pb2 and walks the pairs again, one lane a pair running the
-    monomials' dual adjoint; no atomic."""
+    for CPU tensors. A build a mode: `geometry=False` (a train step's
+    loss backward) launches the build of pass 1 alone, 8 pairs a batch
+    staged with their cotangents, at 3 blocks an SM. A warp a row
+    compacts the slot's pairs, recomputes P and accumulates Z in register
+    tiles and finishes gbar_bar in registers; with the geometry term it
+    forms Pbar and Pb2 and walks the pairs again, one lane a pair running
+    the monomials' dual adjoint; no atomic."""
     if rij.device.type == "cpu":
         return grap_vjp_bwd_reference(v, gbar, rij, ux, uy, uz, islotf,
                                       mask, desc, rcut, n_slots, geometry)
