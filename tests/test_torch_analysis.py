@@ -42,17 +42,6 @@ QHA_REL = chip_smoke.QHA_REL
 Q_POINTS = chip_smoke.Q_POINTS
 
 
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """The tier-1 run puts six workers on the machine's cores: these small
-    CPU evaluations run as fast on one thread and then do not
-    oversubscribe the other workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def _port_twin(model, params):
     twin = model_from_dict(json.loads(json.dumps(model.as_dict())),
                            device="cpu", dtype=torch.float64)

@@ -22,9 +22,8 @@ import numpy as np
 import pytest
 
 import chip_smoke
-from test_torch_cli_verbs import (  # noqa: F401 (the fixture applies here)
-    assert_same_output, jax_main, ni_frames, one_torch_thread, port_main,
-    run_both)
+from test_torch_cli_verbs import (
+    assert_same_output, jax_main, ni_frames, port_main, run_both)
 from tensoralloy_tpu_torch.io.extxyz import write_extxyz
 
 ROOT = Path(__file__).resolve().parent.parent

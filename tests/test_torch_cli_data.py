@@ -7,7 +7,7 @@ import pytest
 
 import chip_smoke
 from test_torch_cli_compute import (  # noqa: F401 (the fixtures apply)
-    DATA, SF, _argv, _db, check_case, float64_models, one_torch_thread)
+    DATA, SF, _argv, _db, check_case, float64_models)
 from test_torch_cli_verbs import port_main
 from tensoralloy_tpu_torch.io.sqlite import connect
 

@@ -14,8 +14,7 @@ import pytest
 
 import chip_smoke
 from test_torch_cli_compute import (  # noqa: F401 (the fixtures apply)
-    DYNAMICS, EAM, _argv, _hop, check_case, float64_models,
-    one_torch_thread)
+    DYNAMICS, EAM, _argv, _hop, check_case, float64_models)
 from test_torch_cli_verbs import jax_main, port_main, run_both
 
 REL = 1e-8

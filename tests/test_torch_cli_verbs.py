@@ -45,16 +45,6 @@ FIXTURE = ROOT / "tests" / "data" / "torch_port_ref_cli.json"
 REL = 1e-8
 
 
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """Six workers share the machine's cores: these small evaluations run
-    as fast on one thread and then do not oversubscribe the others."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def port_main(argv):
     return torch_main(argv, device="cpu", dtype="high")
 
@@ -243,7 +233,7 @@ def test_vasp2lammps_as_jax(specorder, tmp_path):
 
 def test_stop_as_jax(tmp_path):
     proc = subprocess.Popen([sys.executable, "-c", "pass"])
-    proc.wait()
+    proc.wait(timeout=60)
 
     def no_pid(work):
         (work / "model").mkdir()
@@ -519,7 +509,7 @@ def test_platform_cpu_and_float32_by_default(tmp_path, monkeypatch):
     proc = subprocess.run(
         [sys.executable, "-m", "tensoralloy_tpu_torch.cli", "compute",
          "latt", model, "Ni", "--num", "5"], cwd=tmp_path, env=env,
-        capture_output=True, text=True, timeout=300)
+        capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("a = ")
     seen = []
@@ -559,7 +549,7 @@ def test_run_of_what_is_not_ported_raises_by_name(case, tmp_path):
              str(tmp_path / "input.toml")], cwd=tmp_path,
             env=dict(os.environ, TENSORALLOY_TPU_PLATFORM="cpu",
                      PYTHONPATH=str(ROOT)),
-            capture_output=True, text=True, timeout=300)
+            capture_output=True, text=True, timeout=120)
         assert proc.returncode != 0
         assert "ValueError: " + match in proc.stderr
 

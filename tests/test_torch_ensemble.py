@@ -39,17 +39,6 @@ KEYS = ("energy", "free_energy", "forces", "stress", "pressure",
         "energy_std", "forces_std", "stress_std", "atomic_energies")
 
 
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """The tier-1 run puts six workers on the machine's cores: these small
-    CPU evaluations run as fast on one thread and then do not
-    oversubscribe the other workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 @pytest.fixture(autouse=True)
 def jax_high_precision():
     """The JAX references at float64 ('high'), whatever an earlier test in

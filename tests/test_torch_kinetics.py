@@ -39,17 +39,6 @@ KINETICS_MODEL = "artifacts/mleam_ni/model/snap_Ni_mleam.npz"
 FIXTURE_KEYS = chip_smoke.KINETICS_KEYS
 
 
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """The tier-1 run puts six workers on the machine's cores: these small
-    CPU evaluations run as fast on one thread and then do not
-    oversubscribe the other workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def _port_twin(model, params):
     twin = model_from_dict(json.loads(json.dumps(model.as_dict())),
                            device="cpu", dtype=torch.float64)

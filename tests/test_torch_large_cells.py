@@ -224,9 +224,11 @@ def _jax_hessian(name, js):
 
 @pytest.mark.parametrize("name", ["eam", "sf", "grap"])
 def test_hessian_matches_jax(name):
-    """get_hessian on a 32-atom cell, flat and phonopy layouts, against
-    the JAX calculator's; symmetric. GRAP on 'pallas': its 96 rows run
-    through the second-order closed form (`GrapVjpFunction`)."""
+    """get_hessian on a 32-atom cell against the JAX calculator's;
+    symmetric. GRAP on 'pallas': its 96 rows run through the second-order
+    closed form (`GrapVjpFunction`). The phonopy layout is a reshape of
+    the structure's rows, the same for every model: it is checked once,
+    on the cheapest."""
     js, s = _both(*_cell(name))
     calc = TensorAlloyCalculator(MODELS[name], device="cpu",
                                  backend="pallas" if name == "grap" else None)
@@ -235,9 +237,10 @@ def test_hessian_matches_jax(name):
     assert h.shape == (3 * len(s), 3 * len(s))
     assert _rel(h, want) <= REL
     np.testing.assert_allclose(h, h.T, rtol=0, atol=1e-10 * np.abs(h).max())
-    ph = calc.get_hessian(s, phonopy_format=True)
-    np.testing.assert_array_equal(
-        ph, h.reshape(len(s), 3, len(s), 3).transpose(0, 2, 1, 3))
+    if name == "eam":
+        ph = calc.get_hessian(s, phonopy_format=True)
+        np.testing.assert_array_equal(
+            ph, h.reshape(len(s), 3, len(s), 3).transpose(0, 2, 1, 3))
 
 
 def test_rij_efs_matches_jax():

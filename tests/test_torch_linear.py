@@ -8,7 +8,6 @@ only there).
 """
 import numpy as np
 import pytest
-import torch
 
 from tensoralloy_tpu.atoms import Structure as JaxStructure
 from tensoralloy_tpu.linear.model import LinearTensorMD as JaxLinear
@@ -25,17 +24,6 @@ A0 = 3.6
 # these rows has condition ~1e6 there (1e12 and more at the default
 # 1e-8, where rows equal to round-off give coefficients apart by 1e-4)
 ALPHA = 1e-2
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """The tier-1 run puts six workers on the machine's cores: these small
-    CPU evaluations run as fast on one thread and then do not
-    oversubscribe the other workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _close(got, want, rel=REL, what=""):

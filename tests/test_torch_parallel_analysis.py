@@ -18,7 +18,7 @@ from tensoralloy_tpu.neb import NEB as JaxNEB
 from tensoralloy_tpu_torch.parallel import ranks
 from tensoralloy_tpu_torch.parallel.mesh import launch
 from test_torch_cli_compute import (  # noqa: F401 (the fixtures apply)
-    EAM, REL as CLI_REL, _argv, _hop, float64_models, one_torch_thread)
+    EAM, REL as CLI_REL, _argv, _hop, float64_models)
 from test_torch_cli_verbs import assert_same_output, jax_main, port_main
 from test_torch_ensemble import NI_MEMBERS, jittered_ni
 from test_torch_neb import _grap, _zjw04, fcc_vacancy_pair

@@ -40,15 +40,7 @@ from tensoralloy_tpu_torch.parallel.mesh import (Mesh, launch, make_mesh,
                                                  shard_batch)
 
 REL = 1e-10
-JOIN = 300.0      # seconds a launch may take before its ranks are killed
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+JOIN = 120.0      # seconds a launch may take before its ranks are killed
 
 
 def rel_err(got, want) -> float:

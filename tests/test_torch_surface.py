@@ -39,17 +39,6 @@ REL = 1e-8
 SURFACE_MODEL = "artifacts/mleam_ni/model/snap_Ni_mleam.npz"
 
 
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """The tier-1 run puts six workers on the machine's cores: these small
-    CPU evaluations run as fast on one thread and then do not
-    oversubscribe the other workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def bulk(cls, a=A0):
     base = np.array([[0, 0, 0], [.5, .5, 0], [.5, 0, .5], [0, .5, .5]]) * a
     return cls.from_symbols(["Ni"] * 4, base, np.eye(3) * a, pbc=[True] * 3)

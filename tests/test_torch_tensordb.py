@@ -512,7 +512,7 @@ def test_tensordb_runs_without_torch_jax_or_matplotlib(tmp_path):
     def run(argv):
         proc = subprocess.run([sys.executable, "-c", RUN_BLOCKED, *argv],
                               cwd=tmp_path / "db", env=env,
-                              capture_output=True, text=True, timeout=300)
+                              capture_output=True, text=True, timeout=120)
         assert proc.returncode == 0, proc.stderr
         return proc.returncode
 

@@ -28,17 +28,6 @@ from tensoralloy_tpu_torch.io.model import model_from_dict
 A0 = 3.52
 
 
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """The tier-1 run puts six workers on the machine's cores: these small
-    CPU evaluations run as fast on one thread and then do not
-    oversubscribe the other workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def _ni(reps=2, jitter=0.0):
     base = np.array([[0, 0, 0], [.5, .5, 0], [.5, 0, .5], [0, .5, .5]])
     frac = np.concatenate([base + [i, j, k] for i in range(reps)

@@ -336,14 +336,6 @@ def counted_grap_vjp(monkeypatch):
     return batches
 
 
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def _rel(got, want):
     got, want = np.asarray(got, float), np.asarray(want, float)
     return np.max(np.abs(got - want)) / max(np.max(np.abs(want)), 1e-300)
