@@ -108,15 +108,17 @@ def make_ensemble_efs_fn(model, trees: Sequence[dict],
     def efs_vectors(features) -> Dict[str, torch.Tensor]:
         pos, cell = features["positions"], features["cell"]
         specs = [("pair_vec_d", "pair_j_d", "pair_simg_d",
-                  "pair_trans_d", "pair_trans_mask_d")]
+                  "pair_trans_d", "pair_trans_mask_d", "pair_mask_d")]
         if "trip_j_d" in features:
             specs += [("trip_vec_j_d", "trip_j_d", "trip_simg_j_d",
-                       "trip_trans_j_d", "trip_trans_j_mask_d"),
+                       "trip_trans_j_d", "trip_trans_j_mask_d",
+                       "trip_mask_d"),
                       ("trip_vec_k_d", "trip_k_d", "trip_simg_k_d",
-                       "trip_trans_k_d", "trip_trans_k_mask_d")]
+                       "trip_trans_k_d", "trip_trans_k_mask_d",
+                       "trip_mask_d")]
         f = dict(features)
         vecs = []
-        for key, jkey, skey, _, _ in specs:
+        for key, jkey, skey, *_ in specs:
             with torch.no_grad():
                 v = gather_vec(pos, features[jkey], features[skey], cell)
             f[key] = tuple(c.requires_grad_() for c in v)
@@ -124,11 +126,11 @@ def make_ensemble_efs_fn(model, trees: Sequence[dict],
         e, aux, flat = member_grads(f, [c for v in vecs for c in v])
         forces = 0.0
         virial = 0.0
-        for i, (_, _, _, tkey, mkey) in enumerate(specs):
+        for i, (_, jkey, _, tkey, mkey, fmkey) in enumerate(specs):
             g = flat[3 * i:3 * i + 3]                      # [K, A, N] each
-            shape = (k,) + features[tkey].shape
-            rev = transpose_reduce(g, features[tkey].expand(shape),
-                                   features[mkey].expand(shape))
+            rev = transpose_reduce(g, *(
+                features[key].expand((k,) + features[key].shape)
+                for key in (tkey, mkey, jkey, fmkey)))
             forces = forces + torch.stack(
                 [torch.sum(gc, dim=-1) - rc for gc, rc in zip(g, rev)],
                 dim=-1)

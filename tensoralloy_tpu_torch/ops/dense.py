@@ -159,23 +159,91 @@ def dense_triple_geometry(features):
             features["trip_aslot_d"], mask)
 
 
-def transpose_reduce(g, trans_idx: torch.Tensor, trans_mask: torch.Tensor):
+# Calls of the force assembly's two Functions since the last
+# `reset_assembly_counts()`, forward and backward, as host integers: a
+# dense train step differentiates each of its assemblies once, so it adds
+# one "transpose_reduce_bwd" a table (pairs, triples' j and k sides).
+assembly_counts: Dict[str, int] = {"transpose_reduce": 0,
+                                   "transpose_reduce_bwd": 0,
+                                   "forward_gather": 0,
+                                   "forward_gather_bwd": 0}
+
+
+def reset_assembly_counts() -> None:
+    for key in assembly_counts:
+        assembly_counts[key] = 0
+
+
+def _row_offsets(b: int, stride: int, device) -> torch.Tensor:
+    """[B, 1, 1] offsets of each structure's rows in a batch's flat table."""
+    return torch.arange(0, b * stride, stride, device=device).view(b, 1, 1)
+
+
+class TransposeReduce(torch.autograd.Function):
+    """out[b, a, :] = sum_c tab[b].flat[trans_idx[b, a, c], :]
+    * trans_mask[b, a, c] for a [B, A, N, K] table. Its backward is
+    `ForwardGather` through the forward table (`j`, `mask`), so no order of
+    differentiation scatters."""
+
+    @staticmethod
+    def forward(ctx, tab, trans_idx, trans_mask, j, mask):
+        assembly_counts["transpose_reduce"] += 1
+        ctx.save_for_backward(trans_idx, trans_mask, j, mask)
+        b, a, n, k = tab.shape
+        offset = _row_offsets(b, a * n, tab.device)
+        gt = tab.reshape(b * a * n, k)[trans_idx + offset]   # [B, A, C, K]
+        return torch.stack([torch.sum(gt[..., c] * trans_mask, dim=-1)
+                            for c in range(k)], dim=-1)
+
+    @staticmethod
+    def backward(ctx, gout):
+        assembly_counts["transpose_reduce_bwd"] += 1
+        trans_idx, trans_mask, j, mask = ctx.saved_tensors
+        return (ForwardGather.apply(gout, j, mask, trans_idx, trans_mask),
+                None, None, None, None)
+
+
+class ForwardGather(torch.autograd.Function):
+    """gin[b, i, s, :] = gout[b, j[b, i, s], :] * mask[b, i, s]: the
+    transpose of `TransposeReduce`, which is its backward."""
+
+    @staticmethod
+    def forward(ctx, gout, j, mask, trans_idx, trans_mask):
+        assembly_counts["forward_gather"] += 1
+        ctx.save_for_backward(j, mask, trans_idx, trans_mask)
+        b, a, k = gout.shape
+        offset = _row_offsets(b, a, gout.device)
+        return gout.reshape(b * a, k)[j + offset] * mask[..., None]
+
+    @staticmethod
+    def backward(ctx, ggin):
+        assembly_counts["forward_gather_bwd"] += 1
+        j, mask, trans_idx, trans_mask = ctx.saved_tensors
+        return (TransposeReduce.apply(ggin, trans_idx, trans_mask, j, mask),
+                None, None, None, None)
+
+
+def transpose_reduce(g, trans_idx: torch.Tensor, trans_mask: torch.Tensor,
+                     j: torch.Tensor, mask: torch.Tensor):
     """scatter-add(g by index table) as a GATHER + row reduction through
     the host-built transpose table: out[a] = sum_c g.flat[trans_idx[a, c]]
     * trans_mask[a, c], per structure. `g` is a tuple of [B, A, N]
-    components (or [A, N]: a batch of one); they are stacked into one
-    [B*A*N, 3] table fetched by a single row gather, structure b's
-    indices offset by b * A * N."""
+    components (or [A, N]: a batch of one), stacked into one [B, A, N, 3]
+    table; structure b's indices are offset by b * A * N.
+
+    `j` and `mask` are the forward table the transpose table inverts
+    (`pair_j_d` / `pair_mask_d`, `trip_j_d` or `trip_k_d` /
+    `trip_mask_d`). The backward rests on the featurizer's contract: over
+    the masked entries the transpose table is the inverse of the forward
+    table, every real slot p appearing once, in row j.flat[p]. So the
+    gradient w.r.t. g is the gather gout[j] * mask, with no accumulation."""
     if trans_idx.dim() == 2:
         return tuple(r[0] for r in transpose_reduce(
-            [gc[None] for gc in g], trans_idx[None], trans_mask[None]))
-    b, a, n = g[0].shape
-    tab = torch.stack([gc.reshape(-1) for gc in g], dim=-1)  # [B*A*N, 3]
-    offset = torch.arange(0, b * a * n, a * n,
-                          device=trans_idx.device).view(b, 1, 1)
-    gt = tab[trans_idx + offset]                             # [B, A, C, 3]
-    return tuple(torch.sum(gt[..., c] * trans_mask, dim=-1)
-                 for c in range(len(g)))
+            [gc[None] for gc in g], trans_idx[None], trans_mask[None],
+            j[None], mask[None]))
+    tab = torch.stack(tuple(g), dim=-1)                      # [B, A, N, 3]
+    return TransposeReduce.apply(tab, trans_idx, trans_mask, j,
+                                 mask).unbind(-1)
 
 
 def make_dense_efs_fn(energy_fn: Callable,
@@ -242,8 +310,8 @@ def make_dense_efs_fn(energy_fn: Callable,
                                        create_graph=create_graph)
         grads = [flat[3 * i:3 * i + 3] for i in range(len(vecs))]
 
-        def assemble(g, tidx, tmask):
-            rev = transpose_reduce(g, tidx, tmask)
+        def assemble(g, tidx, tmask, jd, mask):
+            rev = transpose_reduce(g, tidx, tmask, jd, mask)
             return tuple(torch.sum(gc, dim=-1) - rc
                          for gc, rc in zip(g, rev))
 
@@ -254,13 +322,16 @@ def make_dense_efs_fn(energy_fn: Callable,
                               for b in range(3)], dim=-1)
                  for a in range(3)], dim=-2)
 
-        tables = [("pair_trans_d", "pair_trans_mask_d"),
-                  ("trip_trans_j_d", "trip_trans_j_mask_d"),
-                  ("trip_trans_k_d", "trip_trans_k_mask_d")]
+        tables = [("pair_trans_d", "pair_trans_mask_d", "pair_j_d",
+                   "pair_mask_d"),
+                  ("trip_trans_j_d", "trip_trans_j_mask_d", "trip_j_d",
+                   "trip_mask_d"),
+                  ("trip_trans_k_d", "trip_trans_k_mask_d", "trip_k_d",
+                   "trip_mask_d")]
         fc = None
         virial = None
-        for g, vv, (tkey, mkey) in zip(grads, vecs, tables):
-            fi = assemble(g, features[tkey], features[mkey])
+        for g, vv, keys in zip(grads, vecs, tables):
+            fi = assemble(g, *(features[key] for key in keys))
             wi = outer_virial(g, vv)
             fc = fi if fc is None else tuple(a + b for a, b in zip(fc, fi))
             virial = wi if virial is None else virial + wi

@@ -33,6 +33,12 @@ def mo_ni(seed=0, n=24):
     return symbols, rng.uniform(0, 7.0, (n, 3)), np.eye(3) * 7.0
 
 
+# (transpose table, its mask, the forward table it inverts, that mask)
+TABLES = [("pair_trans_d", "pair_trans_mask_d", "pair_j_d", "pair_mask_d"),
+          ("trip_trans_j_d", "trip_trans_j_mask_d", "trip_j_d",
+           "trip_mask_d"),
+          ("trip_trans_k_d", "trip_trans_k_mask_d", "trip_k_d",
+           "trip_mask_d")]
 CASES = {
     # the served model's cutoffs: rcut 6, acut 4
     "ni_fcc": (fcc_ni, ["Ni"], dict(rcut=6.0, acut=4.0)),
@@ -83,6 +89,37 @@ def test_neighbor_size_and_terms_match_jax(case, monkeypatch):
             == asdict(jax_neighbor_size(js, kw["rcut"], True, acut)))
     assert get_kbody_terms(elements, angular=True) == jax_terms(
         elements, angular=True)
+
+
+@pytest.mark.parametrize("native", [False, True])
+@pytest.mark.parametrize("widened", [False, True])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_transpose_tables_invert_the_forward_tables(case, widened, native,
+                                                    monkeypatch):
+    """The contract `ops.dense.transpose_reduce`'s backward rests on: the
+    masked entries of each transpose table are the forward table's real
+    flat slots, each once, and each sits in the row of its neighbour."""
+    if not native:
+        monkeypatch.setenv("TENSORALLOY_TPU_NO_NATIVE", "1")
+    build, elements, kw = CASES[case]
+    s = Structure.from_symbols(*build(), pbc=[True] * 3)
+    fz = Featurizer(elements, angular=True, **kw)
+    opts = dict(transpose=True)
+    if widened:
+        out = fz.featurize(s, fz.make_vap(s), **opts)
+        opts.update(nnl_max=out["pair_j_d"].shape[1] + 5,
+                    ntl_max=out["trip_j_d"].shape[1] + 7,
+                    ttrans_max=max(out[f"trip_trans_{k}_d"].shape[1]
+                                   for k in "jk") + 9)
+    out = fz.featurize(s, fz.make_vap(s), **opts)
+    for tidx, tmask, jd, mask in TABLES:
+        real = np.flatnonzero(out[mask].reshape(-1) > 0)
+        rows, cols = np.nonzero(out[tmask] > 0)
+        slots = out[tidx][rows, cols]
+        assert len(real) > 0 and (out[tmask] == 0).any(), tidx
+        np.testing.assert_array_equal(np.sort(slots), real, err_msg=tidx)
+        np.testing.assert_array_equal(out[jd].reshape(-1)[slots], rows,
+                                      err_msg=tidx)
 
 
 # ----------------------------------------------------------------------

@@ -4,6 +4,7 @@ autograd Functions against JAX `fused_g2`/`fused_g4` (Pallas in
 interpret mode), values and VJPs to 1e-12; the host tables that the
 kernel wrappers keep per descriptor."""
 import functools
+from collections import Counter
 
 import jax
 import jax.numpy as jnp
@@ -17,10 +18,13 @@ from tensoralloy_tpu.ops import cutoffs as jax_cutoffs
 from tensoralloy_tpu.ops import dense as jax_dense
 from tensoralloy_tpu.ops import fused as jax_fused
 from tensoralloy_tpu.transform import Featurizer as JaxFeaturizer
+from tensoralloy_tpu_torch.atoms import Structure
 from tensoralloy_tpu_torch.nn.grap import GenericRadialAtomicPotential
 from tensoralloy_tpu_torch.ops import cutoffs, dense, fused
+from tensoralloy_tpu_torch.transform.featurizer import (Featurizer,
+                                                        batch_features)
 
-from test_torch_host import fcc_ni, mo_ni
+from test_torch_host import TABLES, fcc_ni, mo_ni
 
 TOL = dict(rtol=1e-12, atol=1e-12)
 CELLS = {"ni_fcc": (fcc_ni, ["Ni"]), "moni": (mo_ni, ["Mo", "Ni"])}
@@ -75,18 +79,86 @@ def test_transpose_reduce_matches_jax(cell):
     _, feats = _features(cell)
     rng = np.random.RandomState(3)
     g = [rng.normal(size=feats["pair_j_d"].shape) for _ in range(3)]
-    for idx, msk in (("pair_trans_d", "pair_trans_mask_d"),
-                     ("trip_trans_j_d", "trip_trans_j_mask_d")):
+    for idx, msk, jd, fmsk in TABLES:
         gg = g if idx.startswith("pair") else [
             rng.normal(size=feats["trip_j_d"].shape) for _ in range(3)]
-        got = dense.transpose_reduce([torch.as_tensor(x) for x in gg],
-                                     torch.as_tensor(feats[idx]),
-                                     torch.as_tensor(feats[msk]))
+        got = dense.transpose_reduce(
+            [torch.as_tensor(x) for x in gg],
+            *(torch.as_tensor(feats[k]) for k in (idx, msk, jd, fmsk)))
         want = jax_dense.transpose_reduce([jnp.asarray(x) for x in gg],
                                           jnp.asarray(feats[idx]),
                                           jnp.asarray(feats[msk]))
         for a, b in zip(got, want):
             np.testing.assert_allclose(a.numpy(), np.asarray(b), **TOL)
+
+
+@functools.lru_cache(maxsize=None)
+def _mixed_batch():
+    """A padded batch as the snap-Ni batches are: jittered fcc Ni of 4,
+    32 and 4 atoms on one 33-row map, rc 6 / acut 4, every table wider
+    than its largest structure needs (numpy, float64)."""
+    fz = Featurizer(["Ni"], rcut=6.0, acut=4.0, angular=True)
+    occurs = Counter({"Ni": 32})
+    structures = [Structure.from_symbols(*fcc_ni(reps, seed),
+                                         pbc=[True] * 3)
+                  for reps, seed in ((1, 0), (2, 1), (1, 2))]
+
+    def featurize(**widths):
+        return [fz.featurize(s, fz.make_vap(s, occurs), transpose=True,
+                             **widths) for s in structures]
+
+    natural = featurize()
+    widths = dict(
+        nnl_max=max(f["pair_j_d"].shape[1] for f in natural) + 5,
+        ntl_max=max(f["trip_j_d"].shape[1] for f in natural) + 7,
+        ttrans_max=max(f[f"trip_trans_{s}_d"].shape[1]
+                       for f in natural for s in "jk") + 9)
+    return batch_features(featurize(**widths))
+
+
+def _gather_and_sum(g, trans_idx, trans_mask):
+    """The assembly as a plain gather and masked row sum, whose backward
+    autograd derives (an accumulating `index_put`): the oracle."""
+    b, a, n = g[0].shape
+    tab = torch.stack([gc.reshape(-1) for gc in g], dim=-1)
+    offset = torch.arange(0, b * a * n, a * n).view(b, 1, 1)
+    gt = tab[trans_idx + offset]
+    return tuple(torch.sum(gt[..., c] * trans_mask, dim=-1)
+                 for c in range(3))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("table", TABLES, ids=lambda t: t[0])
+def test_transpose_reduce_backward_is_the_forward_gather(table, dtype):
+    """On a padded batch of mixed sizes the Functions give autograd's
+    values and gradient of the gather-and-sum, bit for bit, and each
+    call is counted; in float64 the first and second orders pass
+    gradcheck."""
+    feats = _mixed_batch()
+    idx, msk, jd, fmsk = (torch.as_tensor(feats[k]) for k in table)
+    msk, fmsk = msk.to(dtype), fmsk.to(dtype)
+    assert (fmsk == 0).any() and (msk == 0).any()
+    gen = torch.Generator().manual_seed(11)
+    g = [torch.randn(jd.shape, generator=gen, dtype=dtype,
+                     requires_grad=True) for _ in range(3)]
+    gout = [torch.randn(idx.shape[:2], generator=gen, dtype=dtype)
+            for _ in range(3)]
+    want = _gather_and_sum(g, idx, msk)
+    want_grad = torch.autograd.grad(want, g, gout)
+    dense.reset_assembly_counts()
+    got = dense.transpose_reduce(g, idx, msk, jd, fmsk)
+    got_grad = torch.autograd.grad(got, g, gout)
+    assert dense.assembly_counts == {
+        "transpose_reduce": 1, "transpose_reduce_bwd": 1,
+        "forward_gather": 1, "forward_gather_bwd": 0}
+    for a, b in zip(got + got_grad, want + want_grad):
+        assert torch.equal(a, b)
+    if dtype == torch.float64:
+        def fn(*comps):
+            return dense.transpose_reduce(comps, idx, msk, jd, fmsk)
+        leaves = tuple(c.detach().requires_grad_() for c in g)
+        assert torch.autograd.gradcheck(fn, leaves, fast_mode=True)
+        assert torch.autograd.gradgradcheck(fn, leaves, fast_mode=True)
 
 
 def _jax_op(pallas_impl, ref_impl, n_diff):

@@ -49,6 +49,7 @@ from tensoralloy_tpu_torch.nn.finite_temperature import (
     TemperatureDependentAtomicNN)
 from tensoralloy_tpu_torch.nn.grap import GenericRadialAtomicPotential
 from tensoralloy_tpu_torch.nn.sf import SymmetryFunction
+from tensoralloy_tpu_torch.ops import dense
 from tensoralloy_tpu_torch.train.trainer import (OptParameters,
                                                  TrainParameters, Trainer)
 from tensoralloy_tpu_torch.transform.featurizer import Featurizer
@@ -455,6 +456,32 @@ def test_dense_and_autodiff_force_assembly_agree(case):
     with pytest.raises(KeyError, match="transpose"):
         case.trainers(force_assembly="dense")[1].loss_and_grads(
             case.torch_params(), stripped, lab, 0)
+
+
+@pytest.mark.parametrize("case,tables", [("sf_pallas", 3), ("grap_012", 1)],
+                         indirect=["case"])
+def test_dense_train_step_assembles_without_index_put(case, tables):
+    """A dense-assembly train step differentiates each force assembly
+    (pairs; an SF model's triples on their j and k sides too) once, by
+    the gather through the forward table, so an SF step records no
+    accumulating index_put. (On the CPU, GRAP's VJP runs its plain
+    stand-in, which accumulates by index_put; the card runs its
+    kernel.)"""
+    _, t = case.trainers()
+    state = t.init_state(case.torch_params())
+    feats = t._to_device(case.arrays[0])
+    labels = t._to_device(case.arrays[1])
+    batch = {k: v[:4] for k, v in feats.items()}
+    batch_labels = {k: v[:4] for k, v in labels.items()}
+    dense.reset_assembly_counts()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        t.train_step(state, batch, batch_labels)
+    assert dense.assembly_counts["transpose_reduce_bwd"] == tables
+    assert dense.assembly_counts["forward_gather"] == tables
+    if tables == 3:
+        ops = {e.key for e in prof.key_averages()}
+        assert not ops & {"aten::index_put_", "aten::_index_put_impl_"}
 
 
 def _fit(trainer, arrays, params, **kw):
