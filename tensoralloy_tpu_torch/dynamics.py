@@ -74,7 +74,9 @@ class VelocityVerlet:
     `device_nl=True` rebuilds the skinned list on the device at every
     chunk (`transform/device_nl.py`); the host only reads the overflow
     diagnostics at the chunk end, and a chunk that overflowed is run
-    again with a grown builder.
+    again with a grown builder. The list's width is sized by the 'mean'
+    census, so it follows the structure's density and not its most
+    crowded atom.
 
     `record_heat_flux=True` records the many-body heat flux
     (`analysis.heatflux`, or the EAM family's analytic flux) at every
@@ -171,7 +173,8 @@ class VelocityVerlet:
             from .transform.device_nl import DeviceNeighborList
             self._nl = DeviceNeighborList(
                 self.fz, self.vap, structure,
-                cutoff=self.fz.max_cutoff + self.skin, layout=self.layout)
+                cutoff=self.fz.max_cutoff + self.skin, layout=self.layout,
+                census="mean")
 
     def _tensor(self, x) -> torch.Tensor:
         return torch.as_tensor(np.asarray(x), dtype=self.dtype,

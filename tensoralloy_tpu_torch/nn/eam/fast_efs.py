@@ -43,6 +43,16 @@ import torch
 from ...ops.dense import gather_vec, safe_norm_components
 from ..fields import stress_outputs
 
+# Runs of the analytic pass since the last `reset_pass_counts()`, by the
+# model's tag, as host integers: an EFS, a heat flux or a spatial rank's
+# shard adds one each; the autograd route adds none.
+pass_counts: Dict[str, int] = {"alloy": 0, "fs": 0, "adp": 0}
+
+
+def reset_pass_counts() -> None:
+    for key in pass_counts:
+        pass_counts[key] = 0
+
 
 def _val_and_deriv(f: Callable, r: torch.Tensor):
     """(f(r), f'(r)) of an elementwise scalar function: one autograd.grad
@@ -79,11 +89,13 @@ def _make_pass(model, reduce: Callable = _identity) -> Callable:
     ct_self and v stay the shard's own."""
     rcut = model.featurizer.rcut
     elements = model.elements
-    is_adp = model.tag == "adp"
-    is_fs = model.tag == "fs"
+    tag = model.tag
+    is_adp = tag == "adp"
+    is_fs = tag == "fs"
 
     @torch.no_grad()
     def run(features, params=None) -> Dict[str, torch.Tensor]:
+        pass_counts[tag] += 1
         params = model._params(params)
         pos = features["positions"]            # [A, 3]
         cell = features["cell"]

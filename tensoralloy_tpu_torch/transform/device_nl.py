@@ -106,7 +106,11 @@ class DeviceNeighborList:
     angular : emit triples (default `featurizer.angular`).
     census : 'exact' sizes the capacities from one host neighbor list;
         'density' from the fullest bin's density and the cutoff sphere
-        (numpy binning only; an angular builder keeps 'exact').
+        (numpy binning only; an angular builder keeps 'exact'); 'mean'
+        from the same host list, each width the margin over an atom's
+        mean count where that covers the most any atom has (else as
+        'exact'), so a jittered or thermal crystal's width does not
+        follow the tail of its displacements.
     """
 
     def __init__(self, featurizer, vap: VirtualAtomMap,
@@ -163,8 +167,9 @@ class DeviceNeighborList:
         self.vap_to_local = np.where(self.row_is_real, v2l, 0)
         self.n_vap = vap.n_atoms_vap
 
-        if census not in ("exact", "density"):
+        if census not in ("exact", "density", "mean"):
             raise ValueError(f"unknown census mode {census!r}")
+        self.census = census
         if cell_cap is None or nnl_cap is None or (
                 self.angular and ntl_cap is None):
             if census == "density" and not self.angular and n:
@@ -172,7 +177,8 @@ class DeviceNeighborList:
                     structure.positions)
             else:
                 occ, nnl_need, ntl_need = self._host_census(
-                    structure.positions)
+                    structure.positions,
+                    margin=margin if census == "mean" else None)
             if cell_cap is None:
                 cell_cap = _round_up(int(np.ceil(occ * margin)))
             if nnl_cap is None:
@@ -207,11 +213,19 @@ class DeviceNeighborList:
         nnl = int(np.ceil(sphere * local_density))
         return occ, max(nnl, 1), 0
 
-    def _host_census(self, positions) -> Tuple[int, int, int]:
+    def _host_census(self, positions, margin: Optional[float] = None
+                     ) -> Tuple[float, float, float]:
         """Exact (max cell occupancy, max neighbors, max triples of an
-        atom) for the given positions, from the host neighbor list."""
+        atom) for the given positions, from the host neighbor list. With
+        a `margin` ('mean' census), a width's need is an atom's mean
+        count wherever `margin` times it covers the max."""
         if not self.n:
             return 0, 0, 0
+
+        def need(counts):
+            mean = float(np.mean(counts))
+            most = int(np.max(counts))
+            return mean if margin and margin * mean >= most else most
         cid, wrap = self._bins(positions)
         occ = int(np.bincount(cid, minlength=np.prod(self.grid)).max())
         from ..neighbor import neighbor_list
@@ -224,8 +238,8 @@ class DeviceNeighborList:
         if self.angular:
             ca = np.bincount(ii[dd < self.fz.acut], minlength=self.n) \
                 if len(ii) else np.zeros(self.n, int)
-            ntl = int((ca * (ca - 1) // 2).max())
-        return occ, int(cnt.max()), ntl
+            ntl = need(ca * (ca - 1) // 2)
+        return occ, need(cnt), ntl
 
     # ------------------------------------------------------------------
     def check(self, diag) -> None:
@@ -272,7 +286,7 @@ class DeviceNeighborList:
         layout; capacities sized again from its positions)."""
         return DeviceNeighborList(
             self.fz, self.vap, structure, cutoff=self.cutoff,
-            layout=self.layout, angular=self.angular)
+            layout=self.layout, angular=self.angular, census=self.census)
 
     def grow(self, diag, margin: float = 1.3) -> "DeviceNeighborList":
         """A builder whose capacities cover `diag` (same grid and
@@ -286,6 +300,7 @@ class DeviceNeighborList:
         return DeviceNeighborList(
             self.fz, self.vap, self._template,
             cutoff=self.cutoff, layout=self.layout, angular=self.angular,
+            census=self.census,
             nnl_cap=up(diag["nnl_needed"], self.nnl_cap),
             cell_cap=up(diag["cell_needed"], self.cell_cap),
             ntl_cap=up(diag.get("ntl_needed", 0), self.ntl_cap)

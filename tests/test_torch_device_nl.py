@@ -1,7 +1,7 @@
 """The port's on-device neighbor list and the calculator's routing against
 the JAX package at float64: the feature dict of `DeviceNeighborList` key
 by key on four cells and three layouts, with and without triples, the
-overflow, image and stencil guards, the density census, and the
+overflow, image and stencil guards, the density and mean censuses, and the
 calculator's "auto" / True routes (GRAP, angular SF, the EAM fast route)
 against the JAX calculator.
 
@@ -463,3 +463,113 @@ def test_calculator_growth_is_bounded():
     calc = TensorAlloyCalculator(twin, device="cpu", device_nl=True)
     with pytest.raises(RuntimeError, match="shift-image overflow"):
         calc.calculate(s)
+
+
+def _jittered_bcc_mo(reps, sigma, seed):
+    """Periodic bcc Mo (a = 3.1467 A), every coordinate moved by
+    N(0, sigma) from numpy's generator on `seed`."""
+    base = np.array([[0.0, 0.0, 0.0], [0.5, 0.5, 0.5]])
+    frac = np.concatenate([base + [i, j, k] for i in range(reps)
+                           for j in range(reps) for k in range(reps)])
+    pos = frac * 3.1467 + np.random.default_rng(seed).normal(
+        0.0, sigma, frac.shape)
+    return Structure.from_symbols(["Mo"] * len(pos), pos,
+                                  np.eye(3) * 3.1467 * reps)
+
+
+def _census_counts(s, cutoff, acut):
+    """Each atom's neighbours within `cutoff` and triples within `acut`,
+    from the host list."""
+    ii, _, _, dd, _ = neighbor_list(s, cutoff)
+    cnt = np.bincount(ii, minlength=len(s))
+    ca = np.bincount(ii[dd < acut], minlength=len(s))
+    return cnt, ca * (ca - 1) // 2
+
+
+def _width(counts, margin=1.3):
+    mean, most = float(np.mean(counts)), int(np.max(counts))
+    need = mean if margin * mean >= most else most
+    return -(-int(np.ceil(need * margin)) // 8) * 8
+
+
+@pytest.mark.parametrize("case", ["bcc", "bcc_triples", "slab",
+                                  "cluster"])
+def test_mean_census_sizes_widths_by_the_mean_count(case):
+    """The 'mean' census: each width is the margin over an atom's mean
+    count where that covers the most any atom has, else the exact
+    census's; the cell occupancy is the exact census's, and the build
+    lists every pair."""
+    if case == "slab":
+        symbols, pos, box, pbc = _cells()["slab"]
+        _, s = _both(symbols, pos, box, pbc)
+        fz, cutoff = Featurizer(["Ni"], rcut=4.5, acut=3.5,
+                                angular=True), 4.5
+    elif case == "cluster":
+        # a 3^3 bcc block in vacuum: its centre has 1.86 times the mean
+        block = _jittered_bcc_mo(3, 0.0, 0)
+        s = Structure.from_symbols(block.symbols, block.positions + 10.0,
+                                   np.eye(3) * 40.0, pbc=[False] * 3)
+        fz, cutoff = Featurizer(["Mo"], rcut=4.5, acut=3.5,
+                                angular=True), 4.5
+    else:
+        s = _jittered_bcc_mo(4, 0.08, 0)
+        fz = Featurizer(["Mo"], rcut=6.5, acut=4.0,
+                        angular=case == "bcc_triples")
+        cutoff = 7.5
+    vap = fz.make_vap(s)
+    exact = DeviceNeighborList(fz, vap, s, cutoff=cutoff)
+    b = DeviceNeighborList(fz, vap, s, cutoff=cutoff, census="mean")
+    cnt, trip = _census_counts(s, cutoff, fz.acut)
+    assert b.cell_cap == exact.cell_cap
+    assert b.nnl_cap == _width(cnt) >= cnt.max()
+    if fz.angular:
+        assert b.ntl_cap == _width(trip) >= trip.max()
+    if case == "cluster":
+        # the most crowded atom has more than 1.3 times the mean: the
+        # widths fall back to the exact census's
+        assert 1.3 * cnt.mean() < cnt.max()
+        assert 1.3 * trip.mean() < trip.max()
+        assert (b.nnl_cap, b.ntl_cap) == (exact.nnl_cap, exact.ntl_cap)
+    elif case != "slab":
+        # this seed's most crowded atom takes the exact width to 160
+        assert (b.nnl_cap, exact.nnl_cap) == (152, 160)
+    feats, diag = b.build(torch.as_tensor(vap.map_positions(s.positions)))
+    b.check(diag)
+    assert _pair_set(b, feats) == _host_pair_set(s, cutoff)
+
+
+def test_mean_census_width_holds_across_jitter_seeds():
+    """A jittered crystal's exact width follows its most crowded atom,
+    which moves with the seed; the 'mean' census gives one width."""
+    fz = Featurizer(["Mo"], rcut=6.5)
+    exact, mean = set(), set()
+    for seed in range(8):
+        s = _jittered_bcc_mo(4, 0.08, seed)
+        vap = fz.make_vap(s)
+        exact.add(DeviceNeighborList(fz, vap, s, cutoff=7.5).nnl_cap)
+        mean.add(DeviceNeighborList(fz, vap, s, cutoff=7.5,
+                                    census="mean").nnl_cap)
+    assert exact == {152, 160}
+    assert mean == {152}
+
+
+def test_md_device_list_keeps_the_mean_census_when_regridded():
+    """`VelocityVerlet(device_nl=True)` sizes its list by the 'mean'
+    census (one width where the exact census gives the wider one), and
+    a re-gridded or grown builder keeps it."""
+    from pathlib import Path
+
+    from tensoralloy_tpu_torch.dynamics import VelocityVerlet
+    from tensoralloy_tpu_torch.io.model import load_model
+    npz = (Path(__file__).resolve().parent.parent / "artifacts" /
+           "mladp_mo_v5" / "model" / "snap_Mo_mladp_gw.npz")
+    model, _ = load_model(str(npz), device="cpu", dtype="high")
+    s = _jittered_bcc_mo(4, 0.08, 0)
+    md = VelocityVerlet(model, s, skin=1.0, device_nl=True)
+    exact = DeviceNeighborList(md.fz, md.vap, s, cutoff=md._nl.cutoff,
+                               layout=md.layout)
+    assert md._nl.census == "mean"
+    assert (md._nl.nnl_cap, exact.nnl_cap) == (152, 160)
+    assert md._nl.rebuilt_for(s).census == "mean"
+    grown = md._nl.grow({"nnl_needed": 153, "cell_needed": 1})
+    assert (grown.census, grown.nnl_cap) == ("mean", 200)
