@@ -290,9 +290,20 @@ failure ends the run with a non-zero exit and no result line:
              at 3.35 TB/s and its useful FLOP at the FP32 67 TFLOP/s;
              the second-order kernels on (v, gbar) of the same shapes,
              also queued without the geometry term, beside the closed
-             form and the twins' double autograd
+             form and the twins' double autograd; the fused ADP pass
+             (csrc/adp_pass.cu) at the md_adp_mo432k cell's shape
+             (432,000 atoms of jittered bcc Mo, 152 slots a row): in
+             float64 against the plain pass in float64 to 1e-10, in
+             float32 with the plain pass each against the plain pass in
+             float64 (the fused error within 4 times the plain one plus
+             1e-6), bit for bit with itself, and the device time of its
+             two kernels and of the whole pass, and the host time of a
+             pass, beside the plain pass and the frozen bound of one
+             pass (portbench/work/adp.py)
 
-The line before the last is a JSON object of per-kernel results, the
+The line before the last is a JSON object of per-kernel results (and,
+under "adp_pass", the fused ADP pass's row with the launches of its two
+kernels over the eam, large and md phases), the
 three forward kernels, their three VJP kernels and their three
 second-order kernels (the launches of the
 serve, train, manager, large, md, analysis, cli, descriptors and
@@ -2139,11 +2150,13 @@ def eam(card):
     """The EAM family: both saved models served through both routes, and
     both experiment files through the manager. No descriptor kernel lies
     on this path: the launch counts are reset before it and must read 0
-    after it."""
+    after it; mladp_mo_v5's fast route launches the ADP kernels. ->
+    (served, managed, the ADP kernels' launches)."""
     from tensoralloy_tpu_torch.ops import fused
     phase("eam")
     t0 = time.perf_counter()
     fused.reset_launch_counts()
+    reset_adp_launches()
     served = {name: serve_eam(name, card) for name in EAM_PATHS}
     deterministic = torch.are_deterministic_algorithms_enabled()
     torch.use_deterministic_algorithms(True)
@@ -2158,8 +2171,9 @@ def eam(card):
           f"{launches or 0} (none on this path)")
     if launches:
         raise AssertionError("the EAM path launched a descriptor kernel")
+    adp = adp_launches("eam")
     print(f"  eam phase {time.perf_counter() - t0:.1f} s")
-    return served, managed
+    return served, managed, adp
 
 
 # ----------------------------------------------------------------------
@@ -2364,11 +2378,12 @@ def hessians(card):
 
 def large(card):
     """The device-list, chunked and Hessian routes on the default device
-    (cuda). -> their launches by kernel."""
+    (cuda). -> (times, their launches by kernel, the ADP kernels')."""
     from tensoralloy_tpu_torch.ops import fused
     phase("large")
     t0 = time.perf_counter()
     fused.reset_launch_counts()
+    reset_adp_launches()
     times = device_nl_requests(card)
     chunked_requests(card)
     hessians(card)
@@ -2377,8 +2392,9 @@ def large(card):
     for k in launches:
         if not launches[k]:
             raise AssertionError(f"the large phase launched no {k}")
+    adp = adp_launches("large")
     print(f"  large phase {time.perf_counter() - t0:.1f} s")
-    return times, launches
+    return times, launches, adp
 
 
 # ----------------------------------------------------------------------
@@ -2540,11 +2556,13 @@ def md_thermostats(card):
 
 
 def md(card):
-    """The dynamics on the default device (cuda). -> launches by kernel."""
+    """The dynamics on the default device (cuda). -> (launches by kernel,
+    the ADP kernels')."""
     from tensoralloy_tpu_torch.ops import fused
     phase("md")
     t0 = time.perf_counter()
     fused.reset_launch_counts()
+    reset_adp_launches()
     md_fixtures(card)
     md_nve_flux(card)
     md_grap(card)
@@ -2554,8 +2572,9 @@ def md(card):
     if not launches["grap"] or not launches["grap_vjp"]:
         raise AssertionError("the md phase launched no grap_kernel or no "
                              "grap_vjp_kernel")
+    adp = adp_launches("md")
     print(f"  md phase {time.perf_counter() - t0:.1f} s")
-    return launches
+    return launches, adp
 
 
 # ----------------------------------------------------------------------
@@ -4893,6 +4912,179 @@ def time_path(card, served, launches):
     return time_kernels(cases, card, launches)
 
 
+# the fused ADP pass at the md_adp_mo432k cell's shape: mladp_mo_v5 in
+# float32 on bcc Mo of 60^3 cells (432,000 atoms), a 3.1467 A, jittered
+# by 0.05 A, on its device list with a 1 A skin ('mean' census: 152
+# slots a row)
+ADP_PASS_REPS, ADP_PASS_A = 60, 3.1467
+ADP_PASS_SIGMA, ADP_PASS_SKIN = 0.05, 1.0
+# float64: the fused pass against the plain pass on the same list, to
+# ADP_PASS_F64_REL; float32: the fused and the plain pass each against
+# the plain pass in float64, the fused pass's error at most
+# ADP_PASS_F32_TIMES the plain pass's plus ADP_PASS_F32_FLOOR (the
+# limits of tests/test_torch_adp_fused.py)
+ADP_PASS_F64_REL = 1e-10
+ADP_PASS_F32_TIMES, ADP_PASS_F32_FLOOR = 4.0, 1e-6
+
+
+def reset_adp_launches() -> None:
+    from tensoralloy_tpu_torch.nn.eam import fast_efs
+    fast_efs.reset_adp_launch_counts()
+    fast_efs.reset_fused_pass_counts()
+
+
+def adp_launches(label: str) -> dict:
+    """The launches of csrc/adp_pass.cu's kernels since
+    `reset_adp_launches()`, printed; each kernel once a fused pass, and at
+    least once -> {kernel: launches}."""
+    from tensoralloy_tpu_torch.nn.eam import fast_efs
+    launches = dict(fast_efs.adp_launch_counts)
+    passes = fast_efs.fused_pass_counts["adp"]
+    print(f"  adp kernel launches over the {label} phase: {launches} "
+          f"({passes} fused passes)")
+    if not passes or set(launches.values()) != {passes}:
+        raise AssertionError(f"the {label} phase launched {launches} over "
+                             f"{passes} fused ADP passes")
+    return launches
+
+
+def adp_pass_case(reps: int = ADP_PASS_REPS):
+    """mladp_mo_v5 in float32 (TF32 off) on jittered bcc Mo of reps^3
+    cells, and the features of its skinned device list as
+    `VelocityVerlet(device_nl=True)` builds them -> (model, features,
+    atoms)."""
+    from tensoralloy_tpu_torch.atoms import Structure
+    from tensoralloy_tpu_torch.io.model import load_model
+    from tensoralloy_tpu_torch.transform.device_nl import DeviceNeighborList
+    torch.backends.cuda.matmul.allow_tf32 = False
+    pos, cell = jittered_lattice("bcc", reps, ADP_PASS_A,
+                                 sigma=ADP_PASS_SIGMA)
+    s = Structure.from_symbols(["Mo"] * len(pos), pos, cell, pbc=[True] * 3)
+    model, _ = load_model(str(EAM_PATHS["mladp_mo_v5"][0]), device="cuda",
+                          dtype="medium")
+    occurs = Counter(s.symbols)
+    model = model.clone_for(occurs)
+    fz = model.featurizer
+    vap = fz.make_vap(s, occurs)
+    nl = DeviceNeighborList(fz, vap, s, cutoff=fz.rcut + ADP_PASS_SKIN,
+                            layout="dense", census="mean")
+    feats, diag = nl.build(torch.as_tensor(
+        vap.map_positions(s.positions), dtype=torch.float32, device="cuda"))
+    nl.check(diag)
+    return model, feats, len(s)
+
+
+def time_adp_pass(card, reps: int = ADP_PASS_REPS) -> dict:
+    """The fused ADP pass (`nn/eam/fast_efs.py`, csrc/adp_pass.cu) on
+    `adp_pass_case`'s inputs against the plain pass in float64 (E, atomic
+    energies, F and the virial): in float64 to ADP_PASS_F64_REL, in
+    float32 beside the plain pass in float32, to ADP_PASS_F32_TIMES and
+    ADP_PASS_F32_FLOOR; a second fused pass bit for bit. Then device
+    times: adp_accumulate and adp_forces alone and the whole
+    fused pass queued (`_queued_ms`) and single (`_median_ms`), the host
+    time of its call, the plain pass single, beside the frozen bound of
+    one pass (portbench/work/adp.py: bytes and FLOP from the pairs within
+    rcut and within u and w's cutoff) -> one row."""
+    from portbench.work import adp as work_adp
+    from portbench.work.peaks import bound_s
+    from tensoralloy_tpu_torch.nn.eam import fast_efs
+    from tensoralloy_tpu_torch.ops.dense import (gather_vec,
+                                                 safe_norm_components)
+    model, feats, atoms = adp_pass_case(reps)
+    run = fast_efs._make_fused_pass(model)
+    plain = fast_efs._make_pass(model)
+    keys = ("energy", "atomic_energies", "forces", "virial")
+    got, again = run(feats), run(feats)
+    bitwise = all(torch.equal(got[k], again[k]) for k in keys)
+    got, want = ({k: o[k].cpu() for k in keys}
+                 for o in (got, plain(feats)))
+    del again
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    feats64 = {k: (v.double() if v.is_floating_point() else v)
+               for k, v in feats.items()}
+    model.double()
+    truth = {k: v.cpu() for k, v in plain(feats64).items() if k in keys}
+    plain64_peak = torch.cuda.max_memory_allocated()
+    fused64 = {k: v.cpu() for k, v in run(feats64).items()}
+    model.float()
+    del feats64
+    torch.cuda.empty_cache()
+    errors64 = {k: rel_err(fused64[k], truth[k]) for k in keys}
+    errors = {k: (rel_err(got[k], truth[k]), rel_err(want[k], truth[k]))
+              for k in keys}
+    del truth, fused64, got, want
+    print(f"  adp pass {atoms} atoms {tuple(feats['pair_j_d'].shape)}: "
+          f"float64 fused against plain {errors64} (the plain pass's "
+          f"peak {plain64_peak / 2**30:.1f} GiB); float32 against the "
+          f"float64 plain pass (fused, plain) {errors}; two fused passes "
+          f"bit for bit {bitwise}")
+    if not bitwise or max(errors64.values()) > ADP_PASS_F64_REL or any(
+            f > ADP_PASS_F32_TIMES * p + ADP_PASS_F32_FLOOR
+            for f, p in errors.values()):
+        raise AssertionError(f"fused ADP pass: float64 {errors64}, "
+                             f"float32 {errors}, bit for bit {bitwise}")
+    params = model._params(None)
+    pos, cell, jd, simg, mask, am = fast_efs._kernel_inputs(feats)
+    coef = fast_efs._CoefficientVector(model)(params, pos.dtype, pos.device)
+    rcut = float(model.featurizer.rcut)
+    record, _ = fast_efs._adp_accumulate(pos, cell, jd, simg, mask, am, coef,
+                                         rcut)
+    accumulate_ms = _queued_ms(lambda: fast_efs._adp_accumulate(
+        pos, cell, jd, simg, mask, am, coef, rcut), 50)
+    forces_ms = _queued_ms(lambda: fast_efs._adp_forces(
+        pos, cell, jd, simg, mask, coef, record, rcut), 50)
+    pass_ms = _queued_ms(lambda: run(feats), 20)
+    pass_single_ms = _median_ms(lambda: run(feats), 20)
+    host = []
+    for i in range(50):
+        if i % 10 == 0:      # a queue that never fills
+            torch.cuda.synchronize()
+        t = time.perf_counter()
+        run(feats)
+        host.append(time.perf_counter() - t)
+    torch.cuda.synchronize()
+    pass_host_ms = 1e3 * float(np.median(host))
+    plain_ms = _median_ms(lambda: plain(feats), 3, warmup=1)
+    r = safe_norm_components(gather_vec(feats["positions"], jd.long(), simg,
+                                        feats["cell"]))
+    near_rc = float(torch.maximum(coef[0][15], coef[0][20]))  # u's, w's rc
+    real = mask > 0
+    pairs = int((real & (r < rcut)).sum())
+    near = int((real & (r < near_rc)).sum())
+    del r, real
+    n_bytes, flop = work_adp.efs_pass(atoms, pairs, near, "force")
+    bound_ms = 1e3 * bound_s(n_bytes, flop)
+    slot_bytes = jd.numel() * (jd.element_size() + simg.element_size()
+                               + mask.element_size())
+    row = {"name": "adp_pass", "route": "cuda",
+           "source": "tensoralloy_tpu_torch/csrc/adp_pass.cu",
+           "replaces": None, "atoms": atoms,
+           "rows_slots": list(jd.shape), "pairs_within_rcut": pairs,
+           "pairs_within_uw": near,
+           "max_rel_err_f64_fused_against_plain": errors64,
+           "max_rel_err_fused_plain_against_f64": errors,
+           "plain_f64_peak_bytes": plain64_peak,
+           "adp_accumulate_ms_queued": accumulate_ms,
+           "adp_forces_ms_queued": forces_ms,
+           "pass_ms_queued": pass_ms,
+           "pass_ms": pass_single_ms, "pass_host_ms": pass_host_ms,
+           "plain_ms": plain_ms,
+           "bound_ms": bound_ms, "bound_bytes": n_bytes, "bound_flop": flop,
+           "slot_bytes_a_kernel": slot_bytes, "library_ms": None}
+    print(f"  adp_accumulate {accumulate_ms:.4f} ms, adp_forces "
+          f"{forces_ms:.4f} ms (each reads {slot_bytes / 1e9:.3f} GB of "
+          f"slots: {slot_bytes / accumulate_ms * 1e-6:.0f}, "
+          f"{slot_bytes / forces_ms * 1e-6:.0f} GB/s), the fused pass "
+          f"{pass_ms:.4f} ms queued, "
+          f"{pass_single_ms:.4f} ms single, its host {pass_host_ms:.4f} "
+          f"ms, the plain pass {plain_ms:.2f} ms; "
+          f"bound {bound_ms:.4f} ms ({n_bytes / 1e6:.1f} MB, "
+          f"{flop / 1e9:.3f} GFLOP; the pass queued at "
+          f"{100 * bound_ms / pass_ms:.2f} % of it) ({card})")
+    return row
+
+
 def time_kernels(cases, card, launches=None):
     """Each kernel of `kernel_cases` against its twin on the same inputs:
     -> one row of the kernels line a kernel (`launches` from the main
@@ -5078,9 +5270,10 @@ def main() -> int:
     served, launches = serve()
     measured, per_step = train(card)
     managed, manager_launches = manage(card)
-    eam(card)
-    _, large_launches = large(card)
-    md_launches = md(card)
+    adp = {}
+    _, _, adp["eam"] = eam(card)
+    _, large_launches, adp["large"] = large(card)
+    md_launches, adp["md"] = md(card)
     analysis_launches = analysis(card)
     cli_launches = cli(card)
     descriptor_launches = descriptors(card)
@@ -5097,8 +5290,9 @@ def main() -> int:
         row["cli"] = cli_launches[row["name"]]
         row["descriptors"] = descriptor_launches[row["name"]]
         row["parallel"] = parallel_launches[row["name"]]
+    adp_row = {**time_adp_pass(card), "launches": adp}
     print(f"total {time.perf_counter() - t0:.1f} s")
-    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"kernels": rows, "adp_pass": adp_row}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

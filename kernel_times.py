@@ -6,7 +6,9 @@ NVIDIA GPU, at the main path's largest shapes, to compare two checkouts.
 
 `--root` is the root of the checkout whose `tensoralloy_tpu_torch` is
 timed (default: this script's own); `--kernels` times only the named
-kernels (`chip_smoke.SOURCES`' names; all by default). Where this run
+kernels (`chip_smoke.SOURCES`' names, and `adp` for the fused ADP
+pass of `chip_smoke.time_adp_pass` at the md_adp_mo432k cell's shape;
+all by default). Where this run
 builds the checkout's library, it first prints ptxas' registers and
 spills of each compiled kernel (`chip_smoke.kernel_registers`). The
 inputs, the timing and the work counts are `chip_smoke.py`'s
@@ -122,7 +124,7 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--root", default=str(HERE))
     parser.add_argument("--kernels", nargs="+", default=None,
-                        choices=list(chip_smoke.SOURCES))
+                        choices=list(chip_smoke.SOURCES) + ["adp"])
     args = parser.parse_args()
     root = Path(args.root).resolve()
     card = chip_smoke.check_card()
@@ -137,15 +139,23 @@ def main() -> int:
     for row in chip_smoke.kernel_registers(fused.build_log):
         print(json.dumps({"root": str(root), "card": card, "build": row}),
               flush=True)
-    structure = chip_smoke._structure(chip_smoke.TIMED_REPS)
-    sf, grap = (TensorAlloyCalculator(str(chip_smoke.PATHS[name][0]),
-                                      device="cuda", dtype="medium",
-                                      backend="pallas")
-                for name in ("sf", "grap"))
-    cases = chip_smoke.kernel_cases(sf, structure, grap, structure)
-    if args.kernels:
-        cases = {k: v for k, v in cases.items() if k in args.kernels}
-    for row in chip_smoke.time_kernels(cases, card) + host_pieces(cases):
+    descriptors = [k for k in (args.kernels or chip_smoke.SOURCES)
+                   if k != "adp"]
+    rows = []
+    if descriptors:
+        structure = chip_smoke._structure(chip_smoke.TIMED_REPS)
+        sf, grap = (TensorAlloyCalculator(str(chip_smoke.PATHS[name][0]),
+                                          device="cuda", dtype="medium",
+                                          backend="pallas")
+                    for name in ("sf", "grap"))
+        cases = chip_smoke.kernel_cases(sf, structure, grap, structure)
+        cases = {k: v for k, v in cases.items() if k in descriptors}
+        rows = chip_smoke.time_kernels(cases, card) + host_pieces(cases)
+        del sf, grap, cases
+    if args.kernels is None or "adp" in args.kernels:
+        torch.cuda.empty_cache()
+        rows.append(chip_smoke.time_adp_pass(card))
+    for row in rows:
         print(json.dumps({"root": str(root), "card": card, **row}),
               flush=True)
     return 0

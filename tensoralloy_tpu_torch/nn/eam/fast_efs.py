@@ -33,6 +33,16 @@ rank is a partial: `reduce` (the identity by default) sums rho, the pair
 energy, ADP's moments, the forces and the virial across the ranks. The
 reversed term reads the per-atom adjoints of the summed accumulators, so
 it needs no exchange.
+
+The EFS of a one-element ADP model with Zhou-Johnson-Wadley rho and phi,
+zjw04xc's blended embedding and Mishin's u and w (`fused_route`) takes a
+fused pass on CUDA tensors (`_make_fused_pass`): the pair work, F(rho)
+and the angular energy in two hand-written kernels (`csrc/adp_pass.cu`),
+each reading the dense rows once and writing only per-atom arrays. On
+CPU tensors it returns `_make_pass`'s result, its plain twin. Every
+other model (another embedding among them), the spatial ranks and the
+heat flux (which contracts the per-slot ct_self and v that the fused
+pass never writes) take `_make_pass`.
 """
 from __future__ import annotations
 
@@ -40,18 +50,37 @@ from typing import Callable, Dict
 
 import torch
 
+from ...ops import fused
 from ...ops.dense import gather_vec, safe_norm_components
 from ..fields import stress_outputs
+from .potentials import resolve_potential
 
 # Runs of the analytic pass since the last `reset_pass_counts()`, by the
 # model's tag, as host integers: an EFS, a heat flux or a spatial rank's
-# shard adds one each; the autograd route adds none.
+# shard adds one each, on either route; the autograd route adds none.
 pass_counts: Dict[str, int] = {"alloy": 0, "fs": 0, "adp": 0}
+# Of those, the fused passes (the kernels of csrc/adp_pass.cu) since the
+# last `reset_fused_pass_counts()`, by tag; no synchronise, no host copy.
+fused_pass_counts: Dict[str, int] = {"alloy": 0, "fs": 0, "adp": 0}
+# Launches of each kernel of csrc/adp_pass.cu since the last
+# `reset_adp_launch_counts()`, added where the launch succeeded (apart
+# from `ops.fused.launch_counts`, the descriptor kernels').
+adp_launch_counts: Dict[str, int] = {"adp_accumulate": 0, "adp_forces": 0}
 
 
 def reset_pass_counts() -> None:
     for key in pass_counts:
         pass_counts[key] = 0
+
+
+def reset_fused_pass_counts() -> None:
+    for key in fused_pass_counts:
+        fused_pass_counts[key] = 0
+
+
+def reset_adp_launch_counts() -> None:
+    for key in adp_launch_counts:
+        adp_launch_counts[key] = 0
 
 
 def _val_and_deriv(f: Callable, r: torch.Tensor):
@@ -197,8 +226,11 @@ def make_fast_efs_fn(model, reduce: Callable = _identity) -> Callable:
     contract), computed without autograd over pair arrays. Reads the
     dense layout ('pair_j_d', 'pair_simg_d', 'pair_mask_d') of one
     structure; raises KeyError otherwise. `reduce` sums a column shard's
-    row reductions across ranks (the module docstring)."""
-    run = _make_pass(model, reduce)
+    row reductions across ranks (the module docstring). The route is
+    chosen here, once: the fused pass where `fused_route` holds, else
+    `_make_pass`."""
+    run = (_make_fused_pass(model) if fused_route(model, reduce)
+           else _make_pass(model, reduce))
 
     def efs(features, params=None) -> Dict[str, torch.Tensor]:
         o = run(features, params)
@@ -319,3 +351,193 @@ def _adp_terms(model, params, v, r, u, mask, ut, am, jd,
     return (adp_e,
             tuple(ct_self[..., a] for a in range(3)),
             tuple(ct_rev[..., a] for a in range(3)))
+
+
+# ----------------------------------------------------------------------
+# The fused ADP pass
+# ----------------------------------------------------------------------
+
+_ZJW04_FORMS = ("zjw04", "zjw04xc", "zjw04uxc", "zjw04xcp")
+# the embeddings with zjw04xc's sigmoid blend, which adp_accumulate
+# evaluates
+_BLENDED_EMBEDS = ("zjw04xc", "zjw04uxc", "zjw04xcp")
+_EMBED_KEYS = ("rho_e", "rho_s", "Fn0", "Fn1", "Fn2", "Fn3", "F0", "F1",
+               "F2", "F3", "Fe", "eta")
+_ADP_ROWS_PER_BLOCK = 4         # kWarps of csrc/adp_pass.cu
+
+
+def _present_element(model):
+    """The one element with rows in the model's layout, or None."""
+    present = [e for e in model.elements if model.max_occurs.get(e, 0) > 0]
+    return present[0] if len(present) == 1 else None
+
+
+def fused_route(model, reduce: Callable = _identity) -> bool:
+    """Whether `make_fast_efs_fn(model, reduce)` takes the fused ADP pass:
+    an ADP model with one element present, whose rho and phi are the
+    Zhou-Johnson-Wadley elemental forms, whose embedding is zjw04xc's
+    blend and whose dipole and quadrupole are Mishin's, and no column
+    shard (`reduce` the identity)."""
+    if model.tag != "adp" or reduce is not _identity:
+        return False
+    element = _present_element(model)
+    if element is None:
+        return False
+    term = element + element
+    forms = model.potentials
+    return (forms[element]["rho"] in _ZJW04_FORMS
+            and forms[element]["embed"] in _BLENDED_EMBEDS
+            and forms[term]["phi"] in _ZJW04_FORMS
+            and forms[term]["dipole"] == "mishinh"
+            and forms[term]["quadrupole"] == "mishinh")
+
+
+def _coefficient_leaves(model, params) -> list:
+    """The fused pass's coefficients (`kCoef` of csrc/adp_pass.cu), each a
+    tensor of `params` or a float default: rho's f_eq, beta, lamda, r_eq;
+    phi's A, alpha, kappa, r_eq and B, beta, lamda, r_eq; u's and w's
+    p1, p2, p3, rc, h; the embedding's `_EMBED_KEYS`."""
+    element = _present_element(model)
+    term = element + element
+    forms = model.potentials
+    rho = resolve_potential(forms[element]["rho"]).resolve(
+        params, element, False)
+    phi = resolve_potential(forms[term]["phi"]).resolve(
+        params, element, False)
+    mishin = resolve_potential("mishinh")
+    embed = resolve_potential(forms[element]["embed"]).resolve(
+        params, element, False)
+    return [rho["f_eq"], rho["beta"], rho["lamda"], rho["r_eq"],
+            phi["A"], phi["alpha"], phi["kappa"], phi["r_eq"],
+            phi["B"], phi["beta"], phi["lamda"], phi["r_eq"],
+            *mishin.polar_params(params, term, "d"),
+            *mishin.polar_params(params, term, "q"),
+            *(embed[k] for k in _EMBED_KEYS)]
+
+
+class _CoefficientVector:
+    """The coefficients as one device vector, stacked by tensor ops when
+    a leaf lies in other memory or was updated in place (its storage
+    address or its version counter, which a detached copy shares), and
+    kept otherwise: a pass reads nothing back to the host. The leaves are
+    held, so no other tensor can take a kept leaf's address. -> (the
+    vector, whether rho's beta, lamda and r_eq are phi's second term's:
+    the same leaves, as one element's Zhou parameters are)."""
+
+    def __init__(self, model):
+        self.model = model
+        self.leaves, self.key, self.vector, self.share = None, None, None, 0
+
+    def __call__(self, params, dtype, device):
+        leaves = _coefficient_leaves(self.model, params)
+        items = tuple(((x.data_ptr(), x.device, x._version)
+                       if isinstance(x, torch.Tensor) else x)
+                      for x in leaves)
+        key = (dtype, device) + items
+        if key != self.key:
+            self.vector = torch.stack([
+                torch.as_tensor(x, dtype=dtype, device=device).detach()
+                for x in leaves])
+            self.share = int(items[1:4] == items[9:12])
+            self.leaves, self.key = leaves, key
+        return self.vector, self.share
+
+
+def _adp_accumulate(pos, cell, jd, simg, mask, am, coef, rcut: float):
+    """adp_accumulate of csrc/adp_pass.cu on `_kernel_inputs` and
+    `_CoefficientVector`'s (vector, share) -> (the adjoint records [A, 12]:
+    g_rho, the atom mask, g_mu, g_lam's xx yy zz xy xz yz, 0; and [2, A]:
+    rho_i, and F(rho_i) plus phi_i plus the angular energy)."""
+    rows, n = jd.shape
+    record = torch.empty((rows, 12), dtype=pos.dtype, device=pos.device)
+    dens = torch.empty((2, rows), dtype=pos.dtype, device=pos.device)
+    fn = getattr(fused._library(),
+                 f"adp_accumulate_{fused._SUFFIX[pos.dtype]}")
+    fused.launch_on_stream(
+        "adp_accumulate", fn, pos.device, pos.data_ptr(), cell.data_ptr(),
+        jd.data_ptr(), simg.data_ptr(), mask.data_ptr(), coef[0].data_ptr(),
+        am.data_ptr(), record.data_ptr(), dens.data_ptr(), rows, n, rcut,
+        coef[1])
+    adp_launch_counts["adp_accumulate"] += 1
+    return record, dens
+
+
+def _adp_forces(pos, cell, jd, simg, mask, coef, record, rcut: float):
+    """adp_forces of csrc/adp_pass.cu on `_adp_accumulate`'s inputs and
+    records -> (forces [A, 3], the virial's nine sums of each block of
+    rows [blocks, 9])."""
+    rows, n = jd.shape
+    blocks = -(-rows // _ADP_ROWS_PER_BLOCK)
+    forces = torch.empty((rows, 3), dtype=pos.dtype, device=pos.device)
+    vpart = torch.empty((blocks, 9), dtype=pos.dtype, device=pos.device)
+    fn = getattr(fused._library(), f"adp_forces_{fused._SUFFIX[pos.dtype]}")
+    fused.launch_on_stream(
+        "adp_forces", fn, pos.device, pos.data_ptr(), cell.data_ptr(),
+        jd.data_ptr(), simg.data_ptr(), mask.data_ptr(), coef[0].data_ptr(),
+        record.data_ptr(), forces.data_ptr(), vpart.data_ptr(), rows, n,
+        rcut, coef[1])
+    adp_launch_counts["adp_forces"] += 1
+    return forces, vpart
+
+
+def _kernel_inputs(features):
+    """The dense rows as the kernels take them: contiguous positions
+    [A, 3], cell [3, 3], mask [A, N] and atom mask [A] of the positions'
+    dtype, and int32 indices and image codes [A, N]."""
+    pos = features["positions"].contiguous()
+    dtype = pos.dtype
+    jd = features["pair_j_d"].to(torch.int32).contiguous()
+    rows = pos.shape[0]
+    if pos.dim() != 2 or pos.shape[1] != 3 or jd.dim() != 2 \
+            or jd.shape[0] != rows:
+        raise ValueError(f"fused ADP pass: positions [A, 3] and rows "
+                         f"[A, N] of one structure required, got "
+                         f"{tuple(pos.shape)} and {tuple(jd.shape)}")
+    if rows >= 2 ** 31 or jd.shape[1] >= 2 ** 31:
+        raise ValueError(f"fused ADP pass: {tuple(jd.shape)} too large")
+    cell = features["cell"].to(dtype).reshape(3, 3).contiguous()
+    simg = features["pair_simg_d"].to(torch.int32).contiguous()
+    mask = features["pair_mask_d"].to(dtype).contiguous()
+    am = features["atom_masks"].to(dtype).contiguous()
+    return pos, cell, jd, simg, mask, am
+
+
+def _make_fused_pass(model) -> Callable:
+    """The EFS pass of a model that `fused_route` takes: fn(features,
+    params=None) -> energy, atomic_energies, forces, virial. On CUDA
+    tensors of float32 or float64 (any other dtype raises):
+    `adp_accumulate` sums each row's rho, pair energy and moments and
+    writes the embedding, the angular energy and their adjoints, one
+    record an atom; `adp_forces` forms each row's forces and the virial's
+    per-block sums from the records of the row and of its neighbours.
+    On CPU tensors `_make_pass`'s result."""
+    plain = _make_pass(model)
+    rcut = float(model.featurizer.rcut)
+    coefficients = _CoefficientVector(model)
+    tag = model.tag
+
+    @torch.no_grad()
+    def run(features, params=None) -> Dict[str, torch.Tensor]:
+        pos = features["positions"]
+        if pos.device.type != "cuda":
+            return plain(features, params)
+        if pos.dtype not in fused._SUFFIX:
+            raise TypeError(f"fused ADP pass: float32 or float64 "
+                            f"positions required, got {pos.dtype}")
+        pass_counts[tag] += 1
+        fused_pass_counts[tag] += 1
+        params = model._params(params)
+        pos, cell, jd, simg, mask, am = _kernel_inputs(features)
+        coef = coefficients(params, pos.dtype, pos.device)
+        record, dens = _adp_accumulate(pos, cell, jd, simg, mask, am, coef,
+                                       rcut)
+        atomic_e = dens[1] * am
+        forces, vpart = _adp_forces(pos, cell, jd, simg, mask, coef, record,
+                                    rcut)
+        # the blocks' partials summed in float64, in a fixed order
+        virial = torch.sum(vpart, dim=0, dtype=torch.float64)
+        return {"energy": torch.sum(atomic_e), "atomic_energies": atomic_e,
+                "forces": forces,
+                "virial": virial.to(pos.dtype).reshape(3, 3)}
+
+    return run

@@ -717,13 +717,18 @@ class MishinH(EmpiricalPotential):
                 p["s4"] * rhos5)
         return core * omega
 
-    def _polar(self, params, r, kbody_term, which, fixed):
+    def polar_params(self, params, kbody_term, which, fixed=False):
+        """(p1, p2, p3, rc, h) of the dipole (`which` "d") or the
+        quadrupole ("q") of a pair term."""
         key = "".join(sorted(get_elements_from_kbody_term(kbody_term)))
         key = key if key in self.defaults else kbody_term
         p = self.resolve(params, key, fixed)
-        a, b, c = ((p["d1"], p["d2"], p["d3"]) if which == "d"
-                   else (p["q1"], p["q2"], p["q3"]))
-        return mishin_polar(r, a, b, c, p["rc"], p["h"])
+        return (p[which + "1"], p[which + "2"], p[which + "3"], p["rc"],
+                p["h"])
+
+    def _polar(self, params, r, kbody_term, which, fixed):
+        return mishin_polar(r, *self.polar_params(params, kbody_term, which,
+                                                  fixed))
 
     def dipole(self, params, r, kbody_term, fixed=False):
         return self._polar(params, r, kbody_term, "d", fixed)

@@ -55,10 +55,13 @@ The CUDA sources `csrc/*.cu` are compiled with nvcc for sm_90a, one nvcc
 per source (one per entry point for the sources in `SPLIT_SOURCES`),
 all started together, and linked into one shared library with a plain C
 interface, at first use, into `_build/` next to this package, and
-loaded with ctypes. What a launch needs beyond its tensors (the host
-tables, the bound C function and its constant arguments) is built once
-per descriptor specification and kept; a call checks its inputs,
-allocates the output and passes pointers, sizes and the stream.
+loaded with ctypes. The library also holds the analytic ADP pass's two
+kernels (`csrc/adp_pass.cu`), whose wrappers are in `nn/eam/fast_efs.py`
+and counted there (`adp_launch_counts`), not in `launch_counts`.
+What a launch needs beyond its tensors (the host tables, the bound C
+function and its constant arguments) is built once per descriptor
+specification and kept; a call checks its inputs, allocates the output
+and passes pointers, sizes and the stream.
 """
 from __future__ import annotations
 
@@ -392,6 +395,13 @@ def _library() -> ctypes.CDLL:
             grapb.argtypes = [p] * 17 + [i] * 5 + [p] * 3 + [i, p, i, p,
                                                               d, i, p]
             grapb.restype = i
+            # csrc/adp_pass.cu, taken by nn/eam/fast_efs.py
+            acc = getattr(lib, f"adp_accumulate_{dt}")
+            acc.argtypes = [p] * 9 + [i, i, d, i, p]
+            acc.restype = i
+            frc = getattr(lib, f"adp_forces_{dt}")
+            frc.argtypes = [p] * 9 + [i, i, d, i, p]
+            frc.restype = i
         _lib = lib
     return _lib
 
@@ -495,7 +505,7 @@ def _bound_sf(kind: str, grid, rc: float, cutoff: str, n_slots: int,
     return bound
 
 
-def _launch(name: str, fn, device, *args) -> None:
+def launch_on_stream(name: str, fn, device, *args) -> None:
     """Call the C entry point `fn(*args, stream)` with `device` current,
     on its current stream; raise if the launch is refused. The stream's
     handle is read without building a `torch.cuda.Stream` (a quarter of
@@ -507,6 +517,11 @@ def _launch(name: str, fn, device, *args) -> None:
             code = fn(*args,
                       torch._C._cuda_getCurrentRawStream(device.index))
     _check_launch(name, code)
+
+
+def _launch(name: str, fn, device, *args) -> None:
+    """`launch_on_stream`, counted in `launch_counts`."""
+    launch_on_stream(name, fn, device, *args)
     launch_counts[name] += 1
 
 
